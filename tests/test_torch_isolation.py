@@ -1,0 +1,132 @@
+"""The port stands alone and never hides the device.
+
+* Every module of ``repro_torch``, and ``chip_smoke.py``, imports in a
+  fresh interpreter in which ``jax`` and the reference package ``repro``
+  cannot be imported at all.
+* A tensor that says it lies on a CUDA device never reaches a kernel's
+  plain version: the wrapper goes for the kernel, and where the kernel
+  cannot be built it raises.
+* Entry points asked for ``cuda`` on a machine without one raise instead
+  of running on the CPU.
+"""
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.engine import AnmConfig, AnmEngine
+from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+from repro_torch.data import sdss
+from repro_torch.kernels import ops, ref
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = textwrap.dedent("""
+    import importlib, importlib.util, pkgutil, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    for name in names:
+        importlib.import_module(name)
+    spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, bad
+    print(len(names))
+""")
+
+
+def test_port_imports_nothing_of_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT,
+         os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20      # every module was walked
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device (a stub device check)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda")
+
+
+def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
+    def plain(*_):
+        raise AssertionError("the plain version got a CUDA tensor")
+
+    monkeypatch.setattr(ref, "gram_ref", plain)
+    calls = []
+
+    def no_kernel(dtype):
+        calls.append(dtype)
+        raise RuntimeError("no kernel here")
+
+    monkeypatch.setattr(ops, "_gram_fn", no_kernel)
+    before = ops.gram_launches
+    x = torch.ones(64, 45).as_subclass(_FakeCuda)
+    y = torch.ones(64).as_subclass(_FakeCuda)
+    with pytest.raises(RuntimeError, match="no kernel here"):
+        ops.gram(x, y)
+    with pytest.raises(RuntimeError, match="no kernel here"):
+        ops.gram(x.to(torch.bfloat16), y.to(torch.bfloat16))
+    assert calls == [torch.float32, torch.bfloat16]
+    assert ops.gram_launches == before
+    # a CPU tensor still takes the plain version
+    with pytest.raises(AssertionError, match="plain version"):
+        ops.gram(torch.ones(64, 45), torch.ones(64))
+
+
+def test_cuda_launch_without_a_toolkit_raises(monkeypatch):
+    """No try/except around the build: a missing nvcc surfaces as an
+    error of the call, not as a quiet plain-version result."""
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("a CUDA toolkit is installed; chip_smoke.py covers it")
+    monkeypatch.setattr(ops.build, "_libs", {})
+    monkeypatch.setattr(ops.build, "library_path",
+                        lambda name: ops.build.BUILD_DIR / "absent.so")
+    x = torch.ones(64, 45).as_subclass(_FakeCuda)
+    y = torch.ones(64).as_subclass(_FakeCuda)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.gram(x, y)
+
+
+def _engine_phase_finish():
+    """An engine on its default device, driven to its first phase finish."""
+    eng = AnmEngine(np.zeros(2), -np.ones(2), np.ones(2), np.ones(2),
+                    AnmConfig(m_regression=6, m_line_search=6))
+    eng.set_initial_fitness(1.0)
+    tk, ph, pts, al = eng.generate_block()
+    eng.assimilate_arrays(np.full(6, ph), tk, pts, al, np.full(6, -1),
+                          np.sum(pts ** 2, axis=1))
+
+
+@pytest.mark.parametrize("make", [
+    lambda: sdss.make_fitness(sdss.make_stripe("s", 500, 64, 0)),
+    lambda: InProcessEvalBackend(lambda p: p[:, 0]),
+    _engine_phase_finish,
+])
+def test_cuda_default_does_not_fall_back_to_cpu(make):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        make()
