@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of numbers; any failed check raises, so
-the script exits non-zero and prints no result line:
+Phases, each printing its numbers and its wall; any failed check raises,
+so the script exits non-zero and prints no result line:
 
 1. card    the GPU's name and power limit (nvidia-smi), torch and CUDA
            versions; no CUDA device is an error;
-2. build   nvcc builds every kernel in src/repro_torch/kernels/csrc/;
+2. build   nvcc builds every kernel in src/repro_torch/kernels/csrc/, one
+           process per source, all started together;
 3. gram    the gram kernel against its plain version on the card, at the
            main path's shapes, at tests/test_kernels.py's and at the
            widest c it takes, f32 and bf16, max |err| / max |ref| ≤ 1e-5
@@ -20,11 +21,33 @@ the script exits non-zero and prints no result line:
            reference's final fitness, through the gram kernel;
 5. grid    the 4096-host batched grid on stripe79 (100k stars, m = 1000),
            pipelined and sync, which must commit bit-identical iterates;
-6. the ``kernels`` JSON line, then the ``ok`` JSON line.
+6. flash   the attention kernel against its plain version at
+           h2o-danube-3's full shape (2, 4096, 32/8 heads, D = 120, bf16,
+           causal, window 8192 and 512), in f32 at D = 64 and 128, and
+           non-causal; max |err| / max |ref| ≤ 2e-2 (bf16) or 1e-5 (f32),
+           bitwise repeatable; kernel, plain and
+           scaled_dot_product_attention times beside the bound;
+7. wkv6    the RWKV6 kernel against its plain version at rwkv6-7b's full
+           shape (2, 4096, 64 heads, K = 64; bf16 r/k/v/u with f32 lw, and
+           all f32), at K = 16 and at a T that is no multiple of 16;
+           ≤ 5e-2 (bf16) or 1e-4 (f32) of max |ref|, bitwise repeatable;
+           kernel and plain times beside the bound;
+8. lm      act 1 of examples/anm_lm.py over the LM loss at published
+           widths: h2o-danube-3-4b cut to 4 layers and rwkv6-7b cut to 2
+           (the k = 6 f32 basis must fit), 2 x 4096 tokens; the θ0 loss
+           against the same lane with the kernel swapped for its plain
+           version (≤ 2e-2 relative), pipelined == sync bit-identical, a
+           lane's loss the same bits in a bucket of 8 and of 32, a finite
+           best ≤ the start, and exactly one launch of the arch's kernel
+           per layer per lane evaluated;
+9. the ``kernels`` JSON line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -36,17 +59,43 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch.core.engine import identical_trajectories  # noqa: E402
 from repro_torch.core.substrates.batched_grid import \
     BatchedVolunteerGrid  # noqa: E402
 from repro_torch.core.substrates.eval_backend import \
     InProcessEvalBackend  # noqa: E402
+from repro_torch.core.substrates.lm_loss import \
+    LmLossEvalBackend  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch import fig2, volunteer_grid  # noqa: E402
+from repro_torch.launch import anm_lm, fig2, volunteer_grid  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+#: (B, S, Hq, Hkv, D, type, causal, window) of the attention checks; the
+#: first is h2o-danube-3's full-width shape, the one timed
+FLASH_CASES = [(2, 4096, 32, 8, 120, torch.bfloat16, True, 8192),
+               (2, 4096, 32, 8, 120, torch.bfloat16, True, 512),
+               (2, 1024, 8, 2, 64, torch.float32, True, 0),
+               (1, 1024, 4, 4, 128, torch.float32, True, 0),
+               (1, 300, 4, 2, 64, torch.float32, False, 0),
+               (1, 300, 4, 2, 120, torch.bfloat16, False, 0)]
+#: (B, T, H, K, type of r/k/v/u) of the wkv6 checks (lw is f32); the
+#: first is rwkv6-7b's full-width shape, the one timed
+WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16),
+              (2, 4096, 64, 64, torch.float32),
+              (2, 256, 4, 16, torch.float32),
+              (2, 256, 4, 16, torch.bfloat16),
+              (2, 1001, 4, 32, torch.bfloat16)]
+#: the LM phase: arch -> layers kept at published widths (a k = 6 f32
+#: basis over the parameters must fit on one 80 GB card)
+LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 2}
+LM_SEQ_LEN = 4096
 
 #: the reference's Fig. 2 run (JAX on a CPU, same seeds, 20 iterations):
 #: start and truth fitness, final fitness, iteration reaching 90 %
@@ -126,6 +175,27 @@ def _graph_ms(fn, calls: int = 100, replays: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * calls)
+
+
+def _events_ms(fn, iters: int = 3) -> float:
+    """Per-call time of ``fn`` between CUDA events around ``iters`` eager
+    calls, after one warm-up call (for calls too long to graph many)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(max |got - want|, that over max |want|), in f32."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, err / float(want.float().abs().max())
 
 
 def phase_gram(dev: torch.device) -> dict:
@@ -245,22 +315,292 @@ def phase_grid(dev: torch.device, iters: int = 3) -> None:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
 
 
+def _bound(moved: int, flops: float, peak: float):
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _attention_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps for one (batch, head)."""
+    if not causal:
+        return s * s
+    w = window if window > 0 else s
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def phase_flash(dev: torch.device) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    max_abs_err = 0.0
+    for b, s, hq, hkv, d, dtype, causal, window in FLASH_CASES:
+        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        again = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err, rel = _rel_err(out, want)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+        max_abs_err = max(max_abs_err, err)
+        print(f"[flash] ({b}, {s}, {hq}/{hkv}, {d}) {dtype} causal={causal} "
+              f"window={window}: max|err|/max|ref| {rel:.3g}")
+        check(rel <= tol, f"flash_attention at ({b}, {s}, {hq}/{hkv}, {d}) "
+              f"{dtype} causal={causal} window={window}: {rel:.3g} > {tol}")
+        check(torch.equal(out, again), "flash_attention is not bitwise "
+              "repeatable")
+        del q, k, v, out, again, want
+    b, s, hq, hkv, d, dtype, causal, window = FLASH_CASES[0]
+    q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    # SDPA takes (B, H, S, D); the layout change is made once, untimed
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    fns = {"kernel": lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                 window=window),
+           "plain": lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                    window=window),
+           "sdpa": lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True)}
+    check(window >= s, "the timed case's window must cover the sequence "
+          "(so SDPA's plain causal mask is the same function)")
+    torch.cuda.synchronize()
+    err, rel = _rel_err(fns["sdpa"]().transpose(1, 2), fns["plain"]())
+    print(f"[flash] SDPA against the plain version: {rel:.3g}")
+    dev_ms = {}
+    for name in ["plain", "kernel", "sdpa", "kernel", "plain", "sdpa"]:
+        calls, replays = (2, 2) if name == "plain" else (5, 4)
+        dev_ms[name] = min(dev_ms.get(name, 1e9),
+                           _graph_ms(fns[name], calls, replays))
+    pairs = _attention_pairs(s, causal, window)
+    flops = 4.0 * d * pairs * b * hq             # QKᵀ and PV, FMA = 2
+    moved = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
+    bound_ms, bound_by = _bound(moved, flops, BF16_FLOPS)
+    print(f"[flash] at ({b}, {s}, {hq}/{hkv}, {d}) {dtype}, device ms per "
+          f"call (CUDA graph): kernel {dev_ms['kernel']:.4f}, plain "
+          f"{dev_ms['plain']:.4f}, sdpa {dev_ms['sdpa']:.4f}; bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {flops:.4g} FLOP at "
+          f"the bf16 tensor-core peak)")
+    return dict(max_abs_err=max_abs_err, ms=dev_ms["kernel"],
+                plain_ms=dev_ms["plain"], library_ms=dev_ms["sdpa"],
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _wkv6_inputs(b, t, h, kk, dtype, gen, dev):
+    r, k, v = (torch.randn(b, t, h, kk, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    lw = (-torch.exp(torch.randn(b, t, h, kk, generator=gen, device=dev))
+          ).clamp(-3.5, -1e-6)
+    u = (torch.randn(h, kk, generator=gen, device=dev) * 0.1).to(dtype)
+    return r, k, v, lw, u
+
+
+def phase_wkv6(dev: torch.device) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(8765)
+    max_abs_err = 0.0
+    for b, t, h, kk, dtype in WKV6_CASES:
+        args = _wkv6_inputs(b, t, h, kk, dtype, gen, dev)
+        out = ops.wkv6(*args)
+        again = ops.wkv6(*args)
+        want = ref.wkv6_ref(*args)[0]
+        torch.cuda.synchronize()
+        err, rel = _rel_err(out, want)
+        tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+        max_abs_err = max(max_abs_err, err)
+        print(f"[wkv6] ({b}, {t}, {h}, {kk}) {dtype} (lw f32): "
+              f"max|err|/max|ref| {rel:.3g}")
+        check(rel <= tol, f"wkv6 at ({b}, {t}, {h}, {kk}) {dtype}: "
+              f"{rel:.3g} > {tol}")
+        check(torch.equal(out, again), "wkv6 is not bitwise repeatable")
+    b, t, h, kk, dtype = WKV6_CASES[0]
+    args = _wkv6_inputs(b, t, h, kk, dtype, gen, dev)
+    fns = {"kernel": lambda: ops.wkv6(*args),
+           "plain": lambda: ref.wkv6_ref(*args)[0]}
+    dev_ms = {}
+    for name in ["plain", "kernel", "kernel", "plain"]:
+        calls, replays = (1, 2) if name == "plain" else (20, 5)
+        dev_ms[name] = min(dev_ms.get(name, 1e9),
+                           _graph_ms(fns[name], calls, replays))
+    r, _, _, lw, u = args
+    moved = (3 * r.numel() * r.element_size() + lw.numel() * 4
+             + u.numel() * u.element_size() + r.numel() * r.element_size())
+    # per step and (b, h): r·S (2K² FLOP) and diag(w) S + k vᵀ (3K²), f32
+    flops = 5.0 * kk * kk * t * b * h
+    bound_ms, bound_by = _bound(moved, flops, F32_FLOPS)
+    print(f"[wkv6] at ({b}, {t}, {h}, {kk}) {dtype}, device ms per call "
+          f"(CUDA graph): kernel {dev_ms['kernel']:.4f}, plain "
+          f"{dev_ms['plain']:.4f}; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{moved} B, {flops:.4g} FLOP at the f32 peak)")
+    return dict(max_abs_err=max_abs_err, ms=dev_ms["kernel"],
+                plain_ms=dev_ms["plain"], library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+#: arch -> (its kernel's launch counter, the ops function the model calls,
+#: the plain version in the model's layout)
+LM_KERNEL = {
+    "h2o-danube-3-4b": ("flash_attention_launches", "routed_attention",
+                        lambda q, k, v, *, causal, window:
+                        ref.flash_attention_ref(q, k, v, causal, window)),
+    "rwkv6-7b": ("wkv6_launches", "routed_wkv6",
+                 lambda r, k, v, lw, u: ref.wkv6_ref(r, k, v, lw, u)[0]),
+}
+
+
+@contextlib.contextmanager
+def _plain_route(arch: str):
+    """The model's kernel call swapped for its plain version (a check of
+    the whole forward, outside the counted run)."""
+    _, name, plain = LM_KERNEL[arch]
+    kernel = getattr(ops, name)
+    setattr(ops, name, plain)
+    try:
+        yield
+    finally:
+        setattr(ops, name, kernel)
+
+
+def _lane_split_ms(backend: LmLossEvalBackend, c: torch.Tensor) -> dict:
+    """Device ms, with CUDA events, of one whole lane (lift, forward, LM
+    head and cross-entropy), of its lift alone and of its head alone (the
+    final hidden states through the LM head and the cross-entropy)."""
+    wl = backend.workload
+    with torch.no_grad():
+        params = wl.proj.lift(c)                 # a second working set
+        hidden = transformer.forward(params, wl.cfg, wl.batch["tokens"])
+        w_head = params["head"]["w"]
+        return {
+            "lane": _events_ms(lambda: backend.lane_loss(c)),
+            "lift": _events_ms(lambda: wl.proj.lift(c, out=params)),
+            "head": _events_ms(lambda: transformer.chunked_cross_entropy(
+                hidden, w_head, wl.batch["labels"])),
+        }
+
+
+def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
+    """Act 1 over ``arch``'s loss at published widths; returns the arch's
+    kernel launches in the two act-1 runs."""
+    counter = LM_KERNEL[arch][0]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    search, fleet, wl = anm_lm.lm_problem(
+        arch=arch, device=dev, full_width=True, n_layers=LM_DEPTH[arch],
+        seq_len=LM_SEQ_LEN)
+    torch.cuda.synchronize()
+    n_layers = wl.cfg.n_layers          # every layer runs the arch's kernel
+    n_params = wl.proj.n_params
+    basis_bytes = wl.proj.basis.numel() * wl.proj.basis.element_size()
+    print(f"[lm] {arch}: {n_layers} layers at published widths, P = "
+          f"{n_params}, basis {basis_bytes / 1e9:.2f} GB (k = {wl.k}, f32), "
+          f"batch {tuple(wl.batch['tokens'].shape)}, built in "
+          f"{time.perf_counter() - t0:.1f}s")
+    backend = anm_lm.warmed_backend(wl, search.anm.m_regression)
+    zero = torch.zeros(wl.k, device=dev)
+    loss0 = float(backend.lane_loss(zero))
+    with _plain_route(arch):
+        loss0_plain = float(backend.lane_loss(zero))
+    rel = abs(loss0 - loss0_plain) / abs(loss0_plain)
+    print(f"[lm] {arch}: loss at θ0 {loss0:.6f} (ln vocab "
+          f"{math.log(wl.cfg.vocab_size):.6f}); with the plain version in "
+          f"place of the kernel {loss0_plain:.6f} (relative {rel:.3g})")
+    check(math.isfinite(loss0), f"{arch}: non-finite loss at θ0")
+    check(rel <= 2e-2, f"{arch}: θ0 loss through the kernel {loss0} vs the "
+          f"plain version {loss0_plain}")
+
+    for name in ("gram_launches", "flash_attention_launches",
+                 "wkv6_launches"):
+        setattr(ops, name, 0)           # the main path, counted from 0
+    out = {}
+    for mode, pipelined in (("pipelined", True), ("sync", False)):
+        engine, stats, wall = anm_lm.run(search, fleet, backend,
+                                         pipelined=pipelined, device=dev)
+        lanes = sum(kp * n for kp, n in stats.bucket_hist.items())
+        out[mode] = dict(engine=engine, stats=stats, lanes=lanes)
+        print(f"[lm] {arch} {mode}: {engine.iteration} iterations, best "
+              f"{engine.best_fitness:.6f} (start {loss0:.6f}), wall "
+              f"{wall:.2f}s, {stats.batch_calls} buckets, {lanes} lanes, "
+              f"device_blocked_s {stats.device_blocked_s:.2f}, host_s "
+              f"{stats.host_s:.2f}, bucket_hist "
+              f"{dict(sorted(stats.bucket_hist.items()))}")
+    launches = getattr(ops, counter)
+    pipe, sync = out["pipelined"], out["sync"]
+    lanes = pipe["lanes"] + sync["lanes"]
+    print(f"[lm] {arch}: {counter} {launches} for {lanes} lanes x "
+          f"{n_layers} layers")
+    check(launches == lanes * n_layers, f"{arch}: {launches} kernel "
+          f"launches, want one per layer per lane ({lanes} x {n_layers})")
+    check(launches > 0, f"{arch}: the act-1 runs never launched the kernel")
+    check(identical_trajectories(pipe["engine"], sync["engine"]),
+          f"{arch}: pipelined and sync committed different iterates")
+    check(pipe["engine"].stats == sync["engine"].stats,
+          f"{arch}: pipelined and sync ended with different engine stats")
+    check(pipe["engine"].iteration == search.anm.max_iterations,
+          f"{arch}: act 1 stopped early")
+    best = pipe["engine"].best_fitness
+    check(math.isfinite(best) and best <= loss0,
+          f"{arch}: best {best} is not a finite loss ≤ the start {loss0}")
+
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-0.3, 0.3, (20, wl.k))
+    narrow = backend(pts[:3])                   # a bucket of 8
+    wide = backend(pts)                         # a bucket of 32
+    check(np.array_equal(narrow, wide[:3]),
+          f"{arch}: a lane's loss depends on its bucket's width")
+    split = _lane_split_ms(backend, torch.from_numpy(pts[0]).float().to(dev))
+    kernel_lane = kernel_ms * n_layers
+    print(f"[lm] {arch}: a lane's loss is the same bits in buckets of 8 and "
+          f"32; device ms per lane {split['lane']:.2f}: lift "
+          f"{split['lift']:.2f}, kernel {kernel_lane:.2f} ({n_layers} x "
+          f"{kernel_ms:.3f}), LM head + CE {split['head']:.2f}, the rest "
+          f"(projections, MLP/channel mix, norms, elementwise) "
+          f"{split['lane'] - split['lift'] - kernel_lane - split['head']:.2f}"
+          f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase "
+          f"wall {time.perf_counter() - t0:.1f}s")
+    torch.cuda.synchronize()
+    del backend, wl, search, out, pipe, sync
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    phase_card(dev)
-    phase_build()
-    gram = phase_gram(dev)
-    launches = phase_fig2(dev)          # the main path, counted from 0
-    phase_grid(dev)
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        print(f"[wall] {name} {time.perf_counter() - t:.1f}s")
+        return result
+
+    timed("card", phase_card, dev)
+    timed("build", phase_build)
+    gram = timed("gram", phase_gram, dev)
+    launches = timed("fig2", phase_fig2, dev)   # the main path, from 0
+    timed("grid", phase_grid, dev)
+    flash = timed("flash", phase_flash, dev)
+    wkv6 = timed("wkv6", phase_wkv6, dev)
+    flash_launches = timed("lm danube", phase_lm, dev, "h2o-danube-3-4b",
+                           flash["ms"])
+    wkv6_launches = timed("lm rwkv6", phase_lm, dev, "rwkv6-7b", wkv6["ms"])
     print(f"[done] {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [{
-        "name": "gram", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gram.cu",
-        "replaces": "src/repro/kernels/gram.py:44",
-        "launches": launches, **gram}]}))
+    print(json.dumps({"kernels": [
+        {"name": "gram", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gram.cu",
+         "replaces": "src/repro/kernels/gram.py:44",
+         "launches": launches, **gram},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:81",
+         "launches": flash_launches, **flash},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6.py:50",
+         "launches": wkv6_launches, **wkv6}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,143 @@
+"""LM-loss evaluation backend: the engine's fitness IS a model forward.
+
+Port of ``repro/core/substrates/lm_loss.py`` (in-process, ``mesh=None``).
+Every fitness evaluation is a real forward + cross-entropy of a
+``models/`` network on a fixed synthetic batch, with the parameters moved
+along a k-dimensional ``SubspaceProjection`` (``core/subspace.py``).  An
+engine candidate is a (k,) vector of subspace coefficients; the backend
+lifts it to θ0 + c·V leaf by leaf and returns the loss.  On the card the
+forward's attention and RWKV6 recurrence run the port's CUDA kernels
+(``kernels/ops.py``).
+
+Lanes are evaluated one at a time, as the reference's ``lax.map`` does:
+every lane runs the same sequence of kernels at the same shapes whatever
+the width of its bucket, so a lane's loss is bitwise the same in a bucket
+of 8 or of 32, pipelined or not.  Pad lanes are evaluated too (the
+reference maps over the whole bucket).  Each lane's lift is written in
+place into one set of working parameters that every lane reuses: lanes
+run in order on the backend's one stream, so no lane sees another's.
+Framing, staging, malicious lanes and pad masking are the base class's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import (ModelConfig, cut_depth, get_config,
+                                 get_smoke_config)
+from repro_torch.core.subspace import SubspaceProjection
+from repro_torch.core.substrates.eval_backend import (DEFAULT_MIN_BUCKET,
+                                                      EvalBackend)
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass(frozen=True)
+class LmWorkload:
+    """One frozen LM fitness problem: model configuration + synthetic
+    batch (on the device) + subspace chart, plus the engine-facing search
+    box.  Built from (arch, seed) by ``make_lm_workload``, or from the
+    reference's arrays by ``convert.lm_workload_from_reference``."""
+    arch: str
+    cfg: ModelConfig
+    batch: Dict[str, torch.Tensor]   # tokens, labels (B, S) int64
+    proj: SubspaceProjection
+    k: int
+    coeff_bound: float
+    seed: int
+
+    # -- the engine-facing search space: subspace coefficients ------------
+    @property
+    def x0(self) -> np.ndarray:
+        return np.zeros(self.k, np.float64)          # θ0 itself
+
+    @property
+    def lo(self) -> np.ndarray:
+        return np.full(self.k, -self.coeff_bound, np.float64)
+
+    @property
+    def hi(self) -> np.ndarray:
+        return np.full(self.k, self.coeff_bound, np.float64)
+
+    @property
+    def step(self) -> np.ndarray:
+        return np.full(self.k, 0.2 * self.coeff_bound, np.float64)
+
+
+def synthetic_batch(vocab_size: int, batch_size: int, seq_len: int,
+                    seed: int) -> Dict[str, np.ndarray]:
+    """The reference's fixed token/label batch (the same numpy draws)."""
+    rng = np.random.default_rng(seed * 7919 + 11)
+    return {
+        "tokens": rng.integers(0, vocab_size, (batch_size, seq_len),
+                               dtype=np.int64).astype(np.int32),
+        "labels": rng.integers(0, vocab_size, (batch_size, seq_len),
+                               dtype=np.int64).astype(np.int32),
+    }
+
+
+def make_lm_workload(arch: str, *, k: int = 8, batch_size: int = 2,
+                     seq_len: int = 32, seed: int = 0,
+                     coeff_bound: float = 1.0, full_width: bool = False,
+                     n_layers: Optional[int] = None,
+                     device="cuda") -> LmWorkload:
+    """Build the LM fitness problem for one architecture on ``device``.
+
+    By default the configuration is the arch's smoke reduction, as in the
+    reference; ``full_width=True`` takes the published configuration, and
+    ``n_layers`` cuts its depth (every width stays as published).  The
+    batch is the reference's numpy draw; θ0 and the basis are drawn from a
+    ``torch.Generator`` seeded with ``seed``, with the reference's
+    distributions (not its ``jax.random`` values).
+    """
+    cfg = get_config(arch) if full_width else get_smoke_config(arch)
+    if n_layers is not None:
+        cfg = cut_depth(cfg, n_layers)
+    cfg = dataclasses.replace(cfg, use_kernels=True)
+    batch = synthetic_batch(cfg.vocab_size, batch_size, seq_len, seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params0 = T.init_params(cfg, gen, device)
+    proj = SubspaceProjection.create(params0, k, gen)
+    return LmWorkload(arch=arch, cfg=cfg, batch=batch_tensors(batch, device),
+                      proj=proj, k=k, coeff_bound=coeff_bound, seed=seed)
+
+
+def batch_tensors(batch: Dict[str, np.ndarray],
+                  device) -> Dict[str, torch.Tensor]:
+    return {key: torch.as_tensor(np.asarray(val, np.int64), device=device)
+            for key, val in batch.items()}
+
+
+class LmLossEvalBackend(EvalBackend):
+    """``EvalBackend`` whose ``_raw_eval`` lifts each lane's (k,) subspace
+    coefficients to model parameters and returns the forward/CE loss on
+    the workload's fixed batch, on the workload's device."""
+
+    def __init__(self, workload: LmWorkload, *,
+                 n_dims: Optional[int] = None,
+                 max_bucket: Optional[int] = None):
+        self.workload = workload
+        self._loss_fn = T.make_loss_fn(workload.cfg)
+        # the one set of parameters every lane's lift overwrites
+        self._work = workload.proj.lift(
+            torch.zeros(workload.k, device=workload.proj.basis.device))
+        super().__init__(DEFAULT_MIN_BUCKET, workload.proj.basis.device)
+        if n_dims is not None and max_bucket is not None:
+            self.warm(n_dims, max_bucket)
+
+    def lane_loss(self, c: torch.Tensor) -> torch.Tensor:
+        """The loss at θ0 + c·V, a 0-d f32 tensor (c: (k,) f32 on the
+        workload's device)."""
+        wl = self.workload
+        with torch.no_grad():
+            params = wl.proj.lift(c, out=self._work)
+            return self._loss_fn(params, wl.batch)[0]
+
+    def _raw_eval(self, pts: torch.Tensor) -> torch.Tensor:
+        out = torch.empty(pts.shape[0], dtype=torch.float32,
+                          device=pts.device)
+        for i in range(pts.shape[0]):
+            out[i] = self.lane_loss(pts[i])
+        return out

@@ -3,8 +3,10 @@
 A wrapper takes its kernel's plain version (``kernels/ref.py``) only for
 tensors on the CPU.  For a CUDA tensor it launches the kernel or raises:
 nothing falls back.  Each wrapper counts its launches in a plain integer
-(``gram_launches``), so a run can show that its path went through the
-kernel.
+(``gram_launches``, ``flash_attention_launches``, ``wkv6_launches``), so
+a run can show that its path went through the kernel.  A wrapper checks
+what its kernel takes on both routes, so the CPU tests refuse what the
+card would refuse.
 """
 from __future__ import annotations
 
@@ -19,9 +21,20 @@ GRAM_ROWS_PER_CTA = 64
 #: widest X the kernel takes (kMaxCols in csrc/gram.cu)
 GRAM_MAX_COLS = 256
 
-#: launches of the gram kernel since the process started (or the caller
-#: last reset it)
+#: widest head the flash attention kernel takes (kMaxD in
+#: csrc/flash_attention.cu)
+FLASH_MAX_D = 128
+#: head sizes the wkv6 kernel is built for (csrc/wkv6.cu)
+WKV6_HEAD_SIZES = (8, 16, 32, 64)
+
+#: launches of each kernel since the process started (or the caller last
+#: reset them)
 gram_launches = 0
+flash_attention_launches = 0
+wkv6_launches = 0
+
+_TYPES = (torch.float32, torch.bfloat16)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _GRAM_DTYPES = {torch.float32: "gram_f32", torch.bfloat16: "gram_bf16"}
 _GRAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -79,3 +92,143 @@ def gram(x: torch.Tensor, y: torch.Tensor):
     global gram_launches
     gram_launches += 1
     return g, r
+
+
+def _kernel_fn(lib: str, name: str, argtypes):
+    fn = getattr(build.load(lib), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _device_route(what: str, *tensors) -> bool:
+    """True for CUDA tensors (the kernel), False for CPU ones (the plain
+    version); raises for mixed or other devices."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} wants all inputs on one device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on the CPU or a CUDA device, not "
+                         f"{dev}")
+    return dev.type == "cuda"
+
+
+_FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type.
+
+    GQA: query head h reads kv head h // (Hq / Hkv).  ``window`` > 0 masks,
+    with ``causal``, keys ``window`` or more positions before the query.
+    q, k and v are f32 or bf16 (one type), D ≤ 128, unit stride over D
+    (any other strides).  CPU tensors take ``ref.flash_attention_ref``
+    (k/v repeated per query head, as the reference's routed path does);
+    CUDA tensors take the kernel in ``csrc/flash_attention.cu`` on the
+    current stream, which reads k/v per kv head without repeating them.
+    """
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention wants (B, S, H, D) q, k, v, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if (tuple(k.shape) != (b, s, hkv, d) or v.shape != k.shape
+            or hkv < 1 or hq % hkv):
+        raise ValueError(f"flash_attention wants k/v (B, S, Hkv, D) with Hq "
+                         f"a multiple of Hkv, got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes f32 or bf16 q, k, v of one "
+                        f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (1 <= d <= FLASH_MAX_D and s >= 1 and b >= 1):
+        raise ValueError(f"flash_attention takes 1 ≤ D ≤ {FLASH_MAX_D} and "
+                         f"a nonempty batch, got q {tuple(q.shape)}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention wants unit stride over D")
+    if window < 0:
+        raise ValueError(f"window must be ≥ 0, got {window}")
+    if not _device_route("flash_attention", q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    fn = _kernel_fn("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}",
+                    _FLASH_ARGTYPES)
+    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, k, v)]
+    with torch.cuda.device(q.device):
+        o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+                 hq, hkv, d, *(ctypes.addressof(a) for a in strides),
+                 d ** -0.5, int(causal), int(window),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
+                           f"error {err} at q {tuple(q.shape)} k "
+                           f"{tuple(k.shape)} {q.dtype}")
+    global flash_attention_launches
+    flash_attention_launches += 1
+    return o
+
+
+def routed_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """The model's attention hot path (the reference's
+    ``ops.routed_attention``).  The port routes by the tensors' device
+    inside ``flash_attention``, so this is that call."""
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+_WKV6_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def wkv6(r, k, v, lw, u):
+    """r, k, v, lw: (B, T, H, K); u: (H, K) -> o (B, T, H, K) in r's type.
+
+    The RWKV6 recurrence from a zero state, output only (the final state
+    is not returned).  r, k, v and u are f32 or bf16 (one type), lw is f32
+    (the model computes the decay in f32), all contiguous, K in
+    ``WKV6_HEAD_SIZES``.  CPU tensors take ``ref.wkv6_ref``; CUDA tensors
+    take the kernel in ``csrc/wkv6.cu`` on the current stream.
+    """
+    if r.dim() != 4 or u.dim() != 2:
+        raise ValueError(f"wkv6 wants (B, T, H, K) r and (H, K) u, got "
+                         f"{tuple(r.shape)} and {tuple(u.shape)}")
+    b, t, h, kk = r.shape
+    if (any(x.shape != r.shape for x in (k, v, lw))
+            or tuple(u.shape) != (h, kk)):
+        raise ValueError(f"wkv6 wants r, k, v, lw of one (B, T, H, K) shape "
+                         f"and u (H, K), got {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(lw.shape)}, {tuple(u.shape)}")
+    if (r.dtype not in _TYPES or any(x.dtype != r.dtype for x in (k, v, u))
+            or lw.dtype != torch.float32):
+        raise TypeError(f"wkv6 takes r, k, v, u in one type (f32 or bf16) "
+                        f"and lw in f32, got {r.dtype}, {k.dtype}, "
+                        f"{v.dtype}, {u.dtype} and {lw.dtype}")
+    if kk not in WKV6_HEAD_SIZES or b < 1 or t < 1 or h < 1:
+        raise ValueError(f"wkv6 takes K in {WKV6_HEAD_SIZES} and a nonempty "
+                         f"(B, T, H), got {tuple(r.shape)}")
+    if not all(x.is_contiguous() for x in (r, k, v, lw, u)):
+        raise ValueError("wkv6 wants contiguous r, k, v, lw and u")
+    if not _device_route("wkv6", r, k, v, lw, u):
+        return ref.wkv6_ref(r, k, v, lw, u)[0]
+    fn = _kernel_fn("wkv6", f"wkv6_{_SUFFIX[r.dtype]}", _WKV6_ARGTYPES)
+    with torch.cuda.device(r.device):
+        o = torch.empty_like(r)
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                 u.data_ptr(), o.data_ptr(), b, t, h, kk,
+                 torch.cuda.current_stream(r.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed with CUDA error {err} "
+                           f"at r {tuple(r.shape)} {r.dtype}")
+    global wkv6_launches
+    wkv6_launches += 1
+    return o
+
+
+def routed_wkv6(r, k, v, lw, u):
+    """The RWKV6 time mix's hot path (the reference's ``ops.routed_wkv6``):
+    the mixed output only.  The port routes by the tensors' device inside
+    ``wkv6``, so this is that call."""
+    return wkv6(r, k, v, lw, u)

@@ -19,10 +19,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import AnmConfig, AnmEngine
+from repro_torch.core.subspace import orthonormal_basis
 from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+from repro_torch.core.substrates.lm_loss import make_lm_workload
 from repro_torch.data import sdss
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import anm_lm
+from repro_torch.models import transformer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -62,6 +67,30 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert int(out.stdout.split()[-1]) >= 20      # every module was walked
 
 
+#: the LM slice's modules, each of which the walk above must import
+LM_MODULES = ("repro_torch.configs.base", "repro_torch.configs.h2o_danube_3_4b",
+              "repro_torch.configs.rwkv6_7b", "repro_torch.models.layers",
+              "repro_torch.models.ssm", "repro_torch.models.transformer",
+              "repro_torch.core.subspace", "repro_torch.core.tree",
+              "repro_torch.core.substrates.lm_loss",
+              "repro_torch.launch.anm_lm", "repro_torch.convert",
+              "repro_torch.kernels.ops")
+
+
+def test_lm_modules_import_without_jax_or_the_reference():
+    script = _BLOCKED_IMPORT.replace("print(len(names))",
+                                     "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(LM_MODULES) <= set(out.stdout.split())
+    for name in ("flash_attention", "wkv6", "gram"):
+        assert (ops.build.CSRC / f"{name}.cu").exists()
+        assert name in ops.build.sources()
+
+
 class _FakeCuda(torch.Tensor):
     """A CPU tensor that reports a CUDA device (a stub device check)."""
 
@@ -96,6 +125,42 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
         ops.gram(torch.ones(64, 45), torch.ones(64))
 
 
+def _fake_cuda(*shape, dtype=torch.float32):
+    return torch.ones(*shape, dtype=dtype).as_subclass(_FakeCuda)
+
+
+@pytest.mark.parametrize("name,call", [
+    ("flash_attention_ref", lambda: ops.flash_attention(
+        _fake_cuda(1, 8, 4, 16), _fake_cuda(1, 8, 2, 16),
+        _fake_cuda(1, 8, 2, 16), window=4)),
+    ("flash_attention_ref", lambda: ops.routed_attention(
+        *(_fake_cuda(1, 8, 2, 16, dtype=torch.bfloat16),) * 3)),
+    ("wkv6_ref", lambda: ops.wkv6(
+        *(_fake_cuda(1, 8, 2, 16),) * 4, _fake_cuda(2, 16))),
+    ("wkv6_ref", lambda: ops.routed_wkv6(
+        *(_fake_cuda(1, 8, 2, 16, dtype=torch.bfloat16),) * 3,
+        _fake_cuda(1, 8, 2, 16), _fake_cuda(2, 16, dtype=torch.bfloat16))),
+])
+def test_cuda_tensor_never_reaches_the_lm_plain_versions(monkeypatch, name,
+                                                         call):
+    def plain(*_, **__):
+        raise AssertionError("the plain version got a CUDA tensor")
+
+    monkeypatch.setattr(ref, name, plain)
+    loaded = []
+
+    def no_kernel(lib, fn, argtypes):
+        loaded.append(lib)
+        raise RuntimeError("no kernel here")
+
+    monkeypatch.setattr(ops, "_kernel_fn", no_kernel)
+    before = (ops.flash_attention_launches, ops.wkv6_launches)
+    with pytest.raises(RuntimeError, match="no kernel here"):
+        call()
+    assert loaded == [name[:-len("_ref")]]
+    assert (ops.flash_attention_launches, ops.wkv6_launches) == before
+
+
 def test_cuda_launch_without_a_toolkit_raises(monkeypatch):
     """No try/except around the build: a missing nvcc surfaces as an
     error of the call, not as a quiet plain-version result."""
@@ -120,10 +185,26 @@ def _engine_phase_finish():
                           np.sum(pts ** 2, axis=1))
 
 
+def _anm_lm_main():
+    """The act-1 command line with no arguments."""
+    argv = sys.argv
+    sys.argv = ["anm_lm"]
+    try:
+        anm_lm.main()
+    finally:
+        sys.argv = argv
+
+
 @pytest.mark.parametrize("make", [
     lambda: sdss.make_fitness(sdss.make_stripe("s", 500, 64, 0)),
     lambda: InProcessEvalBackend(lambda p: p[:, 0]),
     _engine_phase_finish,
+    lambda: make_lm_workload("rwkv6-7b", k=2, seq_len=4),
+    lambda: anm_lm.lm_problem(arch="h2o-danube-3-4b", k=2),
+    lambda: transformer.init_params(get_smoke_config("rwkv6-7b"),
+                                    torch.Generator()),
+    lambda: orthonormal_basis(16, 2, torch.Generator()),
+    _anm_lm_main,
 ])
 def test_cuda_default_does_not_fall_back_to_cpu(make):
     if torch.cuda.is_available():
