@@ -21,12 +21,21 @@ so the script exits non-zero and prints no result line:
            reference's final fitness, through the gram kernel;
 5. grid    the 4096-host batched grid on stripe79 (100k stars, m = 1000),
            pipelined and sync, which must commit bit-identical iterates;
-6. flash   the attention kernel against its plain version at
-           h2o-danube-3's full shape (2, 4096, 32/8 heads, D = 120, bf16,
-           causal, window 8192 and 512), in f32 at D = 64 and 128, and
-           non-causal; max |err| / max |ref| ≤ 2e-2 (bf16) or 1e-5 (f32),
-           bitwise repeatable; kernel, plain and
-           scaled_dot_product_attention times beside the bound;
+6. flash   both attention kernels against their plain version, each case
+           on the variant ops.flash_route picks for it: the wgmma variant
+           at h2o-danube-3's full shape (2, 4096, 32/8 heads, D = 120,
+           bf16, causal, window 8192 and 512), at D = 128 and 80, at
+           S = 300 and 1001 (ragged against its 128-row tiles), D = 64,
+           non-causal, and with k and v views into one fused tensor; the
+           SIMT variant in f32 at D = 64 and 128, non-causal, and bf16 at
+           the danube smoke config's D = 12; max |err| / max |ref| ≤ 2e-2
+           (bf16) or 1e-5 (f32), and, since those scale with the largest
+           output, ‖err‖ / ‖ref‖ over the tensor ≤ 1e-2 (bf16) or 1e-4
+           (f32) and over each output row ≤ 5e-2 (bf16) or 1e-4 (f32);
+           bitwise repeatable; at the full shape the
+           wgmma kernel, the SIMT kernel on the same bf16 inputs, the plain
+           version and scaled_dot_product_attention, timed in turns, beside
+           the bound;
 7. wkv6    the RWKV6 kernel against its plain version at rwkv6-7b's full
            shape (2, 4096, 64 heads, K = 64; bf16 r/k/v/u with f32 lw, and
            all f32), at K = 16 and at a T that is no multiple of 16;
@@ -39,7 +48,8 @@ so the script exits non-zero and prints no result line:
            version (≤ 2e-2 relative), pipelined == sync bit-identical, a
            lane's loss the same bits in a bucket of 8 and of 32, a finite
            best ≤ the start, and exactly one launch of the arch's kernel
-           per layer per lane evaluated;
+           per layer per lane evaluated (for danube, every one a wgmma
+           launch);
 9. the ``kernels`` JSON line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
@@ -77,14 +87,24 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
-#: (B, S, Hq, Hkv, D, type, causal, window) of the attention checks; the
-#: first is h2o-danube-3's full-width shape, the one timed
-FLASH_CASES = [(2, 4096, 32, 8, 120, torch.bfloat16, True, 8192),
-               (2, 4096, 32, 8, 120, torch.bfloat16, True, 512),
-               (2, 1024, 8, 2, 64, torch.float32, True, 0),
-               (1, 1024, 4, 4, 128, torch.float32, True, 0),
-               (1, 300, 4, 2, 64, torch.float32, False, 0),
-               (1, 300, 4, 2, 120, torch.bfloat16, False, 0)]
+#: (B, S, Hq, Hkv, D, type, causal, window, k/v fused, variant) of the
+#: attention checks; the first is h2o-danube-3's full-width shape, the one
+#: timed.  "k/v fused": k and v are views into one (B, S, 2·Hkv, D) tensor.
+FLASH_CASES = [
+    (2, 4096, 32, 8, 120, torch.bfloat16, True, 8192, False, "wgmma"),
+    (2, 4096, 32, 8, 120, torch.bfloat16, True, 512, False, "wgmma"),
+    (2, 2048, 16, 4, 128, torch.bfloat16, True, 0, False, "wgmma"),
+    (2, 1024, 8, 8, 80, torch.bfloat16, True, 0, False, "wgmma"),
+    (1, 300, 4, 2, 120, torch.bfloat16, False, 0, False, "wgmma"),
+    (1, 1001, 8, 2, 128, torch.bfloat16, True, 256, False, "wgmma"),
+    (1, 1001, 8, 8, 80, torch.bfloat16, False, 0, False, "wgmma"),
+    (1, 1001, 4, 2, 64, torch.bfloat16, True, 100, False, "wgmma"),
+    (2, 512, 8, 2, 120, torch.bfloat16, True, 0, True, "wgmma"),
+    (2, 1024, 8, 2, 64, torch.float32, True, 0, False, "simt"),
+    (1, 1024, 4, 4, 128, torch.float32, True, 0, False, "simt"),
+    (1, 300, 4, 2, 64, torch.float32, False, 0, False, "simt"),
+    (2, 256, 4, 2, 12, torch.bfloat16, True, 0, False, "simt"),
+]
 #: (B, T, H, K, type of r/k/v/u) of the wkv6 checks (lw is f32); the
 #: first is rwkv6-7b's full-width shape, the one timed
 WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16),
@@ -103,6 +123,11 @@ REFERENCE_FIG2 = {
     "stripe79": dict(start=5.30919, truth=5.01094, final=4.98720, at90=1),
     "stripe86": dict(start=5.21282, truth=5.11153, final=5.09539, at90=2),
 }
+
+#: every launch counter in kernels/ops.py
+LAUNCH_COUNTERS = ("gram_launches", "flash_attention_launches",
+                   "flash_attention_wgmma_launches",
+                   "flash_attention_simt_launches", "wkv6_launches")
 
 GRAM_SHAPES = [(1000, 45), (2000, 45),                    # the main path
                (256, 45), (1024, 153), (300, 20), (512, 128),
@@ -130,7 +155,7 @@ def phase_build() -> None:
     report = build.build_all()
     for name, r in report.items():
         ptxas = [ln.strip() for ln in r["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if any(w in ln for w in ("registers", "spill", "arning"))]
         print(f"[build] {name}: {r['seconds']:.2f}s (nvcc sm_90a) "
               + " | ".join(ptxas))
 
@@ -330,35 +355,76 @@ def _attention_pairs(s: int, causal: bool, window: int) -> int:
     return sum(min(i + 1, w) for i in range(s))
 
 
+def _flash_inputs(b, s, hq, hkv, d, dtype, fused, gen, dev):
+    q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+    if fused:
+        kv = torch.randn(b, s, 2 * hkv, d, generator=gen, device=dev)
+        kv = kv.to(dtype)
+        return q, kv[:, :, :hkv], kv[:, :, hkv:]
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def _norm_rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(‖got − want‖ / ‖want‖ over the whole tensor, the largest of that
+    over each row of the last axis), in f32.  Unlike max|err|/max|ref|,
+    these scale with the values compared: a row that averages many keys
+    has a small output, and an error there still shows."""
+    diff = (got.float() - want.float()).flatten(0, -2)
+    want = want.float().flatten(0, -2)
+    row = diff.norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+    return float(diff.norm() / want.norm()), float(row.max())
+
+
 def phase_flash(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(4321)
-    max_abs_err = 0.0
-    for b, s, hq, hkv, d, dtype, causal, window in FLASH_CASES:
-        q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    max_abs_err = {"wgmma": 0.0, "simt": 0.0}
+    worst = {"wgmma": [0.0, 0.0], "simt": [0.0, 0.0]}   # [norm, row]
+    for b, s, hq, hkv, d, dtype, causal, window, fused, variant in FLASH_CASES:
+        q, k, v = _flash_inputs(b, s, hq, hkv, d, dtype, fused, gen, dev)
+        route = ops.flash_route(q, k, v)
+        check(route == variant, f"flash_route gives {route!r} for "
+              f"({b}, {s}, {hq}/{hkv}, {d}) {dtype} fused={fused}, want "
+              f"{variant!r}")
+        before = getattr(ops, f"flash_attention_{variant}_launches")
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         again = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        check(getattr(ops, f"flash_attention_{variant}_launches")
+              == before + 2, f"flash_attention did not launch its {variant} "
+              f"kernel")
         err, rel = _rel_err(out, want)
-        tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
-        max_abs_err = max(max_abs_err, err)
-        print(f"[flash] ({b}, {s}, {hq}/{hkv}, {d}) {dtype} causal={causal} "
-              f"window={window}: max|err|/max|ref| {rel:.3g}")
-        check(rel <= tol, f"flash_attention at ({b}, {s}, {hq}/{hkv}, {d}) "
-              f"{dtype} causal={causal} window={window}: {rel:.3g} > {tol}")
-        check(torch.equal(out, again), "flash_attention is not bitwise "
-              "repeatable")
+        norm_rel, row_rel = _norm_rel_err(out, want)
+        bf16 = dtype == torch.bfloat16
+        tol = 2e-2 if bf16 else 1e-5
+        norm_tol, row_tol = (1e-2, 5e-2) if bf16 else (1e-4, 1e-4)
+        max_abs_err[variant] = max(max_abs_err[variant], err)
+        worst[variant] = [max(worst[variant][0], norm_rel),
+                          max(worst[variant][1], row_rel)]
+        case = (f"({b}, {s}, {hq}/{hkv}, {d}) {dtype} causal={causal} "
+                f"window={window} fused_kv={fused}")
+        print(f"[flash] {variant} {case}: max|err|/max|ref| {rel:.3g}, "
+              f"‖err‖/‖ref‖ {norm_rel:.3g}, worst row ‖err‖/‖ref‖ "
+              f"{row_rel:.3g}")
+        check(rel <= tol, f"flash_attention {variant} at {case}: {rel:.3g} "
+              f"> {tol}")
+        check(norm_rel <= norm_tol, f"flash_attention {variant} at {case}: "
+              f"‖err‖/‖ref‖ {norm_rel:.3g} > {norm_tol}")
+        check(row_rel <= row_tol, f"flash_attention {variant} at {case}: "
+              f"worst row ‖err‖/‖ref‖ {row_rel:.3g} > {row_tol}")
+        check(torch.equal(out, again), f"flash_attention {variant} is not "
+              f"bitwise repeatable at {case}")
         del q, k, v, out, again, want
-    b, s, hq, hkv, d, dtype, causal, window = FLASH_CASES[0]
-    q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
-    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
-    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+    b, s, hq, hkv, d, dtype, causal, window, fused, _ = FLASH_CASES[0]
+    q, k, v = _flash_inputs(b, s, hq, hkv, d, dtype, fused, gen, dev)
     # SDPA takes (B, H, S, D); the layout change is made once, untimed
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    fns = {"kernel": lambda: ops.flash_attention(q, k, v, causal=causal,
-                                                 window=window),
+    fns = {"wgmma": lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                window=window),
+           "simt": lambda: ops._flash_launch(q, k, v, "simt", causal=causal,
+                                             window=window),
            "plain": lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                     window=window),
            "sdpa": lambda: F.scaled_dot_product_attention(
@@ -369,8 +435,9 @@ def phase_flash(dev: torch.device) -> dict:
     err, rel = _rel_err(fns["sdpa"]().transpose(1, 2), fns["plain"]())
     print(f"[flash] SDPA against the plain version: {rel:.3g}")
     dev_ms = {}
-    for name in ["plain", "kernel", "sdpa", "kernel", "plain", "sdpa"]:
-        calls, replays = (2, 2) if name == "plain" else (5, 4)
+    for name in ["plain", "wgmma", "simt", "sdpa",
+                 "sdpa", "simt", "wgmma", "plain"]:
+        calls, replays = (2, 2) if name in ("plain", "simt") else (10, 5)
         dev_ms[name] = min(dev_ms.get(name, 1e9),
                            _graph_ms(fns[name], calls, replays))
     pairs = _attention_pairs(s, causal, window)
@@ -378,13 +445,17 @@ def phase_flash(dev: torch.device) -> dict:
     moved = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
     bound_ms, bound_by = _bound(moved, flops, BF16_FLOPS)
     print(f"[flash] at ({b}, {s}, {hq}/{hkv}, {d}) {dtype}, device ms per "
-          f"call (CUDA graph): kernel {dev_ms['kernel']:.4f}, plain "
-          f"{dev_ms['plain']:.4f}, sdpa {dev_ms['sdpa']:.4f}; bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {flops:.4g} FLOP at "
-          f"the bf16 tensor-core peak)")
-    return dict(max_abs_err=max_abs_err, ms=dev_ms["kernel"],
-                plain_ms=dev_ms["plain"], library_ms=dev_ms["sdpa"],
-                bound_ms=bound_ms, bound_by=bound_by)
+          f"call (CUDA graph): wgmma {dev_ms['wgmma']:.4f}, simt "
+          f"{dev_ms['simt']:.4f}, plain {dev_ms['plain']:.4f}, sdpa "
+          f"{dev_ms['sdpa']:.4f}; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{moved} B, {flops:.4g} FLOP at the bf16 tensor-core peak); "
+          f"wgmma at {flops / dev_ms['wgmma'] / 1e9:.1f} TFLOP/s")
+    return dict(variant="wgmma", max_abs_err=max_abs_err["wgmma"],
+                ms=dev_ms["wgmma"], plain_ms=dev_ms["plain"],
+                library_ms=dev_ms["sdpa"], bound_ms=bound_ms,
+                bound_by=bound_by, norm_rel_err=worst["wgmma"][0],
+                row_rel_err=worst["wgmma"][1], simt_ms=dev_ms["simt"],
+                simt_max_abs_err=max_abs_err["simt"])
 
 
 def _wkv6_inputs(b, t, h, kk, dtype, gen, dev):
@@ -437,10 +508,11 @@ def phase_wkv6(dev: torch.device) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-#: arch -> (its kernel's launch counter, the ops function the model calls,
-#: the plain version in the model's layout)
+#: arch -> (the launch counter every launch of its kernel must show, the
+#: ops function the model calls, the plain version in the model's layout);
+#: danube's must all be launches of the wgmma variant
 LM_KERNEL = {
-    "h2o-danube-3-4b": ("flash_attention_launches", "routed_attention",
+    "h2o-danube-3-4b": ("flash_attention_wgmma_launches", "routed_attention",
                         lambda q, k, v, *, causal, window:
                         ref.flash_attention_ref(q, k, v, causal, window)),
     "rwkv6-7b": ("wkv6_launches", "routed_wkv6",
@@ -508,8 +580,7 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
     check(rel <= 2e-2, f"{arch}: θ0 loss through the kernel {loss0} vs the "
           f"plain version {loss0_plain}")
 
-    for name in ("gram_launches", "flash_attention_launches",
-                 "wkv6_launches"):
+    for name in LAUNCH_COUNTERS:
         setattr(ops, name, 0)           # the main path, counted from 0
     out = {}
     for mode, pipelined in (("pipelined", True), ("sync", False)):
@@ -526,10 +597,14 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
     launches = getattr(ops, counter)
     pipe, sync = out["pipelined"], out["sync"]
     lanes = pipe["lanes"] + sync["lanes"]
+    counts = {name: getattr(ops, name) for name in LAUNCH_COUNTERS}
     print(f"[lm] {arch}: {counter} {launches} for {lanes} lanes x "
-          f"{n_layers} layers")
+          f"{n_layers} layers; all counts {counts}")
     check(launches == lanes * n_layers, f"{arch}: {launches} kernel "
           f"launches, want one per layer per lane ({lanes} x {n_layers})")
+    check(counts["flash_attention_launches"]
+          == counts["flash_attention_wgmma_launches"],
+          f"{arch}: an attention launch took the SIMT variant")
     check(launches > 0, f"{arch}: the act-1 runs never launched the kernel")
     check(identical_trajectories(pipe["engine"], sync["engine"]),
           f"{arch}: pipelined and sync committed different iterates")

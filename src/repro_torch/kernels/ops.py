@@ -3,8 +3,9 @@
 A wrapper takes its kernel's plain version (``kernels/ref.py``) only for
 tensors on the CPU.  For a CUDA tensor it launches the kernel or raises:
 nothing falls back.  Each wrapper counts its launches in a plain integer
-(``gram_launches``, ``flash_attention_launches``, ``wkv6_launches``), so
-a run can show that its path went through the kernel.  A wrapper checks
+(``gram_launches``, ``flash_attention_launches``, ``wkv6_launches``; the
+attention launches also per variant), so a run can show that its path went
+through the kernel.  A wrapper checks
 what its kernel takes on both routes, so the CPU tests refuse what the
 card would refuse.
 """
@@ -21,16 +22,24 @@ GRAM_ROWS_PER_CTA = 64
 #: widest X the kernel takes (kMaxCols in csrc/gram.cu)
 GRAM_MAX_COLS = 256
 
-#: widest head the flash attention kernel takes (kMaxD in
+#: widest head the flash attention kernels take (kMaxD in
 #: csrc/flash_attention.cu)
 FLASH_MAX_D = 128
+#: the largest grid each variant can launch: wgmma walks B·Hq·⌈S/128⌉ work
+#: items (one per CTA, or several per CTA on a persistent grid), SIMT puts
+#: B·Hq on a grid axis of at most 65535
+_WGMMA_BLOCK_Q = 128
+_WGMMA_MAX_ITEMS = 2**31 - 1
+_SIMT_MAX_HEADS = 65535
 #: head sizes the wkv6 kernel is built for (csrc/wkv6.cu)
 WKV6_HEAD_SIZES = (8, 16, 32, 64)
 
 #: launches of each kernel since the process started (or the caller last
 #: reset them)
 gram_launches = 0
-flash_attention_launches = 0
+flash_attention_launches = 0          # both variants
+flash_attention_wgmma_launches = 0
+flash_attention_simt_launches = 0
 wkv6_launches = 0
 
 _TYPES = (torch.float32, torch.bfloat16)
@@ -120,6 +129,27 @@ _FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                       ctypes.c_void_p])
 
 
+def flash_route(q, k, v) -> str:
+    """Which attention kernel takes (q, k, v) on the card: ``"wgmma"`` (the
+    tensor-core variant: TMA loads and bf16 ``wgmma``) for bf16 with D a
+    multiple of 8 up to 128, 16-byte-aligned data pointers and, for every
+    batch, sequence and head extent above 1, a positive stride that is a
+    multiple of 8 elements (TMA's 16-byte rule); ``"simt"`` (f32 on the
+    CUDA cores) for everything else, f32 included.  Decided from type,
+    shape, strides and alignment alone, the same for CPU and CUDA
+    tensors."""
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d % 8 or d > FLASH_MAX_D:
+        return "simt"
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            return "simt"
+        for size, stride in zip(t.shape[:3], t.stride()[:3]):
+            if size > 1 and (stride <= 0 or stride % 8):
+                return "simt"
+    return "wgmma"
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q: (B, S, Hq, D); k/v: (B, S, Hkv, D) -> (B, S, Hq, D) in q's type.
 
@@ -128,8 +158,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     q, k and v are f32 or bf16 (one type), D ≤ 128, unit stride over D
     (any other strides).  CPU tensors take ``ref.flash_attention_ref``
     (k/v repeated per query head, as the reference's routed path does);
-    CUDA tensors take the kernel in ``csrc/flash_attention.cu`` on the
-    current stream, which reads k/v per kv head without repeating them.
+    CUDA tensors take the kernel variant ``flash_route`` names in
+    ``csrc/flash_attention.cu`` on the current stream, which reads k/v per
+    kv head without repeating them.  Both routes refuse what the chosen
+    kernel's grid cannot hold.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention wants (B, S, H, D) q, k, v, got "
@@ -152,23 +184,60 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention wants unit stride over D")
     if window < 0:
         raise ValueError(f"window must be ≥ 0, got {window}")
-    if not _device_route("flash_attention", q, k, v):
+    on_card = _device_route("flash_attention", q, k, v)
+    variant = flash_route(q, k, v)
+    _check_grid(variant, q)
+    if not on_card:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    fn = _kernel_fn("flash_attention", f"flash_attention_{_SUFFIX[q.dtype]}",
+    return _flash_launch(q, k, v, variant, causal=causal, window=window)
+
+
+def _check_grid(variant: str, q) -> None:
+    b, s, hq, _ = q.shape
+    items = b * hq * -(-s // _WGMMA_BLOCK_Q)
+    if ((variant == "wgmma" and items > _WGMMA_MAX_ITEMS)
+            or (variant == "simt" and b * hq > _SIMT_MAX_HEADS)):
+        raise ValueError(f"the {variant} attention kernel's grid cannot hold "
+                         f"q {tuple(q.shape)}")
+
+
+def _flash_launch(q, k, v, variant: str, *, causal: bool, window: int):
+    """Launch one attention kernel variant on CUDA q, k, v that
+    ``flash_attention`` has checked, and count the launch.  ``"simt"``
+    takes any such input; ``"wgmma"`` only what ``flash_route`` gives it.
+    ``flash_attention`` calls this with ``flash_route``'s choice;
+    ``chip_smoke.py`` also calls it to time the SIMT kernel on the inputs
+    the wgmma kernel serves."""
+    if variant not in ("wgmma", "simt") or (
+            variant == "wgmma" and flash_route(q, k, v) != variant):
+        raise ValueError(f"the {variant!r} attention kernel does not take q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if not _device_route("flash_attention", q, k, v):
+        raise ValueError("_flash_launch launches a kernel: it takes CUDA "
+                         "tensors only")
+    _check_grid(variant, q)
+    b, s, hq, d = q.shape
+    fn = _kernel_fn("flash_attention",
+                    f"flash_attention_{variant}_{_SUFFIX[q.dtype]}",
                     _FLASH_ARGTYPES)
     strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, k, v)]
     with torch.cuda.device(q.device):
         o = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
-                 hq, hkv, d, *(ctypes.addressof(a) for a in strides),
+                 hq, k.shape[2], d, *(ctypes.addressof(a) for a in strides),
                  d ** -0.5, int(causal), int(window),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
-                           f"error {err} at q {tuple(q.shape)} k "
+        raise RuntimeError(f"flash_attention {variant} kernel launch failed "
+                           f"with error {err} at q {tuple(q.shape)} k "
                            f"{tuple(k.shape)} {q.dtype}")
-    global flash_attention_launches
+    global flash_attention_launches, flash_attention_wgmma_launches
+    global flash_attention_simt_launches
     flash_attention_launches += 1
+    if variant == "wgmma":
+        flash_attention_wgmma_launches += 1
+    else:
+        flash_attention_simt_launches += 1
     return o
 
 
