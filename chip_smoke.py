@@ -36,11 +36,17 @@ so the script exits non-zero and prints no result line:
            wgmma kernel, the SIMT kernel on the same bf16 inputs, the plain
            version and scaled_dot_product_attention, timed in turns, beside
            the bound;
-7. wkv6    the RWKV6 kernel against its plain version at rwkv6-7b's full
-           shape (2, 4096, 64 heads, K = 64; bf16 r/k/v/u with f32 lw, and
-           all f32), at K = 16 and at a T that is no multiple of 16;
-           ≤ 5e-2 (bf16) or 1e-4 (f32) of max |ref|, bitwise repeatable;
-           kernel and plain times beside the bound;
+7. wkv6    both RWKV6 kernels against their plain version, each case on
+           the variant ops.wkv6_route picks for it: the chunked variant at
+           rwkv6-7b's full shape (2, 4096, 64 heads, K = 64; bf16 r/k/v/u
+           with f32 lw), at K = 16, at a T that is no multiple of 16 and at
+           both edges of the decay clamp (lw ≡ -3.5 and ≡ -1e-6); the
+           serial variant in f32 at the full shape and K = 16, and bf16 at
+           K = 8; max |err| / max |ref| ≤ 5e-2 (bf16) or 1e-4 (f32),
+           ‖err‖ / ‖ref‖ over the tensor ≤ 1e-2 / 1e-4 and over each
+           output row ≤ 5e-2 / 1e-4; bitwise repeatable; at the full shape
+           the chunked kernel, the serial kernel on the same bf16 inputs
+           and the plain version, timed in turns, beside the bound;
 8. lm      act 1 of examples/anm_lm.py over the LM loss at published
            widths: h2o-danube-3-4b cut to 4 layers and rwkv6-7b cut to 2
            (the k = 6 f32 basis must fit), 2 x 4096 tokens; the θ0 loss
@@ -49,7 +55,7 @@ so the script exits non-zero and prints no result line:
            lane's loss the same bits in a bucket of 8 and of 32, a finite
            best ≤ the start, and exactly one launch of the arch's kernel
            per layer per lane evaluated (for danube, every one a wgmma
-           launch);
+           launch; for rwkv6, every one a chunked launch);
 9. the ``kernels`` JSON line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
@@ -105,13 +111,17 @@ FLASH_CASES = [
     (1, 300, 4, 2, 64, torch.float32, False, 0, False, "simt"),
     (2, 256, 4, 2, 12, torch.bfloat16, True, 0, False, "simt"),
 ]
-#: (B, T, H, K, type of r/k/v/u) of the wkv6 checks (lw is f32); the
-#: first is rwkv6-7b's full-width shape, the one timed
-WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16),
-              (2, 4096, 64, 64, torch.float32),
-              (2, 256, 4, 16, torch.float32),
-              (2, 256, 4, 16, torch.bfloat16),
-              (2, 1001, 4, 32, torch.bfloat16)]
+#: (B, T, H, K, type of r/k/v/u, lw, variant) of the wkv6 checks (lw is
+#: f32: None draws it as the model's range, a number fills it); the first
+#: is rwkv6-7b's full-width shape, the one timed
+WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16, None, "chunked"),
+              (2, 4096, 64, 64, torch.float32, None, "serial"),
+              (2, 256, 4, 16, torch.float32, None, "serial"),
+              (2, 256, 4, 16, torch.bfloat16, None, "chunked"),
+              (2, 1001, 4, 32, torch.bfloat16, None, "chunked"),
+              (2, 1024, 8, 64, torch.bfloat16, -3.5, "chunked"),
+              (2, 1024, 8, 64, torch.bfloat16, -1e-6, "chunked"),
+              (2, 256, 4, 8, torch.bfloat16, None, "serial")]
 #: the LM phase: arch -> layers kept at published widths (a k = 6 f32
 #: basis over the parameters must fit on one 80 GB card)
 LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 2}
@@ -127,7 +137,8 @@ REFERENCE_FIG2 = {
 #: every launch counter in kernels/ops.py
 LAUNCH_COUNTERS = ("gram_launches", "flash_attention_launches",
                    "flash_attention_wgmma_launches",
-                   "flash_attention_simt_launches", "wkv6_launches")
+                   "flash_attention_simt_launches", "wkv6_launches",
+                   "wkv6_chunked_launches", "wkv6_serial_launches")
 
 GRAM_SHAPES = [(1000, 45), (2000, 45),                    # the main path
                (256, 45), (1024, 153), (300, 20), (512, 128),
@@ -458,64 +469,103 @@ def phase_flash(dev: torch.device) -> dict:
                 simt_max_abs_err=max_abs_err["simt"])
 
 
-def _wkv6_inputs(b, t, h, kk, dtype, gen, dev):
+def _wkv6_inputs(b, t, h, kk, dtype, lw_fill, gen, dev):
     r, k, v = (torch.randn(b, t, h, kk, generator=gen, device=dev).to(dtype)
                for _ in range(3))
-    lw = (-torch.exp(torch.randn(b, t, h, kk, generator=gen, device=dev))
-          ).clamp(-3.5, -1e-6)
+    if lw_fill is None:
+        lw = (-torch.exp(torch.randn(b, t, h, kk, generator=gen, device=dev))
+              ).clamp(-3.5, -1e-6)
+    else:
+        lw = torch.full((b, t, h, kk), lw_fill, device=dev)
     u = (torch.randn(h, kk, generator=gen, device=dev) * 0.1).to(dtype)
     return r, k, v, lw, u
 
 
 def phase_wkv6(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(8765)
-    max_abs_err = 0.0
-    for b, t, h, kk, dtype in WKV6_CASES:
-        args = _wkv6_inputs(b, t, h, kk, dtype, gen, dev)
+    max_abs_err = {"chunked": 0.0, "serial": 0.0}
+    worst = {"chunked": [0.0, 0.0], "serial": [0.0, 0.0]}   # [norm, row]
+    for b, t, h, kk, dtype, lw_fill, variant in WKV6_CASES:
+        args = _wkv6_inputs(b, t, h, kk, dtype, lw_fill, gen, dev)
+        route = ops.wkv6_route(*args)
+        case = (f"({b}, {t}, {h}, {kk}) {dtype} lw "
+                f"{'drawn' if lw_fill is None else lw_fill}")
+        check(route == variant, f"wkv6_route gives {route!r} for {case}, "
+              f"want {variant!r}")
+        before = getattr(ops, f"wkv6_{variant}_launches")
         out = ops.wkv6(*args)
         again = ops.wkv6(*args)
         want = ref.wkv6_ref(*args)[0]
         torch.cuda.synchronize()
+        check(getattr(ops, f"wkv6_{variant}_launches") == before + 2,
+              f"wkv6 did not launch its {variant} kernel")
         err, rel = _rel_err(out, want)
-        tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
-        max_abs_err = max(max_abs_err, err)
-        print(f"[wkv6] ({b}, {t}, {h}, {kk}) {dtype} (lw f32): "
-              f"max|err|/max|ref| {rel:.3g}")
-        check(rel <= tol, f"wkv6 at ({b}, {t}, {h}, {kk}) {dtype}: "
-              f"{rel:.3g} > {tol}")
-        check(torch.equal(out, again), "wkv6 is not bitwise repeatable")
-    b, t, h, kk, dtype = WKV6_CASES[0]
-    args = _wkv6_inputs(b, t, h, kk, dtype, gen, dev)
-    fns = {"kernel": lambda: ops.wkv6(*args),
+        norm_rel, row_rel = _norm_rel_err(out, want)
+        bf16 = dtype == torch.bfloat16
+        tol = 5e-2 if bf16 else 1e-4
+        norm_tol, row_tol = (1e-2, 5e-2) if bf16 else (1e-4, 1e-4)
+        max_abs_err[variant] = max(max_abs_err[variant], err)
+        worst[variant] = [max(worst[variant][0], norm_rel),
+                          max(worst[variant][1], row_rel)]
+        print(f"[wkv6] {variant} {case}: max|err|/max|ref| {rel:.3g}, "
+              f"‖err‖/‖ref‖ {norm_rel:.3g}, worst row ‖err‖/‖ref‖ "
+              f"{row_rel:.3g}")
+        check(bool(torch.isfinite(out.float()).all()),
+              f"wkv6 {variant} at {case}: non-finite output")
+        check(rel <= tol, f"wkv6 {variant} at {case}: {rel:.3g} > {tol}")
+        check(norm_rel <= norm_tol, f"wkv6 {variant} at {case}: "
+              f"‖err‖/‖ref‖ {norm_rel:.3g} > {norm_tol}")
+        check(row_rel <= row_tol, f"wkv6 {variant} at {case}: worst row "
+              f"‖err‖/‖ref‖ {row_rel:.3g} > {row_tol}")
+        check(torch.equal(out, again), f"wkv6 {variant} is not bitwise "
+              f"repeatable at {case}")
+        del args, out, again, want
+    b, t, h, kk, dtype, lw_fill, _ = WKV6_CASES[0]
+    args = _wkv6_inputs(b, t, h, kk, dtype, lw_fill, gen, dev)
+    fns = {"chunked": lambda: ops.wkv6(*args),
+           "serial": lambda: ops._wkv6_launch(*args, "serial"),
            "plain": lambda: ref.wkv6_ref(*args)[0]}
     dev_ms = {}
-    for name in ["plain", "kernel", "kernel", "plain"]:
+    for name in ["plain", "chunked", "serial", "serial", "chunked", "plain"]:
         calls, replays = (1, 2) if name == "plain" else (20, 5)
         dev_ms[name] = min(dev_ms.get(name, 1e9),
                            _graph_ms(fns[name], calls, replays))
     r, _, _, lw, u = args
     moved = (3 * r.numel() * r.element_size() + lw.numel() * 4
              + u.numel() * u.element_size() + r.numel() * r.element_size())
-    # per step and (b, h): r·S (2K² FLOP) and diag(w) S + k vᵀ (3K²), f32
-    flops = 5.0 * kk * kk * t * b * h
-    bound_ms, bound_by = _bound(moved, flops, F32_FLOPS)
+    # the chunked form's products per 16-step chunk and (b, h), FMA = 2:
+    # scores and A v (2 C² K each), the cross term and the state's
+    # increment (2 C K² each), at the bf16 tensor-core peak
+    n_chunks = -(-t // 16)
+    flops = (4.0 * 16 * 16 * kk + 4.0 * 16 * kk * kk) * n_chunks * b * h
+    bound_ms, bound_by = _bound(moved, flops, BF16_FLOPS)
+    # the sequential form's 5 K² f32 FLOP per step and (b, h): the bound
+    # of the serial kernel, printed beside
+    seq_ms, _ = _bound(moved, 5.0 * kk * kk * t * b * h, F32_FLOPS)
     print(f"[wkv6] at ({b}, {t}, {h}, {kk}) {dtype}, device ms per call "
-          f"(CUDA graph): kernel {dev_ms['kernel']:.4f}, plain "
-          f"{dev_ms['plain']:.4f}; bound {bound_ms:.4f} ms ({bound_by}: "
-          f"{moved} B, {flops:.4g} FLOP at the f32 peak)")
-    return dict(max_abs_err=max_abs_err, ms=dev_ms["kernel"],
-                plain_ms=dev_ms["plain"], library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by)
+          f"(CUDA graph): chunked {dev_ms['chunked']:.4f}, serial "
+          f"{dev_ms['serial']:.4f}, plain {dev_ms['plain']:.4f}; bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {moved} B, {flops:.4g} FLOP at "
+          f"the bf16 tensor-core peak; the sequential form at the f32 peak "
+          f"{seq_ms:.4f}); chunked at {moved / dev_ms['chunked'] / 1e6:.1f} "
+          f"GB/s")
+    return dict(variant="chunked", max_abs_err=max_abs_err["chunked"],
+                ms=dev_ms["chunked"], plain_ms=dev_ms["plain"],
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                norm_rel_err=worst["chunked"][0],
+                row_rel_err=worst["chunked"][1], serial_ms=dev_ms["serial"],
+                serial_max_abs_err=max_abs_err["serial"])
 
 
 #: arch -> (the launch counter every launch of its kernel must show, the
 #: ops function the model calls, the plain version in the model's layout);
-#: danube's must all be launches of the wgmma variant
+#: danube's must all be launches of the wgmma variant, rwkv6's of the
+#: chunked one
 LM_KERNEL = {
     "h2o-danube-3-4b": ("flash_attention_wgmma_launches", "routed_attention",
                         lambda q, k, v, *, causal, window:
                         ref.flash_attention_ref(q, k, v, causal, window)),
-    "rwkv6-7b": ("wkv6_launches", "routed_wkv6",
+    "rwkv6-7b": ("wkv6_chunked_launches", "routed_wkv6",
                  lambda r, k, v, lw, u: ref.wkv6_ref(r, k, v, lw, u)[0]),
 }
 
@@ -605,6 +655,8 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
     check(counts["flash_attention_launches"]
           == counts["flash_attention_wgmma_launches"],
           f"{arch}: an attention launch took the SIMT variant")
+    check(counts["wkv6_launches"] == counts["wkv6_chunked_launches"],
+          f"{arch}: a wkv6 launch took the serial variant")
     check(launches > 0, f"{arch}: the act-1 runs never launched the kernel")
     check(identical_trajectories(pipe["engine"], sync["engine"]),
           f"{arch}: pipelined and sync committed different iterates")

@@ -4,8 +4,8 @@ A wrapper takes its kernel's plain version (``kernels/ref.py``) only for
 tensors on the CPU.  For a CUDA tensor it launches the kernel or raises:
 nothing falls back.  Each wrapper counts its launches in a plain integer
 (``gram_launches``, ``flash_attention_launches``, ``wkv6_launches``; the
-attention launches also per variant), so a run can show that its path went
-through the kernel.  A wrapper checks
+attention and wkv6 launches also per variant), so a run can show that its
+path went through the kernel.  A wrapper checks
 what its kernel takes on both routes, so the CPU tests refuse what the
 card would refuse.
 """
@@ -31,8 +31,10 @@ FLASH_MAX_D = 128
 _WGMMA_BLOCK_Q = 128
 _WGMMA_MAX_ITEMS = 2**31 - 1
 _SIMT_MAX_HEADS = 65535
-#: head sizes the wkv6 kernel is built for (csrc/wkv6.cu)
+#: head sizes the wkv6 kernels are built for (csrc/wkv6.cu): the serial
+#: variant takes all, the chunked one all but 8
 WKV6_HEAD_SIZES = (8, 16, 32, 64)
+WKV6_CHUNKED_HEAD_SIZES = (16, 32, 64)
 
 #: launches of each kernel since the process started (or the caller last
 #: reset them)
@@ -40,7 +42,9 @@ gram_launches = 0
 flash_attention_launches = 0          # both variants
 flash_attention_wgmma_launches = 0
 flash_attention_simt_launches = 0
-wkv6_launches = 0
+wkv6_launches = 0                     # both variants
+wkv6_chunked_launches = 0
+wkv6_serial_launches = 0
 
 _TYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -251,14 +255,34 @@ def routed_attention(q, k, v, *, causal: bool = True, window: int = 0):
 _WKV6_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
+def wkv6_route(r, k, v, lw, u) -> str:
+    """Which wkv6 kernel takes (r, k, v, lw, u) on the card: ``"chunked"``
+    (the chunked form on the tensor cores) for bf16 r, k, v and u with f32
+    lw, K in ``WKV6_CHUNKED_HEAD_SIZES`` and 16-byte-aligned data pointers
+    (its 16-byte copies); ``"serial"`` (one step at a time on the CUDA
+    cores) for everything else, f32 and K = 8 included.  Decided from type,
+    shape and alignment alone, the same for CPU and CUDA tensors."""
+    if (any(x.dtype != torch.bfloat16 for x in (r, k, v, u))
+            or lw.dtype != torch.float32
+            or r.shape[-1] not in WKV6_CHUNKED_HEAD_SIZES
+            or any(x.data_ptr() % 16 for x in (r, k, v, lw, u))):
+        return "serial"
+    return "chunked"
+
+
 def wkv6(r, k, v, lw, u):
     """r, k, v, lw: (B, T, H, K); u: (H, K) -> o (B, T, H, K) in r's type.
 
     The RWKV6 recurrence from a zero state, output only (the final state
     is not returned).  r, k, v and u are f32 or bf16 (one type), lw is f32
     (the model computes the decay in f32), all contiguous, K in
-    ``WKV6_HEAD_SIZES``.  CPU tensors take ``ref.wkv6_ref``; CUDA tensors
-    take the kernel in ``csrc/wkv6.cu`` on the current stream.
+    ``WKV6_HEAD_SIZES``.  The lw contract is the model's: a log decay in
+    [-3.5, -1e-6] (``models/ssm.py``'s clamp).  The chunked kernel clips lw
+    to that range, as the reference's ``wkv6_chunked`` does, so inside it
+    the clip changes nothing and outside it no input gives inf or NaN; the
+    serial kernel and the plain version take lw as it is.  CPU tensors take
+    ``ref.wkv6_ref``; CUDA tensors take the kernel variant ``wkv6_route``
+    names in ``csrc/wkv6.cu`` on the current stream.
     """
     if r.dim() != 4 or u.dim() != 2:
         raise ValueError(f"wkv6 wants (B, T, H, K) r and (H, K) u, got "
@@ -282,17 +306,39 @@ def wkv6(r, k, v, lw, u):
         raise ValueError("wkv6 wants contiguous r, k, v, lw and u")
     if not _device_route("wkv6", r, k, v, lw, u):
         return ref.wkv6_ref(r, k, v, lw, u)[0]
-    fn = _kernel_fn("wkv6", f"wkv6_{_SUFFIX[r.dtype]}", _WKV6_ARGTYPES)
+    return _wkv6_launch(r, k, v, lw, u, wkv6_route(r, k, v, lw, u))
+
+
+def _wkv6_launch(r, k, v, lw, u, variant: str):
+    """Launch one wkv6 kernel variant on CUDA inputs that ``wkv6`` has
+    checked, and count the launch.  ``"serial"`` takes any such input;
+    ``"chunked"`` only what ``wkv6_route`` gives it.  ``wkv6`` calls this
+    with ``wkv6_route``'s choice; ``chip_smoke.py`` also calls it to time
+    the serial kernel on the inputs the chunked kernel serves."""
+    if variant not in ("chunked", "serial") or (
+            variant == "chunked" and wkv6_route(r, k, v, lw, u) != variant):
+        raise ValueError(f"the {variant!r} wkv6 kernel does not take r "
+                         f"{tuple(r.shape)} {r.dtype}")
+    if not _device_route("wkv6", r, k, v, lw, u):
+        raise ValueError("_wkv6_launch launches a kernel: it takes CUDA "
+                         "tensors only")
+    b, t, h, kk = r.shape
+    fn = _kernel_fn("wkv6", f"wkv6_{variant}_{_SUFFIX[r.dtype]}",
+                    _WKV6_ARGTYPES)
     with torch.cuda.device(r.device):
         o = torch.empty_like(r)
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
                  u.data_ptr(), o.data_ptr(), b, t, h, kk,
                  torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed with CUDA error {err} "
-                           f"at r {tuple(r.shape)} {r.dtype}")
-    global wkv6_launches
+        raise RuntimeError(f"wkv6 {variant} kernel launch failed with CUDA "
+                           f"error {err} at r {tuple(r.shape)} {r.dtype}")
+    global wkv6_launches, wkv6_chunked_launches, wkv6_serial_launches
     wkv6_launches += 1
+    if variant == "chunked":
+        wkv6_chunked_launches += 1
+    else:
+        wkv6_serial_launches += 1
     return o
 
 

@@ -2,10 +2,12 @@
 
 Port of the RWKV6 part of ``repro/models/ssm.py``, on the path without a
 recurrent state (the loss forward's): the time mix's WKV recurrence goes
-through ``kernels/ops.py::routed_wkv6`` (the CUDA kernel on the card, the
+through ``kernels/ops.py::routed_wkv6`` (a CUDA kernel on the card, the
 sequential plain version on the CPU), as the reference's does with
-``use_kernels``.  Mamba2, the chunked form ``wkv6_chunked`` and the
-decode step ``wkv6_step`` are not ported.
+``use_kernels``.  ``wkv6_chunked`` is the reference's chunked form in
+plain torch: nothing on the main path calls it; it is the CPU statement of
+the algorithm that the chunked CUDA kernel (``csrc/wkv6.cu``) implements.
+Mamba2 and the decode step ``wkv6_step`` are not ported.
 """
 from __future__ import annotations
 
@@ -17,7 +19,10 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import Leaf, Params, normal, ones
 
 # Clamp on the per-step log decay (the reference's; w >= exp(-3.5)).
+# With chunk 16 and the midpoint normalisation, |exponent| <= 3.5 * 16, so
+# even the masked upper-triangle products stay finite (<= e^56) in f32.
 _LOG_DECAY_MIN = -3.5
+_RWKV_CHUNK = 16
 
 
 def rwkv6_specs(cfg: ModelConfig) -> Params:
@@ -48,6 +53,59 @@ def rwkv6_specs(cfg: ModelConfig) -> Params:
         "w_v_cm": normal(ff ** -0.5, ff, d),
         "w_r_cm": normal(sd, d, d),
     }
+
+
+def wkv6_chunked(r, k, v, lw, u, chunk: int = _RWKV_CHUNK, s0=None):
+    """Chunked-parallel WKV6 recurrence (the reference's, in torch).
+
+    r, k, v: (B, T, H, K); lw: (B, T, H, K) per-channel log decay (<= 0,
+    clipped to [_LOG_DECAY_MIN, -1e-6]); u: (H, K); s0: optional initial
+    state (B, H, K, K).  T must be a multiple of ``chunk``.  Returns
+    (o (B, T, H, K) in r's type, s_final (B, H, K, K) f32).
+
+    Per step: o_t = r_t·(S_{t-1} + diag(u) k_t v_tᵀ);
+    S_t = diag(w_t) S_{t-1} + k_t v_tᵀ.
+    """
+    b, t, h, kk = r.shape
+    if t % chunk:
+        raise ValueError(f"wkv6_chunked wants T a multiple of {chunk}, "
+                         f"got {t}")
+    nc = t // chunk
+    f32 = torch.float32
+    r_, k_, v_ = (a.to(f32).reshape(b, nc, chunk, h, kk) for a in (r, k, v))
+    lw_ = torch.clamp(lw.to(f32), _LOG_DECAY_MIN, -1e-6)
+    lw_ = lw_.reshape(b, nc, chunk, h, kk)
+
+    L = torch.cumsum(lw_, dim=2)                  # inclusive Σ log w in a chunk
+    # the midpoint normalisation keeps exp() in f32's range
+    c = L[:, :, chunk // 2:chunk // 2 + 1]
+    Lq = torch.cat([torch.zeros_like(L[:, :, :1]), L[:, :, :-1]], dim=2)
+    rt = r_ * torch.exp(Lq - c)                   # r̃
+    kt = k_ * torch.exp(c - L)                    # k̃
+
+    # within-chunk token-token term: strictly lower triangle + u-diagonal
+    m = torch.einsum("bnchk,bnshk->bnhcs", rt, kt)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=f32, device=r.device),
+                     diagonal=-1)
+    m = m * tri
+    diag = torch.einsum("bnchk,hk,bnchk->bnch", r_, u.to(f32), k_)
+    o_intra = (torch.einsum("bnhcs,bnshv->bnchv", m, v_)
+               + diag[..., None] * v_)
+
+    # chunk-state contributions and the scan over chunks:
+    #   S_end = exp(L_C)⊙S0 + Σ_τ exp(L_C - L_τ) k_τ v_τᵀ
+    decay_full = torch.exp(L[:, :, -1])           # Π w over a chunk (B,nc,H,K)
+    add = torch.einsum("bnshk,bnshv->bnhkv",
+                       k_ * torch.exp(L[:, :, -1:] - L), v_)
+    s = (torch.zeros((b, h, kk, kk), dtype=f32, device=r.device)
+         if s0 is None else s0.to(f32))
+    o_cross = []
+    for n in range(nc):
+        o_cross.append(torch.einsum("bchk,bhkv->bchv",
+                                    rt[:, n] * torch.exp(c[:, n]), s))
+        s = decay_full[:, n][..., None] * s + add[:, n]
+    o = o_intra + torch.stack(o_cross, dim=1)
+    return o.reshape(b, t, h, kk).to(r.dtype), s
 
 
 def _token_shift(x: torch.Tensor) -> torch.Tensor:
