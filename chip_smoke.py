@@ -11,10 +11,15 @@ so the script exits non-zero and prints no result line:
 2. build   nvcc builds every kernel in src/repro_torch/kernels/csrc/, one
            process per source, all started together;
 3. gram    the gram kernel against its plain version on the card, at the
-           main path's shapes, at tests/test_kernels.py's and at the
-           widest c it takes, f32 and bf16, max |err| / max |ref| ≤ 1e-5
-           for G and r; then kernel, plain version and torch.matmul times
-           at (1000, 45) f32 with CUDA events, beside the bound;
+           main path's shapes, at tests/test_kernels.py's, with fewer rows
+           than the cluster's ranks, at c = 1, at c + 1 = 256 and 257
+           (the widest c) and at m = 100,000, f32 and bf16, max |err| /
+           max |ref| ≤ 1e-5 for G and r, G exactly symmetric, the same
+           bits twice at (1000, 45) and (100000, 45); then at both of
+           those f32 shapes the kernel, the kernel as an 8-CTA cluster,
+           the plain version, torch.matmul and a launch floor (a
+           one-element add_) timed in turns from CUDA graphs and eagerly,
+           beside the bound;
 4. fig2    paper Fig. 2 at paper scale (m = 1000, 100k stars, 20
            iterations) on stripe79 and stripe86; each must reach 90 % of
            the way to the truth by iteration 5 and end within 5e-3 of the
@@ -142,7 +147,12 @@ LAUNCH_COUNTERS = ("gram_launches", "flash_attention_launches",
 
 GRAM_SHAPES = [(1000, 45), (2000, 45),                    # the main path
                (256, 45), (1024, 153), (300, 20), (512, 128),
-               (777, 256)]        # widest c: > 48 KB of dynamic shared memory
+               (1, 45), (7, 45),        # fewer rows than the cluster's ranks
+               (1000, 1),               # c = 1
+               (1000, 255), (777, 256),  # c + 1 = 256 and 257 augmented
+               (100000, 45)]            # many stages per rank
+#: the gram shapes checked for the same bits twice and timed
+GRAM_MAIN, GRAM_TALL = (1000, 45), (100000, 45)
 
 
 def check(ok: bool, what: str) -> None:
@@ -234,9 +244,20 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor):
     return err, err / float(want.float().abs().max())
 
 
+def _gram_bound(m: int, c: int):
+    """(bound ms, what bounds it, bytes, FLOP) of one f32 gram call: X and
+    y read once, G and r written once; the upper triangle and Xᵀy, FMA = 2
+    FLOP, at the f32 peak."""
+    moved = 4 * (m * c + m + c * c + c)
+    flops = 2 * m * (c * (c + 1) // 2 + c)
+    bound_ms, bound_by = _bound(moved, flops, F32_FLOPS)
+    return bound_ms, bound_by, moved, flops
+
+
 def phase_gram(dev: torch.device) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
     max_abs_err = 0.0
+    inputs = {}
     for m, c in GRAM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(m, c, generator=gen, device=dev).to(dtype)
@@ -251,38 +272,63 @@ def phase_gram(dev: torch.device) -> dict:
                 check(rel <= 1e-5, f"gram {what} at ({m}, {c}) {dtype}: "
                       f"max|err|/max|ref| = {rel:.3g} > 1e-5")
             check(torch.equal(g, g.T), f"gram G not symmetric at ({m}, {c})")
-    m, c = 1000, 45
-    x = torch.randn(m, c, generator=gen, device=dev)
-    y = torch.randn(m, generator=gen, device=dev)
-    g1, r1 = ops.gram(x, y)
-    g2, r2 = ops.gram(x, y)
-    check(torch.equal(g1, g2) and torch.equal(r1, r2),
-          "gram is not bitwise repeatable")
-    fns = {"kernel": lambda: ops.gram(x, y),
-           "plain": lambda: ref.gram_ref(x, y),
-           "matmul": lambda: (torch.matmul(x.T, x), torch.matmul(x.T, y))}
-    # in turns (plain, kernel, kernel, plain), each kept at its best
-    order = ["plain", "kernel", "matmul", "kernel", "plain", "matmul"]
+            if dtype == torch.float32 and (m, c) in (GRAM_MAIN, GRAM_TALL):
+                inputs[m, c] = x, y
+    for shape, (x, y) in inputs.items():
+        g1, r1 = ops.gram(x, y)
+        g2, r2 = ops.gram(x, y)
+        check(torch.equal(g1, g2) and torch.equal(r1, r2),
+              f"gram is not bitwise repeatable at {shape}")
+    lib = build.load("gram")
+    room = {(m, c, n): lib.gram_max_active_clusters(
+        c, n, ops.gram_stage_rows(c), ops.gram_tile(m, c, n))
+        for m, c in (GRAM_MAIN, GRAM_TALL, (777, 256)) for n in (8, 16)}
+    one = torch.zeros(1, device=dev)
     dev_ms, call_ms = {}, {}
-    for name in order:
-        dev_ms[name] = min(dev_ms.get(name, 1e9), _graph_ms(fns[name]))
-        call_ms[name] = min(call_ms.get(name, 1e9), _time_ms(fns[name]))
-    moved = 4 * (m * c + m + c * c + c)       # X, y read once; G, r written
-    flops = 2 * m * (c * (c + 1) // 2 + c)    # upper triangle + Xᵀy, FMA=2
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    out = dict(max_abs_err=max_abs_err, ms=dev_ms["kernel"],
-               plain_ms=dev_ms["plain"], library_ms=dev_ms["matmul"],
-               bound_ms=bound_ms,
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    for shape in (GRAM_MAIN, GRAM_TALL):
+        x, y = inputs[shape]
+        fns = {"kernel": lambda: ops.gram(x, y),
+               "cluster8": lambda: ops._gram_launch(x, y, 8),
+               "plain": lambda: ref.gram_ref(x, y),
+               "matmul": lambda: (torch.matmul(x.T, x), torch.matmul(x.T, y)),
+               "floor": lambda: one.add_(1.0)}
+        # in turns (plain, kernel, kernel, plain), each kept at its best
+        order = ["plain", "kernel", "cluster8", "matmul", "floor", "floor",
+                 "matmul", "cluster8", "kernel", "plain"]
+        for name in order:
+            key = (shape, name)
+            dev_ms[key] = min(dev_ms.get(key, 1e9), _graph_ms(fns[name]))
+            call_ms[key] = min(call_ms.get(key, 1e9), _time_ms(fns[name]))
+    bounds = {shape: _gram_bound(*shape) for shape in (GRAM_MAIN, GRAM_TALL)}
+    out = dict(max_abs_err=max_abs_err, ms=dev_ms[GRAM_MAIN, "kernel"],
+               plain_ms=dev_ms[GRAM_MAIN, "plain"],
+               library_ms=dev_ms[GRAM_MAIN, "matmul"],
+               bound_ms=bounds[GRAM_MAIN][0], bound_by=bounds[GRAM_MAIN][1],
+               floor_ms=dev_ms[GRAM_MAIN, "floor"],
+               call_ms=call_ms[GRAM_MAIN, "kernel"],
+               library_call_ms=call_ms[GRAM_MAIN, "matmul"],
+               ms_100k=dev_ms[GRAM_TALL, "kernel"],
+               library_ms_100k=dev_ms[GRAM_TALL, "matmul"],
+               bound_ms_100k=bounds[GRAM_TALL][0], cluster=ops.GRAM_CLUSTER)
     print(f"[gram] {len(GRAM_SHAPES) * 2} shape/dtype cases within 1e-5 "
-          f"(max abs err {max_abs_err:.3g}); at (1000, 45) f32, device ms "
-          f"per call (CUDA graph): kernel {dev_ms['kernel']:.5f}, plain "
-          f"{dev_ms['plain']:.5f}, matmul {dev_ms['matmul']:.5f}; eager "
-          f"call ms: kernel {call_ms['kernel']:.5f}, plain "
-          f"{call_ms['plain']:.5f}, matmul {call_ms['matmul']:.5f}; bound "
-          f"{bound_ms:.3g} ms ({out['bound_by']}: {moved} B, {flops} FLOP)")
+          f"(max abs err {max_abs_err:.3g}), G symmetric, the same bits "
+          f"twice at {GRAM_MAIN} and {GRAM_TALL}; clusters that fit at once "
+          f"(m, c, CTAs): {room}")
+    for shape, (b_ms, b_by, b_moved, b_flops) in bounds.items():
+        d = {name: dev_ms[shape, name] for name in
+             ("kernel", "cluster8", "plain", "matmul", "floor")}
+        e = {name: call_ms[shape, name] for name in
+             ("kernel", "cluster8", "plain", "matmul", "floor")}
+        tile = ops.gram_tile(*shape)
+        print(f"[gram] at {shape} f32, device ms per call (CUDA graph): "
+              f"kernel ({ops.GRAM_CLUSTER} CTAs, {tile} x {tile} tiles) "
+              f"{d['kernel']:.5f}, 8 CTAs "
+              f"{d['cluster8']:.5f}, plain {d['plain']:.5f}, matmul "
+              f"{d['matmul']:.5f}, launch floor (one-element add_) "
+              f"{d['floor']:.5f}; eager call ms: kernel {e['kernel']:.5f}, "
+              f"8 CTAs {e['cluster8']:.5f}, plain {e['plain']:.5f}, matmul "
+              f"{e['matmul']:.5f}, floor {e['floor']:.5f}; bound "
+              f"{b_ms:.3g} ms ({b_by}: {b_moved} B, {b_flops} FLOP)")
     return out
 
 

@@ -17,10 +17,18 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: rows of X one CTA of pass 1 stages in shared memory (csrc/gram.cu)
-GRAM_ROWS_PER_CTA = 64
 #: widest X the kernel takes (kMaxCols in csrc/gram.cu)
 GRAM_MAX_COLS = 256
+#: CTAs in the gram kernel's one thread-block cluster (1-16; above 8 is
+#: Hopper's non-portable cluster size)
+GRAM_CLUSTER = 16
+#: threads of a gram CTA, elements of [X | y] a stage holds at most, most
+#: rows per stage, most row groups (kThreads, kStageElems, kMaxGroups in
+#: csrc/gram.cu)
+GRAM_THREADS = 256
+GRAM_STAGE_ELEMS = 8192
+GRAM_MAX_STAGE_ROWS = 256
+GRAM_MAX_GROUPS = 8
 
 #: widest head the flash attention kernels take (kMaxD in
 #: csrc/flash_attention.cu)
@@ -50,16 +58,36 @@ _TYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _GRAM_DTYPES = {torch.float32: "gram_f32", torch.bfloat16: "gram_bf16"}
-_GRAM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_GRAM_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p] * 3)
+_gram_fns = {}
 
 
 def _gram_fn(dtype: torch.dtype):
-    fn = getattr(build.load("gram"), _GRAM_DTYPES[dtype])
-    fn.argtypes = _GRAM_ARGTYPES
-    fn.restype = ctypes.c_int
+    """The gram kernel's C entry point for ``dtype``, loaded and typed once."""
+    fn = _gram_fns.get(dtype)
+    if fn is None:
+        fn = _gram_fns[dtype] = _kernel_fn("gram", _GRAM_DTYPES[dtype],
+                                           _GRAM_ARGTYPES)
     return fn
+
+
+def gram_stage_rows(c: int) -> int:
+    """Rows of X the gram kernel stages at a time for c columns: as many
+    as fill a stage's ``GRAM_STAGE_ELEMS`` elements of [X | y], at most
+    ``GRAM_MAX_STAGE_ROWS``."""
+    return min(GRAM_MAX_STAGE_ROWS, GRAM_STAGE_ELEMS // (c + 1))
+
+
+def gram_tile(m: int, c: int, cluster: int = GRAM_CLUSTER) -> int:
+    """Side of the square of sums each gram thread holds: 4 where one pass
+    of 4 x 4 tiles covers the triangle and every rank's rows fit one stage
+    (the call is latency-bound: smaller tiles, more threads on the rows),
+    else 8 (the call streams rows: 8 x 8 tiles read shared memory half as
+    often per FMA)."""
+    nt = -(-(c + 1) // 4)
+    one_pass = (nt // 2 + 1) * nt <= GRAM_THREADS
+    return 4 if one_pass and m <= cluster * gram_stage_rows(c) else 8
 
 
 def gram(x: torch.Tensor, y: torch.Tensor):
@@ -67,7 +95,8 @@ def gram(x: torch.Tensor, y: torch.Tensor):
 
     x and y are f32 or bf16 (the same type), contiguous, on one device.
     CPU tensors take ``ref.gram_ref``; CUDA tensors take the kernel in
-    ``csrc/gram.cu`` (c ≤ 256) on the current stream.
+    ``csrc/gram.cu`` (c ≤ 256): one launch of one ``GRAM_CLUSTER``-CTA
+    cluster on the current stream.  G and r are views into one buffer.
     """
     if x.dim() != 2 or y.dim() != 1 or y.shape[0] != x.shape[0]:
         raise ValueError(f"gram wants x (m, c) and y (m,), got "
@@ -88,23 +117,38 @@ def gram(x: torch.Tensor, y: torch.Tensor):
     if m < 1 or c < 1 or c > GRAM_MAX_COLS:
         raise ValueError(f"the gram kernel takes 1 ≤ c ≤ {GRAM_MAX_COLS} "
                          f"and m ≥ 1, got x {tuple(x.shape)}")
+    return _gram_launch(x, y, GRAM_CLUSTER)
+
+
+def _gram_launch(x, y, cluster: int):
+    """Launch the gram kernel as one cluster of ``cluster`` CTAs on CUDA x
+    and y that ``gram`` has checked, and count the launch.  ``gram`` calls
+    this with ``GRAM_CLUSTER``; ``chip_smoke.py`` also calls it to time
+    another cluster size."""
+    global gram_launches
     fn = _gram_fn(x.dtype)
-    n_cta = -(-m // GRAM_ROWS_PER_CTA)
-    width = c * (c + 1) // 2 + c
-    with torch.cuda.device(x.device):
-        partial = torch.empty(n_cta * width, dtype=torch.float32,
-                              device=x.device)
-        g = torch.empty((c, c), dtype=torch.float32, device=x.device)
-        r = torch.empty(c, dtype=torch.float32, device=x.device)
-        err = fn(x.data_ptr(), y.data_ptr(), m, c, GRAM_ROWS_PER_CTA,
-                 partial.data_ptr(), g.data_ptr(), r.data_ptr(),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    m, c = x.shape
+    dev = x.device.index
+    if dev == torch.cuda.current_device():
+        err, out = _gram_call(fn, x, y, m, c, cluster, dev)
+    else:
+        with torch.cuda.device(dev):
+            err, out = _gram_call(fn, x, y, m, c, cluster, dev)
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed with CUDA error {err} "
                            f"at x {tuple(x.shape)} {x.dtype}")
-    global gram_launches
     gram_launches += 1
-    return g, r
+    return out[:c * c].view(c, c), out[c * c:]
+
+
+def _gram_call(fn, x, y, m, c, cluster, dev):
+    """One launch into a fresh (c² + c) buffer; the raw stream handle is
+    read without building a ``torch.cuda.Stream`` (a host cost per call)."""
+    out = torch.empty(c * c + c, dtype=torch.float32, device=x.device)
+    ptr = out.data_ptr()
+    return fn(x.data_ptr(), y.data_ptr(), m, c, cluster, gram_stage_rows(c),
+              gram_tile(m, c, cluster), ptr, ptr + 4 * c * c,
+              torch._C._cuda_getCurrentRawStream(dev)), out
 
 
 def _kernel_fn(lib: str, name: str, argtypes):

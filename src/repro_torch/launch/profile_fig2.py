@@ -55,7 +55,7 @@ def main():
           f"untraced, {rec['phase_finish_ms_mean']:.2f} traced")
     gram = [e for e in events if "gram_" in e.key]
     print(f"[profile] gram kernel: "
-          f"{sum(e.count for e in gram)} kernel runs (two per call), "
+          f"{sum(e.count for e in gram)} kernel runs (one per call), "
           f"{sum(e.self_device_time_total for e in gram) / 1e3:.3f} ms "
           f"device time")
     events.sort(key=lambda e: -e.self_device_time_total)
