@@ -13,13 +13,16 @@ so the script exits non-zero and prints no result line:
 3. gram    the gram kernel against its plain version on the card, at the
            main path's shapes, at tests/test_kernels.py's, with fewer rows
            than the cluster's ranks, at c = 1, at c + 1 = 256 and 257
-           (the widest c) and at m = 100,000, f32 and bf16, max |err| /
-           max |ref| ≤ 1e-5 for G and r, G exactly symmetric, the same
-           bits twice at (1000, 45) and (100000, 45); then at both of
-           those f32 shapes the kernel, the kernel as an 8-CTA cluster,
-           the plain version, torch.matmul and a launch floor (a
-           one-element add_) timed in turns from CUDA graphs and eagerly,
-           beside the bound;
+           and at m = 100,000, f32 and bf16, max |err| / max |ref| ≤ 1e-5
+           for G and r, G exactly symmetric, the same bits twice at
+           (1000, 45) and (100000, 45); the wide c that sweep the slot map
+           in rounds, f32: (1000, 276), (100000, 276), (2000, 1275) and
+           (300, 8500), each within 1e-5, symmetric and the same bits
+           twice; then at (1000, 45) and (100000, 45) f32 the kernel, the
+           kernel as an 8-CTA cluster, the plain version, torch.matmul
+           and a launch floor (a one-element add_) timed in turns from
+           CUDA graphs and eagerly, beside the bound; then what the
+           timing left allocated, by memory pool and stream, is freed;
 4. fig2    paper Fig. 2 at paper scale (m = 1000, 100k stars, 20
            iterations) on stripe79 and stripe86; each must reach 90 % of
            the way to the truth by iteration 5 and end within 5e-3 of the
@@ -61,7 +64,32 @@ so the script exits non-zero and prints no result line:
            best ≤ the start, and exactly one launch of the arch's kernel
            per layer per lane evaluated (for danube, every one a wgmma
            launch; for rwkv6, every one a chunked launch);
-9. the ``kernels`` JSON line, then the ``ok`` JSON line.
+           Then act 2 on both archs (2 searches each, coalesced == solo)
+           and act 3 on rwkv6 (the work server crashed at 40 % of its
+           messages and restored == uninterrupted), each launching the
+           arch's kernel once per layer per lane evaluated;
+9. rowmean the fixed-order row mean against its plain version (the same
+           bits) and the float64 mean (≤ 1e-6 relative) at (k, 100000)
+           and (k, 4096) for k = 1, 8, 16, 64, 1024, 4096 and at
+           (8, 99999); a row's mean the same bits at every position of
+           buckets of every width; device ms at (1000, 100000) beside
+           torch.mean, the plain version and the bound;
+10. fitness the paper-scale SDSS fitness (stripe79, 100k stars): 8 points
+           the same bits in buckets of 8 ... 4096 at three positions each
+           and alone;
+11. server the FGDO work server at paper scale through its command line
+           (100k stars, 4096 hosts, m = 1000, 2 iterations): an improving
+           commit, gram launched twice per regression phase finish; the
+           run with checkpoint and eval cache crashed at 40 % of the
+           messages and restored == uninterrupted, with cache hits; at
+           the smoke size (400 stars, m = 24, 192 hosts) TCP, 8 concurrent
+           clients and the 4 chaos presets (8 concurrent TCP clients each)
+           == loopback;
+12. portfolio act 1 of examples/multi_search.py at paper scale (stripe79
+           at 100k stars, 6 searches at m = 1000 / 500 on the 4096-host
+           fleet, 2 iterations): every search coalesced == solo, fewer
+           dispatches than per-search blocks;
+13. the ``kernels`` JSON line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
 
@@ -72,6 +100,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -90,8 +119,11 @@ from repro_torch.core.substrates.eval_backend import \
 from repro_torch.core.substrates.lm_loss import \
     LmLossEvalBackend  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch import anm_lm, fig2, volunteer_grid  # noqa: E402
+from repro_torch.data import sdss  # noqa: E402
+from repro_torch.launch import (anm_lm, fig2, multi_search,  # noqa: E402
+                                volunteer_grid)
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.server import sim  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -143,7 +175,8 @@ REFERENCE_FIG2 = {
 LAUNCH_COUNTERS = ("gram_launches", "flash_attention_launches",
                    "flash_attention_wgmma_launches",
                    "flash_attention_simt_launches", "wkv6_launches",
-                   "wkv6_chunked_launches", "wkv6_serial_launches")
+                   "wkv6_chunked_launches", "wkv6_serial_launches",
+                   "row_mean_launches")
 
 GRAM_SHAPES = [(1000, 45), (2000, 45),                    # the main path
                (256, 45), (1024, 153), (300, 20), (512, 128),
@@ -153,6 +186,24 @@ GRAM_SHAPES = [(1000, 45), (2000, 45),                    # the main path
                (100000, 45)]            # many stages per rank
 #: the gram shapes checked for the same bits twice and timed
 GRAM_MAIN, GRAM_TALL = (1000, 45), (100000, 45)
+#: c above 256: the kernel sweeps its slot map in rounds (f32)
+GRAM_WIDE = [(1000, 276), (100000, 276), (2000, 1275), (300, 8500)]
+
+#: row-mean checks: bucket widths, row lengths (stars, quadrature points)
+ROW_MEAN_WIDTHS = (1, 8, 16, 64, 1024, 4096)
+ROW_MEAN_LENGTHS = (100_000, 4096)
+ROW_MEAN_TIMED = (1000, 100_000)
+#: the fitness phase's bucket widths
+FITNESS_WIDTHS = tuple(2 ** i for i in range(3, 13))
+#: the server phase's command line at paper scale (iterations cut to 2)
+SERVER_FLAGS = ["--n-stars", "100000", "--n-hosts", "4096", "--m", "1000",
+                "--iterations", "2", "--snapshot-every", "5000"]
+#: the smoke-size legs that must equal loopback on the card
+SERVER_LEGS = [["--transport", "tcp"], ["--concurrent", "8"]] + [
+    ["--transport", "tcp", "--concurrent", "8", "--chaos", p]
+    for p in ("drop_dup", "reorder_delay", "reset_torn", "degraded")]
+#: the portfolio phase: searches, per-phase m of half of them, iterations
+PORTFOLIO = dict(n_searches=6, m=1000, iterations=2)
 
 
 def check(ok: bool, what: str) -> None:
@@ -279,6 +330,33 @@ def phase_gram(dev: torch.device) -> dict:
         g2, r2 = ops.gram(x, y)
         check(torch.equal(g1, g2) and torch.equal(r1, r2),
               f"gram is not bitwise repeatable at {shape}")
+    wide = []
+    for m, c in GRAM_WIDE:
+        x = torch.randn(m, c, generator=gen, device=dev)
+        y = torch.randn(m, generator=gen, device=dev)
+        ms = _events_ms(lambda: ops.gram(x, y), iters=2)
+        g, r = ops.gram(x, y)
+        g2, r2 = ops.gram(x, y)
+        g_ref, r_ref = ref.gram_ref(x, y)
+        torch.cuda.synchronize()
+        errs = []
+        for got, want, what in ((g, g_ref, "G"), (r, r_ref, "r")):
+            err, rel = _rel_err(got, want)
+            errs.append(rel)
+            max_abs_err = max(max_abs_err, err)
+            check(rel <= 1e-5, f"gram {what} at ({m}, {c}) f32: "
+                  f"max|err|/max|ref| = {rel:.3g} > 1e-5")
+        check(torch.equal(g, g.T), f"gram G not symmetric at ({m}, {c})")
+        check(torch.equal(g, g2) and torch.equal(r, r2),
+              f"gram is not bitwise repeatable at ({m}, {c})")
+        sh = ops.gram_shape(c, ops.gram_tile(m, c))
+        wide.append(f"({m}, {c}) {sh.rounds} round(s) of {sh.round} "
+                    f"slots, G/r rel err {errs[0]:.2e}/{errs[1]:.2e}, "
+                    f"{ms:.3f} ms")
+        # got holds r, a view of the (c² + c) buffer G lives in
+        del x, y, g, r, g2, r2, g_ref, r_ref, got, want
+    print(f"[gram] wide c, f32, within 1e-5, symmetric, the same bits "
+          f"twice: " + "; ".join(wide))
     lib = build.load("gram")
     room = {(m, c, n): lib.gram_max_active_clusters(
         c, n, ops.gram_stage_rows(c), ops.gram_tile(m, c, n))
@@ -329,7 +407,41 @@ def phase_gram(dev: torch.device) -> dict:
               f"8 CTAs {e['cluster8']:.5f}, plain {e['plain']:.5f}, matmul "
               f"{e['matmul']:.5f}, floor {e['floor']:.5f}; bound "
               f"{b_ms:.3g} ms ({b_by}: {b_moved} B, {b_flops} FLOP)")
+    del inputs, fns, x, y
+    _release_timing_memory("gram")
     return out
+
+
+def _live_blocks() -> dict:
+    """Bytes of live allocations by (memory pool, stream), from
+    ``torch.cuda.memory_snapshot()``: pool (0, 0) is the default one, any
+    other a CUDA graph's private pool."""
+    held = {}
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                key = (tuple(seg.get("segment_pool_id", (0, 0))),
+                       seg["stream"])
+                held[key] = held.get(key, 0) + blk["size"]
+    return held
+
+
+def _release_timing_memory(phase: str) -> None:
+    """Free what timing left allocated: graphs and their pools (collected
+    with their Python objects), and the cuBLAS workspace torch.matmul
+    allocates once for every new stream a graph was captured on.  Prints
+    what held memory before and after."""
+    gc.collect()
+    torch.cuda.synchronize()
+    before = _live_blocks()
+    torch._C._cuda_clearCublasWorkspaces()   # every stream's workspace
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = _live_blocks()
+    print(f"[{phase}] allocated after timing, bytes by (pool, stream): "
+          f"{before or 'none'}; after clearing cuBLAS workspaces and "
+          f"graph pools: {after or 'none'} "
+          f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated)")
 
 
 def phase_fig2(dev: torch.device) -> int:
@@ -681,7 +793,7 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
     out = {}
     for mode, pipelined in (("pipelined", True), ("sync", False)):
         engine, stats, wall = anm_lm.run(search, fleet, backend,
-                                         pipelined=pipelined, device=dev)
+                                         pipelined=pipelined)
         lanes = sum(kp * n for kp, n in stats.bucket_hist.items())
         out[mode] = dict(engine=engine, stats=stats, lanes=lanes)
         print(f"[lm] {arch} {mode}: {engine.iteration} iterations, best "
@@ -731,11 +843,250 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
           f"; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase "
           f"wall {time.perf_counter() - t0:.1f}s")
+    _lm_acts(dev, arch, search, fleet, backend, n_layers)
     torch.cuda.synchronize()
     del backend, wl, search, out, pipe, sync
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _row_mean_bound(k: int, n: int):
+    """(bound ms, what bounds it) of one row_mean call: the (k, n) f32
+    input read once, k f32 written; one f64 add per element at f32's
+    peak (the f64 rate is lower, and still far below the bytes)."""
+    return _bound(4 * (k * n + k), float(k * n), F32_FLOPS)
+
+
+def phase_rowmean(dev: torch.device) -> dict:
+    """The fixed-order row mean against its plain version and float64."""
+    gen = torch.Generator(device=dev).manual_seed(77)
+    max_abs_err, worst_rel, cases = 0.0, 0.0, 0
+    shapes = [(k, n) for n in ROW_MEAN_LENGTHS for k in ROW_MEAN_WIDTHS]
+    for k, n in shapes + [(8, 99_999)]:
+        x = torch.rand(k, n, generator=gen, device=dev) * 4.0 - 1.0
+        got = ops.row_mean(x)
+        plain = ref.row_mean_ref(x)
+        want = x.double().mean(dim=1)
+        scale = x.double().abs().mean(dim=1)
+        torch.cuda.synchronize()
+        err = float((got - plain).abs().max())
+        rel = float(((got.double() - want).abs() / scale).max())
+        max_abs_err, worst_rel = max(max_abs_err, err), max(worst_rel, rel)
+        check(rel <= 1e-6, f"row_mean at ({k}, {n}): {rel:.3g} of the mean "
+              f"|x| from the float64 mean, > 1e-6")
+        check(torch.equal(got, plain), f"row_mean at ({k}, {n}) is not its "
+              f"plain version's bits (max |err| {err:.3g})")
+        cases += 1
+    # a row's mean is its own: every width, every position
+    placed = 0
+    for n in ROW_MEAN_LENGTHS:
+        x = torch.randn(max(ROW_MEAN_WIDTHS), n, generator=gen, device=dev)
+        full = ops.row_mean(x)
+        for k in ROW_MEAN_WIDTHS:
+            for start in sorted({0, (len(x) - k) // 2, len(x) - k}):
+                part = ops.row_mean(x[start:start + k].contiguous())
+                check(torch.equal(part, full[start:start + k]),
+                      f"row_mean of rows {start}..{start + k} of ({len(x)}, "
+                      f"{n}) depends on the bucket")
+                placed += 1
+        del x, full
+    k, n = ROW_MEAN_TIMED
+    x = torch.randn(k, n, generator=gen, device=dev)
+    fns = {"kernel": lambda: ops.row_mean(x),
+           "plain": lambda: ref.row_mean_ref(x),
+           "mean": lambda: torch.mean(x, dim=1)}
+    dev_ms = {}
+    for name in ("plain", "kernel", "mean", "mean", "kernel", "plain"):
+        calls = 5 if name == "plain" else 50
+        dev_ms[name] = min(dev_ms.get(name, 1e9),
+                           _graph_ms(fns[name], calls=calls, replays=5))
+    bound_ms, bound_by = _row_mean_bound(k, n)
+    print(f"[rowmean] {cases} shapes: the plain version's bits, within "
+          f"{worst_rel:.2e} (≤ 1e-6) of the float64 mean relative to the "
+          f"mean |x|; {placed} sub-buckets of widths {ROW_MEAN_WIDTHS} at "
+          f"three positions each: the same bits as in the full batch")
+    print(f"[rowmean] at {ROW_MEAN_TIMED} f32, device ms per call (CUDA "
+          f"graph): kernel {dev_ms['kernel']:.5f}, torch.mean "
+          f"{dev_ms['mean']:.5f}, plain {dev_ms['plain']:.5f}; bound "
+          f"{bound_ms:.5f} ({bound_by}: {4 * (k * n + k)} B)")
+    del x, fns
+    _release_timing_memory("rowmean")
+    return dict(max_abs_err=max_abs_err, ms=dev_ms["kernel"],
+                plain_ms=dev_ms["plain"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=dev_ms["mean"],
+                max_rel_err_f64=worst_rel)
+
+
+def phase_fitness(dev: torch.device) -> None:
+    """The contract itself: a lane's fitness is its own bytes' function."""
+    f_batch, _ = sdss.make_fitness(sdss.stripe79(), dev)
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(sdss.LO, sdss.HI,
+                      (max(FITNESS_WIDTHS), 8)).astype(np.float32)
+    probe = pts[:8].copy()
+    base = f_batch(probe).cpu()
+    check(bool(torch.isfinite(base).all()), "non-finite SDSS fitness")
+    alone = torch.stack([f_batch(probe[i:i + 1]).cpu()[0] for i in range(8)])
+    check(torch.equal(alone, base), "a point's fitness alone differs from "
+          "its fitness in a bucket of 8")
+    placed = 0
+    for k in FITNESS_WIDTHS:
+        for pos in sorted({0, (k - 8) // 2, k - 8}):
+            block = pts[:k].copy()
+            block[pos:pos + 8] = probe
+            got = f_batch(block).cpu()[pos:pos + 8]
+            check(torch.equal(got, base), f"fitness at position {pos} of a "
+                  f"bucket of {k} differs from the bucket of 8 (max "
+                  f"{float((got - base).abs().max()):.3g})")
+            placed += 1
+    print(f"[fitness] stripe79 at 100k stars: 8 points the same bits alone, "
+          f"in a bucket of 8 and at {placed} positions of buckets "
+          f"{FITNESS_WIDTHS[0]}..{FITNESS_WIDTHS[-1]}; fitness "
+          f"{base.numpy().round(5).tolist()}")
+
+
+def _improving_commits(res) -> int:
+    prev, n = np.asarray(res.server.specs[0].x0), 0
+    for rec in res.server.engines[0].history:
+        n += int(not np.array_equal(rec.center, prev))
+        prev = rec.center
+    return n
+
+
+def phase_server(dev: torch.device) -> int:
+    """The FGDO work server through its command line; returns the row-mean
+    launches of the uninterrupted paper-scale run."""
+    flags = SERVER_FLAGS + ["--device", str(dev)]
+    for name in LAUNCH_COUNTERS:
+        setattr(ops, name, 0)           # this slice's path, counted from 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, res, doc = sim.run_cli(flags)
+    wall = time.perf_counter() - t0
+    counts = {name: getattr(ops, name) for name in LAUNCH_COUNTERS}
+    engine = res.server.engines[0]
+    finishes = len(engine.phase_finish_s)
+    pool = doc["pool"]
+    improving = _improving_commits(res)
+    print(f"[server] paper scale ({' '.join(SERVER_FLAGS[:8])}): "
+          f"{doc['iteration']} iterations ({improving} improving), best "
+          f"{doc['best_fitness']:.5f}, wall {wall:.1f}s (setup and warm "
+          f"included), {pool['messages']} messages "
+          f"({pool['messages'] / wall:.0f}/s), request_p99_ms "
+          f"{doc['request_p99_ms']:.3f}, {pool['evals']} evals in "
+          f"{pool['eval_batches']} batches, peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
+          f"{finishes} regression finishes, launches {counts}")
+    check(improving >= 1, "the server run committed no improving iteration")
+    check(counts["gram_launches"] == 2 * finishes > 0,
+          f"gram launched {counts['gram_launches']} times for {finishes} "
+          f"regression finishes (two fits each)")
+    check(counts["row_mean_launches"] > 0, "the server run never launched "
+          "the row_mean kernel")
+    row_mean_launches = counts["row_mean_launches"]
+
+    crash_at = int(0.4 * pool["messages"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_server_") as ckpt:
+        both = flags + ["--ckpt-dir", ckpt, "--cache"]
+        t0 = time.perf_counter()
+        try:
+            sim.run_cli(both, max_messages=crash_at)
+            check(False, "the server finished before its crash point")
+        except sim.SimulatedCrash as e:
+            crash = str(e)
+        t1 = time.perf_counter()
+        _, _, restored = sim.run_cli(both + ["--resume"])
+        t2 = time.perf_counter()
+    same = (restored["history"] == doc["history"]
+            and restored["engine_stats"] == doc["engine_stats"])
+    hits = restored["cache"]["hits"]
+    print(f"[server] {crash} (snapshots every 5000 messages, eval cache "
+          f"on) in {t1 - t0:.1f}s; restored: replayed {restored['replayed']} "
+          f"log records, re-leased {restored['pool']['resumed_leases']}, "
+          f"cache hits {hits} / misses {restored['cache']['misses']}, "
+          f"{t2 - t1:.1f}s; bit-identical to uninterrupted: {same}")
+    check(same, "the restored server run differs from the uninterrupted one")
+    check(hits > 0, "the restored run's eval cache served no hits")
+
+    _, _, loop = sim.run_cli(["--device", str(dev)])
+    legs = []
+    for extra in SERVER_LEGS:
+        t0 = time.perf_counter()
+        _, _, got = sim.run_cli(["--device", str(dev)] + extra)
+        ok = (got["history"] == loop["history"]
+              and got["engine_stats"] == loop["engine_stats"])
+        legs.append(f"{' '.join(extra)}: {ok} ({time.perf_counter() - t0:.1f}"
+                    f"s, {(got['chaos'] or {}).get('retries', 0)} retries)")
+        check(ok, f"the smoke server over {' '.join(extra)} differs from "
+              f"loopback")
+    print(f"[server] smoke size on the card (loopback best "
+          f"{loop['best_fitness']:.6f}, {loop['pool']['messages']} "
+          f"messages); equal to loopback: " + "; ".join(legs))
+    return row_mean_launches
+
+
+def phase_portfolio(dev: torch.device) -> None:
+    """Act 1 of examples/multi_search.py at paper scale."""
+    f_batch, x0 = multi_search.make_problem(100_000, 4096, device=dev)
+    backend = InProcessEvalBackend(f_batch, device=dev)
+    grid = multi_search.fleet(4096)
+    for name in LAUNCH_COUNTERS:
+        setattr(ops, name, 0)
+    res, wall_co = multi_search.coalesced(backend, grid, x0, **PORTFOLIO)
+    co = res.coalesce_stats
+    gram_co = ops.gram_launches
+    parity, wall_solo = multi_search.solo_reruns(res, backend)
+    print(f"[portfolio] {PORTFOLIO['n_searches']} searches (m = "
+          f"{PORTFOLIO['m']} / {PORTFOLIO['m'] // 2}, "
+          f"{PORTFOLIO['iterations']} iterations) on 4096 hosts, stripe79 "
+          f"at 100k stars: coalesced {wall_co:.1f}s, {res.rounds} rounds, "
+          f"{co.dispatches} dispatches for {co.lane_blocks} blocks, padded "
+          f"lanes {co.padded_lanes} vs {co.solo_padded_lanes} solo; solo "
+          f"re-runs {wall_solo:.1f}s; bit-identical: {parity}; best "
+          f"{res.best.engine.best_fitness:.5f}; gram launches (warm-up "
+          f"and coalesced) {gram_co}")
+    check(parity, "a coalesced search differs from its solo re-run")
+    check(co.dispatches < co.lane_blocks, "coalescing saved no dispatch")
+    check(all(o.engine.iteration == PORTFOLIO["iterations"]
+              for o in res.outcomes), "a portfolio search stopped early")
+
+
+def _lm_acts(dev, arch, search, fleet, backend, n_layers) -> None:
+    """Acts 2 (both archs) and 3 (rwkv6) on act 1's workload: the arch's
+    kernel once per layer per lane evaluated."""
+    counter = LM_KERNEL[arch][0]
+    acts = [("act 2", lambda: anm_lm.portfolio(search, fleet, backend, 2))]
+    if arch == "rwkv6-7b":
+        acts.append(("act 3", lambda: anm_lm.crash_restore(search, fleet,
+                                                           backend)))
+    for act, run in acts:
+        for name in LAUNCH_COUNTERS:
+            setattr(ops, name, 0)
+        lanes0 = backend.lanes_evaluated
+        t0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - t0
+        lanes = backend.lanes_evaluated - lanes0
+        launches = getattr(ops, counter)
+        if act == "act 2":
+            res, wall_co, ok, wall_solo = out
+            co = res.coalesce_stats
+            what = (f"2 searches coalesced {wall_co:.1f}s ({co.dispatches} "
+                    f"dispatches for {co.lane_blocks} blocks), solo re-runs "
+                    f"{wall_solo:.1f}s, coalesced == solo: {ok}, best "
+                    f"{res.best.engine.best_fitness:.6f}")
+        else:
+            base, restored, crash, ok = out
+            what = (f"uninterrupted {base['pool']['messages']} messages, "
+                    f"{crash}, restored after replaying "
+                    f"{restored['replayed']} records, bit-identical: {ok}, "
+                    f"best {restored['best_fitness']:.6f}")
+        print(f"[lm] {arch} {act}: {what}; wall {wall:.1f}s, {lanes} lanes, "
+              f"{counter} {launches}")
+        check(ok, f"{arch} {act}: the bit-identity gate failed")
+        check(launches == lanes * n_layers > 0, f"{arch} {act}: {launches} "
+              f"kernel launches for {lanes} lanes x {n_layers} layers")
 
 
 def main() -> None:
@@ -753,8 +1104,12 @@ def main() -> None:
     timed("card", phase_card, dev)
     timed("build", phase_build)
     gram = timed("gram", phase_gram, dev)
+    row_mean = timed("rowmean", phase_rowmean, dev)
+    timed("fitness", phase_fitness, dev)
     launches = timed("fig2", phase_fig2, dev)   # the main path, from 0
     timed("grid", phase_grid, dev)
+    row_mean_launches = timed("server", phase_server, dev)
+    timed("portfolio", phase_portfolio, dev)
     flash = timed("flash", phase_flash, dev)
     wkv6 = timed("wkv6", phase_wkv6, dev)
     flash_launches = timed("lm danube", phase_lm, dev, "h2o-danube-3-4b",
@@ -773,7 +1128,12 @@ def main() -> None:
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6.py:50",
-         "launches": wkv6_launches, **wkv6}]}))
+         "launches": wkv6_launches, **wkv6},
+        {"name": "row_mean", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/row_mean.cu",
+         "replaces": "src/repro/data/sdss.py:79 (jnp.mean, :79, :80, :85; "
+                     "no TPU kernel: port-only)",
+         "launches": row_mean_launches, **row_mean}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

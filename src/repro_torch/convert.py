@@ -11,10 +11,18 @@ object's code, so the port imports nothing of the reference:
   numpy rng state), so a reference search can be resumed in the port;
 * ``lm_workload_from_reference`` — the port's ``LmWorkload`` from a
   reference workload's arrays (θ0 leaves by path, the flat basis, the
-  batch) and fields: the function that carries weights across.
+  batch) and fields: the function that carries weights across;
+* ``search_spec_from_reference`` — the port's ``SearchSpec`` from a
+  reference one's fields, so both packages run the same search.
+
+A reference work server's checkpoint directory (snapshot and
+``replay.jsonl``) needs no conversion: the port's ``server/checkpoint.py``
+reads the same files, and the engine state inside is the reference's,
+key for key.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
@@ -22,6 +30,8 @@ import torch
 
 from repro_torch.configs import config_from_dict
 from repro_torch.core.engine import AnmConfig, AnmEngine
+from repro_torch.core.grid import GridConfig
+from repro_torch.core.orchestrator.director import SearchSpec
 from repro_torch.core.subspace import SubspaceProjection
 from repro_torch.core.substrates.lm_loss import LmWorkload, batch_tensors
 from repro_torch.models import transformer as T
@@ -75,3 +85,18 @@ def lm_workload_from_reference(*, arch: str, cfg: dict,
                       batch=batch_tensors(batch, device),
                       proj=SubspaceProjection.from_basis(params, basis_t),
                       k=k, coeff_bound=coeff_bound, seed=seed)
+
+
+def search_spec_from_reference(spec, device="cuda") -> SearchSpec:
+    """The port's ``SearchSpec`` with a reference spec's fields: its
+    arrays, seeds and quorum, its ``AnmConfig`` and ``GridConfig`` field
+    by field, the engine on ``device``."""
+    return SearchSpec(
+        name=spec.name, x0=np.asarray(spec.x0, np.float64),
+        lo=np.asarray(spec.lo, np.float64),
+        hi=np.asarray(spec.hi, np.float64),
+        step=np.asarray(spec.step, np.float64),
+        anm=AnmConfig(**dataclasses.asdict(spec.anm)),
+        grid=GridConfig(**dataclasses.asdict(spec.grid)),
+        engine_seed=int(spec.engine_seed),
+        validation_quorum=int(spec.validation_quorum), device=str(device))

@@ -31,8 +31,13 @@ in completion-time order, so stale filtering and quorum validation behave
 exactly as on the per-event grid (DESIGN.md §3).
 
 The run loop is RESUMABLE (DESIGN.md §8): ``run()`` is ``start()`` + a
-``step()``-per-tick loop + ``finish()``, so an external driver can step a
-search tick by tick.
+``step()``-per-tick loop + ``finish()``, so an external driver — the
+multi-search orchestrator — can interleave single ticks from several
+concurrent searches over one shared backend.  WHERE a tick's bucket is
+dispatched is a second seam, the ``submitter`` (default: the backend
+itself): the orchestrator passes a per-search façade that coalesces
+blocks from every live search into one shared tagged bucket per
+scheduling round.
 """
 from __future__ import annotations
 
@@ -81,7 +86,8 @@ class _PendingTick(NamedTuple):
 class _RunState:
     """Everything one in-progress ``run`` owns: fleet arrays, simulated
     clock, and the in-flight pipeline.  Kept separate from the grid object
-    so a run is an explicit ``start``/``step``/``finish`` lifecycle."""
+    so a run is an explicit ``start``/``step``/``finish`` lifecycle the
+    orchestrator can drive tick-by-tick."""
     engine: AnmEngine
     max_ticks: int
     max_sim_time: float
@@ -104,7 +110,7 @@ class _RunState:
         default_factory=collections.deque)
     spec_wanted: int = 0
     # host wall-clock accumulated inside start/step/finish calls only, so
-    # a driver's own work between steps is not charged here
+    # interleaved multi-search runs don't charge each other's ticks here
     wall_s: float = 0.0
     blocked0: float = 0.0             # device_blocked_s at start()
 
@@ -138,12 +144,16 @@ class BatchedVolunteerGrid:
                  tick_batch: Optional[int] = None, overcommit: float = 2.0,
                  backend: Optional[EvalBackend] = None,
                  pipelined: bool = True, pipeline_depth: int = 4,
-                 device="cuda"):
+                 submitter=None, device="cuda"):
         if backend is None:
             if f_batch is None:
                 raise ValueError("need f_batch or an explicit backend")
             backend = InProcessEvalBackend(f_batch, device=device)
         self.backend = backend
+        # WHERE a tick's block is dispatched: anything with the backend's
+        # submit/collect shape.  The orchestrator passes a per-search
+        # coalescing façade here (DESIGN.md §8); alone, the backend itself.
+        self.submitter = backend if submitter is None else submitter
         self.cfg = cfg
         self.speeds, self.malicious, self.rng = sample_hosts(cfg)
         self.tick_batch = tick_batch or max(1, cfg.n_hosts // 16)
@@ -224,7 +234,7 @@ class BatchedVolunteerGrid:
         ys = np.full(p.d_phase.size, np.nan)
         if p.handle is not None:
             t0 = time.perf_counter()
-            ys_live = self.backend.collect(p.handle)
+            ys_live = self.submitter.collect(p.handle)
             self.stats.device_blocked_s += time.perf_counter() - t0
             ys[p.live_mask] = ys_live
             # bucket widths are recorded at collect time: a coalesced
@@ -370,7 +380,7 @@ class BatchedVolunteerGrid:
                 if mal.any():
                     mal_u[mal] = rng.uniform(0.2, 0.8, int(mal.sum()))
                     self.stats.corrupted += int(mal.sum())
-                handle = self.backend.submit(rs.a_point[live], mal_u)
+                handle = self.submitter.submit(rs.a_point[live], mal_u)
                 self.stats.batch_calls += 1
             tick = _PendingTick(handle, rs.req_phase[delivered],
                                 rs.a_ticket[delivered],

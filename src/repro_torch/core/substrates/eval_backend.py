@@ -74,7 +74,15 @@ class EvalHandle(NamedTuple):
     owns until collected, and ``seq`` the submission's ownership token for
     that slot (a stale or double ``collect`` must not free a slot now
     owned by a newer submission).  ``event`` is the CUDA event recorded
-    after the copy back, ``None`` on the CPU.
+    after the copy back, ``None`` on the CPU.  ``tags`` is the per-lane
+    submitter-id array shipped with a coalesced multi-search bucket
+    (DESIGN.md §8): host-side framing metadata saying which search owns
+    each lane, never read by the device computation and not the demux
+    mechanism either (consumers slice by lane offsets).  ``None`` for
+    single-submitter buckets.  ``kept`` holds the values once collected:
+    the slot is free from then on and a newer bucket may overwrite ``ys``,
+    so a second collect (the orchestrator's ring guard drains a handle
+    early, its grid collects it again later) reads them from here.
     """
     ys: Any
     k: int
@@ -82,6 +90,8 @@ class EvalHandle(NamedTuple):
     slot: int
     seq: int
     event: Any = None
+    tags: Any = None
+    kept: Optional[list] = None
 
 
 class _Slot(NamedTuple):
@@ -120,6 +130,9 @@ class EvalBackend:
         self._slot_owner: dict = {}      # kp -> per-slot owning seq (or None)
         self._submit_seq = 0             # ownership tokens for ring slots
         self._ran: set = set()           # (n_dims, kp) already run once
+        #: lanes evaluated, pad lanes and the warm-up included (each one
+        #: ``_raw_eval`` row): what a kernel count per lane is held to
+        self.lanes_evaluated = 0
         #: number of bucket shapes first run — a warmed backend must not
         #: grow this mid-run (the zero-compile probe in the tests)
         self.compile_count = 0
@@ -148,6 +161,7 @@ class EvalBackend:
         if key not in self._ran:
             self._ran.add(key)
             self.compile_count += 1
+        self.lanes_evaluated += key[1]
         if not self._cuda:
             slot.out.copy_(self._finalize(slot.pts, slot.u, k))
             return None
@@ -213,11 +227,15 @@ class EvalBackend:
     # -- the async protocol --------------------------------------------------
 
     def submit(self, pts: np.ndarray,
-               mal_u: Optional[np.ndarray] = None) -> EvalHandle:
+               mal_u: Optional[np.ndarray] = None,
+               lane_tags: Optional[np.ndarray] = None) -> EvalHandle:
         """Frame a (k, n) block into its bucket and start the evaluation.
         ``mal_u``: per-lane malicious draw in [0.2, 0.8], NaN for honest
-        lanes (None == all honest).  Returns at once; pass the handle to
-        ``collect`` for the values."""
+        lanes (None == all honest).  ``lane_tags``: optional (k,) per-lane
+        submitter ids for coalesced multi-search buckets, carried on the
+        handle (the device computation never sees them: lanes are
+        row-independent, which is why coalescing is safe).  Returns at
+        once; pass the handle to ``collect`` for the values."""
         k, n = pts.shape
         kp = bucket_size(k, self.min_bucket)
         i = self._staging(kp, n)
@@ -230,19 +248,26 @@ class EvalBackend:
             slot.pts_np[k:] = slot.pts_np[k - 1]
             slot.u_np[k:] = np.nan
         event = self._run_bucket(slot, k)
-        return EvalHandle(slot.out, k, kp, i, self._submit_seq, event)
+        return EvalHandle(slot.out, k, kp, i, self._submit_seq, event,
+                          None if lane_tags is None
+                          else np.asarray(lane_tags), [])
 
     def collect(self, handle: EvalHandle) -> np.ndarray:
         """Wait for a submitted bucket, free its staging slot, and strip the
         pad lanes.  The slot is freed only if this handle still OWNS it — a
         double collect, or one stale across a ring reallocation, must not
-        clear the flag guarding a newer in-flight submission."""
+        clear the flag guarding a newer in-flight submission, nor read the
+        values that submission wrote into the freed slot."""
+        if handle.kept:
+            return handle.kept[0].copy()
         if handle.event is not None:
             handle.event.synchronize()
         ys = handle.ys.numpy()[:handle.k].astype(np.float64)
         owners = self._slot_owner.get(handle.kp)
         if owners is not None and owners[handle.slot] == handle.seq:
             owners[handle.slot] = None
+        if handle.kept is not None:
+            handle.kept.append(ys.copy())
         return ys
 
     def __call__(self, pts: np.ndarray,

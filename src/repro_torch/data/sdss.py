@@ -9,7 +9,12 @@ batch dimension written out where the reference ``vmap``s:
     pdf = (1-w)·bg(x; q)/Z_bg + w·stream(x; c, axis, sigma)/Z_stream
 
 Normalization constants are Monte-Carlo quadratures over the survey wedge
-with a quadrature set fixed per dataset.  Memory: a batch of k rows over
+with a quadrature set fixed per dataset.  The three means over stars and
+quadrature points are ``kernels/ops.py::row_mean``, which sums each row in
+one fixed order: with every other step elementwise, a row's fitness is a
+function of its own parameters alone, whatever the batch around it (the
+reference's coalesced == solo and restored == uninterrupted contracts).
+Memory: a batch of k rows over
 N stars holds a few (k, N) f32 intermediates at once (k = 2048, N = 100k:
 about 0.8 GB each).
 """
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch.kernels import ops
 
 N_PARAMS = 8
 # search-space bounds (paper: user-specified b_min/b_max)
@@ -75,14 +81,14 @@ def log_likelihood(params: torch.Tensor, stars: torch.Tensor,
     axis = _axis(theta, phi)
     vol = float(np.prod(WEDGE_HI - WEDGE_LO))
 
-    z_bg = torch.mean(_bg_density(quad, q), dim=1) * vol
-    z_st = torch.mean(_stream_density(quad, center, axis, sigma), dim=1) * vol
+    z_bg = ops.row_mean(_bg_density(quad, q)) * vol
+    z_st = ops.row_mean(_stream_density(quad, center, axis, sigma)) * vol
 
     p_bg = _bg_density(stars, q) / torch.clamp_min(z_bg, 1e-12)[:, None]
     p_st = (_stream_density(stars, center, axis, sigma)
             / torch.clamp_min(z_st, 1e-12)[:, None])
     pdf = (1.0 - w)[:, None] * p_bg + w[:, None] * p_st
-    return -torch.mean(torch.log(torch.clamp_min(pdf, 1e-30)), dim=1)
+    return -ops.row_mean(torch.log(torch.clamp_min(pdf, 1e-30)))
 
 
 def make_stripe(name: str, n_stars: int = 100_000, n_quad: int = 4096,

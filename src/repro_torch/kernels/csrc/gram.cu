@@ -33,7 +33,7 @@
 //           threads, the rows are walked once per 256 slots (`passes`).
 //   rows    rank q of the cluster takes m / n rows, one more for the first
 //           m % n ranks.  It stages them in shared memory `stage_rows`
-//           rows at a time, two stages deep: f32 by cp.async, in flight
+//           rows at a time (one row where c + 1 exceeds kStageElems), two stages deep: f32 by cp.async, in flight
 //           while the previous stage is summed; bf16 widened to f32 on the
 //           way.  Where all of a rank's rows fit one stage they are staged
 //           once for every pass.  A rank with no rows contributes zeros.
@@ -46,7 +46,10 @@
 //           adds its slots' sums over ranks 0, 1, ..., n - 1 in that order
 //           and writes them into G and r.  A cluster barrier, arrived at
 //           once each rank has set its mbarrier and waited on before the
-//           first remote store, makes sure every rank is there to receive.
+//           first remote store, makes sure every rank is there to receive;
+//           after each round a rank re-arms its mbarrier for the next one
+//           once it has read `recv`, and arrives at the cluster barrier
+//           again, waited on before the next round's first remote store.
 // No scratch memory in HBM and no atomics: the same inputs and arguments
 // give the same bits on every run, which the port's sync == pipelined and
 // restored == uninterrupted contracts need.  The wrapper (kernels/ops.py)
@@ -66,8 +69,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxCols = 256;
 constexpr int kStageElems = 8192;    // most elements of [X | y] in a stage
+// dynamic shared memory a block of sm_90 may opt in to (227 KB); the
+// rounds are sized to it
+constexpr int kSmemBytes = 232448;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxGroups = 8;
 constexpr int kMaxDevices = 64;
@@ -114,12 +119,16 @@ struct Shape {
   int slots;     // (nt / 2 + 1) * nt folded tile slots
   int stride;    // threads per group: slots rounded up to a warp
   int groups;    // copies of the slot map over interleaved rows
-  int passes;    // walks over the rows, one slot per thread each
-  int owned;     // most slots a rank owns: ceil(slots / n)
+  int passes;    // walks over the rows, one slot per thread each, in one
+                 // round over all slots
+  int owned;     // most slots a rank owns in a round (0: none fits)
+  int round;     // slots per round: owned * n
+  int rounds;    // rounds over the slots
 };
 
 template <int kTile>
-__host__ __device__ __forceinline__ Shape make_shape(int c, int n) {
+__host__ __device__ __forceinline__ Shape make_shape(int c, int n,
+                                                     int stage_rows) {
   Shape s;
   s.cols = c + 1;
   s.pitch = (s.cols + kTile - 1) / kTile * kTile;
@@ -129,7 +138,17 @@ __host__ __device__ __forceinline__ Shape make_shape(int c, int n) {
   const int fit = kThreads / s.stride;
   s.groups = fit < 1 ? 1 : (fit > kMaxGroups ? kMaxGroups : fit);
   s.passes = (s.slots + kThreads - 1) / kThreads;
-  s.owned = (s.slots + n - 1) / n;
+  // shared memory (in floats) left for recv beside the barrier, the two
+  // stages and, with more than one group, every group's sums
+  const long long part =
+      s.groups > 1 ? static_cast<long long>(s.groups) * s.slots : 0;
+  const long long room = (kSmemBytes - 16) / 4 -
+                         2LL * stage_rows * s.pitch - part * kTile * kTile;
+  const long long fit_owned = room > 0 ? room / (n * kTile * kTile) : 0;
+  const int all = (s.slots + n - 1) / n;
+  s.owned = all <= fit_owned ? all : static_cast<int>(fit_owned);
+  s.round = s.owned * n;
+  s.rounds = s.owned > 0 ? (s.slots + s.round - 1) / s.round : 0;
   return s;
 }
 
@@ -151,6 +170,20 @@ __host__ __device__ __forceinline__ bool slot_tile(int s, int nt, int* bi,
 // Slots below b that rank q of n owns (those s with s mod n == q).
 __device__ __forceinline__ int owned_below(int b, int q, int n) {
   return b > q ? (b - q + n - 1) / n : 0;
+}
+
+// Bytes rank q of n waits for in the round of slots [first, last): its
+// slots there that exist, each summed by every rank.
+__device__ __forceinline__ int round_bytes(int first, int last, int q, int n,
+                                           const Shape& sh, int sums) {
+  int owned = owned_below(last, q, n) - owned_below(first, q, n);
+  if (sh.nt % 2 == 0) {
+    const int half = sh.nt / 2;
+    const int lo = max(first, half * sh.nt);
+    const int hi = min(last, half * sh.nt + half);
+    if (hi > lo) owned -= owned_below(hi, q, n) - owned_below(lo, q, n);
+  }
+  return n * owned * sums * 4;
 }
 
 // Whether folded slot s is a tile: below `slots` and not in the empty half
@@ -183,13 +216,14 @@ gram_cluster_kernel(const T* __restrict__ x, const T* __restrict__ y, int m,
   cg::cluster_group cluster = cg::this_cluster();
   const int n_rank = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const Shape sh = make_shape<kTile>(c, n_rank);
-  const int tid = threadIdx.x;
   const int rows_max = stage_rows;
+  const Shape sh = make_shape<kTile>(c, n_rank, rows_max);
+  const int tid = threadIdx.x;
   constexpr int kSums = kTile * kTile;
   // recv[(q * owned + l) * kSums + e]: rank q's sum e of this rank's l-th
-  // slot (slot rank + l * n); part: every group's sums of every slot, where
-  // there is more than one group
+  // slot of the round (slot rank + (rd * owned + l) * n); part: every
+  // group's sums of every slot, where there is more than one group (then
+  // there is one round)
   float* recv = smem + 2 * rows_max * sh.pitch;
   float* part = recv + n_rank * sh.owned * kSums;
 
@@ -197,6 +231,11 @@ gram_cluster_kernel(const T* __restrict__ x, const T* __restrict__ y, int m,
   rank_rows(m, rank, n_rank, &row_lo, &n_rows);
   const int n_stages = (n_rows + rows_max - 1) / rows_max;
   const bool resident = n_stages <= 1;      // staged once for every pass
+  // (round, pass, stage) in order: every round's passes over the stages
+  const int last_round = sh.slots - (sh.rounds - 1) * sh.round;
+  const int n_seq = ((sh.rounds - 1) * ((sh.round + kThreads - 1) / kThreads) +
+                     (last_round + kThreads - 1) / kThreads) *
+                    n_stages;
 
   // Stage st of this rank's rows into buf: X's rows of a stage are
   // contiguous, so element f = k * c + j goes to buf[k * pitch + j], with
@@ -231,14 +270,10 @@ gram_cluster_kernel(const T* __restrict__ x, const T* __restrict__ y, int m,
   const uint32_t arrived_at =
       static_cast<uint32_t>(__cvta_generic_to_shared(arrived));
   if (tid == 0) {
-    // this rank's slots, less those of the empty half row (even nt)
-    int owned = owned_below(sh.slots, rank, n_rank);
-    if (sh.nt % 2 == 0) {
-      const int half = sh.nt / 2;
-      owned -= owned_below(half * sh.nt + half, rank, n_rank) -
-               owned_below(half * sh.nt, rank, n_rank);
-    }
-    const int bytes = n_rank * owned * kSums * 4;
+    // this rank's slots of the first round, less those of the empty half
+    // row (even nt)
+    const int bytes = round_bytes(0, min(sh.slots, sh.round), rank, n_rank,
+                                  sh, kSums);
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(arrived_at)
                  : "memory");
     asm volatile(
@@ -257,169 +292,193 @@ gram_cluster_kernel(const T* __restrict__ x, const T* __restrict__ y, int m,
     for (int j = sh.cols; j < sh.pitch; ++j) smem[k * sh.pitch + j] = 0.0f;
   }
 
-  const int n_seq = sh.passes * n_stages;   // (pass, stage) in order
-  for (int pass = 0; pass < sh.passes; ++pass) {
-    int group, slot;
-    if (sh.passes == 1) {
-      group = tid / sh.stride;
-      slot = tid - group * sh.stride;
-    } else {
-      group = 0;
-      slot = pass * kThreads + tid;
-    }
-    int bi = 0, bj = 0;
-    const bool mine = group < sh.groups && slot < sh.slots &&
-                      slot_tile(slot, sh.nt, &bi, &bj);
-    float acc[kSums];
-#pragma unroll
-    for (int e = 0; e < kSums; ++e) acc[e] = 0.0f;
-
-    for (int st = 0; st < n_stages; ++st) {
-      const int seq = pass * n_stages + st;
-      const float* buf =
-          smem + (resident ? 0 : (seq & 1) * rows_max * sh.pitch);
-      const int rows = min(rows_max, n_rows - st * rows_max);
-      if (!resident || pass == 0) {
-        asm volatile("cp.async.wait_all;" ::: "memory");
-        __syncthreads();
-        if (!resident && seq + 1 < n_seq) {  // in flight while this one sums
-          stage((seq + 1) % n_stages,
-                smem + ((seq + 1) & 1) * rows_max * sh.pitch);
-        }
+  int seq = 0;
+  for (int rd = 0; rd < sh.rounds; ++rd) {
+    // this round's slots [first, last), over passes of kThreads slots
+    const int first = rd * sh.round;
+    const int last = min(sh.slots, first + sh.round);
+    const int passes = (last - first + kThreads - 1) / kThreads;
+    for (int pass = 0; pass < passes; ++pass) {
+      int group, slot;
+      if (sh.groups > 1) {                  // one round of one pass
+        group = tid / sh.stride;
+        slot = tid - group * sh.stride;
+      } else {
+        group = 0;
+        slot = first + pass * kThreads + tid;
       }
-      if (!mine) continue;
-      const float* pi = buf + kTile * bi;
-      const float* pj = buf + kTile * bj;
+      int bi = 0, bj = 0;
+      const bool mine = group < sh.groups && slot < last &&
+                        slot_tile(slot, sh.nt, &bi, &bj);
+      float acc[kSums];
+#pragma unroll
+      for (int e = 0; e < kSums; ++e) acc[e] = 0.0f;
+
+      for (int st = 0; st < n_stages; ++st, ++seq) {
+        const float* buf =
+            smem + (resident ? 0 : (seq & 1) * rows_max * sh.pitch);
+        const int rows = min(rows_max, n_rows - st * rows_max);
+        if (!resident || seq == 0) {
+          asm volatile("cp.async.wait_all;" ::: "memory");
+          __syncthreads();
+          if (!resident && seq + 1 < n_seq) {  // in flight while this sums
+            stage((seq + 1) % n_stages,
+                  smem + ((seq + 1) & 1) * rows_max * sh.pitch);
+          }
+        }
+        if (!mine) continue;
+        const float* pi = buf + kTile * bi;
+        const float* pj = buf + kTile * bj;
 #pragma unroll(kTile == 4 ? 4 : 2)
-      for (int k = group; k < rows; k += sh.groups) {
-        float av[kTile], bv[kTile];
+        for (int k = group; k < rows; k += sh.groups) {
+          float av[kTile], bv[kTile];
 #pragma unroll
-        for (int h = 0; h < kTile; h += 4) {
-          const float4 a =
-              *reinterpret_cast<const float4*>(pi + k * sh.pitch + h);
-          const float4 b =
-              *reinterpret_cast<const float4*>(pj + k * sh.pitch + h);
-          av[h] = a.x;
-          av[h + 1] = a.y;
-          av[h + 2] = a.z;
-          av[h + 3] = a.w;
-          bv[h] = b.x;
-          bv[h + 1] = b.y;
-          bv[h + 2] = b.z;
-          bv[h + 3] = b.w;
+          for (int h = 0; h < kTile; h += 4) {
+            const float4 a =
+                *reinterpret_cast<const float4*>(pi + k * sh.pitch + h);
+            const float4 b =
+                *reinterpret_cast<const float4*>(pj + k * sh.pitch + h);
+            av[h] = a.x;
+            av[h + 1] = a.y;
+            av[h + 2] = a.z;
+            av[h + 3] = a.w;
+            bv[h] = b.x;
+            bv[h + 1] = b.y;
+            bv[h + 2] = b.z;
+            bv[h + 3] = b.w;
+          }
+#pragma unroll
+          for (int u = 0; u < kTile; ++u) {
+#pragma unroll
+            for (int v = 0; v < kTile; ++v) {
+              acc[u * kTile + v] = fmaf(av[u], bv[v], acc[u * kTile + v]);
+            }
+          }
         }
+      }
+
+      if (pass == 0) {
+        asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+      }
+      if (sh.groups == 1) {
+        // One group: this thread's sums go to the slot's owner as they are.
+        if (mine) {
+          const uint32_t to = remote(
+              recv + (rank * sh.owned + slot / n_rank - rd * sh.owned) * kSums,
+              slot % n_rank);
+          const uint32_t bar = remote(arrived, slot % n_rank);
 #pragma unroll
-        for (int u = 0; u < kTile; ++u) {
+          for (int e = 0; e < kSums; e += 4) {
+            store_async(to + 4 * e, acc[e], acc[e + 1], acc[e + 2],
+                        acc[e + 3], bar);
+          }
+        }
+      } else {
+        // Groups: summed here in order, then each sum to its slot's owner.
+        // part as float4s [(group * kQuads + e / 4) * slots + slot]: the
+        // lanes of a warp store and load neighbouring float4s, free of bank
+        // conflicts
+        constexpr int kQuads = kSums / 4;   // float4s of a slot's sums
+        float4* part4 = reinterpret_cast<float4*>(part);
+        if (mine) {
 #pragma unroll
-          for (int v = 0; v < kTile; ++v) {
-            acc[u * kTile + v] = fmaf(av[u], bv[v], acc[u * kTile + v]);
+          for (int e = 0; e < kSums; e += 4) {
+            part4[(group * kQuads + e / 4) * sh.slots + slot] =
+                make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+          }
+        }
+        __syncthreads();
+        // Owner-major: thread tid pushes to rank tid % n, so the remote
+        // addresses are mapped once and no item needs a division.
+        const int per_owner = kThreads / n_rank;
+        const int owner = tid % n_rank;
+        const int item0 = tid / n_rank;
+        if (item0 < per_owner) {
+          const uint32_t to = remote(recv + rank * sh.owned * kSums, owner);
+          const uint32_t bar = remote(arrived, owner);
+          for (int i = item0; i < sh.owned * kQuads; i += per_owner) {
+            const int l = i / kQuads;
+            const int e4 = i - l * kQuads;
+            const int s = owner + l * n_rank;
+            if (!slot_exists(s, sh)) continue;
+            float4 v[kMaxGroups];
+#pragma unroll
+            for (int g = 0; g < kMaxGroups; ++g) {
+              if (g < sh.groups) {
+                v[g] = part4[(g * kQuads + e4) * sh.slots + s];
+              }
+            }
+            float4 sum = v[0];
+#pragma unroll
+            for (int g = 1; g < kMaxGroups; ++g) {
+              if (g < sh.groups) {
+                sum.x += v[g].x;
+                sum.y += v[g].y;
+                sum.z += v[g].z;
+                sum.w += v[g].w;
+              }
+            }
+            store_async(to + 4 * (l * kSums + 4 * e4), sum.x, sum.y, sum.z,
+                        sum.w, bar);
           }
         }
       }
     }
-
-    if (pass == 0) {
-      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    // Every rank's sums of this rank's slots of the round have arrived.
+    const uint32_t parity = static_cast<uint32_t>(rd & 1);
+    for (uint32_t done = 0; !done;) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}"
+          : "=r"(done)
+          : "r"(arrived_at), "r"(parity)
+          : "memory");
     }
-    if (sh.groups == 1) {
-      // One group: this thread's sums go to the slot's owner as they are.
-      if (mine) {
-        const uint32_t to = remote(
-            recv + (rank * sh.owned + slot / n_rank) * kSums, slot % n_rank);
-        const uint32_t bar = remote(arrived, slot % n_rank);
+
+    // This rank's slots: each sum over ranks 0, 1, ..., n - 1 in order.
+    for (int t = tid; t < sh.owned * kSums; t += kThreads) {
+      const int l = t / kSums;
+      const int e = t - l * kSums;
+      const int slot = rank + (rd * sh.owned + l) * n_rank;
+      int bi, bj;
+      if (slot >= last || !slot_tile(slot, sh.nt, &bi, &bj)) continue;
+      const int i = kTile * bi + e / kTile;
+      const int j = kTile * bj + e % kTile;
+      if (i > j || j > c || i >= c) continue;
+      float v[kMaxCluster];
 #pragma unroll
-        for (int e = 0; e < kSums; e += 4) {
-          store_async(to + 4 * e, acc[e], acc[e + 1], acc[e + 2], acc[e + 3],
-                      bar);
-        }
+      for (int q = 0; q < kMaxCluster; ++q) {
+        if (q < n_rank) v[q] = recv[(q * sh.owned + l) * kSums + e];
       }
-    } else {
-      // Groups: summed here in order, then each sum to its slot's owner.
-      // part as float4s [(group * kQuads + e / 4) * slots + slot]: the
-      // lanes of a warp store and load neighbouring float4s, free of bank
-      // conflicts
-      constexpr int kQuads = kSums / 4;     // float4s of a slot's sums
-      float4* part4 = reinterpret_cast<float4*>(part);
-      if (mine) {
+      float sum = v[0];
 #pragma unroll
-        for (int e = 0; e < kSums; e += 4) {
-          part4[(group * kQuads + e / 4) * sh.slots + slot] =
-              make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
-        }
+      for (int q = 1; q < kMaxCluster; ++q) {
+        if (q < n_rank) sum += v[q];
       }
+      if (j < c) {
+        g_out[static_cast<size_t>(i) * c + j] = sum;
+        g_out[static_cast<size_t>(j) * c + i] = sum;
+      } else {
+        r_out[i] = sum;
+      }
+    }
+
+    if (rd + 1 < sh.rounds) {
+      // recv is read: re-arm the barrier for the next round's bytes, then
+      // tell the cluster (waited on before the next round's first push).
       __syncthreads();
-      // Owner-major: thread tid pushes to rank tid % n, so the remote
-      // addresses are mapped once and no item needs a division.
-      const int per_owner = kThreads / n_rank;
-      const int owner = tid % n_rank;
-      const int first = tid / n_rank;
-      if (first < per_owner) {
-        const uint32_t to = remote(recv + rank * sh.owned * kSums, owner);
-        const uint32_t bar = remote(arrived, owner);
-        for (int i = first; i < sh.owned * kQuads; i += per_owner) {
-          const int l = i / kQuads;
-          const int e4 = i - l * kQuads;
-          const int s = owner + l * n_rank;
-          if (!slot_exists(s, sh)) continue;
-          float4 v[kMaxGroups];
-#pragma unroll
-          for (int g = 0; g < kMaxGroups; ++g) {
-            if (g < sh.groups) {
-              v[g] = part4[(g * kQuads + e4) * sh.slots + s];
-            }
-          }
-          float4 sum = v[0];
-#pragma unroll
-          for (int g = 1; g < kMaxGroups; ++g) {
-            if (g < sh.groups) {
-              sum.x += v[g].x;
-              sum.y += v[g].y;
-              sum.z += v[g].z;
-              sum.w += v[g].w;
-            }
-          }
-          store_async(to + 4 * (l * kSums + 4 * e4), sum.x, sum.y, sum.z,
-                      sum.w, bar);
-        }
+      if (tid == 0) {
+        const int next = last + sh.round;
+        const int bytes = round_bytes(last, min(sh.slots, next), rank,
+                                      n_rank, sh, kSums);
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                arrived_at),
+            "r"(bytes)
+            : "memory");
       }
-    }
-  }
-  // Every rank's sums of this rank's slots have arrived.
-  for (uint32_t done = 0; !done;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(arrived_at)
-        : "memory");
-  }
-
-  // This rank's slots: each sum over ranks 0, 1, ..., n - 1 in order.
-  for (int t = tid; t < sh.owned * kSums; t += kThreads) {
-    const int l = t / kSums;
-    const int e = t - l * kSums;
-    const int slot = rank + l * n_rank;
-    int bi, bj;
-    if (slot >= sh.slots || !slot_tile(slot, sh.nt, &bi, &bj)) continue;
-    const int i = kTile * bi + e / kTile;
-    const int j = kTile * bj + e % kTile;
-    if (i > j || j > c || i >= c) continue;
-    float v[kMaxCluster];
-#pragma unroll
-    for (int q = 0; q < kMaxCluster; ++q) {
-      if (q < n_rank) v[q] = recv[(q * sh.owned + l) * kSums + e];
-    }
-    float sum = v[0];
-#pragma unroll
-    for (int q = 1; q < kMaxCluster; ++q) {
-      if (q < n_rank) sum += v[q];
-    }
-    if (j < c) {
-      g_out[i * c + j] = sum;
-      g_out[j * c + i] = sum;
-    } else {
-      r_out[i] = sum;
+      asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
     }
   }
 }
@@ -428,7 +487,7 @@ gram_cluster_kernel(const T* __restrict__ x, const T* __restrict__ y, int m,
 // the sums it owns and, with more than one group, every group's sums.
 template <int kTile>
 size_t smem_bytes(int c, int stage_rows, int n) {
-  const Shape sh = make_shape<kTile>(c, n);
+  const Shape sh = make_shape<kTile>(c, n, stage_rows);
   const size_t part =
       sh.groups > 1 ? static_cast<size_t>(sh.groups) * sh.slots : 0;
   return 16 + (2 * static_cast<size_t>(stage_rows) * sh.pitch +
@@ -460,10 +519,17 @@ cudaError_t configure() {
   return cudaSuccess;
 }
 
+// A stage holds at most kStageElems elements of [X | y], or one row where a
+// row is wider; at least one slot a rank must fit a round.
 bool valid_args(int c, int cluster, int stage_rows, int tile) {
-  return c >= 1 && c <= kMaxCols && cluster >= 1 && cluster <= kMaxCluster &&
-         stage_rows >= 1 && stage_rows <= kThreads &&
-         stage_rows * (c + 1) <= kStageElems && (tile == 4 || tile == 8);
+  if (c < 1 || cluster < 1 || cluster > kMaxCluster || stage_rows < 1 ||
+      stage_rows > kThreads || (tile != 4 && tile != 8) ||
+      (stage_rows > 1 && stage_rows * (c + 1) > kStageElems)) {
+    return false;
+  }
+  const int owned = tile == 4 ? make_shape<4>(c, cluster, stage_rows).owned
+                              : make_shape<8>(c, cluster, stage_rows).owned;
+  return owned >= 1;
 }
 
 // The launch configuration of one cluster of `cluster` CTAs.
@@ -516,8 +582,9 @@ extern "C" {
 
 // x: (m, c) f32, y: (m,) f32, row-major and contiguous; g (c, c) and r
 // (c,) f32.  One cluster of `cluster` CTAs (1-16), `stage_rows` rows per
-// stage (at most 256, stage_rows * (c + 1) <= 8192), tiles of `tile` x
-// `tile` sums per thread (4 or 8).
+// stage (at most 256, stage_rows * (c + 1) <= 8192 or one row), tiles of
+// `tile` x `tile` sums per thread (4 or 8); c as wide as leaves room for
+// one slot a rank beside two stages (about 28,500 at 16 CTAs).
 int gram_f32(const void* x, const void* y, int m, int c, int cluster,
              int stage_rows, int tile, void* g, void* r, void* stream) {
   return launch<float>(x, y, m, c, cluster, stage_rows, tile, g, r, stream);

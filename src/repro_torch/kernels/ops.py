@@ -3,8 +3,8 @@
 A wrapper takes its kernel's plain version (``kernels/ref.py``) only for
 tensors on the CPU.  For a CUDA tensor it launches the kernel or raises:
 nothing falls back.  Each wrapper counts its launches in a plain integer
-(``gram_launches``, ``flash_attention_launches``, ``wkv6_launches``; the
-attention and wkv6 launches also per variant), so a run can show that its
+(``gram_launches``, ``flash_attention_launches``, ``wkv6_launches``,
+``row_mean_launches``; the attention and wkv6 launches also per variant), so a run can show that its
 path went through the kernel.  A wrapper checks
 what its kernel takes on both routes, so the CPU tests refuse what the
 card would refuse.
@@ -12,13 +12,12 @@ card would refuse.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-#: widest X the kernel takes (kMaxCols in csrc/gram.cu)
-GRAM_MAX_COLS = 256
 #: CTAs in the gram kernel's one thread-block cluster (1-16; above 8 is
 #: Hopper's non-portable cluster size)
 GRAM_CLUSTER = 16
@@ -29,6 +28,9 @@ GRAM_THREADS = 256
 GRAM_STAGE_ELEMS = 8192
 GRAM_MAX_STAGE_ROWS = 256
 GRAM_MAX_GROUPS = 8
+#: dynamic shared memory of a gram CTA the kernel sizes its rounds to
+#: (kSmemBytes: sm_90's opt-in of 227 KB)
+GRAM_SMEM_BYTES = 232_448
 
 #: widest head the flash attention kernels take (kMaxD in
 #: csrc/flash_attention.cu)
@@ -53,6 +55,7 @@ flash_attention_simt_launches = 0
 wkv6_launches = 0                     # both variants
 wkv6_chunked_launches = 0
 wkv6_serial_launches = 0
+row_mean_launches = 0
 
 _TYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -75,8 +78,42 @@ def _gram_fn(dtype: torch.dtype):
 def gram_stage_rows(c: int) -> int:
     """Rows of X the gram kernel stages at a time for c columns: as many
     as fill a stage's ``GRAM_STAGE_ELEMS`` elements of [X | y], at most
-    ``GRAM_MAX_STAGE_ROWS``."""
-    return min(GRAM_MAX_STAGE_ROWS, GRAM_STAGE_ELEMS // (c + 1))
+    ``GRAM_MAX_STAGE_ROWS``, and one where a row is wider."""
+    return max(1, min(GRAM_MAX_STAGE_ROWS, GRAM_STAGE_ELEMS // (c + 1)))
+
+
+class GramShape(NamedTuple):
+    """What the gram kernel derives from c, the tile side and the cluster
+    size (``make_shape`` in csrc/gram.cu)."""
+    cols: int      # C = c + 1: columns of [X | y]
+    pitch: int     # C rounded up to the tile side: a staged row's floats
+    nt: int        # tiles per side
+    slots: int     # (nt // 2 + 1) * nt folded tile slots
+    groups: int    # copies of the slot map over interleaved rows
+    passes: int    # walks over the rows in one round over all slots
+    owned: int     # most slots a rank owns in a round (0: none fits)
+    round: int     # slots per round: owned * cluster
+    rounds: int    # rounds over the slots
+
+
+def gram_shape(c: int, tile: int, cluster: int = GRAM_CLUSTER) -> GramShape:
+    """The gram kernel's tile map and rounds for c columns: each round
+    takes as many slots a rank as the shared memory beside the barrier,
+    two stages of ``gram_stage_rows(c)`` rows and (with more than one
+    group) every group's sums holds."""
+    cols = c + 1
+    pitch = -(-cols // tile) * tile
+    nt = pitch // tile
+    slots = (nt // 2 + 1) * nt
+    fit = GRAM_THREADS // (-(-slots // 32) * 32)
+    groups = 1 if fit < 1 else min(fit, GRAM_MAX_GROUPS)
+    part = groups * slots if groups > 1 else 0
+    room = ((GRAM_SMEM_BYTES - 16) // 4 - 2 * gram_stage_rows(c) * pitch
+            - part * tile * tile)
+    owned = min(-(-slots // cluster), max(room, 0) // (cluster * tile * tile))
+    rounds = -(-slots // (owned * cluster)) if owned else 0
+    return GramShape(cols, pitch, nt, slots, groups,
+                     -(-slots // GRAM_THREADS), owned, owned * cluster, rounds)
 
 
 def gram_tile(m: int, c: int, cluster: int = GRAM_CLUSTER) -> int:
@@ -95,8 +132,10 @@ def gram(x: torch.Tensor, y: torch.Tensor):
 
     x and y are f32 or bf16 (the same type), contiguous, on one device.
     CPU tensors take ``ref.gram_ref``; CUDA tensors take the kernel in
-    ``csrc/gram.cu`` (c ≤ 256): one launch of one ``GRAM_CLUSTER``-CTA
-    cluster on the current stream.  G and r are views into one buffer.
+    ``csrc/gram.cu``: one launch of one ``GRAM_CLUSTER``-CTA cluster on the
+    current stream, for any c whose one staged row leaves a CTA room for a
+    round of one slot (c up to about 28,500).  G and r are views into one
+    buffer.
     """
     if x.dim() != 2 or y.dim() != 1 or y.shape[0] != x.shape[0]:
         raise ValueError(f"gram wants x (m, c) and y (m,), got "
@@ -114,9 +153,10 @@ def gram(x: torch.Tensor, y: torch.Tensor):
         raise ValueError(f"gram runs on the CPU or a CUDA device, not "
                          f"{x.device}")
     m, c = x.shape
-    if m < 1 or c < 1 or c > GRAM_MAX_COLS:
-        raise ValueError(f"the gram kernel takes 1 ≤ c ≤ {GRAM_MAX_COLS} "
-                         f"and m ≥ 1, got x {tuple(x.shape)}")
+    if m < 1 or c < 1 or gram_shape(c, gram_tile(m, c)).owned < 1:
+        raise ValueError(f"the gram kernel takes m ≥ 1 and c ≥ 1 with one "
+                         f"staged row and a round of one slot in a CTA's "
+                         f"shared memory, got x {tuple(x.shape)}")
     return _gram_launch(x, y, GRAM_CLUSTER)
 
 
@@ -391,3 +431,38 @@ def routed_wkv6(r, k, v, lw, u):
     the mixed output only.  The port routes by the tensors' device inside
     ``wkv6``, so this is that call."""
     return wkv6(r, k, v, lw, u)
+
+
+_ROW_MEAN_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_void_p, ctypes.c_void_p]
+
+
+def row_mean(x: torch.Tensor) -> torch.Tensor:
+    """x: contiguous (k, N) f32 -> (k,) f32 row means, each row summed in
+    one fixed order, so a row's mean is a function of its own bytes and N
+    alone, whatever k is or where the row sits (``csrc/row_mean.cu``).
+    CPU tensors take ``ref.row_mean_ref``, which sums in the same order;
+    CUDA tensors take the kernel, one CTA per row, on the current stream.
+    """
+    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"row_mean wants a contiguous (k, N) f32 tensor, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    k, n = x.shape
+    if n < 1 or k > 2**31 - 1:
+        raise ValueError(f"row_mean takes N ≥ 1 and k < 2^31, got "
+                         f"{tuple(x.shape)}")
+    if not _device_route("row_mean", x):
+        return ref.row_mean_ref(x)
+    fn = _kernel_fn("row_mean", "row_mean_f32", _ROW_MEAN_ARGTYPES)
+    if k == 0:
+        return torch.empty(0, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        out = torch.empty(k, dtype=torch.float32, device=x.device)
+        err = fn(x.data_ptr(), k, n, out.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"row_mean kernel launch failed with CUDA error "
+                           f"{err} at x {tuple(x.shape)}")
+    global row_mean_launches
+    row_mean_launches += 1
+    return out

@@ -2,7 +2,8 @@
 
 Copies of ``repro/kernels/ref.py``: each is the simplest implementation
 of its kernel's function — full-materialization attention, an O(T)
-sequential scan for WKV6, a plain matmul for the gram product.  ``ops``
+sequential scan for WKV6, a plain matmul for the gram product — and
+``row_mean_ref``, the port's own fixed-order row mean.  ``ops``
 takes these only for tensors on the CPU; on the card the kernels are
 held against them by ``chip_smoke.py``.
 """
@@ -71,3 +72,33 @@ def gram_ref(x: torch.Tensor, y: torch.Tensor):
     """X: (m, c), y: (m,) -> (XᵀX (c,c) f32, Xᵀy (c,) f32)."""
     x32 = x.to(torch.float32)
     return x32.T @ x32, x32.T @ y.to(torch.float32)
+
+
+#: threads of a row_mean CTA (kThreads in csrc/row_mean.cu)
+ROW_MEAN_THREADS = 256
+
+
+def row_mean_ref(x: torch.Tensor) -> torch.Tensor:
+    """(k, N) f32 -> (k,) f32 row means, each row summed in
+    ``csrc/row_mean.cu``'s order: lane e of float4 q goes into f64 sum e of
+    thread q mod 256, float4s in order; then lanes 0 + 1 + 2 + 3, the
+    threads in a fixed tree, one f64 division by N and one rounding to
+    f32.  Every step is an elementwise op over (k, ...) tensors, so a row's
+    mean depends on its own bytes alone, for any k (k = 1 too) — a torch
+    reduction may split a row by the tensor's shape or thread count."""
+    k, n = x.shape
+    step = 4 * ROW_MEAN_THREADS
+    acc = torch.zeros((k, ROW_MEAN_THREADS, 4), dtype=torch.float64,
+                      device=x.device)
+    for lo in range(0, n, step):
+        blk = x[:, lo:lo + step]
+        if blk.shape[1] < step:
+            blk = torch.nn.functional.pad(blk, (0, step - blk.shape[1]))
+        acc = acc + blk.reshape(k, ROW_MEAN_THREADS, 4).to(torch.float64)
+    s = ((acc[..., 0] + acc[..., 1]) + acc[..., 2]) + acc[..., 3]
+    half = ROW_MEAN_THREADS // 2
+    while half:
+        s = s[:, :half] + s[:, half:2 * half]
+        half //= 2
+    total = s[:, 0]
+    return (total / torch.full_like(total, float(n))).to(torch.float32)

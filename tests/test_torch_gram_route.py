@@ -7,8 +7,11 @@ what it does, from the constants ``kernels/ops.py`` passes it
 
 - the folded tile map (4 x 4 or 8 x 8 sums a thread) covers every entry
   (i ≤ j) of the augmented triangle [X | y]ᵀ[X | y] exactly once, for
-  every c the kernel takes, and each rank's count of the bytes it waits
-  for matches the slots it owns;
+  every c up to 256 and the wide c of 257, 276, 300, 1275 and 8500;
+  the rounds it is swept in (as many slots a rank as shared memory holds)
+  cover every slot once, each rank's count of the bytes it waits for in a
+  round matches the slots it owns there, and every c up to 256 takes one
+  round, so its order is the one it had before rounds existed;
 - the cluster's ranks, and the stages inside a rank, cover every row of X
   exactly once;
 - the kernel's order of summation (per group over interleaved rows of
@@ -36,17 +39,32 @@ SMEM_OPTIN = 232_448
 TILES = (4, 8)
 
 
+WIDE = (257, 276, 300, 1275, 8500)
+
+
 def _shape(c: int, tile: int):
     """(columns of [X | y], padded pitch, tiles per side, folded slots,
     row groups, passes): ``make_shape`` in csrc/gram.cu.  A group's threads
     are the slots rounded up to a whole warp."""
-    cols = c + 1
-    pitch = -(-cols // tile) * tile
-    nt = pitch // tile
-    slots = (nt // 2 + 1) * nt
-    fit = ops.GRAM_THREADS // (-(-slots // 32) * 32)
-    groups = 1 if fit < 1 else min(fit, ops.GRAM_MAX_GROUPS)
-    return cols, pitch, nt, slots, groups, -(-slots // ops.GRAM_THREADS)
+    sh = ops.gram_shape(c, tile)
+    return sh.cols, sh.pitch, sh.nt, sh.slots, sh.groups, sh.passes
+
+
+def _below(b: int, q: int, n: int) -> int:
+    """Slots below b that rank q of n owns (``owned_below``)."""
+    return (b - q + n - 1) // n if b > q else 0
+
+
+def _round_count(first: int, last: int, q: int, n: int, nt: int) -> int:
+    """Rank q's slots in [first, last) that exist, counted without walking
+    them (``round_bytes`` in csrc/gram.cu, over 4 · tile² bytes each)."""
+    count = _below(last, q, n) - _below(first, q, n)
+    if nt % 2 == 0:
+        half = nt // 2
+        lo, hi = max(first, half * nt), min(last, half * nt + half)
+        if hi > lo:
+            count -= _below(hi, q, n) - _below(lo, q, n)
+    return count
 
 
 def _slot_tiles(nt: int):
@@ -74,7 +92,7 @@ def _rank_rows(m: int, n: int):
 @pytest.mark.parametrize("m,c,tile", [
     (1000, 45, 4), (2000, 45, 4), (100000, 45, 8), (1000, 1, 4),
     (4096, 1, 4), (4097, 1, 8), (1000, 83, 4), (1000, 84, 8),
-    (777, 256, 8)])
+    (777, 256, 8), (1000, 276, 8), (300, 8500, 8)])
 def test_tile_choice(m, c, tile):
     """4 x 4 where one pass covers the triangle and each rank's rows fit
     one stage; 8 x 8 where the call streams rows or needs more passes."""
@@ -90,13 +108,13 @@ def test_constants_match_the_kernel_source():
     assert const("kThreads") == ops.GRAM_THREADS
     assert const("kStageElems") == ops.GRAM_STAGE_ELEMS
     assert const("kMaxGroups") == ops.GRAM_MAX_GROUPS
-    assert const("kMaxCols") == ops.GRAM_MAX_COLS
+    assert const("kSmemBytes") == ops.GRAM_SMEM_BYTES == SMEM_OPTIN
     assert 1 <= ops.GRAM_CLUSTER <= const("kMaxCluster")
 
 
 @pytest.mark.parametrize("tile", TILES)
 def test_tile_map_covers_the_augmented_triangle_once(tile):
-    for c in range(1, ops.GRAM_MAX_COLS + 1):
+    for c in range(1, 257):
         cols, pitch, nt, slots, groups, passes = _shape(c, tile)
         bi, bj, valid = _slot_tiles(nt)
         assert len(bi) == slots and np.all(bi[valid] <= bj[valid])
@@ -123,26 +141,66 @@ def test_tile_map_covers_the_augmented_triangle_once(tile):
         for n in range(1, 17):
             # the bytes each rank waits for: its slots that exist, counted
             # without walking them (csrc/gram.cu's owned_below)
-            def below(b, q):
-                return (b - q + n - 1) // n if b > q else 0
-            half = nt // 2
             for q in range(n):
-                count = below(slots, q)
-                if nt % 2 == 0:
-                    count -= (below(half * nt + half, q)
-                              - below(half * nt, q))
+                count = _round_count(0, slots, q, n, nt)
                 assert count == int(np.sum(valid[q::n])), (c, n, q)
+            # one round over every slot: the order of c ≤ 256 is the one
+            # the kernel had before it swept rounds
+            sh = ops.gram_shape(c, tile, n)
             owned = -(-slots // n)
+            assert (sh.owned, sh.rounds) == (owned, 1), (c, n)
             sums = (n * owned + (groups * slots if groups > 1 else 0))
             smem = 16 + 4 * (2 * rows * pitch + sums * tile * tile)
             assert smem <= SMEM_OPTIN, (c, n)
+
+
+@pytest.mark.parametrize("c", WIDE)
+def test_wide_rounds_cover_every_slot_once(c):
+    """Above c = 256 the kernel sweeps the folded map in rounds: every
+    tile (bi ≤ bj) once, every slot in one round, each rank's awaited
+    bytes per round its slots there that exist, and a CTA's shared memory
+    within the opt-in.  The tiles covering the triangle once cover its
+    entries once (the c ≤ 256 test checks the entries)."""
+    tile = 8
+    for n in sorted({1, 8, ops.GRAM_CLUSTER}):
+        sh = ops.gram_shape(c, tile, n)
+        bi, bj, valid = _slot_tiles(sh.nt)
+        assert sh.groups == 1 and sh.owned >= 1 and sh.round == sh.owned * n
+        seen = np.zeros((sh.nt, sh.nt), np.int64)
+        np.add.at(seen, (bi[valid], bj[valid]), 1)
+        assert np.array_equal(seen, np.triu(np.ones_like(seen)))
+        assert sh.rounds == -(-sh.slots // sh.round)
+        covered = 0
+        for rd in range(sh.rounds):
+            first, last = rd * sh.round, min(sh.slots, (rd + 1) * sh.round)
+            covered += last - first
+            if rd in (0, sh.rounds - 1) or rd % 97 == 0:
+                for q in range(n):
+                    mine = valid[first:last][(np.arange(first, last) % n)
+                                             == q]
+                    assert (_round_count(first, last, q, n, sh.nt)
+                            == int(mine.sum())), (c, n, rd, q)
+                    # a round's local index l = s // n - rd * owned fits
+                    # the owned slots of recv
+                    ls = np.arange(first + q, last, n) // n - rd * sh.owned
+                    assert len(ls) == 0 or (0 <= ls.min()
+                                            and ls.max() < sh.owned)
+        assert covered == sh.slots
+        smem = 16 + 4 * (2 * ops.gram_stage_rows(c) * sh.pitch
+                         + n * sh.owned * tile * tile)
+        assert smem <= SMEM_OPTIN, (c, n)
+        if c <= 276 and n == ops.GRAM_CLUSTER:
+            assert sh.rounds == 1, c
+    # rows wider than a stage are staged one at a time
+    assert ops.gram_stage_rows(c) * (c + 1) <= max(ops.GRAM_STAGE_ELEMS,
+                                                     c + 1)
 
 
 @pytest.mark.parametrize("m", [1, 7, 8, 15, 1000, 2000, 100003])
 def test_row_split_covers_each_row_once(m):
     for n in sorted({1, 8, ops.GRAM_CLUSTER}):
         seen = np.zeros(m, np.int64)
-        for c in (1, 45, 256):
+        for c in (1, 45, 256, 276, 1275, 8500):
             seen[:] = 0
             stage = ops.gram_stage_rows(c)
             for lo, hi in _rank_rows(m, n):
@@ -196,7 +254,8 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("m,c", [(1, 45), (7, 45), (1000, 45), (1000, 1),
-                                 (777, 256)])
+                                 (777, 256), (40, 257), (40, 276),
+                                 (40, 300), (20, 1275)])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_summation_order_matches_ref_and_pallas(m, c, dtype):
     (jx, jy), (tx, ty) = _inputs(m, c, dtype)

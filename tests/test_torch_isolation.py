@@ -26,8 +26,9 @@ from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
 from repro_torch.core.substrates.lm_loss import make_lm_workload
 from repro_torch.data import sdss
 from repro_torch.kernels import ops, ref
-from repro_torch.launch import anm_lm
+from repro_torch.launch import anm_lm, multi_search
 from repro_torch.models import transformer
+from repro_torch.server import sim
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -75,6 +76,34 @@ LM_MODULES = ("repro_torch.configs.base", "repro_torch.configs.h2o_danube_3_4b",
               "repro_torch.core.substrates.lm_loss",
               "repro_torch.launch.anm_lm", "repro_torch.convert",
               "repro_torch.kernels.ops")
+
+
+#: the FGDO service and orchestrator slice's modules, each of which the
+#: walk above must import
+SERVER_MODULES = ("repro_torch.server.registry", "repro_torch.core.fgdo",
+                  "repro_torch.core.substrates.eval_cache",
+                  "repro_torch.core.orchestrator.coalesce",
+                  "repro_torch.core.orchestrator.scheduler",
+                  "repro_torch.core.orchestrator.director",
+                  "repro_torch.server.protocol",
+                  "repro_torch.server.transport", "repro_torch.server.chaos",
+                  "repro_torch.server.checkpoint",
+                  "repro_torch.server.server", "repro_torch.server.sim",
+                  "repro_torch.launch.multi_search")
+
+
+def test_server_modules_import_without_jax_or_the_reference():
+    script = _BLOCKED_IMPORT.replace("print(len(names))",
+                                     "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(SERVER_MODULES) <= set(out.stdout.split())
+    for name in ("gram", "row_mean"):
+        assert (ops.build.CSRC / f"{name}.cu").exists()
+        assert name in ops.build.sources()
 
 
 def test_lm_modules_import_without_jax_or_the_reference():
@@ -140,6 +169,7 @@ def _fake_cuda(*shape, dtype=torch.float32):
     ("wkv6_ref", lambda: ops.routed_wkv6(
         *(_fake_cuda(1, 8, 2, 16, dtype=torch.bfloat16),) * 3,
         _fake_cuda(1, 8, 2, 16), _fake_cuda(2, 16, dtype=torch.bfloat16))),
+    ("row_mean_ref", lambda: ops.row_mean(_fake_cuda(4, 100))),
 ])
 def test_cuda_tensor_never_reaches_the_lm_plain_versions(monkeypatch, name,
                                                          call):
@@ -154,11 +184,13 @@ def test_cuda_tensor_never_reaches_the_lm_plain_versions(monkeypatch, name,
         raise RuntimeError("no kernel here")
 
     monkeypatch.setattr(ops, "_kernel_fn", no_kernel)
-    before = (ops.flash_attention_launches, ops.wkv6_launches)
+    before = (ops.flash_attention_launches, ops.wkv6_launches,
+              ops.row_mean_launches)
     with pytest.raises(RuntimeError, match="no kernel here"):
         call()
     assert loaded == [name[:-len("_ref")]]
-    assert (ops.flash_attention_launches, ops.wkv6_launches) == before
+    assert (ops.flash_attention_launches, ops.wkv6_launches,
+            ops.row_mean_launches) == before
 
 
 def test_cuda_launch_without_a_toolkit_raises(monkeypatch):
@@ -188,9 +220,19 @@ def _engine_phase_finish():
 def _anm_lm_main():
     """The act-1 command line with no arguments."""
     argv = sys.argv
-    sys.argv = ["anm_lm"]
+    sys.argv = ["anm_lm", "--act", "1"]
     try:
         anm_lm.main()
+    finally:
+        sys.argv = argv
+
+
+def _multi_search_main():
+    """The portfolio command line with no arguments."""
+    argv = sys.argv
+    sys.argv = ["multi_search"]
+    try:
+        multi_search.main()
     finally:
         sys.argv = argv
 
@@ -205,6 +247,9 @@ def _anm_lm_main():
                                     torch.Generator()),
     lambda: orthonormal_basis(16, 2, torch.Generator()),
     _anm_lm_main,
+    lambda: sim.smoke_problem(n_stars=50),
+    lambda: sim.main([]),
+    _multi_search_main,
 ])
 def test_cuda_default_does_not_fall_back_to_cpu(make):
     if torch.cuda.is_available():

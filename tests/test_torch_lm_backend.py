@@ -225,8 +225,8 @@ def test_act1_pipelined_equals_sync_and_tracks_the_reference(act1_problem,
     assert dataclasses.asdict(fleet_p) == dataclasses.asdict(fleet)
     backend = anm_lm.warmed_backend(mine, m=12)
     shapes = backend.compile_count
-    runs = {mode: anm_lm.run(search, fleet_p, backend, pipelined=mode,
-                             device="cpu")[0] for mode in (True, False)}
+    runs = {mode: anm_lm.run(search, fleet_p, backend, pipelined=mode)[0]
+            for mode in (True, False)}
     pipe, sync = runs[True], runs[False]
     assert backend.compile_count == shapes
     assert identical_trajectories(pipe, sync)
