@@ -85,16 +85,33 @@ so the script exits non-zero and prints no result line:
            the smoke size (400 stars, m = 24, 192 hosts) TCP, 8 concurrent
            clients and the 4 chaos presets (8 concurrent TCP clients each)
            == loopback;
-12. portfolio act 1 of examples/multi_search.py at paper scale (stripe79
+12. obs    the observability plane on the work server: at paper scale
+           the whole plane (metrics hub, a live subscriber, full tracing,
+           retention) == the unobserved server run, gram twice per
+           regression finish; the run with checkpoint, eval cache,
+           retention and tracing crashed at 40 % of the messages, its
+           dead epoch reconstructed by the post-mortem (snapshots, spans,
+           the replay log's extent; the store's bytes unchanged), then
+           restored under epoch 2 == uninterrupted.  At the reference's
+           own obs smoke size (48 hosts, m = 12, 200 stars, 3
+           iterations, a quarter of the hosts silent from t = 150):
+           observed over 8 concurrent TCP clients with a subscriber, and
+           the same under drop_dup chaos == the unobserved serial run;
+           the live defense shrinks the reliable set and its schedule
+           replays bit for bit; the stall kill is in the schedule and
+           replays bit for bit; replay logs are byte-identical with
+           retention and tracing on and off;
+13. portfolio act 1 of examples/multi_search.py at paper scale (stripe79
            at 100k stars, 6 searches at m = 1000 / 500 on the 4096-host
            fleet, 2 iterations): every search coalesced == solo, fewer
            dispatches than per-search blocks;
-13. the ``kernels`` JSON line, then the ``ok`` JSON line.
+14. the ``kernels`` JSON line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import os
@@ -121,9 +138,11 @@ from repro_torch.core.substrates.lm_loss import \
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
 from repro_torch.launch import (anm_lm, fig2, multi_search,  # noqa: E402
-                                volunteer_grid)
+                                obs_postmortem, volunteer_grid)
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.obs import obs_store_path  # noqa: E402
 from repro_torch.server import sim  # noqa: E402
+from repro_torch.server.checkpoint import LOG_NAME  # noqa: E402
 
 #: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -202,6 +221,14 @@ SERVER_FLAGS = ["--n-stars", "100000", "--n-hosts", "4096", "--m", "1000",
 SERVER_LEGS = [["--transport", "tcp"], ["--concurrent", "8"]] + [
     ["--transport", "tcp", "--concurrent", "8", "--chaos", p]
     for p in ("drop_dup", "reorder_delay", "reset_torn", "degraded")]
+#: the obs phase's smoke-size world: the reference's own obs smokes
+#: (src/repro/launch/dryrun.py:1071,1291), a quarter of the hosts silent
+#: from virtual time 150 so the defense has churn to see
+OBS_SMOKE = ["--n-hosts", "48", "--m", "12", "--iterations", "3",
+             "--n-stars", "200", "--silence-at", "150", "--silence-frac",
+             "0.25"]
+OBS_FLAGS = ["--obs", "--stats-interval", "10"]
+OBS_CONCURRENT = ["--transport", "tcp", "--concurrent", "8"]
 #: the portfolio phase: searches, per-phase m of half of them, iterations
 PORTFOLIO = dict(n_searches=6, m=1000, iterations=2)
 
@@ -954,9 +981,10 @@ def _improving_commits(res) -> int:
     return n
 
 
-def phase_server(dev: torch.device) -> int:
+def phase_server(dev: torch.device):
     """The FGDO work server through its command line; returns the row-mean
-    launches of the uninterrupted paper-scale run."""
+    launches, the result doc and the wall of the uninterrupted paper-scale
+    run."""
     flags = SERVER_FLAGS + ["--device", str(dev)]
     for name in LAUNCH_COUNTERS:
         setattr(ops, name, 0)           # this slice's path, counted from 0
@@ -1023,7 +1051,208 @@ def phase_server(dev: torch.device) -> int:
     print(f"[server] smoke size on the card (loopback best "
           f"{loop['best_fitness']:.6f}, {loop['pool']['messages']} "
           f"messages); equal to loopback: " + "; ".join(legs))
-    return row_mean_launches
+    return row_mean_launches, doc, wall
+
+
+def _same_run(a: dict, b: dict) -> bool:
+    """The reference smokes' parity gate (dryrun.py's
+    ``trajectories_equal``)."""
+    return all(a[k] == b[k] for k in ("history", "iteration", "best_fitness",
+                                      "engine_stats"))
+
+
+def _digest(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
+    """The observability plane on the work server: at paper scale beside
+    ``[server]``'s uninterrupted run (``base``), then at the reference's
+    obs smoke size."""
+    flags = SERVER_FLAGS + ["--device", str(dev)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        # (a) the whole plane on, at paper scale
+        for name in LAUNCH_COUNTERS:
+            setattr(ops, name, 0)
+        ret = os.path.join(tmp, "a")
+        t0 = time.perf_counter()
+        _, res, doc = sim.run_cli(flags + ["--obs", "--subscribe",
+                                           "--trace-rate", "1.0", "--retain",
+                                           "--retain-dir", ret])
+        wall = time.perf_counter() - t0
+        counts = {name: getattr(ops, name) for name in LAUNCH_COUNTERS}
+        finishes = len(res.server.engines[0].phase_finish_s)
+        sub, kept, trace = doc["subscriber"], doc["retention"], doc["trace"]
+        same = _same_run(doc, base)
+        print(f"[obs] (a) paper scale, hub + subscriber + trace 1.0 + "
+              f"retention: {doc['obs']['snapshots']} snapshots (ring "
+              f"{doc['obs']['ring']}), subscriber received {sub['snapshots']}"
+              f" (seqs {sub['first_seq']}..{sub['last_seq']}, stamped and "
+              f"increasing: {sub['stamped_ok']}, dropped {sub['dropped']}, "
+              f"errors {len(sub['errors'])}), spans {trace['completed']} of "
+              f"{trace['sampled']} traced (ring dropped "
+              f"{trace['ring_dropped']}), retained {kept['snapshots_stored']}"
+              f" snapshots + {kept['spans_stored']} spans, store "
+              f"{os.path.getsize(obs_store_path(ret))} bytes; wall "
+              f"{wall:.1f}s, {doc['pool']['messages']} messages "
+              f"({doc['pool']['messages'] / wall:.0f}/s), observed / "
+              f"unobserved wall {wall / base_wall:.3f}; launches {counts} "
+              f"for {finishes} regression finishes; == [server]'s "
+              f"uninterrupted run: {same}")
+        check(same, "the observed paper-scale server run differs from the "
+              "unobserved one")
+        check(doc["obs"]["snapshots"] >= 2, "the hub took fewer than 2 "
+              "snapshots at paper scale")
+        check(sub["snapshots"] >= 2 and sub["stamped_ok"]
+              and not sub["errors"], "the subscriber received fewer than 2 "
+              "stamped snapshots in increasing seqs, or erred")
+        check(counts["gram_launches"] == 2 * finishes > 0,
+              f"gram launched {counts['gram_launches']} times for "
+              f"{finishes} regression finishes of the observed run")
+
+        # (b) the flight recorder under a crash at 40 % of the messages
+        ck = os.path.join(tmp, "b")
+        both = flags + ["--ckpt-dir", ck, "--cache", "--retain",
+                        "--trace-rate", "1.0"]
+        crash_at = int(0.4 * doc["pool"]["messages"])
+        t0 = time.perf_counter()
+        try:
+            sim.run_cli(both, max_messages=crash_at)
+            check(False, "the observed server finished before its crash "
+                  "point")
+        except sim.SimulatedCrash as e:
+            crash = str(e)
+        t1 = time.perf_counter()
+        store, log = obs_store_path(ck), os.path.join(ck, LOG_NAME)
+        before = (_digest(store), _digest(log))
+        dead = obs_postmortem.reconstruct(store, replay_log=log, epoch=1)
+        untouched = (_digest(store), _digest(log)) == before
+        ep = dead["epochs"][0]
+        print(f"[obs] (b) {crash} in {t1 - t0:.1f}s; post-mortem of epoch "
+              f"{dead['store']['epochs']}: {ep['snapshots']} snapshots (seq "
+              f"{ep['seq_range']}), {dead['spans']} spans (turnaround p50 "
+              f"{dead['turnaround']['p50']}, max "
+              f"{dead['turnaround']['max']}), {len(dead['phases'])} phase "
+              f"transitions, replay log {dead['replay_log']['records']} "
+              f"records (last {dead['replay_log']['last_kind']!r} at t = "
+              f"{dead['replay_log']['last_now']}); store and log bytes "
+              f"unchanged: {untouched}")
+        check(dead["store"]["epochs"] == [1] and ep["snapshots"] > 0
+              and dead["spans"] > 0 and len(dead["phases"]) > 0
+              and 0 < dead["replay_log"]["records"] <= crash_at,
+              "the post-mortem of the crashed epoch lacks snapshots, spans, "
+              "phases or the replay log's extent")
+        check(untouched, "the post-mortem changed the store or the log")
+        _, _, restored = sim.run_cli(both + ["--resume"])
+        t2 = time.perf_counter()
+        post = obs_postmortem.reconstruct(store)
+        same = _same_run(restored, doc) and _same_run(restored, base)
+        print(f"[obs] (b) restored in {t2 - t1:.1f}s after replaying "
+              f"{restored['replayed']} records, store epochs "
+              f"{post['store']['epochs']} ({post['store']['records']} "
+              f"records), cache hits {restored['cache']['hits']}; == (a) "
+              f"and the uninterrupted run: {same}")
+        check(post["store"]["epochs"] == [1, 2], "the restored run did not "
+              "append under epoch 2")
+        check(same, "the restored observed run differs from (a) or the "
+              "uninterrupted run")
+
+        # (c)-(h) at the reference's obs smoke size
+        smoke = OBS_SMOKE + ["--device", str(dev)]
+        t0 = time.perf_counter()
+        _, _, plain = sim.run_cli(smoke)
+        print(f"[obs] (c) smoke size unobserved serial loopback: "
+              f"{plain['iteration']} iterations, best "
+              f"{plain['best_fitness']:.6f}, {plain['pool']['messages']} "
+              f"messages, reliable set {plain['registry']['reliable_set']}"
+              f", {time.perf_counter() - t0:.1f}s")
+        for leg, extra in (("(d)", []), ("(e)", ["--chaos", "drop_dup"])):
+            t0 = time.perf_counter()
+            _, _, got = sim.run_cli(smoke + OBS_CONCURRENT + OBS_FLAGS
+                                    + ["--subscribe"] + extra)
+            sub, ch = got["subscriber"], got["chaos"] or {}
+            injected = sum(ch.get(k, 0) for k in (
+                "drops_request", "drops_reply", "duplicates", "delays",
+                "resets", "torn_writes"))
+            same = _same_run(got, plain)
+            print(f"[obs] {leg} {' '.join(OBS_CONCURRENT + extra)}, hub + "
+                  f"subscriber: {got['obs']['snapshots']} snapshots, "
+                  f"received {sub['snapshots']} (stamped and increasing: "
+                  f"{sub['stamped_ok']}, errors {len(sub['errors'])}), "
+                  f"faults injected {injected}, retries "
+                  f"{ch.get('retries', 0)}; == (c): {same} "
+                  f"({time.perf_counter() - t0:.1f}s)")
+            check(same, f"obs leg {leg} differs from the unobserved run")
+            check(sub["snapshots"] >= 2 and sub["stamped_ok"]
+                  and not sub["errors"], f"obs leg {leg}: the subscriber "
+                  f"received fewer than 2 stamped snapshots, or erred")
+            check(not extra or injected > 0, "obs leg (e) injected no fault")
+
+        sched = os.path.join(tmp, "defense.json")
+        _, _, live = sim.run_cli(smoke + OBS_FLAGS + [
+            "--defense", "--defense-out", sched])
+        _, _, again = sim.run_cli(smoke + OBS_FLAGS + [
+            "--defense-replay", sched])
+        d = live["defense"]
+        same = _same_run(live, again)
+        print(f"[obs] (f) defense live: {d['events']} events "
+              f"{d['by_action']}, quarantined {d['quarantined_now']}, "
+              f"reliable set {live['registry']['reliable_set']} against "
+              f"{plain['registry']['reliable_set']} undefended; replayed "
+              f"({again['defense']['mode']}): == live: {same}")
+        check(d["quarantined_now"] > 0 and live["registry"]["reliable_set"]
+              < plain["registry"]["reliable_set"], "the live defense did "
+              "not shrink the reliable set")
+        check(same and again["defense"]["mode"] == "replay"
+              and again["defense"]["quarantined_now"] == d["quarantined_now"],
+              "the replayed defense differs from the live one")
+
+        stall = os.path.join(tmp, "stall.json")
+        _, _, killed = sim.run_cli(smoke + [
+            "--stats-interval", "10", "--stall-window", "3",
+            "--defense-out", stall])
+        _, _, again = sim.run_cli(smoke + [
+            "--stats-interval", "10", "--defense-replay", stall])
+        d = killed["defense"]
+        with open(stall) as f:
+            kills = [e for e in json.load(f)["events"]
+                     if e["action"] == "kill_search"]
+        same = _same_run(killed, again)
+        print(f"[obs] (g) stall window 3: killed {d['searches_killed']} at "
+              f"seq {[e['seq'] for e in kills]}, iteration "
+              f"{killed['iteration']} against {plain['iteration']} "
+              f"undefended; replayed: killed "
+              f"{again['defense']['searches_killed']}, == live: {same}")
+        check(d["searches_killed"] == [0] and len(kills) >= 1
+              and killed["iteration"] < plain["iteration"],
+              "the stall window killed no search through the schedule")
+        check(same and again["defense"]["searches_killed"] == [0]
+              and again["defense"]["mode"] == "replay",
+              "the replayed stall kill differs from the live one")
+
+        logs, docs = [], []
+        for leg, extra in (("off", []), ("on", [
+                "--retain", "--trace-rate", "1.0", "--stats-interval",
+                "10"])):
+            ck = os.path.join(tmp, f"h_{leg}")
+            _, _, got = sim.run_cli(smoke + ["--ckpt-dir", ck,
+                                             "--snapshot-every", "150"]
+                                    + extra)
+            with open(os.path.join(ck, LOG_NAME), "rb") as f:
+                logs.append(f.read())
+            docs.append(got)
+        kept = docs[1]["retention"]
+        print(f"[obs] (h) replay logs with retention + tracing off / on: "
+              f"{len(logs[0])} / {len(logs[1])} bytes, identical: "
+              f"{logs[0] == logs[1]}; retained {kept['snapshots_stored']} "
+              f"snapshots + {kept['spans_stored']} spans; both == (c): "
+              f"{all(_same_run(g, plain) for g in docs)}")
+        check(logs[0] == logs[1] and len(logs[0]) > 0, "the replay logs "
+              "differ with retention and tracing on and off")
+        check(all(_same_run(g, plain) for g in docs)
+              and kept["snapshots_stored"] > 0 and kept["spans_stored"] > 0,
+              "a byte-compat leg differs from (c) or retained nothing")
 
 
 def phase_portfolio(dev: torch.device) -> None:
@@ -1108,7 +1337,9 @@ def main() -> None:
     timed("fitness", phase_fitness, dev)
     launches = timed("fig2", phase_fig2, dev)   # the main path, from 0
     timed("grid", phase_grid, dev)
-    row_mean_launches = timed("server", phase_server, dev)
+    row_mean_launches, server_doc, server_wall = timed("server",
+                                                       phase_server, dev)
+    timed("obs", phase_obs, dev, server_doc, server_wall)
     timed("portfolio", phase_portfolio, dev)
     flash = timed("flash", phase_flash, dev)
     wkv6 = timed("wkv6", phase_wkv6, dev)

@@ -149,11 +149,6 @@ class SearchEntry:
     status: str = RUNNING
 
 
-#: why the port refuses the reference's observability plane for now
-OBS_REFUSED = ("the obs plane (metrics hub, tracer, retention, defense, "
-               "subscriber) is not ported yet: ROADMAP A.4, second half")
-
-
 class WorkServer:
     """Deterministic message handler fronting one or many ANM searches."""
 
@@ -200,11 +195,16 @@ class WorkServer:
         self._last_sweep = float("-inf")
         self.sweep_interval = 5.0     # virtual seconds between churn sweeps
         self._cache_status = None     # read-only eval-cache probe (attach)
-        # an intake probe only reads depth counters, outside state_dict,
-        # so it cannot perturb the replay contract.  The reference's
-        # metrics hub, tracer and retention store (DESIGN.md §13-§14) are
-        # the obs plane, not ported yet (ROADMAP A.4)
+        # observability plane (DESIGN.md §13): both attach-only and both
+        # outside state_dict — a hub samples AT applied-message boundaries
+        # but never mutates server state, an intake probe only reads depth
+        # counters, so neither can perturb the replay contract
+        self._hub = None
         self._intake_probe = None
+        # §14 post-mortem plane, same contract: tracer hooks only read
+        # lease state, the retention store is only read to serve backfill
+        self._tracer = None
+        self._retention = None
         # idempotency layer (DESIGN.md §12): per-host last applied client
         # sequence number + the reply it produced.  Clients are serial per
         # host (one logical message in flight), so a window of 1 is exact:
@@ -229,31 +229,55 @@ class WorkServer:
         (checkpoint-dir composition), and status is never logged or
         replayed, so attaching a cache cannot perturb recovery."""
         self._cache_status = cache.status
+        if self._hub is not None:
+            self._hub.register_probe("cache", self._cache_status,
+                                     rates=("hits", "misses"))
 
     def attach_intake(self, intake) -> None:
-        """Surface a ``SequencedIntake``'s pressure counters in ``status``:
-        next expected stamp, arrivals parked waiting for their turn,
-        out-of-band retry deliveries.  Observability only, exactly like
-        ``attach_cache``."""
+        """Surface a ``SequencedIntake``'s pressure counters in ``status``
+        (and as a hub probe): next expected stamp, arrivals parked waiting
+        for their turn, out-of-band retry deliveries.  Observability only,
+        exactly like ``attach_cache``."""
         def probe() -> dict:
             return {"next_seq": intake.next_seq, "parked": intake.parked,
                     "out_of_band": intake.out_of_band}
         self._intake_probe = probe
+        if self._hub is not None:
+            self._hub.register_probe("intake", probe, plain=True)
 
     def attach_hub(self, hub) -> None:
-        """The reference publishes into a ``MetricsHub`` here (DESIGN.md
-        §13).  The port's obs plane is a later slice: refused."""
-        raise ValueError(OBS_REFUSED)
+        """Publish into a ``MetricsHub`` (DESIGN.md §13): the server
+        registers its own probes (service counters + lease depth, registry
+        health incl. churn cohort ids) and samples the hub at applied-
+        message boundaries in virtual time.  Sampling is read-only w.r.t.
+        server state and the hub is not in ``state_dict`` — observability
+        cannot enter the replay log or the recovery path."""
+        self._hub = hub
+        # plain=True: both probes emit freshly-built python scalars (the
+        # engine stores best_fitness as float, host ids are ints), so the
+        # hub's codec-sanitizing walk is skipped on the per-sample path
+        hub.register_probe("server", self._probe_server,
+                           rates=("messages", "leases_issued"), plain=True)
+        hub.register_probe("registry", self._probe_registry, plain=True)
+        if self._cache_status is not None:
+            hub.register_probe("cache", self._cache_status,
+                               rates=("hits", "misses"))
+        if self._intake_probe is not None:
+            hub.register_probe("intake", self._intake_probe, plain=True)
 
     def attach_tracer(self, tracer) -> None:
-        """The reference hooks a ``WorkUnitTracer`` (§14) here: refused
-        until the port's obs plane lands."""
-        raise ValueError(OBS_REFUSED)
+        """Hook a ``WorkUnitTracer`` (§14) onto the lease lifecycle paths:
+        issue, lapse, settle.  Every hook sits behind one ``is not None``
+        compare and only READS lease state — the tracer owns no replayable
+        state and is not in ``state_dict``, so tracing cannot perturb the
+        applied sequence (the §13 argument, unchanged)."""
+        self._tracer = tracer
 
     def attach_retention(self, store) -> None:
-        """The reference exposes a retention ``SnapshotStore`` (§14) here:
-        refused until the port's obs plane lands."""
-        raise ValueError(OBS_REFUSED)
+        """Expose a retention ``SnapshotStore`` for ``subscribe_stats``
+        ``from_store`` backfill and the ``status`` obs block.  The server
+        only READS it — the ``RetentionSink`` is the writer."""
+        self._retention = store
 
     def kill_search(self, search_id: int) -> None:
         """Director seam (§14): retire one search by verdict.  Same
@@ -333,6 +357,8 @@ class WorkServer:
                     self._host_lease.pop(l.host_id, None)
                     self._host_lapsed[l.host_id] = k
                     self.counters.leases_lapsed += 1
+                    if self._tracer is not None:
+                        self._tracer.on_lapse(l.search_id, l.wu_id, self.now)
                 else:
                     nxt = min(nxt, l.deadline)
             self._next_deadline = nxt
@@ -400,6 +426,15 @@ class WorkServer:
         self.last_applied = True
         self.counters.messages += 1
         rep = self._dispatch(kind, msg)
+        hub = self._hub
+        if hub is not None and \
+                (hub.next_sample_at is None or self.now >= hub.next_sample_at):
+            # sample on the message-derived clock AFTER the mutation it
+            # carries: boundaries (and hence snapshot seqs and defense
+            # verdicts) are a pure function of the applied sequence.  The
+            # interval check is inlined so the per-message cost of an
+            # attached hub is one attribute compare, not a call
+            hub.maybe_sample(self.now)
         if keyed:
             # (host_id, cs) is the client's reply-matching key — cs alone
             # is ambiguous on a connection multiplexing several hosts
@@ -461,6 +496,9 @@ class WorkServer:
                 self._host_lease[host] = key
                 self._next_deadline = min(self._next_deadline, deadline)
                 self.counters.leases_issued += 1
+                if self._tracer is not None:
+                    self._tracer.on_issue(e.search_id, wu.wu_id, host, now,
+                                          wu.phase_id, wu.validates)
                 # the registry's on_issue cleared next_contact_at: this
                 # host's next contact now derives from the lease
                 return protocol.work_reply(e.search_id, wu.wu_id,
@@ -513,8 +551,23 @@ class WorkServer:
             self.registry.on_result(host, now,
                                     max(now - lease.issued_at, 1e-9))
             self.counters.dropped_results += 1
+            if self._tracer is not None:
+                self._tracer.on_settle(search, wu_id, now, "dropped", late)
         else:
+            tr = self._tracer
+            if tr is not None:
+                # read-only peeks BEFORE assimilation: stale is the §5
+                # phase compare the engine itself applies, commit shows as
+                # an iteration delta
+                was_stale = lease.wu.phase_id != e.fgdo.engine.phase_id
+                it0 = e.fgdo.engine.iteration
             e.fgdo.assimilate(lease.wu, float(msg["y"]), host, now)
+            if tr is not None:
+                tr.on_settle(
+                    search, wu_id, now,
+                    "stale" if was_stale
+                    else ("committed" if e.fgdo.engine.iteration > it0
+                          else "assimilated"), late)
             if e.fgdo.engine.done:
                 e.status = DONE
             if self.policy == "portfolio":
@@ -555,15 +608,64 @@ class WorkServer:
             # above; intake queue depth rides here when one is attached
             "intake": (None if self._intake_probe is None
                        else self._intake_probe()),
-            # the obs plane's block (§14): no hub in the port yet
-            "obs": None,
+            # §14: the obs plane's own configuration + retention depth —
+            # ring size and cadence are construction-path knobs now, so
+            # the reply is where an operator confirms what a server runs
+            "obs": (None if self._hub is None else {
+                "interval": self._hub.interval,
+                "ring": self._hub.ring,
+                "snapshots": self._hub.seq,
+                "tracer": (None if self._tracer is None
+                           else self._tracer.summary()),
+                "retention": (None if self._retention is None
+                              else self._retention.summary()),
+            }),
         }
 
     def _subscribe_stats(self, msg: dict) -> dict:
-        # the reference serves the metrics hub's snapshots here (§13); the
-        # port has no hub yet, as a reference server without one replies
-        return protocol.error_reply(
-            "no metrics hub attached (" + OBS_REFUSED + ")")
+        if self._hub is None:
+            return protocol.error_reply(
+                "no metrics hub attached (stats are opt-in server-side)")
+        from repro_torch.obs.metrics import STREAM_VERSION
+        since = int(msg.get("since", -1))
+        snaps, cursor, dropped = self._hub.since(since)
+        if dropped and msg.get("from_store") and self._retention is not None:
+            # §14 backfill: serve ring-evicted history from the retention
+            # store's CURRENT epoch (same seq numbering as the live ring).
+            # The store may itself have compacted — whatever it still
+            # holds shrinks the reported gap, the rest stays ``dropped``.
+            oldest = int(snaps[0]["seq"]) if snaps else cursor + 1
+            backfill = [s for s in
+                        self._retention.snapshots(epoch=self._retention.epoch)
+                        if since < int(s["seq"]) < oldest]
+            if backfill:
+                snaps = backfill + snaps
+                dropped = max(0, dropped - len(backfill))
+        return protocol.stats_reply(snaps, cursor, self._hub.interval,
+                                    STREAM_VERSION, dropped)
+
+    # -- hub probes (read-only views over existing state, §13) ---------------
+
+    def _probe_server(self) -> dict:
+        # vars() copy, not dataclasses.asdict: the counters dataclass is
+        # flat, and the recursive walk costs ~10x on the per-sample path
+        d = dict(vars(self.counters))
+        d["lease_depth"] = len(self.leases)
+        d["lapsed_depth"] = len(self.lapsed)
+        d["done"] = self.done
+        _, best_y = self.best()
+        d["best"] = best_y
+        d["searches"] = [{
+            "search_id": e.search_id, "status": e.status,
+            "phase": e.fgdo.phase, "iteration": e.fgdo.engine.iteration,
+            "best": e.fgdo.engine.best_fitness,
+        } for e in self.searches]
+        return d
+
+    def _probe_registry(self) -> dict:
+        # include_ids: the cohort ids the anomaly detector pages on ride
+        # the summary's single pass instead of two extra registry scans
+        return self.registry.summary(include_ids=True)
 
     def _apply_portfolio(self) -> None:
         _, best_y = self.best()

@@ -50,10 +50,10 @@ fault-free baseline.
 run the pool to completion.  ``python -m repro_torch.server.sim`` runs a
 seeded single-search smoke (``--device cpu`` off the card); the
 reference's dryrun harness launches its twin as a subprocess, SIGKILLs
-it mid-search and relaunches it with ``--resume``.  The reference's
-observability plane (``--obs`` and its kin, ``obs=`` and the rest of
-``ServerSubstrate``'s obs knobs) and ``--backend pod_mesh`` are refused
-with a ``ValueError`` until their ports land (ROADMAP A.4, A.6).
+it mid-search and relaunches it with ``--resume``.  The observability
+plane (``--obs`` and its kin, DESIGN.md §13-§14) attaches after
+recovery and reads host state only.  ``--backend pod_mesh`` is refused
+with a ``ValueError`` until its port lands (ROADMAP A.6).
 """
 from __future__ import annotations
 
@@ -73,8 +73,7 @@ from repro_torch.core.substrates.eval_cache import CachingSubmitter, EvalCache
 from repro_torch.server import protocol
 from repro_torch.server.chaos import ChaosTransport, FaultPlan, PRESETS
 from repro_torch.server.checkpoint import CheckpointManager
-from repro_torch.server.server import (OBS_REFUSED, SequencedIntake,
-                                       WorkServer)
+from repro_torch.server.server import SequencedIntake, WorkServer
 from repro_torch.server.transport import make_transport
 
 PRIO_COMPLETE, PRIO_REQUEST = 0, 1
@@ -563,6 +562,11 @@ class ServerRunResult:
     chaos: Optional[dict] = None      # injected-fault counters + plan doc
     intake: Optional[dict] = None     # sequenced-intake counters
     request_p99_ms: Optional[float] = None  # p99 request_work round-trip
+    obs: Optional[dict] = None        # metrics-hub summary, when observed
+    subscriber: Optional[dict] = None  # live stats-poller summary
+    defense: Optional[dict] = None    # anomaly summary + recorded schedule
+    retention: Optional[dict] = None  # §14 sink + store summary
+    trace: Optional[dict] = None      # §14 tracer counters
 
     @property
     def engines(self):
@@ -575,10 +579,7 @@ class ServerSubstrate:
     (DESIGN.md §1/§9), exercised by the simulated client fleet over a real
     transport.  With ``ckpt_dir`` set the run is crash-recoverable: pass
     ``resume=True`` to continue a killed run from its snapshot + replay
-    log.  The reference's obs switches (``obs``, ``subscribe``,
-    ``defense``, ``defense_schedule``, ``retain``, ``retain_dir``,
-    ``trace_rate`` > 0, ``stall_window``, ``turnaround_drift``) raise
-    ``ValueError``: the port's obs plane is a later slice."""
+    log."""
 
     def __init__(self, specs, fleet: GridConfig, backend: EvalBackend, *,
                  transport: str = "loopback", policy: str = "fixed",
@@ -590,11 +591,14 @@ class ServerSubstrate:
                  cache: Optional[EvalCache] = None,
                  concurrent: int = 0, chaos=None,
                  chaos_seed: Optional[int] = None,
-                 obs: bool = False, subscribe: bool = False,
-                 defense: bool = False,
+                 obs: bool = False, stats_interval: float = 25.0,
+                 stats_ring: int = 256,
+                 subscribe: bool = False, defense: bool = False,
                  defense_schedule: Optional[dict] = None,
                  retain: bool = False, retain_dir: Optional[str] = None,
-                 trace_rate: float = 0.0,
+                 retain_backend: str = "jsonl",
+                 retain_max_records: Optional[int] = 20_000,
+                 trace_rate: float = 0.0, trace_seed: int = 0,
                  stall_window: int = 0, turnaround_drift: float = 0.0,
                  silence_at: Optional[float] = None,
                  silence_frac: float = 0.25):
@@ -636,14 +640,35 @@ class ServerSubstrate:
         if plan is not None and chaos_seed is not None:
             plan = dataclasses.replace(plan, seed=int(chaos_seed))
         self.chaos_plan: Optional[FaultPlan] = plan
-        # the reference's observability plane (DESIGN.md §13-§14): a
-        # metrics hub, a live subscriber, the anomaly defense, retention
-        # and tracing.  The port has none of it yet, and refuses every
-        # knob that would attach it rather than run without it
-        if (obs or subscribe or defense or defense_schedule is not None
-                or retain or retain_dir is not None or trace_rate > 0
-                or stall_window or turnaround_drift):
-            raise ValueError(OBS_REFUSED)
+        # observability plane (DESIGN.md §13): ``obs`` attaches a
+        # MetricsHub sampled every ``stats_interval`` virtual seconds at
+        # applied-message boundaries; ``subscribe`` runs a live
+        # background poller over the raw transport; ``defense`` arms the
+        # anomaly detectors (``defense_schedule`` replays a recorded run
+        # instead).  Any of them implies the hub.
+        self.subscribe = bool(subscribe)
+        self.defense = bool(defense)
+        self.defense_schedule = defense_schedule
+        # §14 post-mortem plane: ``retain`` spills samples into a
+        # SnapshotStore under retain_dir (default: the ckpt_dir),
+        # ``trace_rate`` > 0 hooks a WorkUnitTracer onto the lease paths,
+        # and the window-defense knobs arm the §14 detectors (implying a
+        # live defense).  All of it implies the hub.
+        self.retain_dir = retain_dir
+        self.retain = bool(retain or retain_dir is not None)
+        self.retain_backend = str(retain_backend)
+        self.retain_max_records = retain_max_records
+        self.trace_rate = float(trace_rate)
+        self.trace_seed = int(trace_seed)
+        self.stall_window = int(stall_window)
+        self.turnaround_drift = float(turnaround_drift)
+        if self.stall_window or self.turnaround_drift:
+            self.defense = True
+        self.obs = bool(obs or subscribe or self.defense
+                        or defense_schedule is not None
+                        or self.retain or self.trace_rate > 0)
+        self.stats_interval = float(stats_interval)
+        self.stats_ring = int(stats_ring)
         self.silence_at = silence_at
         self.silence_frac = float(silence_frac)
         if warm:
@@ -679,6 +704,51 @@ class ServerSubstrate:
             server.attach_cache(self.cache)       # status counters (§10)
             if mgr is not None:
                 mgr.attach_store(self.cache.store)
+        # obs attaches AFTER recovery: the replayed prefix re-applies with
+        # no hub (no samples), and the hub owns no replayable state — §13's
+        # recovery-compatibility argument
+        hub = None
+        fleet_defense = None
+        tracer = None
+        store = None
+        sink = None
+        if self.obs:
+            from repro_torch.obs import (FleetDefense, MetricsHub,
+                                         RetentionSink, WorkUnitTracer,
+                                         obs_store_path, open_snapshot_store)
+            hub = MetricsHub(interval=self.stats_interval,
+                             ring=self.stats_ring)
+            server.attach_hub(hub)
+            if self.trace_rate > 0:
+                tracer = WorkUnitTracer(sample_rate=self.trace_rate,
+                                        seed=self.trace_seed)
+                server.attach_tracer(tracer)
+            if self.defense_schedule is not None:
+                # replay mode: recorded verdicts (incl. §14 stall kills)
+                # re-applied at recorded seqs; the server is the director
+                fleet_defense = FleetDefense.replay(server.registry, hub,
+                                                    self.defense_schedule,
+                                                    director=server)
+            elif self.defense:
+                fleet_defense = FleetDefense(
+                    server.registry, hub, director=server,
+                    stall_window=self.stall_window,
+                    turnaround_drift=self.turnaround_drift)
+            if self.retain:
+                rdir = self.retain_dir or self.ckpt_dir
+                if rdir is None:
+                    raise ValueError("retain=True needs retain_dir or "
+                                     "ckpt_dir")
+                store = open_snapshot_store(
+                    obs_store_path(rdir, self.retain_backend),
+                    max_records=self.retain_max_records)
+                sink = RetentionSink(hub, store, tracer=tracer,
+                                     defense=fleet_defense)
+                server.attach_retention(store)
+                if mgr is not None:
+                    # flushed at every snapshot, closed with the manager —
+                    # the same §10 composition as the eval-cache store
+                    mgr.attach_store(store)
         if mgr is None:
             handler = server.handle
         else:
@@ -695,14 +765,33 @@ class ServerSubstrate:
             # run off the loop thread (blocking_handler)
             intake = SequencedIntake(handler)
             handler = intake.submit
-            server.attach_intake(intake)  # queue-depth in status
+            server.attach_intake(intake)  # queue-depth in status + hub
+        elif self.subscribe:
+            # a live subscriber shares the handler with the serial pool:
+            # serialize them (the intake's lock does this in concurrent
+            # mode) so an unstamped poll can never interleave inside an
+            # applied message's handle+record pair
+            lock = threading.Lock()
+
+            def handler(msg, _lk=lock, _inner=handler):
+                with _lk:
+                    return _inner(msg)
         tkwargs = {}
         if self.transport_name == "tcp" and self.concurrent:
             tkwargs["blocking_handler"] = True
         transport = make_transport(self.transport_name, **tkwargs)
+        # the monitoring side-channel connects to the RAW transport: chaos
+        # draws are keyed on (host, cs), which unstamped monitoring polls
+        # do not carry — and perturbing the fault schedule with extra
+        # traffic would defeat the chaos-parity gates
+        raw_transport = transport
         if self.chaos_plan is not None:
             transport = ChaosTransport(transport, self.chaos_plan)
         transport.start(handler)
+        subscriber = None
+        if self.subscribe:
+            from repro_torch.obs import BackgroundSubscriber
+            subscriber = BackgroundSubscriber(raw_transport.connect).start()
         if self.concurrent:
             pool = ConcurrentClientPool(self.fleet, self.eval_backend,
                                         max_messages=self.max_messages,
@@ -718,6 +807,7 @@ class ServerSubstrate:
             pool.resume_from(server.world_view())
         conn = None
         cache_status = None
+        retention_doc = None
         try:
             if self.concurrent:
                 pool.run(transport)       # workers open their own conns
@@ -729,17 +819,37 @@ class ServerSubstrate:
             if self.cache is not None:
                 cache_status = self.cache.status()
         finally:
+            if subscriber is not None:
+                subscriber.stop()
             if conn is not None:
                 conn.close()
             transport.stop()
+            if sink is not None:
+                sink.drain_remaining()    # spans settled after last sample
+                # summarized while the store can still answer (sqlite
+                # cannot be queried once the manager closes it)
+                retention_doc = sink.summary()
             if mgr is not None:
                 mgr.close()               # closes attached cache stores too
             elif self.cache is not None:
                 self.cache.store.flush()
+            if store is not None and mgr is None:
+                store.close()
         p99 = None
         if pool.request_wall:
             p99 = float(np.percentile(np.asarray(pool.request_wall),
                                       99.0) * 1000.0)
+        obs_doc = None
+        if hub is not None:
+            latest = hub.latest()
+            obs_doc = {"snapshots": hub.seq, "interval": hub.interval,
+                       "ring": hub.ring,
+                       "last_registry": None if latest is None
+                       else latest["groups"].get("registry")}
+        defense_doc = None
+        if fleet_defense is not None:
+            defense_doc = dict(fleet_defense.summary())
+            defense_doc["schedule"] = fleet_defense.schedule_doc()
         return ServerRunResult(server=server, pool=pool.stats,
                                resumed=resume, replayed=replayed,
                                recovered_done=recovered_done,
@@ -751,7 +861,13 @@ class ServerSubstrate:
                                    "next_seq": intake.next_seq,
                                    "parked": intake.parked,
                                    "out_of_band": intake.out_of_band},
-                               request_p99_ms=p99)
+                               request_p99_ms=p99, obs=obs_doc,
+                               subscriber=None if subscriber is None
+                               else subscriber.summary(),
+                               defense=defense_doc,
+                               retention=retention_doc,
+                               trace=None if tracer is None
+                               else tracer.summary())
 
 
 # -- the seeded smoke problem + CLI (dryrun's kill/restore subprocess) --------
@@ -859,17 +975,21 @@ def result_doc(res: ServerRunResult) -> dict:
         "chaos": res.chaos,
         "intake": res.intake,
         "request_p99_ms": res.request_p99_ms,
+        "obs": res.obs,
+        "subscriber": res.subscriber,
+        "defense": res.defense,
+        "retention": res.retention,
+        "trace": res.trace,
     }
 
 
 def cli_parser():
-    """The command line: the reference's flags, less the obs plane's."""
+    """The command line: the reference's flags, and ``--device``."""
     import argparse
 
     ap = argparse.ArgumentParser(
         description="seeded single-search server smoke (the port of the "
-                    "reference's kill/restore subprocess; the obs flags "
-                    "wait for the obs plane's port)")
+                    "reference's kill/restore subprocess)")
     ap.add_argument("--transport", default="loopback",
                     choices=["loopback", "tcp"])
     ap.add_argument("--backend", default="in_process",
@@ -910,10 +1030,48 @@ def cli_parser():
                     help="inject faults per this preset FaultPlan")
     ap.add_argument("--chaos-seed", type=int, default=None,
                     help="re-seed the chosen --chaos plan")
+    ap.add_argument("--obs", action="store_true",
+                    help="attach the metrics hub (DESIGN.md §13): sampled "
+                         "stats snapshots + the subscribe_stats wire "
+                         "extension; the trajectory is unchanged")
+    ap.add_argument("--stats-interval", type=float, default=25.0,
+                    help="virtual seconds between hub snapshots")
+    ap.add_argument("--stats-ring", type=int, default=256,
+                    help="hub snapshot ring size (construction-path knob)")
+    ap.add_argument("--retain", action="store_true",
+                    help="spill snapshots/spans/anomalies into the §14 "
+                         "retention store under --retain-dir or --ckpt-dir "
+                         "(implies --obs)")
+    ap.add_argument("--retain-dir", default=None,
+                    help="retention store directory (default: --ckpt-dir)")
+    ap.add_argument("--retain-backend", default="jsonl",
+                    choices=["jsonl", "sqlite"])
+    ap.add_argument("--trace-rate", type=float, default=0.0,
+                    help="fraction of workunits lifecycle-traced, keyed "
+                         "deterministically on workunit id (implies --obs)")
+    ap.add_argument("--stall-window", type=int, default=0,
+                    help="kill a search with no committed improvement for "
+                         "this many snapshots (implies --defense)")
+    ap.add_argument("--turnaround-drift", type=float, default=0.0,
+                    help="page a state cohort whose fast turnaround EWMA "
+                         "drifts this fraction above the slow baseline "
+                         "(implies --defense)")
+    ap.add_argument("--subscribe", action="store_true",
+                    help="run a live background subscribe_stats poller "
+                         "over the transport (implies --obs)")
     ap.add_argument("--silence-at", type=float, default=None,
                     help="inject fleet churn: the lowest --silence-frac "
                          "of host ids go silent at this virtual time")
     ap.add_argument("--silence-frac", type=float, default=0.25)
+    ap.add_argument("--defense", action="store_true",
+                    help="arm the anomaly detectors: suspect cohorts are "
+                         "quarantined out of the reliable set, and the "
+                         "verdict schedule is recorded (implies --obs)")
+    ap.add_argument("--defense-out", default=None,
+                    help="write the recorded anomaly schedule JSON here")
+    ap.add_argument("--defense-replay", default=None,
+                    help="replay a recorded anomaly schedule instead of "
+                         "detecting (the solo-reproducibility twin)")
     ap.add_argument("--device", default="cuda",
                     help="where the fitness and the engines run (the "
                          "card unless 'cpu' is asked for)")
@@ -965,16 +1123,34 @@ def run_cli(argv: Optional[Sequence[str]] = None, **substrate_kw):
         store = (JsonlCacheStore(eval_cache_path(args.ckpt_dir))
                  if args.ckpt_dir else None)
         cache = EvalCache(store, fingerprint=fp)
+    defense_schedule = None
+    if args.defense_replay:
+        with open(args.defense_replay) as f:
+            defense_schedule = json.load(f)
     sub = ServerSubstrate(spec, fleet, backend, transport=args.transport,
                           ckpt_dir=args.ckpt_dir,
                           snapshot_every=args.snapshot_every,
                           throttle_s=args.throttle_s, cache=cache,
                           concurrent=args.concurrent, chaos=args.chaos,
                           chaos_seed=args.chaos_seed,
+                          obs=args.obs, stats_interval=args.stats_interval,
+                          stats_ring=args.stats_ring,
+                          subscribe=args.subscribe, defense=args.defense,
+                          defense_schedule=defense_schedule,
+                          retain=args.retain, retain_dir=args.retain_dir,
+                          retain_backend=args.retain_backend,
+                          trace_rate=args.trace_rate,
+                          stall_window=args.stall_window,
+                          turnaround_drift=args.turnaround_drift,
                           silence_at=args.silence_at,
                           silence_frac=args.silence_frac, **substrate_kw)
     res = sub.run(resume=args.resume)
     doc = result_doc(res)
+    if args.defense_out and res.defense is not None:
+        os.makedirs(os.path.dirname(os.path.abspath(args.defense_out)),
+                    exist_ok=True)
+        with open(args.defense_out, "w") as f:
+            json.dump(res.defense["schedule"], f, indent=2)
     doc["transport"] = args.transport
     doc["backend"] = args.backend
     doc["problem"] = args.problem
@@ -1000,6 +1176,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                        f" retries={res.chaos['retries']}")
     if args.concurrent:
         cache_note += f" workers={args.concurrent}"
+    if res.obs is not None:
+        cache_note += f" obs_snapshots={res.obs['snapshots']}"
+    if res.subscriber is not None:
+        cache_note += (f" subscribed={res.subscriber['snapshots']}"
+                       f" stamped_ok={res.subscriber['stamped_ok']}")
+    if res.defense is not None:
+        cache_note += (f" defense={res.defense['mode']}"
+                       f" anomalies={res.defense['events']}"
+                       f" quarantined={res.defense['quarantined_now']}")
     print(f"[server.sim] transport={args.transport} backend={args.backend} "
           f"resumed={res.resumed} replayed={res.replayed} "
           f"iters={doc['iteration']} best={doc['best_fitness']:.6f} "

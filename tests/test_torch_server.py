@@ -668,26 +668,101 @@ def test_smoke_server_run_tracks_the_reference():
     assert np.isfinite(mine["best_fitness"])
 
 
-@pytest.mark.parametrize("refused", [
-    dict(obs=True), dict(subscribe=True), dict(defense=True),
-    dict(defense_schedule={}), dict(retain=True), dict(retain_dir="x"),
-    dict(trace_rate=0.5), dict(stall_window=3), dict(turnaround_drift=0.2)])
-def test_obs_knobs_are_refused_not_ignored(backend, refused):
-    """The reference's observability plane is not ported yet: each of its
-    switches raises, naming the slice, rather than running without it."""
+#: each obs knob of ``ServerSubstrate`` (its value at a ``tmp_path``
+#: where it names a directory) and the ``ServerRunResult`` field it fills
+OBS_KNOBS = [
+    ("obs", lambda d: dict(obs=True), "obs"),
+    ("subscribe", lambda d: dict(subscribe=True), "subscriber"),
+    ("defense", lambda d: dict(defense=True), "defense"),
+    ("defense_schedule", lambda d: dict(defense_schedule={"v": 1,
+                                                          "events": []}),
+     "defense"),
+    ("retain", lambda d: dict(retain=True, ckpt_dir=d), "retention"),
+    ("retain_dir", lambda d: dict(retain_dir=d), "retention"),
+    ("trace_rate", lambda d: dict(trace_rate=0.5), "trace"),
+    ("stall_window", lambda d: dict(stall_window=3), "defense"),
+    ("turnaround_drift", lambda d: dict(turnaround_drift=0.2), "defense"),
+]
+
+
+@pytest.mark.parametrize("knob,kwargs,field", OBS_KNOBS,
+                         ids=[k[0] for k in OBS_KNOBS])
+def test_obs_knobs_run_and_fill_their_result_field(tmp_path, backend, knob,
+                                                   kwargs, field):
+    """Each of the obs plane's switches runs through ``ServerSubstrate``
+    and fills its ``ServerRunResult`` field; every other obs field it does
+    not imply stays empty."""
     spec, fleet = _spec()
-    with pytest.raises(ValueError, match="obs plane"):
-        ServerSubstrate(spec, fleet, backend, warm=False, **refused)
+    res = ServerSubstrate(spec, fleet, backend, warm=False,
+                          stats_interval=10.0,
+                          **kwargs(str(tmp_path / "obs"))).run()
+    assert res.obs is not None and res.obs["snapshots"] >= 1
+    got = getattr(res, field)
+    assert isinstance(got, dict) and got
+    if field == "defense":
+        assert got["mode"] == ("replay" if knob == "defense_schedule"
+                               else "live")
+        assert got["schedule"]["v"] == 1
+    if field == "retention":
+        assert got["snapshots_stored"] == res.obs["snapshots"]
+    if field == "trace":
+        assert got["sample_rate"] == 0.5 and got["sampled"] > 0
+    if field == "subscriber":
+        assert got["stamped_ok"] and not got["errors"]
+    implied = {"obs", field}
+    for other in ("subscriber", "defense", "retention", "trace"):
+        if other not in implied:
+            assert getattr(res, other) is None, other
 
 
-def test_obs_attach_points_and_pod_mesh_are_refused():
+@pytest.mark.parametrize("kwargs", [
+    dict(obs=True), dict(subscribe=True), dict(retain=True),
+    dict(trace_rate=1.0)], ids=["obs", "subscribe", "retain", "trace_rate"])
+def test_observed_run_is_bit_identical_to_the_unobserved_one(
+        tmp_path, backend, baseline, kwargs):
+    """The hub, a live subscriber, retention and tracing read host state
+    only: the committed iterates and the engine's stats are the
+    unobserved run's."""
+    spec, fleet, base = baseline
+    if kwargs.get("retain"):
+        kwargs = dict(kwargs, ckpt_dir=str(tmp_path / "ckpt"))
+    res = ServerSubstrate(spec, fleet, backend, warm=False,
+                          stats_interval=10.0, **kwargs).run()
+    assert identical_trajectories(base.engines[0], res.engines[0])
+    assert base.engines[0].stats == res.engines[0].stats
+    assert res.obs["snapshots"] >= 2
+
+
+def test_obs_attach_points_accept_and_subscribe_stats_answers(tmp_path):
+    """``attach_hub``, ``attach_tracer`` and ``attach_retention`` take the
+    port's obs objects; ``subscribe_stats`` then answers with the hub's
+    ring and ``status`` carries the obs block."""
+    from repro_torch.obs import (STREAM_VERSION, MetricsHub, SnapshotStore,
+                                 WorkUnitTracer)
     spec, _ = _spec()
     srv = WorkServer([spec])
-    for attach in (srv.attach_hub, srv.attach_tracer, srv.attach_retention):
-        with pytest.raises(ValueError, match="obs plane"):
-            attach(object())
+    hub = MetricsHub(interval=5.0)
+    tracer = WorkUnitTracer()
+    store = SnapshotStore(str(tmp_path / "obs.jsonl"))
+    srv.attach_hub(hub)
+    srv.attach_tracer(tracer)
+    srv.attach_retention(store)
+    srv.handle(protocol.register(0, 1.0, cs=0))
+    srv.handle(protocol.request_work(0, 1.0, cs=1))
     rep = srv.handle(protocol.subscribe_stats())
-    assert rep["kind"] == "error" and "obs plane" in rep["error"]
+    assert rep["kind"] == "stats" and rep["stream_v"] == STREAM_VERSION
+    assert [s["seq"] for s in rep["snapshots"]] == [0]
+    assert rep["snapshots"][0]["groups"]["server"]["messages"] == 1
+    assert tracer.sampled == 1 and tracer.open_spans == 1
+    obs = srv.handle(protocol.status())["obs"]
+    assert obs["snapshots"] == 1 and obs["tracer"]["sampled"] == 1
+    assert obs["retention"]["epoch"] == 1
+    store.close()
+
+
+def test_pod_mesh_backend_is_refused():
+    """``--backend pod_mesh`` waits for the port of the pod-mesh backend
+    (ROADMAP A.6): it raises rather than run in process."""
     from repro_torch.server import sim
     with pytest.raises(ValueError, match="ROADMAP A.6"):
         sim.main(["--device", "cpu", "--backend", "pod_mesh"])
