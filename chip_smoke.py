@@ -67,7 +67,13 @@ so the script exits non-zero and prints no result line:
            Then act 2 on both archs (2 searches each, coalesced == solo)
            and act 3 on rwkv6 (the work server crashed at 40 % of its
            messages and restored == uninterrupted), each launching the
-           arch's kernel once per layer per lane evaluated;
+           arch's kernel once per layer per lane evaluated.  After each
+           arch, ``pod lm`` on the same workload: the LM backend's mesh
+           route over the virtual 16 x 16 mesh (θ0 and the basis stored
+           cut over model, gathered at use), act 1 pipelined == [lm]'s
+           in-process sync and pipelined, no bucket shape first run
+           after warm, and for rwkv6 the work server == act 3's
+           in-process run; the kernel once per layer per lane;
 9. rowmean the fixed-order row mean against its plain version (the same
            bits) and the float64 mean (≤ 1e-6 relative) at (k, 100000)
            and (k, 4096) for k = 1, 8, 16, 64, 1024, 4096 and at
@@ -85,7 +91,18 @@ so the script exits non-zero and prints no result line:
            the smoke size (400 stars, m = 24, 192 hosts) TCP, 8 concurrent
            clients and the 4 chaos presets (8 concurrent TCP clients each)
            == loopback;
-12. obs    the observability plane on the work server: at paper scale
+12. pod    the pod-mesh evaluation backend, on this card's (1, 1) mesh
+           and on the production 16 x 16 mesh over 256 virtual devices:
+           (a) the paper-scale grid in-process sync == in-process
+           pipelined == pod (1, 1) pipelined == pod 16 x 16 pipelined,
+           no bucket shape first run after warm; (b) the paper-scale
+           server through --backend pod_mesh == [server]'s run, and at
+           the smoke size crashed at 40 % on pod 16 x 16, restored ==
+           uninterrupted == in-process; (c) [portfolio]'s 6 searches on
+           pod 16 x 16, coalesced == solo, through the eval cache cold ==
+           warm == cache off with no miss in the warm run; each leg
+           prints its wall, peak device memory and launches;
+13. obs    the observability plane on the work server: at paper scale
            the whole plane (metrics hub, a live subscriber, full tracing,
            retention) == the unobserved server run, gram twice per
            regression finish; the run with checkpoint, eval cache,
@@ -101,11 +118,11 @@ so the script exits non-zero and prints no result line:
            replays bit for bit; the stall kill is in the schedule and
            replays bit for bit; replay logs are byte-identical with
            retention and tracing on and off;
-13. portfolio act 1 of examples/multi_search.py at paper scale (stripe79
+14. portfolio act 1 of examples/multi_search.py at paper scale (stripe79
            at 100k stars, 6 searches at m = 1000 / 500 on the 4096-host
            fleet, 2 iterations): every search coalesced == solo, fewer
            dispatches than per-search blocks;
-14. the ``kernels`` JSON line, then the ``ok`` JSON line.
+15. the ``kernels`` JSON line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
 
@@ -129,16 +146,23 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core.engine import identical_trajectories  # noqa: E402
+from repro_torch.core.orchestrator import (FleetScheduler,  # noqa: E402
+                                           SearchDirector)
 from repro_torch.core.substrates.batched_grid import \
     BatchedVolunteerGrid  # noqa: E402
 from repro_torch.core.substrates.eval_backend import \
     InProcessEvalBackend  # noqa: E402
+from repro_torch.core.substrates.eval_cache import EvalCache  # noqa: E402
 from repro_torch.core.substrates.lm_loss import \
     LmLossEvalBackend  # noqa: E402
+from repro_torch.core.substrates.pod_mesh import \
+    PodMeshEvalBackend  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
 from repro_torch.launch import (anm_lm, fig2, multi_search,  # noqa: E402
                                 obs_postmortem, volunteer_grid)
+from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
+                                     virtual_devices)
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.obs import obs_store_path  # noqa: E402
 from repro_torch.server import sim  # noqa: E402
@@ -236,6 +260,15 @@ PORTFOLIO = dict(n_searches=6, m=1000, iterations=2)
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def _zero_counts() -> None:
+    for name in LAUNCH_COUNTERS:
+        setattr(ops, name, 0)
+
+
+def _counts() -> dict:
+    return {name: getattr(ops, name) for name in LAUNCH_COUNTERS}
 
 
 def phase_card(dev: torch.device) -> None:
@@ -785,9 +818,11 @@ def _lane_split_ms(backend: LmLossEvalBackend, c: torch.Tensor) -> dict:
         }
 
 
-def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
+def phase_lm(dev: torch.device, arch: str, kernel_ms: float):
     """Act 1 over ``arch``'s loss at published widths; returns the arch's
-    kernel launches in the two act-1 runs."""
+    kernel launches in the two act-1 runs, and what ``[pod lm]`` reuses:
+    the workload, its search, act 1's engines and act 3's uninterrupted
+    server run (rwkv6)."""
     counter = LM_KERNEL[arch][0]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -815,8 +850,7 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
     check(rel <= 2e-2, f"{arch}: θ0 loss through the kernel {loss0} vs the "
           f"plain version {loss0_plain}")
 
-    for name in LAUNCH_COUNTERS:
-        setattr(ops, name, 0)           # the main path, counted from 0
+    _zero_counts()                  # the main path, counted from 0
     out = {}
     for mode, pipelined in (("pipelined", True), ("sync", False)):
         engine, stats, wall = anm_lm.run(search, fleet, backend,
@@ -832,7 +866,7 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
     launches = getattr(ops, counter)
     pipe, sync = out["pipelined"], out["sync"]
     lanes = pipe["lanes"] + sync["lanes"]
-    counts = {name: getattr(ops, name) for name in LAUNCH_COUNTERS}
+    counts = _counts()
     print(f"[lm] {arch}: {counter} {launches} for {lanes} lanes x "
           f"{n_layers} layers; all counts {counts}")
     check(launches == lanes * n_layers, f"{arch}: {launches} kernel "
@@ -870,12 +904,14 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float) -> int:
           f"; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase "
           f"wall {time.perf_counter() - t0:.1f}s")
-    _lm_acts(dev, arch, search, fleet, backend, n_layers)
+    server = _lm_acts(dev, arch, search, fleet, backend, n_layers)
     torch.cuda.synchronize()
-    del backend, wl, search, out, pipe, sync
+    del backend
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(search=search, fleet=fleet, wl=wl,
+                          sync=sync["engine"], pipe=pipe["engine"],
+                          server=server, n_layers=n_layers)
 
 
 def _row_mean_bound(k: int, n: int):
@@ -986,13 +1022,12 @@ def phase_server(dev: torch.device):
     launches, the result doc and the wall of the uninterrupted paper-scale
     run."""
     flags = SERVER_FLAGS + ["--device", str(dev)]
-    for name in LAUNCH_COUNTERS:
-        setattr(ops, name, 0)           # this slice's path, counted from 0
+    _zero_counts()                  # this slice's path, counted from 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     _, res, doc = sim.run_cli(flags)
     wall = time.perf_counter() - t0
-    counts = {name: getattr(ops, name) for name in LAUNCH_COUNTERS}
+    counts = _counts()
     engine = res.server.engines[0]
     finishes = len(engine.phase_finish_s)
     pool = doc["pool"]
@@ -1073,15 +1108,14 @@ def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
     flags = SERVER_FLAGS + ["--device", str(dev)]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
         # (a) the whole plane on, at paper scale
-        for name in LAUNCH_COUNTERS:
-            setattr(ops, name, 0)
+        _zero_counts()
         ret = os.path.join(tmp, "a")
         t0 = time.perf_counter()
         _, res, doc = sim.run_cli(flags + ["--obs", "--subscribe",
                                            "--trace-rate", "1.0", "--retain",
                                            "--retain-dir", ret])
         wall = time.perf_counter() - t0
-        counts = {name: getattr(ops, name) for name in LAUNCH_COUNTERS}
+        counts = _counts()
         finishes = len(res.server.engines[0].phase_finish_s)
         sub, kept, trace = doc["subscriber"], doc["retention"], doc["trace"]
         same = _same_run(doc, base)
@@ -1260,8 +1294,7 @@ def phase_portfolio(dev: torch.device) -> None:
     f_batch, x0 = multi_search.make_problem(100_000, 4096, device=dev)
     backend = InProcessEvalBackend(f_batch, device=dev)
     grid = multi_search.fleet(4096)
-    for name in LAUNCH_COUNTERS:
-        setattr(ops, name, 0)
+    _zero_counts()
     res, wall_co = multi_search.coalesced(backend, grid, x0, **PORTFOLIO)
     co = res.coalesce_stats
     gram_co = ops.gram_launches
@@ -1281,17 +1314,242 @@ def phase_portfolio(dev: torch.device) -> None:
               for o in res.outcomes), "a portfolio search stopped early")
 
 
-def _lm_acts(dev, arch, search, fleet, backend, n_layers) -> None:
+def _virtual_pod(dev: torch.device):
+    """The production 16 × 16 mesh over 256 virtual devices that are all
+    ``dev``."""
+    return make_production_mesh(devices=virtual_devices(256, dev))
+
+
+def _leg(dev: torch.device, fn):
+    """Run one leg from zeroed launch counts and a reset memory peak;
+    returns (its result, wall seconds, its counts, peak GiB)."""
+    _zero_counts()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out, wall, _counts(), peak
+
+
+def phase_pod(dev: torch.device, server_doc: dict) -> None:
+    """The pod-mesh evaluation backend on the main path: (a) the
+    paper-scale grid, (b) the work server (``[server]``'s run, then a
+    crash/restore at smoke size), (c) the portfolio and the eval cache,
+    on the (1, 1) mesh of this card and the virtual 16 × 16 mesh."""
+    # (a) the batched grid at paper scale, four ways
+    f_batch, x0 = volunteer_grid.make_problem(n_stars=100_000, device=dev)
+    top = min(volunteer_grid.FLEET.n_hosts,
+              BatchedVolunteerGrid.warm_max_bucket(1000))
+    inp = InProcessEvalBackend(f_batch, device=dev)
+    pod1 = PodMeshEvalBackend(f_batch, device=dev)
+    pod16 = PodMeshEvalBackend(f_batch, mesh=_virtual_pod(dev), device=dev)
+    shapes = {}
+    for be in (inp, pod1, pod16):
+        be.warm(8, top)
+        shapes[id(be)] = be.compile_count
+    runs = [("in-process sync", inp, False),
+            ("in-process pipelined", inp, True),
+            ("pod (1, 1) pipelined", pod1, True),
+            ("pod 16x16 pipelined", pod16, True)]
+    engines = {}
+    for name, be, pipelined in runs:
+        (engine, stats, _), wall, counts, peak = _leg(
+            dev, lambda: volunteer_grid.run(
+                f_batch, x0, m=1000, iters=3, pipelined=pipelined,
+                device=dev, backend=be))
+        engines[name] = engine
+        shards = getattr(be, "n_shards", 1)
+        print(f"[pod] (a) grid {name}: {shards} data shard(s) "
+              f"(floor {be.min_bucket}), {engine.iteration} iterations, best "
+              f"{engine.best_fitness:.5f}, wall {wall:.3f}s, peak device "
+              f"memory {peak:.2f} GiB, gram {counts['gram_launches']}, "
+              f"row_mean {counts['row_mean_launches']}, bucket_hist "
+              f"{dict(sorted(stats.bucket_hist.items()))}")
+        check(engine.iteration == 3, f"the {name} grid stopped early")
+        check(counts["gram_launches"] > 0
+              and counts["row_mean_launches"] > 0,
+              f"the {name} grid missed the gram or row_mean kernel")
+    sync = engines["in-process sync"]
+    for name, engine in engines.items():
+        check(identical_trajectories(engine, sync)
+              and engine.stats == sync.stats,
+              f"the {name} grid differs from the in-process sync grid")
+    for be in (inp, pod1, pod16):
+        check(be.compile_count == shapes[id(be)],
+              f"a bucket shape was first run mid-run on {be.min_bucket}")
+    print("[pod] (a) in-process sync == in-process pipelined == pod (1, 1) "
+          "== pod 16x16: bit-identical iterates and engine stats, no new "
+          "bucket shape after warm")
+    del inp, pod1, pod16, engines, f_batch
+
+    # (b) the work server through --backend pod_mesh at paper scale
+    flags = SERVER_FLAGS + ["--device", str(dev), "--backend", "pod_mesh"]
+    (_, res, doc), wall, counts, peak = _leg(dev, lambda: sim.run_cli(flags))
+    finishes = len(res.server.engines[0].phase_finish_s)
+    same = _same_run(doc, server_doc)
+    print(f"[pod] (b) server at paper scale, --backend pod_mesh (1 data "
+          f"shard): {doc['iteration']} iterations, best "
+          f"{doc['best_fitness']:.5f}, {doc['pool']['messages']} messages, "
+          f"wall {wall:.1f}s, peak device memory {peak:.2f} GiB, gram "
+          f"{counts['gram_launches']} ({finishes} finishes), row_mean "
+          f"{counts['row_mean_launches']}; == [server]: {same}")
+    check(same, "the pod_mesh server run differs from [server]'s")
+    check(counts["gram_launches"] == 2 * finishes > 0
+          and counts["row_mean_launches"] > 0,
+          "the pod_mesh server missed the gram or row_mean kernel")
+
+    # ... and the crash/restore contract on the virtual 16 × 16 backend
+    spec, fleet, f_small = sim.smoke_problem(device=dev)
+    base = sim.result_doc(sim.ServerSubstrate(
+        spec, fleet, InProcessEvalBackend(f_small, device=dev)).run())
+    pod = PodMeshEvalBackend(f_small, mesh=_virtual_pod(dev), device=dev)
+
+    def crash_restore():
+        whole = sim.result_doc(sim.ServerSubstrate(spec, fleet, pod).run())
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as ckpt:
+            try:
+                sim.ServerSubstrate(
+                    spec, fleet, pod, ckpt_dir=ckpt, snapshot_every=25,
+                    max_messages=int(0.4 * base["pool"]["messages"])).run()
+                check(False, "the pod server finished before its crash point")
+            except sim.SimulatedCrash as e:
+                crash = str(e)
+            back = sim.result_doc(sim.ServerSubstrate(
+                spec, fleet, pod, ckpt_dir=ckpt,
+                snapshot_every=25).run(resume=True))
+        return whole, back, crash
+    (whole, back, crash), wall, counts, peak = _leg(dev, crash_restore)
+    ok = all(_same_run(d, base) for d in (whole, back))
+    print(f"[pod] (b) smoke size (400 stars, 192 hosts, m = 24) on pod "
+          f"16x16 ({pod.n_shards} data shards, floor {pod.min_bucket}): "
+          f"{crash}; restored after {back['replayed']} records; restored "
+          f"== uninterrupted == in-process: {ok}; wall {wall:.1f}s, peak "
+          f"device memory {peak:.2f} GiB, gram {counts['gram_launches']}, "
+          f"row_mean {counts['row_mean_launches']}")
+    check(ok, "the pod 16x16 server's restored or uninterrupted run "
+          "differs from the in-process run")
+    del pod, f_small
+
+    # (c) the portfolio of [portfolio] and the eval cache on pod 16x16
+    f_batch, x0 = multi_search.make_problem(100_000, 4096, device=dev)
+    pod = PodMeshEvalBackend(f_batch, mesh=_virtual_pod(dev), device=dev)
+    grid = multi_search.fleet(4096)
+    (res, _), wall_co, counts, peak = _leg(
+        dev, lambda: multi_search.coalesced(pod, grid, x0, **PORTFOLIO))
+    co = res.coalesce_stats
+    parity, wall_solo = multi_search.solo_reruns(res, pod)
+    print(f"[pod] (c) portfolio on pod 16x16 ({pod.n_shards} data shards): "
+          f"{PORTFOLIO['n_searches']} searches coalesced {wall_co:.1f}s "
+          f"({co.dispatches} dispatches for {co.lane_blocks} blocks), solo "
+          f"re-runs {wall_solo:.1f}s, coalesced == solo: {parity}; peak "
+          f"device memory {peak:.2f} GiB, gram {counts['gram_launches']}, "
+          f"row_mean {counts['row_mean_launches']}")
+    check(parity, "a coalesced search on pod 16x16 differs from its solo run")
+    check(counts["row_mean_launches"] > 0, "the pod portfolio never "
+          "launched row_mean")
+    specs = [o.spec for o in res.outcomes]
+    cache = EvalCache(fingerprint="chip_smoke_pod")
+
+    def cached():
+        cold = SearchDirector(FleetScheduler(pod, grid, cache=cache),
+                              specs).run()
+        misses = cache.stats.misses
+        warm = SearchDirector(FleetScheduler(pod, grid, cache=cache),
+                              specs).run()
+        return cold, misses, warm
+    (cold, misses, warm), wall, counts, peak = _leg(dev, cached)
+    same = all(identical_trajectories(a.engine, b.engine)
+               and a.engine.stats == b.engine.stats
+               for run in (cold, warm)
+               for a, b in zip(res.outcomes, run.outcomes))
+    st = cache.stats
+    print(f"[pod] (c) eval cache on pod 16x16: cold + warm {wall:.1f}s, "
+          f"hits {st.hits}, misses {st.misses} (after cold {misses}), full "
+          f"buckets {st.full_buckets}; cold == warm == cache off: {same}; "
+          f"peak device memory {peak:.2f} GiB, gram "
+          f"{counts['gram_launches']}, row_mean "
+          f"{counts['row_mean_launches']}")
+    check(same, "a cached portfolio on pod 16x16 differs from the uncached")
+    check(st.misses == misses and st.hits > 0,
+          "the warm cached portfolio was not served from the cache")
+
+
+def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> None:
+    """Act 1 (and for rwkv6 the work server) over ``arch``'s loss on the
+    LM backend's mesh route over the virtual 16 × 16 mesh, reusing
+    ``[lm]``'s workload, engines and server run; frees the workload."""
+    counter = LM_KERNEL[arch][0]
+    search, fleet, wl = lm["search"], lm["fleet"], lm["wl"]
+    n_layers = lm["n_layers"]
+    t0 = time.perf_counter()
+    pod = anm_lm.warmed_backend(wl, search.anm.m_regression,
+                                mesh=_virtual_pod(dev))
+    torch.cuda.synchronize(dev)
+    cut, total = pod.sharded_params
+    print(f"[pod lm] {arch}: {pod.n_shards} data shards (floor "
+          f"{pod.min_bucket}), spec_fallbacks {pod.spec_fallbacks}, "
+          f"{cut} of {total} parameters ({100 * cut / total:.1f} %) stored "
+          f"cut 16 ways over model; warmed {pod.compile_count} bucket "
+          f"shapes in {time.perf_counter() - t0:.1f}s")
+    shapes = pod.compile_count
+    legs = [("act 1 pipelined", lambda: anm_lm.run(search, fleet, pod)[0])]
+    if lm["server"] is not None:
+        legs.append(("server", lambda: sim.result_doc(
+            sim.ServerSubstrate(search, fleet, pod).run())))
+    for name, fn in legs:
+        lanes0 = pod.lanes_evaluated
+        out, wall, counts, peak = _leg(dev, fn)
+        lanes = pod.lanes_evaluated - lanes0
+        launches = counts[counter]
+        if name == "server":
+            ok = (out["history"] == lm["server"]["history"]
+                  and out["engine_stats"] == lm["server"]["engine_stats"])
+            what = (f"{out['pool']['messages']} messages, best "
+                    f"{out['best_fitness']:.6f}; == act 3's in-process "
+                    f"server run: {ok}")
+        else:
+            ok = (identical_trajectories(out, lm["sync"])
+                  and identical_trajectories(out, lm["pipe"])
+                  and out.stats == lm["sync"].stats)
+            what = (f"{out.iteration} iterations, best "
+                    f"{out.best_fitness:.6f}; == in-process sync == "
+                    f"in-process pipelined: {ok}")
+        print(f"[pod lm] {arch} {name} on pod 16x16: {what}; wall "
+              f"{wall:.1f}s, {lanes} lanes, {counter} {launches}, peak "
+              f"device memory {peak:.2f} GiB, all counts {counts}")
+        check(ok, f"{arch} {name}: the pod run differs from in-process")
+        check(launches == lanes * n_layers > 0, f"{arch} {name}: {launches} "
+              f"kernel launches for {lanes} lanes x {n_layers} layers")
+        check(counts["flash_attention_launches"]
+              == counts["flash_attention_wgmma_launches"]
+              and counts["wkv6_launches"] == counts["wkv6_chunked_launches"],
+              f"{arch} {name}: a launch left the main path's variant")
+        # the server warms its own (wider) ladder before it starts
+        check(name == "server" or pod.compile_count == shapes,
+              f"{arch}: a bucket shape was first run after warm on pod "
+              f"16x16")
+    torch.cuda.synchronize(dev)
+    lm.clear()
+    del pod, wl, search
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _lm_acts(dev, arch, search, fleet, backend, n_layers):
     """Acts 2 (both archs) and 3 (rwkv6) on act 1's workload: the arch's
-    kernel once per layer per lane evaluated."""
+    kernel once per layer per lane evaluated.  Returns act 3's
+    uninterrupted server run (None for an arch without act 3)."""
     counter = LM_KERNEL[arch][0]
     acts = [("act 2", lambda: anm_lm.portfolio(search, fleet, backend, 2))]
     if arch == "rwkv6-7b":
         acts.append(("act 3", lambda: anm_lm.crash_restore(search, fleet,
                                                            backend)))
+    server = None
     for act, run in acts:
-        for name in LAUNCH_COUNTERS:
-            setattr(ops, name, 0)
+        _zero_counts()
         lanes0 = backend.lanes_evaluated
         t0 = time.perf_counter()
         out = run()
@@ -1307,6 +1565,7 @@ def _lm_acts(dev, arch, search, fleet, backend, n_layers) -> None:
                     f"{res.best.engine.best_fitness:.6f}")
         else:
             base, restored, crash, ok = out
+            server = base
             what = (f"uninterrupted {base['pool']['messages']} messages, "
                     f"{crash}, restored after replaying "
                     f"{restored['replayed']} records, bit-identical: {ok}, "
@@ -1316,6 +1575,7 @@ def _lm_acts(dev, arch, search, fleet, backend, n_layers) -> None:
         check(ok, f"{arch} {act}: the bit-identity gate failed")
         check(launches == lanes * n_layers > 0, f"{arch} {act}: {launches} "
               f"kernel launches for {lanes} lanes x {n_layers} layers")
+    return server
 
 
 def main() -> None:
@@ -1339,13 +1599,17 @@ def main() -> None:
     timed("grid", phase_grid, dev)
     row_mean_launches, server_doc, server_wall = timed("server",
                                                        phase_server, dev)
+    timed("pod", phase_pod, dev, server_doc)
     timed("obs", phase_obs, dev, server_doc, server_wall)
     timed("portfolio", phase_portfolio, dev)
     flash = timed("flash", phase_flash, dev)
     wkv6 = timed("wkv6", phase_wkv6, dev)
-    flash_launches = timed("lm danube", phase_lm, dev, "h2o-danube-3-4b",
-                           flash["ms"])
-    wkv6_launches = timed("lm rwkv6", phase_lm, dev, "rwkv6-7b", wkv6["ms"])
+    flash_launches, lm = timed("lm danube", phase_lm, dev,
+                               "h2o-danube-3-4b", flash["ms"])
+    timed("pod lm danube", phase_pod_lm, dev, "h2o-danube-3-4b", lm)
+    wkv6_launches, lm = timed("lm rwkv6", phase_lm, dev, "rwkv6-7b",
+                              wkv6["ms"])
+    timed("pod lm rwkv6", phase_pod_lm, dev, "rwkv6-7b", lm)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {"name": "gram", "route": "cuda",

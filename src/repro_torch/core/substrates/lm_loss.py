@@ -1,22 +1,41 @@
 """LM-loss evaluation backend: the engine's fitness IS a model forward.
 
-Port of ``repro/core/substrates/lm_loss.py`` (in-process, ``mesh=None``).
-Every fitness evaluation is a real forward + cross-entropy of a
-``models/`` network on a fixed synthetic batch, with the parameters moved
-along a k-dimensional ``SubspaceProjection`` (``core/subspace.py``).  An
-engine candidate is a (k,) vector of subspace coefficients; the backend
-lifts it to θ0 + c·V leaf by leaf and returns the loss.  On the card the
-forward's attention and RWKV6 recurrence run the port's CUDA kernels
-(``kernels/ops.py``).
+Port of ``repro/core/substrates/lm_loss.py``.  Every fitness evaluation
+is a real forward + cross-entropy of a ``models/`` network on a fixed
+synthetic batch, with the parameters moved along a k-dimensional
+``SubspaceProjection`` (``core/subspace.py``).  An engine candidate is a
+(k,) vector of subspace coefficients; the backend lifts it to θ0 + c·V
+leaf by leaf and returns the loss.  On the card the forward's attention
+and RWKV6 recurrence run the port's CUDA kernels (``kernels/ops.py``).
+
+Two evaluation modes, one class, as in the reference:
+
+  * ``mesh=None``: in-process, the bucket's lanes on the workload's
+    device;
+  * ``mesh`` given (``launch/mesh.py``): the bucket's lanes are split
+    over the ``data`` axis, while θ0 and the basis are STORED cut over
+    ``model`` with the model's own ``param_specs`` (after
+    ``enforce_divisible``: a smoke config's 4 heads cannot split 16 ways
+    and fall back explicitly, ``spec_fallbacks``).  Before a bucket the
+    pieces are gathered back, once for each distinct device, and every
+    data shard evaluates its lanes on the whole leaves; the gathered copy
+    is freed after the bucket.  The port accepts meshes whose devices are
+    all the workload's device (the (1, 1) mesh and virtual meshes), on
+    which the stored pieces are views and cost no memory.
+
+Gather-at-use keeps pod == in-process bit for bit: the gathered basis is
+written into a (k, P) buffer at each leaf's offset, so every lane's lift
+makes the very same matrix call on the very same strides as in-process.
 
 Lanes are evaluated one at a time, as the reference's ``lax.map`` does:
 every lane runs the same sequence of kernels at the same shapes whatever
 the width of its bucket, so a lane's loss is bitwise the same in a bucket
-of 8 or of 32, pipelined or not.  Pad lanes are evaluated too (the
-reference maps over the whole bucket).  Each lane's lift is written in
-place into one set of working parameters that every lane reuses: lanes
-run in order on the backend's one stream, so no lane sees another's.
-Framing, staging, malicious lanes and pad masking are the base class's.
+of 8 or of 32, pipelined or not, in-process or on a mesh.  Pad lanes are
+evaluated too (the reference maps over the whole bucket).  Each lane's
+lift is written in place into one set of working parameters that every
+lane reuses: lanes run in order on the backend's one stream, so no lane
+sees another's.  Framing, staging, malicious lanes and pad masking are
+the base class's.
 """
 from __future__ import annotations
 
@@ -26,11 +45,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import (ModelConfig, cut_depth, get_config,
-                                 get_smoke_config)
-from repro_torch.core.subspace import SubspaceProjection
+from repro_torch.configs import (ModelConfig, ShapeConfig, cut_depth,
+                                 get_config, get_smoke_config)
+from repro_torch.core.subspace import (SubspaceProjection, basis_to_tree,
+                                       tree_lift)
 from repro_torch.core.substrates.eval_backend import (DEFAULT_MIN_BUCKET,
-                                                      EvalBackend)
+                                                      EvalBackend, bucket_size)
+from repro_torch.core.substrates.pod_mesh import data_shards
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 
 
@@ -113,17 +136,53 @@ def batch_tensors(batch: Dict[str, np.ndarray],
 class LmLossEvalBackend(EvalBackend):
     """``EvalBackend`` whose ``_raw_eval`` lifts each lane's (k,) subspace
     coefficients to model parameters and returns the forward/CE loss on
-    the workload's fixed batch, on the workload's device."""
+    the workload's fixed batch, on the workload's device.
 
-    def __init__(self, workload: LmWorkload, *,
+    ``mesh=None``: in-process.  ``mesh`` given: lanes split over
+    ``data_axis``, θ0 and basis stored cut over ``model_axis`` (see the
+    module docstring); ``spec_fallbacks`` lists the parameter-spec
+    entries ``enforce_divisible`` downgraded to replicated, and
+    ``sharded_params`` counts (parameters stored cut over ``model_axis``,
+    all parameters).
+    """
+
+    def __init__(self, workload: LmWorkload, mesh: Optional[Mesh] = None, *,
+                 data_axis: str = "data", model_axis: str = "model",
                  n_dims: Optional[int] = None,
                  max_bucket: Optional[int] = None):
         self.workload = workload
+        self.mesh = mesh
         self._loss_fn = T.make_loss_fn(workload.cfg)
+        device = workload.proj.basis.device
         # the one set of parameters every lane's lift overwrites
         self._work = workload.proj.lift(
-            torch.zeros(workload.k, device=workload.proj.basis.device))
-        super().__init__(DEFAULT_MIN_BUCKET, workload.proj.basis.device)
+            torch.zeros(workload.k, device=device))
+        if mesh is None:
+            self.n_shards = 1
+            min_bucket = DEFAULT_MIN_BUCKET
+        else:
+            mesh.require_one_device(device)
+            self.n_shards = data_shards(mesh, data_axis)
+            pspecs, self.spec_fallbacks = sharding.enforce_divisible(
+                workload.cfg, mesh)
+            self.sharded_params = sharding.sharded_numel(
+                workload.cfg, pspecs, model_axis)
+            # basis leaves are the parameter leaves with a leading lane axis
+            bspecs = sharding.map_specs(lambda _, s: sharding.P(None, *s),
+                                        pspecs)
+            tokens = workload.batch["tokens"]
+            shape = ShapeConfig("lm_subspace", seq_len=tokens.shape[1],
+                                global_batch=tokens.shape[0], kind="train")
+            _, in_specs = sharding.input_specs(workload.cfg, shape, mesh)
+            self._theta = sharding.to_named(workload.proj.theta0, pspecs,
+                                            mesh)
+            self._basis = sharding.to_named(workload.proj.basis_tree, bspecs,
+                                            mesh)
+            self._batch = sharding.to_named(workload.batch, in_specs, mesh)
+            # lanes run one at a time, so any rows-per-shard count is
+            # width-stable: the floor is just even division
+            min_bucket = bucket_size(self.n_shards)
+        super().__init__(min_bucket, device)
         if n_dims is not None and max_bucket is not None:
             self.warm(n_dims, max_bucket)
 
@@ -131,13 +190,32 @@ class LmLossEvalBackend(EvalBackend):
         """The loss at θ0 + c·V, a 0-d f32 tensor (c: (k,) f32 on the
         workload's device)."""
         wl = self.workload
+        return self._loss(wl.proj.theta0, wl.proj.basis_tree, wl.batch, c)
+
+    def _loss(self, theta0, basis_tree, batch, c: torch.Tensor):
         with torch.no_grad():
-            params = wl.proj.lift(c, out=self._work)
-            return self._loss_fn(params, wl.batch)[0]
+            params = tree_lift(theta0, basis_tree, c, out=self._work)
+            return self._loss_fn(params, batch)[0]
 
     def _raw_eval(self, pts: torch.Tensor) -> torch.Tensor:
         out = torch.empty(pts.shape[0], dtype=torch.float32,
                           device=pts.device)
+        if self.mesh is None:
+            for i in range(pts.shape[0]):
+                out[i] = self.lane_loss(pts[i])
+            return out
+        # the whole leaves, gathered once for the mesh's one device: the
+        # basis into a (k, P) buffer laid out as the workload's own.  The
+        # batch too: every lane's loss is over the whole batch (the
+        # reference gives each data shard its slice when the batch divides
+        # the data axes, ROADMAP C)
+        wl = self.workload
+        basis = basis_to_tree(torch.empty_like(wl.proj.basis), wl.proj.theta0)
+        sharding.gather(self._basis, out=basis)
+        theta0 = sharding.gather(self._theta)
+        batch = sharding.gather(self._batch)
+        # data shard s's lanes are the s-th block of kp / n_shards rows,
+        # each run in order: over the shards in order, every lane in order
         for i in range(pts.shape[0]):
-            out[i] = self.lane_loss(pts[i])
+            out[i] = self._loss(theta0, basis, batch, pts[i])
         return out

@@ -41,11 +41,11 @@ __all__ = ["lm_problem", "lm_search", "warmed_backend", "run", "portfolio",
 PORTFOLIO_ARCHS = ("rwkv6-7b", "h2o-danube-3-4b")
 
 
-def warmed_backend(wl: LmWorkload, m: int) -> LmLossEvalBackend:
-    """The backend with its whole bucket ladder run once, as act 1 builds
-    it (no bucket shape is first run mid-search)."""
+def warmed_backend(wl: LmWorkload, m: int, mesh=None) -> LmLossEvalBackend:
+    """The backend (on ``mesh`` if given) with its whole bucket ladder run
+    once, as act 1 builds it (no bucket shape is first run mid-search)."""
     max_bucket = bucket_size(BatchedVolunteerGrid.warm_max_bucket(m))
-    return LmLossEvalBackend(wl, n_dims=wl.k, max_bucket=max_bucket)
+    return LmLossEvalBackend(wl, mesh, n_dims=wl.k, max_bucket=max_bucket)
 
 
 def run(spec: SearchSpec, fleet: GridConfig, backend: LmLossEvalBackend, *,

@@ -1,16 +1,20 @@
 """The 4096-host batched volunteer grid on the port.
 
-Port of act 2 of ``examples/volunteer_grid.py``: a heterogeneous, faulty,
+Port of acts 2–3 of ``examples/volunteer_grid.py``: a heterogeneous, faulty,
 partly malicious fleet of 4096 hosts fits the 8-parameter SDSS stream
 model, every tick's completions evaluated as one bucket on the device,
 phases advancing on the first m results and the best line-search point
 quorum-validated before it is committed.  The default is the example's
 size (6k stars, m = 128), ``--paper-scale`` the paper's (100k stars,
-m = 1000); both run 8 iterations.
+m = 1000); both run 8 iterations.  ``--substrate`` picks the evaluation
+backend of that run (in-process, or the pod mesh: ``make_data_mesh``'s
+(1, 1) mesh on one GPU); then act 3 of the example runs the same grid
+through the OTHER backend and says whether the iterates are
+bit-identical.
 
     PYTHONPATH=src python -m repro_torch.launch.volunteer_grid --device cpu
     PYTHONPATH=src python -m repro_torch.launch.volunteer_grid \
-        --paper-scale --no-pipelined
+        --paper-scale --no-pipelined --substrate pod_mesh
 """
 from __future__ import annotations
 
@@ -20,15 +24,28 @@ import time
 import numpy as np
 
 from repro_torch.configs import paper_anm
-from repro_torch.core.engine import AnmConfig, AnmEngine
+from repro_torch.core.engine import (AnmConfig, AnmEngine,
+                                     identical_trajectories)
 from repro_torch.core.grid import GridConfig
 from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
 from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
 from repro_torch.data import sdss
 
 #: the example's fleet (examples/volunteer_grid.py, act 2)
 FLEET = GridConfig(n_hosts=4096, base_eval_time=3600.0, speed_sigma=1.0,
                    failure_prob=0.1, malicious_prob=0.03, seed=5)
+
+
+#: the evaluation backends ``--substrate`` picks from
+SUBSTRATES = ("in_process", "pod_mesh")
+
+
+def make_backend(substrate: str, f_batch, device="cuda"):
+    """A fresh backend of kind ``substrate`` for ``f_batch``."""
+    if substrate == "pod_mesh":
+        return PodMeshEvalBackend(f_batch, device=device)
+    return InProcessEvalBackend(f_batch, device=device)
 
 
 def make_problem(n_stars: int = 6_000, device="cuda"):
@@ -69,18 +86,21 @@ def main():
                          "--no-pipelined collects every bucket synchronously")
     ap.add_argument("--pipeline-depth", type=int, default=4,
                     help="max in-flight tick buckets when pipelined")
+    ap.add_argument("--substrate", default="in_process", choices=SUBSTRATES,
+                    help="evaluation backend of the run (act 3 runs the "
+                         "OTHER backend for the parity comparison)")
     ap.add_argument("--paper-scale", action="store_true",
                     help="100k stars and m = 1000 per phase")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     f_batch, x0 = make_problem(100_000 if args.paper_scale else 6_000,
                                args.device)
-    engine, stats, wall = run(f_batch, x0,
-                              m=1000 if args.paper_scale else 128,
-                              pipelined=args.pipelined,
-                              pipeline_depth=args.pipeline_depth,
-                              device=args.device)
-    print(f"batched grid (4096 hosts, "
+    m = 1000 if args.paper_scale else 128
+    engine, stats, wall = run(
+        f_batch, x0, m=m, pipelined=args.pipelined,
+        pipeline_depth=args.pipeline_depth, device=args.device,
+        backend=make_backend(args.substrate, f_batch, args.device))
+    print(f"batched grid (4096 hosts, {args.substrate} backend, "
           f"{'pipelined' if args.pipelined else 'sync'}, {args.device}): "
           f"{engine.best_fitness:.5f} in {engine.iteration} iterations / "
           f"{stats.sim_time / 3600:.1f} simulated hours — "
@@ -95,6 +115,18 @@ def main():
     print(f"  grid: {stats.completed} results ({stats.failed} lost, "
           f"{stats.corrupted} corrupted), {engine.stats.stale} stale, "
           f"{engine.stats.validations_failed} malicious bests rejected")
+
+    # act 3: the same grid through the OTHER backend (same seed, so the
+    # same iterates on either backend, pipelined or not)
+    other = SUBSTRATES[1 - SUBSTRATES.index(args.substrate)]
+    engine2, _, _ = run(
+        f_batch, x0, m=m, pipelined=args.pipelined,
+        pipeline_depth=args.pipeline_depth, device=args.device,
+        backend=make_backend(other, f_batch, args.device))
+    same = identical_trajectories(engine, engine2)
+    print(f"{other} backend: {engine2.best_fitness:.5f} — iterates "
+          f"{'bit-identical to' if same else 'DIVERGED from'} the "
+          f"{args.substrate} backend")
 
 
 if __name__ == "__main__":

@@ -52,8 +52,11 @@ seeded single-search smoke (``--device cpu`` off the card); the
 reference's dryrun harness launches its twin as a subprocess, SIGKILLs
 it mid-search and relaunches it with ``--resume``.  The observability
 plane (``--obs`` and its kin, DESIGN.md §13-§14) attaches after
-recovery and reads host state only.  ``--backend pod_mesh`` is refused
-with a ``ValueError`` until its port lands (ROADMAP A.6).
+recovery and reads host state only.  ``--backend pod_mesh`` evaluates
+through the pod-mesh backend: the SDSS problem on ``make_data_mesh``'s
+mesh (1 × 1 on one GPU), the LM problem on the production 16 × 16 mesh,
+which needs 256 devices and raises ``make_production_mesh``'s
+``RuntimeError`` elsewhere, as the reference does off a pod.
 """
 from __future__ import annotations
 
@@ -872,11 +875,6 @@ class ServerSubstrate:
 
 # -- the seeded smoke problem + CLI (dryrun's kill/restore subprocess) --------
 
-#: why the port refuses ``--backend pod_mesh`` for now
-POD_MESH_REFUSED = ("--backend pod_mesh waits for the port of "
-                    "core/substrates/pod_mesh.py (ROADMAP A.6)")
-
-
 def smoke_problem(n_stars: int = 400, n_hosts: int = 192, m: int = 24,
                   iterations: int = 4, engine_seed: int = 7,
                   grid_seed: int = 9, failure: float = 0.05,
@@ -993,8 +991,7 @@ def cli_parser():
     ap.add_argument("--transport", default="loopback",
                     choices=["loopback", "tcp"])
     ap.add_argument("--backend", default="in_process",
-                    choices=["in_process", "pod_mesh"],
-                    help="pod_mesh is refused until its port (ROADMAP A.6)")
+                    choices=["in_process", "pod_mesh"])
     ap.add_argument("--problem", default="sdss", choices=["sdss", "lm"],
                     help="sdss: the 8-param stream fit; lm: the subspace-"
                          "Newton LM-loss workload (--arch/--k)")
@@ -1086,8 +1083,6 @@ def run_cli(argv: Optional[Sequence[str]] = None, **substrate_kw):
     import os
 
     args = cli_parser().parse_args(argv)
-    if args.backend == "pod_mesh":
-        raise ValueError(POD_MESH_REFUSED)
 
     if args.problem == "lm":
         spec, fleet, wl = lm_problem(
@@ -1096,16 +1091,25 @@ def run_cli(argv: Optional[Sequence[str]] = None, **substrate_kw):
             grid_seed=args.grid_seed, failure=args.failure,
             malicious=args.malicious, device=args.device)
         from repro_torch.core.substrates.lm_loss import LmLossEvalBackend
-        backend = LmLossEvalBackend(wl)
+        if args.backend == "pod_mesh":
+            from repro_torch.launch.mesh import make_production_mesh
+            backend = LmLossEvalBackend(wl, mesh=make_production_mesh())
+        else:
+            backend = LmLossEvalBackend(wl)
     else:
         spec, fleet, f_batch = smoke_problem(
             n_stars=args.n_stars, n_hosts=args.n_hosts, m=args.m,
             iterations=args.iterations, engine_seed=args.engine_seed,
             grid_seed=args.grid_seed, failure=args.failure,
             malicious=args.malicious, device=args.device)
-        from repro_torch.core.substrates.eval_backend import (
-            InProcessEvalBackend)
-        backend = InProcessEvalBackend(f_batch, device=args.device)
+        if args.backend == "pod_mesh":
+            from repro_torch.core.substrates.pod_mesh import (
+                PodMeshEvalBackend)
+            backend = PodMeshEvalBackend(f_batch, device=args.device)
+        else:
+            from repro_torch.core.substrates.eval_backend import (
+                InProcessEvalBackend)
+            backend = InProcessEvalBackend(f_batch, device=args.device)
     cache = None
     if args.cache:
         from repro_torch.core.substrates.eval_cache import JsonlCacheStore

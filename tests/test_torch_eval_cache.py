@@ -1,8 +1,8 @@
 """The port's persistent cross-search evaluation cache (DESIGN.md §10).
 
 The reference's tests/test_eval_cache.py, port against port on the CPU,
-less its pod_mesh case (the port has no pod-mesh backend yet: ROADMAP
-A.6); then the port against the reference: ``canonical_block`` keys are
+its pod_mesh case on the (1, 1) mesh and on the virtual 16 × 16
+production mesh; then the port against the reference: ``canonical_block`` keys are
 byte-identical and a JSONL store written by either package serves the
 other.  The contracts under test:
 
@@ -35,6 +35,8 @@ from repro_torch.core.orchestrator import (CoalescingSubmitter, FleetScheduler,
                                      SearchDirector, multi_start_specs)
 from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
 from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+from repro_torch.launch.mesh import make_production_mesh, virtual_devices
 from repro_torch.core.substrates.eval_cache import (CachingSubmitter, EvalCache,
                                               JsonlCacheStore,
                                               MemoryCacheStore,
@@ -202,7 +204,10 @@ def test_cached_solo_run_matches_uncached_bit_identically():
 
 @pytest.mark.parametrize("make_backend", [
     lambda f: InProcessEvalBackend(f),
-], ids=["in_process"])
+    lambda f: PodMeshEvalBackend(f, device="cpu"),
+    lambda f: PodMeshEvalBackend(f, mesh=make_production_mesh(
+        devices=virtual_devices(256, "cpu")), device="cpu"),
+], ids=["in_process", "pod_mesh", "pod_mesh_16x16"])
 def test_cached_portfolio_matches_uncached_on_both_backends(make_backend):
     """8-search coalesced portfolio, cache below the coalescer: every
     search must commit bit-identical iterates and identical final stats

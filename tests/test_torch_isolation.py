@@ -23,6 +23,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.engine import AnmConfig, AnmEngine
 from repro_torch.core.subspace import orthonormal_basis
 from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
 from repro_torch.core.substrates.lm_loss import make_lm_workload
 from repro_torch.data import sdss
 from repro_torch.kernels import ops, ref
@@ -104,6 +105,28 @@ def test_server_modules_import_without_jax_or_the_reference():
     for name in ("gram", "row_mean"):
         assert (ops.build.CSRC / f"{name}.cu").exists()
         assert name in ops.build.sources()
+
+
+#: the pod-mesh slice's modules: the walk above must import each, and
+#: none may reach for a process group (the port's mesh is one process)
+POD_MODULES = ("repro_torch.launch.mesh", "repro_torch.models.sharding",
+               "repro_torch.core.substrates.pod_mesh",
+               "repro_torch.core.substrates.lm_loss")
+
+
+def test_pod_modules_import_without_jax_or_the_reference():
+    script = _BLOCKED_IMPORT.replace("print(len(names))",
+                                     "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(POD_MODULES) <= set(out.stdout.split())
+    for name in POD_MODULES:
+        path = os.path.join(ROOT, "src", *name.split(".")) + ".py"
+        with open(path) as f:
+            assert "torch.distributed" not in f.read(), name
 
 
 def test_lm_modules_import_without_jax_or_the_reference():
@@ -240,6 +263,7 @@ def _multi_search_main():
 @pytest.mark.parametrize("make", [
     lambda: sdss.make_fitness(sdss.make_stripe("s", 500, 64, 0)),
     lambda: InProcessEvalBackend(lambda p: p[:, 0]),
+    lambda: PodMeshEvalBackend(lambda p: p[:, 0]),
     _engine_phase_finish,
     lambda: make_lm_workload("rwkv6-7b", k=2, seq_len=4),
     lambda: anm_lm.lm_problem(arch="h2o-danube-3-4b", k=2),

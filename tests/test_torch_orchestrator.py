@@ -1,9 +1,9 @@
 """The port's multi-search orchestrator: coalesced buckets, fleet
 scheduling, and the search-level parity contract (DESIGN.md §8).
 
-The reference's tests/test_orchestrator.py, port against port on the CPU,
-less ``test_multi_search_parity_on_pod_backend`` (the port has no
-pod-mesh backend yet: ROADMAP A.6); then ``search_spec_from_reference``
+The reference's tests/test_orchestrator.py, port against port on the CPU
+(``test_multi_search_parity_on_pod_backend`` on the (1, 1) mesh and on
+the virtual 16 × 16 production mesh); then ``search_spec_from_reference``
 carries a reference portfolio's specs across field by field.
 
 The contracts under test:
@@ -36,6 +36,8 @@ from repro_torch.core.orchestrator import (CoalescingSubmitter, FleetScheduler,
                                      multi_start_specs)
 from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
 from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+from repro_torch.launch.mesh import make_production_mesh, virtual_devices
 from repro_torch import convert
 from repro.core.grid import GridConfig as JGridConfig
 from repro.core.orchestrator import FleetScheduler as JFleetScheduler
@@ -109,6 +111,21 @@ def test_coalesced_searches_match_solo_runs_bit_identically():
     # the coalescer really ran: shared buckets served per-search blocks
     assert res.coalesce_stats.dispatches < res.coalesce_stats.lane_blocks
     assert res.coalesce_stats.lanes > 0
+
+
+@pytest.mark.parametrize("mesh", ["data_mesh", "virtual_16x16"])
+def test_multi_search_parity_on_pod_backend(mesh):
+    """The same contract through the pod-mesh backend (the (1, 1) data
+    mesh of the CPU, and the production mesh over 256 virtual devices)."""
+    f_batch, _ = _quad_fitness()
+    backend = PodMeshEvalBackend(
+        f_batch, mesh=None if mesh == "data_mesh" else make_production_mesh(
+            devices=virtual_devices(256, "cpu")), device="cpu")
+    res, _ = _portfolio(backend, 3, n_hosts=384, m=24, iters=2)
+    for o in res.outcomes:
+        solo = _solo_run(o.spec, backend)
+        assert identical_trajectories(o.engine, solo)
+        assert o.engine.stats == solo.stats
 
 
 def test_uncoalesced_scheduler_still_matches_solo():

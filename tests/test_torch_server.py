@@ -2,9 +2,10 @@
 checkpoints, and the crash-recoverable work server (DESIGN.md §9).
 
 The reference's tests/test_server.py, port against port on the CPU, less
-``test_crash_restore_pod_mesh_backend`` (the port has no pod-mesh backend
-yet: ROADMAP A.6) and ``test_substrate_registry_names`` (it checks the
-reference's ``launch/substrates.py``, which is not ported: ROADMAP A.7).
+``test_substrate_registry_names`` (it checks the reference's
+``launch/substrates.py``, which is not ported: ROADMAP A.7);
+``test_crash_restore_pod_mesh_backend`` runs on the (1, 1) mesh and on the
+virtual 16 × 16 production mesh.
 Then the port against the reference on the same seeds: protocol frames
 byte-identical and each decoder reading the other's, ``HostRegistry``
 summaries equal for one event sequence, a reference checkpoint restoring
@@ -332,6 +333,29 @@ def test_crash_restore_bit_identical(tmp_path, backend, baseline, frac):
     res = ServerSubstrate(spec, fleet, backend, warm=False, ckpt_dir=d,
                           snapshot_every=25).run(resume=True)
     assert not res.recovered_done
+    assert identical_trajectories(base.engines[0], res.engines[0])
+    assert base.engines[0].stats == res.engines[0].stats
+
+
+@pytest.mark.parametrize("mesh", ["data_mesh", "virtual_16x16"])
+def test_crash_restore_pod_mesh_backend(tmp_path, f_batch, baseline, mesh):
+    """The same kill/restore contract through the pod-mesh evaluation
+    path (the (1, 1) data mesh of the CPU, and the production mesh over
+    256 virtual devices), and the pod run must also agree with the
+    in-process baseline (row-independence, DESIGN.md §6)."""
+    from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+    from repro_torch.launch.mesh import make_production_mesh, virtual_devices
+
+    spec, fleet, base = baseline
+    pod = PodMeshEvalBackend(
+        f_batch, mesh=None if mesh == "data_mesh" else make_production_mesh(
+            devices=virtual_devices(256, "cpu")), device="cpu")
+    d = str(tmp_path / "ckpt_pod")
+    with pytest.raises(SimulatedCrash):
+        ServerSubstrate(spec, fleet, pod, warm=False, ckpt_dir=d,
+                        snapshot_every=25, max_messages=200).run()
+    res = ServerSubstrate(spec, fleet, pod, warm=False, ckpt_dir=d,
+                          snapshot_every=25).run(resume=True)
     assert identical_trajectories(base.engines[0], res.engines[0])
     assert base.engines[0].stats == res.engines[0].stats
 
@@ -760,9 +784,31 @@ def test_obs_attach_points_accept_and_subscribe_stats_answers(tmp_path):
     store.close()
 
 
-def test_pod_mesh_backend_is_refused():
-    """``--backend pod_mesh`` waits for the port of the pod-mesh backend
-    (ROADMAP A.6): it raises rather than run in process."""
+def test_pod_mesh_cli_run_equals_the_in_process_run(monkeypatch):
+    """``--backend pod_mesh`` on the SDSS smoke problem evaluates through
+    the pod-mesh backend (the (1, 1) data mesh here) and commits exactly
+    the in-process run."""
+    from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
     from repro_torch.server import sim
-    with pytest.raises(ValueError, match="ROADMAP A.6"):
-        sim.main(["--device", "cpu", "--backend", "pod_mesh"])
+    buckets = []
+    raw_eval = PodMeshEvalBackend._raw_eval
+    monkeypatch.setattr(PodMeshEvalBackend, "_raw_eval",
+                        lambda self, pts: buckets.append(len(pts))
+                        or raw_eval(self, pts))
+    _, _, pod = sim.run_cli(["--device", "cpu", "--backend", "pod_mesh",
+                             "--iterations", "2"])
+    assert buckets
+    _, _, inp = sim.run_cli(["--device", "cpu", "--iterations", "2"])
+    assert pod["backend"] == "pod_mesh" and inp["backend"] == "in_process"
+    for key in ("history", "iteration", "best_fitness", "engine_stats"):
+        assert pod[key] == inp[key]
+
+
+def test_lm_pod_mesh_cli_needs_the_production_mesh():
+    """The LM problem on ``--backend pod_mesh`` takes the production
+    16 × 16 mesh, as the reference does, and off a pod raises
+    ``make_production_mesh``'s error."""
+    from repro_torch.server import sim
+    with pytest.raises(RuntimeError, match="needs 256 devices"):
+        sim.run_cli(["--device", "cpu", "--backend", "pod_mesh",
+                     "--problem", "lm"])
