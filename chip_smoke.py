@@ -122,11 +122,34 @@ so the script exits non-zero and prints no result line:
            at 100k stars, 6 searches at m = 1000 / 500 on the 4096-host
            fleet, 2 iterations): every search coalesced == solo, fewer
            dispatches than per-search blocks;
-15. the ``kernels`` JSON line, then the ``ok`` JSON line.
+15. serve  the serving path at published widths, depth cut, bf16 unless
+           named: (a) qwen2-72b at 4 layers serves 16 requests at batch 8
+           (prompts of 64, 64 generated, max_seq 512) through
+           launch/serve.py's loop with top-40 sampling: every request
+           gets its tokens inside the vocabulary, no NaN logit; ms per
+           decode step (CUDA events around the loop) beside the bound of
+           reading the block weights and the head once, one serve step
+           replayed from a CUDA graph and the sampler alone (the host's
+           share of a step is the rest); peak memory;
+           (b) decode == prefill (the attention kernel) over 300 tokens
+           in f32 (SIMT) within the reference's 2e-3 and in bf16 (wgmma)
+           within 5e-2 normwise, the worst row printed; (c) the same
+           tokens through the int8 cache against the bf16 cache, 5e-2
+           normwise, and both caches' bytes; (d) deepseek-coder-33b,
+           command-r-plus-104b, chameleon-34b (2 layers), h2o-danube-3-4b
+           (4) and rwkv6-7b (2) serve 8 requests at batch 4 and decode ==
+           prefill over 64 tokens (rwkv6's through wkv6), then danube's
+           smoke config decodes through its ring of 16 rows against its
+           f32 prefill; (e) hubert-xlarge's encoder forward (2 layers)
+           over (2, 512, 1280) frame embeddings on the dense non-causal
+           route, bf16 against f32, and the serve loop refusing it; each
+           prefill launches its kernel once per layer;
+16. the ``kernels`` JSON line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import hashlib
 import json
@@ -157,10 +180,13 @@ from repro_torch.core.substrates.lm_loss import \
     LmLossEvalBackend  # noqa: E402
 from repro_torch.core.substrates.pod_mesh import \
     PodMeshEvalBackend  # noqa: E402
+from repro_torch.configs import cut_depth, get_config  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.tree import leaves_with_paths, map_tree  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
 from repro_torch.launch import (anm_lm, fig2, multi_search,  # noqa: E402
-                                obs_postmortem, volunteer_grid)
+                                obs_postmortem, serve, volunteer_grid)
 from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
                                      virtual_devices)
 from repro_torch.models import transformer  # noqa: E402
@@ -255,6 +281,21 @@ OBS_FLAGS = ["--obs", "--stats-interval", "10"]
 OBS_CONCURRENT = ["--transport", "tcp", "--concurrent", "8"]
 #: the portfolio phase: searches, per-phase m of half of them, iterations
 PORTFOLIO = dict(n_searches=6, m=1000, iterations=2)
+#: the serve phase: layers kept at published widths per arch
+SERVE_DEPTH = {"qwen2-72b": 4, "deepseek-coder-33b": 2,
+               "command-r-plus-104b": 2, "chameleon-34b": 2,
+               "h2o-danube-3-4b": 4, "rwkv6-7b": 2, "hubert-xlarge": 2}
+#: leg (a)'s serve loop, and (d)'s (the reference CLI's defaults)
+SERVE_MAIN = dict(requests=16, batch=8, prompt=64, gen=64, max_seq=512)
+SERVE_OTHER = dict(requests=8, batch=4, prompt=16, gen=32, max_seq=128)
+#: tokens of leg (b) / (c)'s decode == prefill (ragged against the wgmma
+#: kernel's 128-row tiles) and of (d)'s
+SERVE_MATCH_LEN, SERVE_OTHER_LEN = 300, 64
+#: bf16 decode == prefill, ‖decode - prefill‖ / ‖prefill‖ over all
+#: positions; the int8 cache's logits against the bf16 cache's, the same
+#: way (tests/test_torch_serve_models.py::INT8_TOL)
+SERVE_BF16_NORM = 5e-2
+SERVE_INT8_NORM = 5e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -808,7 +849,7 @@ def _lane_split_ms(backend: LmLossEvalBackend, c: torch.Tensor) -> dict:
     wl = backend.workload
     with torch.no_grad():
         params = wl.proj.lift(c)                 # a second working set
-        hidden = transformer.forward(params, wl.cfg, wl.batch["tokens"])
+        hidden = transformer.forward(params, wl.cfg, wl.batch)[0]
         w_head = params["head"]["w"]
         return {
             "lane": _events_ms(lambda: backend.lane_loss(c)),
@@ -1578,6 +1619,298 @@ def _lm_acts(dev, arch, search, fleet, backend, n_layers):
     return server
 
 
+def _norm_err(got: torch.Tensor, want: torch.Tensor):
+    """(‖got - want‖ / ‖want‖, the worst row's) over (rows, V) logits."""
+    diff = got.float() - want.float()
+    rows = diff.norm(dim=-1) / want.float().norm(dim=-1)
+    return float(diff.norm() / want.float().norm()), float(rows.max())
+
+
+def _serve_model(arch: str, dtype: str, gen, dev):
+    """``arch`` at published widths cut to SERVE_DEPTH layers, random
+    parameters from ``gen`` in ``dtype``."""
+    cfg = dataclasses.replace(cut_depth(get_config(arch), SERVE_DEPTH[arch]),
+                              dtype=dtype)
+    return cfg, transformer.init_params(cfg, gen, dev)
+
+
+def _serve_loop(dev, cfg, params, spec: dict, seed: int) -> dict:
+    """``launch/serve.py``'s loop over ``spec``'s requests with top-40
+    sampling from a card generator: every request gets its tokens, all
+    inside the vocabulary, no logit NaN.  Returns the loop's stream ms per
+    decode step (CUDA events around the whole loop), steps, wall."""
+    rng = np.random.default_rng(seed)
+    queue = [rng.integers(1, cfg.vocab_size, spec["prompt"])
+             for _ in range(spec["requests"])]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nans = []
+
+    def sampler(logits):
+        nans.append(torch.isnan(logits).any())
+        return serve.sample_logits(logits, gen)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    res = serve.serve(params, cfg, queue, sampler, batch=spec["batch"],
+                      gen_len=spec["gen"], max_seq=spec["max_seq"])
+    end.record()
+    torch.cuda.synchronize(dev)
+    toks = [t for out in res.outputs.values() for t in out]
+    check(all(len(out) == spec["gen"] for out in res.outputs.values()),
+          f"{cfg.name}: a request got fewer than {spec['gen']} tokens")
+    check(all(0 <= t < cfg.vocab_size for t in toks),
+          f"{cfg.name}: a sampled token lies outside the vocabulary")
+    check(not bool(torch.stack(nans).any()), f"{cfg.name}: a NaN logit")
+    return dict(ms=start.elapsed_time(end) / res.steps, steps=res.steps,
+                wall=res.wall_s, tokens=len(toks))
+
+
+def _decode_logits(cfg, params, toks, dev) -> torch.Tensor:
+    """(S, V) logits of ``toks`` (1, S) fed one at a time through the serve
+    step from an empty cache of S rows (a ring of the window's rows)."""
+    step = transformer.make_serve_step(cfg)
+    cache = transformer.init_cache(cfg, 1, toks.shape[1], device=dev)
+    outs = []
+    for t in range(toks.shape[1]):
+        logits, cache = step(params, cache, toks[:, t:t + 1], t)
+        outs.append(logits[0, 0])
+    return torch.stack(outs)
+
+
+def _prefill_logits(cfg, params, toks) -> tuple:
+    """(S, V) logits of one prefill with ``use_kernels`` (the attention or
+    wkv6 kernel once per layer), and the launches it made."""
+    _zero_counts()
+    step = transformer.make_prefill_step(dataclasses.replace(
+        cfg, use_kernels=True))
+    logits = step(params, {"tokens": toks})[0]
+    torch.cuda.synchronize()
+    return logits, _counts()
+
+
+def _kernel_launches(cfg, counts: dict) -> str:
+    """The prefill's launches of its arch's kernel, checked: one per
+    layer, and all of them of the variant ops routes its type to."""
+    if cfg.blocks()[0] == "rwkv6":
+        names = ("wkv6_launches", "wkv6_chunked_launches"
+                 if cfg.dtype == "bfloat16" else "wkv6_serial_launches")
+    else:
+        names = ("flash_attention_launches",
+                 "flash_attention_wgmma_launches"
+                 if cfg.dtype == "bfloat16" and cfg.resolved_head_dim % 8 == 0
+                 else "flash_attention_simt_launches")
+    total, variant = (counts[n] for n in names)
+    check(total == variant == cfg.n_layers > 0,
+          f"{cfg.name}: prefill launched {counts}, want {cfg.n_layers} "
+          f"{names[1]}")
+    return f"{names[1]} {variant}"
+
+
+def _decode_vs_prefill(dev, cfg, params, n_tokens: int, seed: int):
+    """Decode == prefill on ``n_tokens`` seeded tokens; returns (decode
+    logits, the comparison printed, the prefill's launches printed)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_tokens), generator=gen,
+                         device=dev)
+    dec = _decode_logits(cfg, params, toks, dev)
+    pre, counts = _prefill_logits(cfg, params, toks)
+    launches = _kernel_launches(cfg, counts)
+    if cfg.dtype == "float32":          # the reference's gate
+        err = float((dec - pre).abs().max())
+        ok = bool(torch.all((dec - pre).abs() <= 2e-3 + 2e-3 * pre.abs()))
+        what = f"max |err| {err:.3g} (gate 2e-3 + 2e-3 |ref|)"
+    else:
+        norm, row = _norm_err(dec, pre)
+        ok = norm <= SERVE_BF16_NORM
+        what = (f"‖err‖/‖ref‖ {norm:.4g} (gate {SERVE_BF16_NORM}), worst "
+                f"row {row:.4g}")
+    check(ok and bool(torch.isfinite(pre).all()), f"{cfg.name} "
+          f"{cfg.dtype}: decode != prefill over {n_tokens} tokens: {what}")
+    return dec, what, launches
+
+
+def _cache_bytes(cfg, batch: int, max_seq: int) -> int:
+    return sum(math.prod(x.shape) * x.dtype.itemsize for _, x in
+               leaves_with_paths(transformer.init_cache(
+                   cfg, batch, max_seq, as_shape=True)))
+
+
+def _free() -> None:
+    """Return what the caller has just deleted to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _refuses(fn, exc) -> bool:
+    """True if ``fn()`` raises ``exc`` (a refusal the port must make)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def phase_serve(dev: torch.device) -> dict:
+    """``launch/serve.py`` and the serve / prefill steps at published
+    widths; returns the attention and wkv6 kernels' launches in it."""
+    _zero_counts()
+    launches = {"flash_attention": 0, "wkv6": 0}
+
+    def add(counts: dict) -> None:
+        launches["flash_attention"] += counts["flash_attention_launches"]
+        launches["wkv6"] += counts["wkv6_launches"]
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    # (a) qwen2-72b serves 16 requests at batch 8
+    t0 = time.perf_counter()
+    cfg, params = _serve_model("qwen2-72b", "bfloat16", gen, dev)
+    blocks = sum(x.numel() * x.element_size()
+                 for _, x in leaves_with_paths(params["segments"]))
+    head = params["head"]["w"]
+    bound = (blocks + head.numel() * head.element_size()) / HBM_BYTES_PER_S
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    leg = _serve_loop(dev, cfg, params, SERVE_MAIN, seed=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the device's share of a step: one serve step at t = 300 over the
+    # loop's cache shape replayed from a CUDA graph, and the sampler alone
+    batch = SERVE_MAIN["batch"]
+    cache = transformer.init_cache(cfg, batch, SERVE_MAIN["max_seq"],
+                                   device=dev)
+    step = transformer.make_serve_step(cfg)
+    tokens = torch.ones((batch, 1), dtype=torch.long, device=dev)
+    step_ms = _graph_ms(lambda: step(params, cache, tokens, 300), calls=10,
+                        replays=5)
+    logits = step(params, cache, tokens, 300)[0][:, 0]
+    sample_gen = torch.Generator(device=dev).manual_seed(7)
+    sample_ms = _events_ms(lambda: serve.sample_logits(logits, sample_gen),
+                           iters=20)
+    del cache, logits
+    _free()
+    print(f"[serve] (a) qwen2-72b {cfg.n_layers} layers, "
+          f"{transformer.count_params(params) / 1e9:.2f} G parameters bf16: "
+          f"{SERVE_MAIN['requests']} requests at batch {SERVE_MAIN['batch']} "
+          f"(prompt {SERVE_MAIN['prompt']}, {SERVE_MAIN['gen']} generated, "
+          f"max_seq {SERVE_MAIN['max_seq']}): {leg['tokens']} tokens in "
+          f"{leg['steps']} decode steps, loop wall {leg['wall']:.2f}s, "
+          f"{leg['ms']:.3f} ms per step (CUDA events around the loop) "
+          f"against a bound of {bound * 1e3:.3f} ms (block weights "
+          f"{blocks / 1e9:.2f} GB + head "
+          f"{head.numel() * head.element_size() / 1e9:.2f} GB once at "
+          f"3.35 TB/s); peak device memory {peak:.2f} GiB; one serve step "
+          f"from a CUDA graph {step_ms:.3f} ms ({step_ms / (bound * 1e3):.2f}"
+          f"x the bound) and the sampler {sample_ms:.3f} ms, so the loop's "
+          f"stream waits on the host "
+          f"{100 * max(0.0, 1 - (step_ms + sample_ms) / leg['ms']):.0f} % "
+          f"of a step; leg wall {time.perf_counter() - t0:.1f}s")
+    # (b) decode == prefill over 300 tokens in bf16 (wgmma) ...
+    t0 = time.perf_counter()
+    dec_bf16, what, kl = _decode_vs_prefill(dev, cfg, params,
+                                            SERVE_MATCH_LEN, seed=2)
+    add(_counts())
+    print(f"[serve] (b) qwen2-72b bf16 decode == prefill over "
+          f"{SERVE_MATCH_LEN} tokens: {what}; prefill {kl}; wall "
+          f"{time.perf_counter() - t0:.1f}s")
+    # (c) ... the same tokens through the int8 cache
+    t0 = time.perf_counter()
+    qcfg = dataclasses.replace(cfg, quantized_cache=True)
+    toks = torch.randint(0, cfg.vocab_size, (1, SERVE_MATCH_LEN),
+                         generator=torch.Generator(device=dev).manual_seed(2),
+                         device=dev)
+    dec_int8 = _decode_logits(qcfg, params, toks, dev)
+    norm, row = _norm_err(dec_int8, dec_bf16)
+    print(f"[serve] (c) qwen2-72b int8 cache against the bf16 cache over "
+          f"{SERVE_MATCH_LEN} tokens: ‖err‖/‖ref‖ {norm:.4g} (gate "
+          f"{SERVE_INT8_NORM}), worst row {row:.4g}; cache bytes at batch "
+          f"{SERVE_MAIN['batch']} x {SERVE_MAIN['max_seq']}: int8 "
+          f"{_cache_bytes(qcfg, SERVE_MAIN['batch'], SERVE_MAIN['max_seq'])}"
+          f" against bf16 "
+          f"{_cache_bytes(cfg, SERVE_MAIN['batch'], SERVE_MAIN['max_seq'])};"
+          f" wall {time.perf_counter() - t0:.1f}s")
+    check(norm <= SERVE_INT8_NORM and bool(torch.isfinite(dec_int8).all()),
+          f"int8 cache logits {norm} from the bf16 cache's")
+    del params, dec_bf16, dec_int8
+    _free()
+    # (b) ... and in f32 (the SIMT attention kernel)
+    t0 = time.perf_counter()
+    cfg, params = _serve_model("qwen2-72b", "float32", gen, dev)
+    _, what, kl = _decode_vs_prefill(dev, cfg, params, SERVE_MATCH_LEN,
+                                     seed=2)
+    add(_counts())
+    print(f"[serve] (b) qwen2-72b f32 decode == prefill over "
+          f"{SERVE_MATCH_LEN} tokens: {what}; prefill {kl}; wall "
+          f"{time.perf_counter() - t0:.1f}s")
+    del params
+    _free()
+    # (d) the other archs: serve, then decode == prefill in bf16
+    for arch in ("deepseek-coder-33b", "command-r-plus-104b",
+                 "chameleon-34b", "h2o-danube-3-4b", "rwkv6-7b"):
+        t0 = time.perf_counter()
+        cfg, params = _serve_model(arch, "bfloat16", gen, dev)
+        leg = _serve_loop(dev, cfg, params, SERVE_OTHER, seed=3)
+        _, what, kl = _decode_vs_prefill(dev, cfg, params, SERVE_OTHER_LEN,
+                                         seed=4)
+        add(_counts())
+        print(f"[serve] (d) {arch} {cfg.n_layers} layers bf16: "
+              f"{SERVE_OTHER['requests']} requests at batch "
+              f"{SERVE_OTHER['batch']}, {leg['tokens']} tokens in "
+              f"{leg['steps']} steps, {leg['ms']:.3f} ms per step; decode "
+              f"== prefill over {SERVE_OTHER_LEN} tokens: {what}; prefill "
+              f"{kl}; wall {time.perf_counter() - t0:.1f}s")
+        del params
+        _free()
+    # (d) the danube smoke config's ring of 16 rows wraps twice
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
+                              dtype="float32")
+    params = transformer.init_params(cfg, gen, dev)
+    check(transformer.init_cache(cfg, 1, 48, as_shape=True)[0][0]["k"]
+          .shape[2] == cfg.sliding_window == 16, "danube smoke: no ring")
+    _, what, kl = _decode_vs_prefill(dev, cfg, params, 48, seed=5)
+    add(_counts())
+    print(f"[serve] (d) h2o-danube-3-4b smoke f32, window "
+          f"{cfg.sliding_window}: 48 decode steps through the ring == "
+          f"prefill: {what}; prefill {kl}")
+    # (e) hubert-xlarge's encoder forward on the dense non-causal route
+    t0 = time.perf_counter()
+    cfg, params = _serve_model("hubert-xlarge", "float32", gen, dev)
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    bparams = map_tree(lambda x: x.to(torch.bfloat16), params)
+    emb = torch.randn((2, 512, cfg.d_model), generator=gen, device=dev)
+    mask = torch.rand((2, 512), generator=gen, device=dev) < 0.3
+    _zero_counts()
+    f32 = transformer.make_prefill_step(cfg)(params, {"embeds": emb,
+                                                      "mask": mask})
+    bf16 = transformer.make_prefill_step(bcfg)(
+        bparams, {"embeds": emb.to(torch.bfloat16), "mask": mask})
+    torch.cuda.synchronize(dev)
+    counts = _counts()
+    norm, row = _norm_err(bf16, f32)
+    refused = _refuses(lambda: serve.serve(
+        bparams, bcfg, [np.ones(4)], lambda lg: lg.argmax(-1), batch=1,
+        gen_len=1, max_seq=8), ValueError)
+    print(f"[serve] (e) hubert-xlarge {cfg.n_layers} layers: encoder "
+          f"forward over {tuple(emb.shape)} frame embeddings -> logits "
+          f"{tuple(f32.shape)}, bf16 against f32 ‖err‖/‖ref‖ {norm:.4g} "
+          f"(gate {SERVE_BF16_NORM}), worst row {row:.4g}; kernel launches "
+          f"{counts['flash_attention_launches']} (dense route); the serve "
+          f"loop refuses it: {refused}; wall {time.perf_counter() - t0:.1f}s")
+    check(tuple(f32.shape) == (2, 512, cfg.vocab_size)
+          and bool(torch.isfinite(f32).all() and torch.isfinite(bf16).all()),
+          "hubert: encoder logits of the wrong shape or not finite")
+    check(norm <= SERVE_BF16_NORM, f"hubert: bf16 logits {norm} from f32")
+    check(counts["flash_attention_launches"] == 0,
+          "hubert: the non-causal encoder launched the attention kernel")
+    check(refused, "hubert: the serve loop took an encoder")
+    del params, bparams
+    _free()
+    print(f"[serve] kernel launches in the phase: {launches}")
+    check(launches["flash_attention"] > 0 and launches["wkv6"] > 0,
+          f"[serve] launched no kernel: {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1610,6 +1943,7 @@ def main() -> None:
     wkv6_launches, lm = timed("lm rwkv6", phase_lm, dev, "rwkv6-7b",
                               wkv6["ms"])
     timed("pod lm rwkv6", phase_pod_lm, dev, "rwkv6-7b", lm)
+    serve_launches = timed("serve", phase_serve, dev)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [
         {"name": "gram", "route": "cuda",
@@ -1619,11 +1953,13 @@ def main() -> None:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:81",
-         "launches": flash_launches, **flash},
+         "launches": flash_launches,
+         "serve_launches": serve_launches["flash_attention"], **flash},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6.py:50",
-         "launches": wkv6_launches, **wkv6},
+         "launches": wkv6_launches,
+         "serve_launches": serve_launches["wkv6"], **wkv6},
         {"name": "row_mean", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/row_mean.cu",
          "replaces": "src/repro/data/sdss.py:79 (jnp.mean, :79, :80, :85; "

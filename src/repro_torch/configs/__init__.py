@@ -1,9 +1,13 @@
 """Experiment configurations of the port (copies of ``repro/configs``).
 
-``get_config(name)`` / ``get_smoke_config(name)`` cover the two LM
-architectures the port's models run (the LM-loss workload's); the
-paper's own 8-parameter problem is ``paper_anm``.  The reference's other
-eight architectures are not ported yet (ROADMAP.md queue A).
+``get_config(name)`` / ``get_smoke_config(name)`` cover the LM
+architectures the port's models run, in the reference's order: the dense
+families (qwen2-72b, deepseek-coder-33b, command-r-plus-104b,
+chameleon-34b, the hubert-xlarge encoder), h2o-danube-3-4b's sliding
+window and rwkv6-7b.  The reference's three others (MLA + MoE, and Mamba2
++ shared attention) are not ported yet: looking one up raises
+``NotImplementedError`` naming ROADMAP.md A.5.  The paper's own
+8-parameter problem is ``paper_anm``.
 """
 from __future__ import annotations
 
@@ -11,18 +15,30 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
-                                      ShapeConfig, SSMConfig,
-                                      config_from_dict, cut_depth)
+                                      ShapeConfig, SSMConfig, UNPORTED,
+                                      cell_is_runnable, config_from_dict,
+                                      cut_depth)
 
 _ARCH_MODULES: Dict[str, str] = {
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)
 
+#: the reference's architectures whose blocks the port has not ported
+UNPORTED_ARCHS = ("deepseek-v2-lite-16b", "llama4-maverick-400b-a17b",
+                  "zamba2-2.7b")
+
 
 def _module(name: str):
+    if name in UNPORTED_ARCHS:
+        raise NotImplementedError(f"arch {name!r} is {UNPORTED}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
     return importlib.import_module(_ARCH_MODULES[name])

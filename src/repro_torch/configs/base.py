@@ -4,12 +4,22 @@ Copy of the parts of ``repro/configs/base.py`` the port's models use:
 ``ModelConfig`` keeps every field of the reference's, so a reference
 configuration carries across field by field (``config_from_dict``); the
 port's models refuse the features they do not implement yet (MoE, MLA,
-Mamba2, front ends) instead of ignoring them.
+Mamba2 and the shared attention block: ROADMAP.md A.5) instead of
+ignoring them, and so does ``n_params``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional, Tuple
+
+#: what the port says where a configuration asks for a block it has not
+#: ported yet
+UNPORTED = ("not ported yet (ROADMAP.md A.5: MLA + MoE, Mamba2 + shared "
+            "attention)")
+
+
+def unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} {UNPORTED}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,8 +66,9 @@ class ModelConfig:
     remat_policy: str = "full"
     pin_proj_outputs: bool = False
     quantized_cache: bool = False
-    # route the forward's attention and wkv6 through kernels/ops.py; the
-    # port's models run only that route
+    # route the loss / prefill forward's attention (causal only) and wkv6
+    # through kernels/ops.py; decode and use_kernels=False take the dense
+    # attention and the chunked wkv6 in plain torch, as the reference does
     use_kernels: bool = False
 
     @property
@@ -66,10 +77,43 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def padded_heads(self) -> int:
+        return self.head_pad_to or self.n_heads
+
     def blocks(self) -> Tuple[str, ...]:
         if self.block_pattern:
             return self.block_pattern
         return ("attn",) * self.n_layers
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks + head), the
+        reference's formula for the dense, attention and rwkv6 branches."""
+        if self.moe is not None or self.mla is not None:
+            raise unported("n_params of MoE / MLA configurations is")
+        d, v = self.d_model, self.vocab_size
+        total = v * d                                   # embed
+        if not self.tie_embeddings:
+            total += v * d                              # unembed
+        hd = self.resolved_head_dim
+        for kind in self.blocks():
+            if kind == "attn":
+                total += d * self.n_heads * hd          # q
+                total += 2 * d * self.n_kv_heads * hd   # k, v
+                total += self.n_heads * hd * d          # o
+                total += 3 * d * self.d_ff              # swiglu
+            elif kind == "rwkv6":
+                total += 4 * d * d + d * self.d_ff * 2  # r,k,v,g(+mix); channel-mix
+            else:
+                raise unported(f"n_params of {kind!r} blocks is")
+        return total
+
+    def _layer_is_moe(self, idx: int) -> bool:
+        m = self.moe
+        if m is None:
+            return False
+        return (idx >= m.moe_layer_start
+                and (idx - m.moe_layer_start) % m.moe_layer_stride == 0)
 
 
 def config_from_dict(fields: dict) -> ModelConfig:
@@ -107,3 +151,19 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Skip rules for the (arch, shape) matrix (the reference's)."""
+    if cfg.is_encoder and shape.kind == "decode":
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = (
+            cfg.family in ("ssm", "hybrid")
+            or cfg.sliding_window > 0
+            or all(b in ("rwkv6", "mamba2") for b in cfg.blocks())
+        )
+        if not sub_quadratic:
+            return False, ("long_500k needs sub-quadratic attention "
+                           "(full-attention arch)")
+    return True, ""

@@ -13,7 +13,14 @@ object's code, so the port imports nothing of the reference:
   reference workload's arrays (θ0 leaves by path, the flat basis, the
   batch) and fields: the function that carries weights across;
 * ``search_spec_from_reference`` — the port's ``SearchSpec`` from a
-  reference one's fields, so both packages run the same search.
+  reference one's fields, so both packages run the same search;
+* ``cache_from_reference`` — the port's decode cache from a reference
+  cache's arrays, int8 kept as int8, so a decode continues from the
+  reference's state.
+
+A reference parameter tree carries across through
+``transformer.params_from_leaves`` (leaf path -> array), for every
+configuration the port's models run.
 
 A reference work server's checkpoint directory (snapshot and
 ``replay.jsonl``) needs no conversion: the port's ``server/checkpoint.py``
@@ -23,7 +30,7 @@ key for key.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -100,3 +107,41 @@ def search_spec_from_reference(spec, device="cuda") -> SearchSpec:
         grid=GridConfig(**dataclasses.asdict(spec.grid)),
         engine_seed=int(spec.engine_seed),
         validation_quorum=int(spec.validation_quorum), device=str(device))
+
+
+def cache_from_reference(cfg, cache: Any, batch: int, max_seq: int,
+                         device="cuda"):
+    """The port's ``init_cache(cfg, batch, max_seq)`` tree holding a
+    reference cache's values.
+
+    ``cache``: the reference's nested list (per segment, per unit block)
+    of dicts of numpy arrays (``jax.tree.map(np.asarray, cache)``).  Each
+    leaf takes the type the port's ``init_cache`` gives it: int8 stores
+    and f32 scales and states as they are, bf16 leaves from f32 arrays
+    (numpy has no bf16 that torch takes; f32 holds bf16 values exactly).
+    The tree's structure and every shape must be exactly the port's."""
+    want = T.init_cache(cfg, batch, max_seq, as_shape=True)
+
+    def leaf(x, path: str, spec) -> torch.Tensor:
+        x = np.asarray(x)
+        if (tuple(x.shape) != spec.shape
+                or (spec.dtype == torch.int8) != (x.dtype == np.int8)):
+            raise ValueError(f"cache leaf {path}: {x.dtype} {x.shape}, want "
+                             f"{spec.dtype} {spec.shape}")
+        x = np.array(x, np.int8 if x.dtype == np.int8 else np.float32)
+        return torch.from_numpy(x).to(device=device, dtype=spec.dtype)
+
+    if [len(seg) for seg in cache] != [len(seg) for seg in want]:
+        raise ValueError("the cache's segments or blocks differ from "
+                         "init_cache's")
+    out = []
+    for si, (seg, want_seg) in enumerate(zip(cache, want)):
+        blocks = []
+        for ui, (block, want_block) in enumerate(zip(seg, want_seg)):
+            if set(block) != set(want_block):
+                raise ValueError(f"cache block {si}/{ui}: leaves "
+                                 f"{sorted(block)}, want {sorted(want_block)}")
+            blocks.append({name: leaf(block[name], f"{si}/{ui}/{name}", spec)
+                           for name, spec in want_block.items()})
+        out.append(blocks)
+    return out

@@ -1,12 +1,13 @@
-"""Sharding rules: PartitionSpec mirrors of the parameter and input trees.
+"""Sharding rules: PartitionSpec mirrors of the parameter, cache and input
+trees.
 
-Port of ``repro/models/sharding.py``, less ``cache_specs`` (the decode
-caches are not ported).  Megatron-style TP over the ``model`` axis, DP
-over ``data`` (+ ``pod``).  Specs are assigned by walking the parameter
+Port of ``repro/models/sharding.py``.  Megatron-style TP over the
+``model`` axis, DP over ``data`` (+ ``pod``).  Specs are assigned by walking the parameter
 tree's shapes (``transformer.param_specs``, the ``Leaf`` tree
 ``init_params`` draws from), so they cannot drift structurally from the
-parameters; a stacked segment's leaves carry the leading layer axis, as
-the reference's do.
+parameters, and the decode caches' from ``transformer.init_cache``'s
+shapes; a stacked segment's leaves carry the leading layer axis, as the
+reference's do.
 
 The reference hands its specs to JAX (``NamedSharding``, ``device_put``);
 the port's ``to_named`` cuts each tensor of a tree into its per-shard
@@ -17,14 +18,14 @@ is keyed by name, so they cost nothing until those blocks are ported.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig, unported
 from repro_torch.models import transformer as T
+from repro_torch.models.transformer import TensorShape
 
 
 class PartitionSpec(tuple):
@@ -193,15 +194,51 @@ def enforce_divisible(cfg: ModelConfig, mesh, specs=None):
 
 
 # ---------------------------------------------------------------------------
-# Inputs
+# Decode caches
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class TensorShape:
-    """The shape and type of one input (JAX's ``ShapeDtypeStruct``)."""
-    shape: Tuple[int, ...]
-    dtype: torch.dtype
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """A ``PartitionSpec`` for every leaf of ``init_cache(cfg,
+    shape.global_batch, shape.seq_len)``: the batch over the data axes
+    where it divides them, else the sequence over every axis; k/v and
+    their int8 scales' sequence over ``model``, rwkv6's wkv state's heads
+    over ``model`` where they divide it, its shifts replicated."""
+    dp, tp = mesh_axes(mesh)
+    dp_size = math.prod(mesh.shape[a] for a in dp)
+    tp_size = mesh.shape[tp]
+    b = shape.global_batch
+    b_spec = dp if (b > 1 and _div(b, dp_size)) else None
+    # sequence dim: over tp normally; over everything when batch can't shard
+    s_spec = tp if b_spec is not None else tuple(dp) + (tp,)
+    segs = T.find_segments(T.layer_sigs(cfg))
 
+    def assign(path, leaf):
+        stacked = segs[path[0]][1] > 1
+        name = path[-1]
+        if name in ("k", "v"):
+            spec = P(b_spec, s_spec, None, None)
+        elif name.endswith("_scale"):
+            spec = P(b_spec, s_spec)
+        elif name == "wkv":
+            h = leaf.shape[2] if stacked else leaf.shape[1]
+            spec = P(b_spec, tp if _div(h, tp_size) else None, None, None)
+        elif name in ("shift_tm", "shift_cm"):
+            spec = P(b_spec, None)
+        elif name in ("c_kv", "k_rope", "ssm", "conv_xs", "conv_bc"):
+            raise unported(f"the {name!r} cache (MLA / Mamba2) is")
+        else:
+            raise ValueError(name)
+        if stacked:
+            spec = P(*((None,) + tuple(spec)))
+        return spec
+
+    return map_specs(assign, T.init_cache(cfg, b, shape.seq_len,
+                                          as_shape=True))
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
     """Returns (batch shapes, batch specs) for the given cell.

@@ -1,13 +1,14 @@
 """RWKV6 "Finch" time mix and channel mix (data-dependent decay).
 
-Port of the RWKV6 part of ``repro/models/ssm.py``, on the path without a
-recurrent state (the loss forward's): the time mix's WKV recurrence goes
-through ``kernels/ops.py::routed_wkv6`` (a CUDA kernel on the card, the
-sequential plain version on the CPU), as the reference's does with
-``use_kernels``.  ``wkv6_chunked`` is the reference's chunked form in
-plain torch: nothing on the main path calls it; it is the CPU statement of
-the algorithm that the chunked CUDA kernel (``csrc/wkv6.cu``) implements.
-Mamba2 and the decode step ``wkv6_step`` are not ported.
+Port of the RWKV6 part of ``repro/models/ssm.py``, with its recurrent
+state.  Over a whole sequence with ``use_kernels`` (the loss and prefill
+forwards) the time mix's WKV recurrence goes through
+``kernels/ops.py::routed_wkv6`` (a CUDA kernel on the card, the
+sequential plain version on the CPU), as the reference's does;
+``wkv6_chunked``, the reference's chunked form in plain torch, threads
+the state without ``use_kernels`` and is the CPU statement of the
+algorithm the chunked CUDA kernel (``csrc/wkv6.cu``) implements; a decode
+step is ``wkv6_step``.  Mamba2 is not ported (ROADMAP.md A.5).
 """
 from __future__ import annotations
 
@@ -108,18 +109,40 @@ def wkv6_chunked(r, k, v, lw, u, chunk: int = _RWKV_CHUNK, s0=None):
     return o.reshape(b, t, h, kk).to(r.dtype), s
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """x shifted one step later in time, zero at t = 0."""
-    return F.pad(x, (0, 0, 1, 0))[:, :-1]
+def wkv6_step(r, k, v, lw, u, s):
+    """One recurrent step.  r, k, v, lw: (B, H, K); s: (B, H, K, V) f32.
+    Returns (o (B, H, V) in r's type, the new state f32)."""
+    f32 = torch.float32
+    r_, k_, v_, lw_ = (a.to(f32) for a in (r, k, v, lw))
+    kv = k_[..., :, None] * v_[..., None, :]                 # (B,H,K,V)
+    o = torch.einsum("bhk,bhkv->bhv", r_, s + u.to(f32)[..., None] * kv)
+    s_new = torch.exp(lw_)[..., None] * s + kv
+    return o.to(r.dtype), s_new
 
 
-def rwkv6_time_mix(x: torch.Tensor, p: Params,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """RWKV6 attention replacement.  x: (B, T, D) -> (B, T, D)."""
+def _token_shift(x: torch.Tensor, shift_state=None) -> torch.Tensor:
+    """x shifted one step later in time: zero at t = 0 over a whole
+    sequence, the carried last input in a decode step."""
+    if shift_state is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return shift_state[:, None, :]
+
+
+def rwkv6_time_mix(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                   shift_state=None, wkv_state=None):
+    """RWKV6 attention replacement.  x: (B, T, D); with states given, T is
+    1 (a decode step).  Returns (y (B, T, D), (new_shift, new_wkv)).
+
+    The WKV recurrence takes the reference's three routes: over a whole
+    sequence with ``use_kernels``, ``ops.routed_wkv6`` (the kernel on the
+    card), which gives no state, so a zero state is returned (the loss
+    and prefill forwards discard it); over a whole sequence without,
+    ``wkv6_chunked`` from a zero state; in a decode step, ``wkv6_step``
+    from ``wkv_state``."""
     b, t, d = x.shape
     hd = cfg.ssm.head_dim
     h = d // hd
-    delta = _token_shift(x) - x
+    delta = _token_shift(x, shift_state) - x
     x_r, x_k = x + delta * p["mu_r"], x + delta * p["mu_k"]
     x_v, x_g = x + delta * p["mu_v"], x + delta * p["mu_g"]
     x_w = x + delta * p["mu_w"]
@@ -138,7 +161,17 @@ def rwkv6_time_mix(x: torch.Tensor, p: Params,
                                 + lora.to(torch.float32), max=1.2528))
     lw = torch.clamp(lw, _LOG_DECAY_MIN, -1e-6)          # exp(1.2528) = 3.5
 
-    o = ops.routed_wkv6(r, k, v, lw, p["u"])
+    if wkv_state is None:
+        if cfg.use_kernels:
+            o = ops.routed_wkv6(r, k, v, lw, p["u"])
+            s_fin = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                                device=x.device)
+        else:
+            o, s_fin = wkv6_chunked(r, k, v, lw, p["u"])
+    else:
+        o1, s_fin = wkv6_step(r[:, 0], k[:, 0], v[:, 0], lw[:, 0], p["u"],
+                              wkv_state)
+        o = o1[:, None]
 
     # per-head group norm, gate, out proj
     o32 = o.to(torch.float32)
@@ -146,16 +179,27 @@ def rwkv6_time_mix(x: torch.Tensor, p: Params,
     var = torch.var(o32, dim=-1, keepdim=True, unbiased=False)
     o = ((o32 - mu) * torch.rsqrt(var + 64e-5)
          * p["ln_out"].to(torch.float32)).to(x.dtype)
-    return torch.matmul((o * g).reshape(b, t, h * hd),
-                        p["w_o"].reshape(h * hd, d))
+    y = torch.matmul((o * g).reshape(b, t, h * hd),
+                     p["w_o"].reshape(h * hd, d))
+    return y, (x[:, -1, :], s_fin)
 
 
-def rwkv6_channel_mix(x: torch.Tensor, p: Params) -> torch.Tensor:
-    """RWKV6 FFN (relu² channel mix)."""
-    delta = _token_shift(x) - x
+def rwkv6_channel_mix(x: torch.Tensor, p: Params, shift_state=None):
+    """RWKV6 FFN (relu² channel mix).  Returns (y, new_shift)."""
+    delta = _token_shift(x, shift_state) - x
     x_k = x + delta * p["mu_k_cm"]
     x_r = x + delta * p["mu_r_cm"]
     k = torch.square(F.relu(torch.matmul(x_k, p["w_k_cm"])))
     kv = torch.matmul(k, p["w_v_cm"])
     r = torch.sigmoid(torch.matmul(x_r, p["w_r_cm"]))
-    return r * kv
+    return r * kv, x[:, -1, :]
+
+
+def rwkv6_state_shape(cfg: ModelConfig, batch: int):
+    hd = cfg.ssm.head_dim
+    h = cfg.d_model // hd
+    return {
+        "shift_tm": (batch, cfg.d_model),
+        "shift_cm": (batch, cfg.d_model),
+        "wkv": (batch, h, hd, hd),
+    }

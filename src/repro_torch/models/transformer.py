@@ -1,8 +1,15 @@
-"""The LM: parameters, forward and the chunked cross-entropy loss.
+"""The LM: parameters, forward with its decode caches, the chunked
+cross-entropy loss and the serving steps.
 
-Port of the parts of ``repro/models/transformer.py`` the LM-loss workload
-runs: ``init_params`` / ``forward`` (whole sequence, no cache, no
-sharding context) / ``chunked_cross_entropy`` / ``make_loss_fn``.
+Port of ``repro/models/transformer.py`` less the MLA, MoE, Mamba2 and
+shared-attention blocks (ROADMAP.md A.5) and training
+(``make_train_step``, which needs ``optim/``): ``init_params`` /
+``forward`` (a whole sequence, or one decode step over a cache) /
+``chunked_cross_entropy`` / ``make_loss_fn`` / ``make_serve_step`` /
+``make_prefill_step`` / ``init_cache`` / ``count_params``.  The forward
+runs eagerly, layer by layer (the reference's ``scan`` and ``remat`` are
+compile-time choices with no eager counterpart; ``unroll`` changes
+nothing here).  A decode step writes its cache in place and returns it.
 
 The parameters are the reference's pytree as plain nested dicts and
 lists: ``embed/tok``, ``final_norm/scale``, ``head/w`` and
@@ -15,12 +22,13 @@ order, so a flat (k, P) basis maps onto them leaf for leaf.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, unported
 from repro_torch.core.tree import leaves_with_paths, map_tree, map_with_paths
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -41,8 +49,8 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def layer_sigs(cfg: ModelConfig) -> List[Sig]:
     if cfg.moe is not None:
-        raise NotImplementedError("MoE layers are not ported")
-    return [(kind, False) for kind in cfg.blocks()]
+        raise unported("MoE layers are")
+    return [(kind, cfg._layer_is_moe(i)) for i, kind in enumerate(cfg.blocks())]
 
 
 def find_segments(sigs: List[Sig]) -> List[Tuple[Tuple[Sig, ...], int]]:
@@ -76,27 +84,21 @@ def _block_specs(sig: Sig, cfg: ModelConfig) -> Params:
     p: Params = {"norm1": L.norm_specs(cfg, cfg.d_model)}
     if kind == "attn":
         if cfg.mla is not None:
-            raise NotImplementedError("MLA attention is not ported")
+            raise unported("MLA attention is")
         p["attn"] = L.attention_specs(cfg)
-        p["norm2"] = L.norm_specs(cfg, cfg.d_model)
+        if not cfg.parallel_block:
+            p["norm2"] = L.norm_specs(cfg, cfg.d_model)
         p["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
     elif kind == "rwkv6":
         p["norm2"] = L.norm_specs(cfg, cfg.d_model)
         p["rwkv"] = S.rwkv6_specs(cfg)
     else:
-        raise NotImplementedError(f"{kind!r} blocks are not ported")
+        raise unported(f"{kind!r} blocks are")
     return p
 
 
 def param_specs(cfg: ModelConfig) -> Params:
     """The parameter tree as ``layers.Leaf``s (shape + initialisation)."""
-    unported = [name for name, on in (
-        ("frontend", cfg.frontend != "none"), ("qkv_bias", cfg.qkv_bias),
-        ("qk_norm", cfg.qk_norm), ("head_pad_to", cfg.head_pad_to),
-        ("parallel_block", cfg.parallel_block),
-        ("tie_embeddings", cfg.tie_embeddings)) if on]
-    if unported:
-        raise NotImplementedError(f"{cfg.name}: {unported} not ported")
     segments = []
     for unit, repeat in find_segments(layer_sigs(cfg)):
         specs = [_block_specs(sig, cfg) for sig in unit]
@@ -105,10 +107,15 @@ def param_specs(cfg: ModelConfig) -> Params:
                 (n,) + leaf.shape, leaf.init), specs)
         segments.append(specs)
     d, v = cfg.d_model, cfg.vocab_size
-    return {"segments": segments,
-            "embed": {"tok": L.normal(d ** -0.5, v, d)},
-            "final_norm": L.norm_specs(cfg, d),
-            "head": {"w": L.normal(d ** -0.5, d, v)}}
+    specs: Params = {"segments": segments}
+    if cfg.frontend == "audio_stub":
+        specs["embed"] = {"mask_emb": L.normal(0.02, d)}
+    else:
+        specs["embed"] = {"tok": L.normal(d ** -0.5, v, d)}
+    specs["final_norm"] = L.norm_specs(cfg, d)
+    if not cfg.tie_embeddings:
+        specs["head"] = {"w": L.normal(d ** -0.5, d, v)}
+    return specs
 
 
 def _draw(leaf: L.Leaf, dtype: torch.dtype, generator: torch.Generator,
@@ -174,41 +181,135 @@ def count_params(params: Params) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Sharding context
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The reference's carrier of the mesh and axis names for activation
+    sharding constraints.  The port's forward runs in one process on one
+    device, so ``cons`` / ``cons_spec`` place nothing and return their
+    input; the context is kept so that ``forward`` and the step factories
+    keep the reference's signatures."""
+    mesh: Any = None
+    dp: Tuple[str, ...] = ("data",)
+    tp: str = "model"
+
+    def cons(self, x, *tail):
+        return x
+
+    def cons_spec(self, x, spec_entries):
+        return x
+
+
+NULL_CTX = ShardCtx()
+
+
+# ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 ctx: ShardCtx, positions: torch.Tensor, cache, t):
+    """Returns (x, new_cache, aux); ``new_cache`` is None without a cache
+    and ``aux`` is 0 (no MoE block is ported)."""
     kind, _ = sig
-    h = L.apply_norm(x, bp["norm1"], cfg)
     if kind == "attn":
-        x = x + L.attention_block(h, bp["attn"], cfg, positions)
-        return x + L.mlp_block(L.apply_norm(x, bp["norm2"], cfg), bp["mlp"])
-    if kind == "rwkv6":
-        x = x + S.rwkv6_time_mix(h, bp["rwkv"], cfg)
+        h = L.apply_norm(x, bp["norm1"], cfg)
+        att, new_cache = L.attention_block(h, bp["attn"], cfg, positions,
+                                           cache, t)
+        if cfg.pin_proj_outputs:
+            att = ctx.cons(att, None, None)
+        if cfg.parallel_block:
+            f = L.mlp_block(h, bp["mlp"])
+            if cfg.pin_proj_outputs:
+                f = ctx.cons(f, None, None)
+            x = x + att + f
+        else:
+            x = x + att
+            f = L.mlp_block(L.apply_norm(x, bp["norm2"], cfg), bp["mlp"])
+            if cfg.pin_proj_outputs:
+                f = ctx.cons(f, None, None)
+            x = x + f
+    elif kind == "rwkv6":
+        st = cache or {}
+        h = L.apply_norm(x, bp["norm1"], cfg)
+        y, (new_tm, new_wkv) = S.rwkv6_time_mix(
+            h, bp["rwkv"], cfg, st.get("shift_tm"), st.get("wkv"))
+        x = x + y
         h2 = L.apply_norm(x, bp["norm2"], cfg)
-        return x + S.rwkv6_channel_mix(h2, bp["rwkv"])
-    raise NotImplementedError(f"{kind!r} blocks are not ported")
+        y2, new_cm = S.rwkv6_channel_mix(h2, bp["rwkv"], st.get("shift_cm"))
+        x = x + y2
+        new_cache = None
+        if cache is not None:           # the states, written in place
+            cache["shift_tm"].copy_(new_tm)
+            cache["wkv"].copy_(new_wkv)
+            cache["shift_cm"].copy_(new_cm)
+            new_cache = cache
+    else:
+        raise unported(f"{kind!r} blocks are")
+    return ctx.cons(x, None, None), new_cache, 0.0
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> final-normed hidden states (B, S, d)."""
-    if not cfg.use_kernels:
-        raise NotImplementedError(
-            "the port's models run only the kernel route (use_kernels=True); "
-            "the reference's dense and chunked paths are not ported")
-    x = params["embed"]["tok"][tokens]
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
+def head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head (d, V): with tied embeddings the embedding's transposed
+    view (no copy)."""
+    if cfg.tie_embeddings:
+        return params["embed"]["tok"].T
+    return params["head"]["w"]
+
+
+def embed_inputs(params: Params, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings, or for the audio front-end stub the given frame
+    embeddings with masked frames replaced by ``mask_emb``."""
+    if cfg.frontend == "audio_stub":
+        x = batch["embeds"]
+        if "mask" in batch:
+            me = params["embed"]["mask_emb"].to(x.dtype)
+            x = torch.where(batch["mask"][..., None], me, x)
+        return x
+    return params["embed"]["tok"][batch["tokens"]]
+
+
+def _layer(tree, ri: int, repeat: int):
+    """Layer ``ri`` of a segment's tree (views into its stacked leaves)."""
+    return tree if repeat == 1 else map_tree(lambda a: a[ri], tree)
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            ctx: ShardCtx = NULL_CTX, cache=None, t=None,
+            absorb: bool = False, unroll: bool = False):
+    """Returns (hidden, new_cache, aux).  ``cache`` given => a single-token
+    decode step at position ``t`` (a Python int or a 0-d tensor, the same
+    for every row): the cache is written in place and returned.  Without
+    a cache, positions are ``batch["positions"]`` or ``arange`` per row.
+    ``absorb`` (MLA) and ``unroll`` (the reference's scan) change nothing
+    in the port."""
+    x = embed_inputs(params, cfg, batch)
+    x = ctx.cons(x, None, None)
+    b = x.shape[0]
+    if cache is not None:
+        if torch.is_tensor(t):
+            positions = t.reshape(1, 1).expand(b, 1)
+        else:
+            positions = torch.full((b, 1), int(t), dtype=torch.long,
+                                   device=x.device)
+    else:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device).expand(
+                b, x.shape[1])
     for si, (unit, repeat) in enumerate(find_segments(layer_sigs(cfg))):
         seg = params["segments"][si]
         for ri in range(repeat):
             for ui, sig in enumerate(unit):
-                bp = seg[ui] if repeat == 1 else map_tree(
-                    lambda a, ri=ri: a[ri], seg[ui])
-                x = _apply_block(x, bp, sig, cfg, positions)
-    return L.apply_norm(x, params["final_norm"], cfg)
+                uc = (None if cache is None
+                      else _layer(cache[si][ui], ri, repeat))
+                x, _, _ = _apply_block(x, _layer(seg[ui], ri, repeat), sig,
+                                       cfg, ctx, positions, uc, t)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.apply_norm(x, params["final_norm"], cfg), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -241,16 +342,94 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def make_loss_fn(cfg: ModelConfig) -> Callable:
+def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX) -> Callable:
     """loss_fn(params, batch) -> (loss, {"ce": ce}).  ``batch`` holds
-    ``tokens`` and ``labels`` (B, S) and optionally a ``mask``.  Without
-    MoE layers the reference's auxiliary loss is 0, so loss == ce."""
+    ``tokens`` (or the audio stub's ``embeds``) and ``labels`` (B, S) and
+    optionally a ``mask``.  Without MoE layers the reference's auxiliary
+    loss is 0, so loss == ce."""
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
-        hidden = forward(params, cfg, batch["tokens"])
+        hidden, _, _ = forward(params, cfg, batch, ctx)
         weights = batch.get("mask")
         if weights is not None:
             weights = weights.to(torch.float32)
-        ce = chunked_cross_entropy(hidden, params["head"]["w"],
+        ce = chunked_cross_entropy(hidden, head_weight(params, cfg),
                                    batch["labels"], weights)
         return ce, {"ce": ce}
     return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
+                    absorb: bool = False, unroll: bool = False) -> Callable:
+    """One decode step: (params, cache, tokens (B, 1), t) -> (logits
+    (B, 1, V) in the parameters' type, cache).  The cache is written in
+    place; nothing in the step reads a device value on the host."""
+    def serve_step(params: Params, cache, tokens: torch.Tensor, t):
+        with torch.no_grad():
+            hidden, cache, _ = forward(params, cfg, {"tokens": tokens}, ctx,
+                                       cache=cache, t=t, absorb=absorb,
+                                       unroll=unroll)
+            return torch.matmul(hidden, head_weight(params, cfg)), cache
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
+                      unroll: bool = False) -> Callable:
+    """Forward pass producing logits (inference prefill / encoder
+    forward): (params, batch) -> (B, S, V) in the parameters' type."""
+    def prefill_step(params: Params, batch: Dict[str, torch.Tensor]):
+        with torch.no_grad():
+            hidden, _, _ = forward(params, cfg, batch, ctx, unroll=unroll)
+            return torch.matmul(hidden, head_weight(params, cfg))
+    return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# Cache construction
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TensorShape:
+    """The shape and type of one tensor (JAX's ``ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               as_shape: bool = False, device="cuda"):
+    """Nested cache matching ``forward``'s segment structure: per segment
+    a list per unit block of dicts, each leaf with a leading (repeat,)
+    axis where the segment repeats.  Zeros on ``device``, or
+    ``TensorShape`` leaves with ``as_shape=True`` (nothing allocated)."""
+    cdtype = param_dtype(cfg)
+
+    def block_shapes(sig: Sig) -> Dict[str, TensorShape]:
+        kind, _ = sig
+        if kind == "attn":
+            if cfg.mla is not None:
+                raise unported("MLA caches are")
+            return {name: TensorShape(shape, torch.float32
+                                      if name.endswith("_scale")
+                                      else torch.int8 if cfg.quantized_cache
+                                      else cdtype)
+                    for name, shape in L.attention_cache_shape(
+                        cfg, batch, max_seq).items()}
+        if kind == "rwkv6":
+            shp = S.rwkv6_state_shape(cfg, batch)
+            return {"shift_tm": TensorShape(shp["shift_tm"], cdtype),
+                    "shift_cm": TensorShape(shp["shift_cm"], cdtype),
+                    "wkv": TensorShape(shp["wkv"], torch.float32)}
+        raise unported(f"{kind!r} caches are")
+
+    def make(leaf: TensorShape, repeat: int):
+        shape = leaf.shape if repeat == 1 else (repeat,) + leaf.shape
+        if as_shape:
+            return TensorShape(shape, leaf.dtype)
+        return torch.zeros(shape, dtype=leaf.dtype, device=device)
+
+    return [[{name: make(leaf, repeat)
+              for name, leaf in block_shapes(sig).items()} for sig in unit]
+            for unit, repeat in find_segments(layer_sigs(cfg))]

@@ -27,7 +27,7 @@ from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
 from repro_torch.core.substrates.lm_loss import make_lm_workload
 from repro_torch.data import sdss
 from repro_torch.kernels import ops, ref
-from repro_torch.launch import anm_lm, multi_search
+from repro_torch.launch import anm_lm, multi_search, serve
 from repro_torch.models import transformer
 from repro_torch.server import sim
 
@@ -127,6 +127,29 @@ def test_pod_modules_import_without_jax_or_the_reference():
         path = os.path.join(ROOT, "src", *name.split(".")) + ".py"
         with open(path) as f:
             assert "torch.distributed" not in f.read(), name
+
+
+#: the serving slice's modules: the dense families' configs and the
+#: serve loop, each of which the walk above must import
+SERVE_MODULES = ("repro_torch.configs.qwen2_72b",
+                 "repro_torch.configs.deepseek_coder_33b",
+                 "repro_torch.configs.command_r_plus_104b",
+                 "repro_torch.configs.chameleon_34b",
+                 "repro_torch.configs.hubert_xlarge",
+                 "repro_torch.launch.serve", "repro_torch.models.layers",
+                 "repro_torch.models.ssm", "repro_torch.models.transformer",
+                 "repro_torch.models.sharding", "repro_torch.convert")
+
+
+def test_serve_modules_import_without_jax_or_the_reference():
+    script = _BLOCKED_IMPORT.replace("print(len(names))",
+                                     "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(SERVE_MODULES) <= set(out.stdout.split())
 
 
 def test_lm_modules_import_without_jax_or_the_reference():
@@ -274,6 +297,8 @@ def _multi_search_main():
     lambda: sim.smoke_problem(n_stars=50),
     lambda: sim.main([]),
     _multi_search_main,
+    lambda: serve.main(["--requests", "1", "--gen-len", "1"]),
+    lambda: transformer.init_cache(get_smoke_config("qwen2-72b"), 1, 4),
 ])
 def test_cuda_default_does_not_fall_back_to_cpu(make):
     if torch.cuda.is_available():

@@ -23,13 +23,15 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+from repro.configs import SHAPES as j_SHAPES
 from repro.configs import ShapeConfig as JShapeConfig
 from repro.configs import get_config as j_get_config
 from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.models import sharding as JS
 from repro.models import transformer as JT
-from repro_torch.configs import (ARCH_NAMES, ShapeConfig, cut_depth,
-                                 get_config, get_smoke_config)
+from repro_torch.configs import (ARCH_NAMES, SHAPES, ShapeConfig,
+                                 cut_depth, get_config, get_smoke_config)
+from repro_torch.core.tree import leaves_with_paths
 from repro_torch.launch.mesh import Mesh, virtual_devices
 from repro_torch.models import sharding as S
 from repro_torch.models import transformer as T
@@ -119,6 +121,50 @@ def test_input_specs_equal_the_reference(arch, mesh_shape, kind):
             assert sds[name].shape == tuple(jsds[name].shape)
 
 
+#: the meshes the decode caches are specced over: one card, two data
+#: shards, the production pod
+CACHE_MESHES = {"1x1": {"data": 1, "model": 1},
+                "2x1": {"data": 2, "model": 1},
+                "16x16": {"data": 16, "model": 16}}
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("mesh_shape", list(CACHE_MESHES))
+@pytest.mark.parametrize("width", ["smoke", "published"])
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_cache_specs_equal_the_reference(arch, width, mesh_shape, quantized):
+    """``cache_specs`` leaf by leaf at the decode shapes (decode_32k's
+    batch 128 divides the data axes, long_500k's batch 1 does not), bf16
+    and int8 caches; the port's leaves are ``init_cache``'s."""
+    jcfg, cfg = _configs(arch, width)
+    jcfg = dataclasses.replace(jcfg, quantized_cache=quantized)
+    cfg = dataclasses.replace(cfg, quantized_cache=quantized)
+    mesh = _FakeMesh(CACHE_MESHES[mesh_shape])
+    for name in ("decode_32k", "long_500k"):
+        jshape, shape = j_SHAPES[name], SHAPES[name]
+        want = _ref_leaves(JS.cache_specs(jcfg, jshape, mesh))
+        got = _port_leaves(S.cache_specs(cfg, shape, mesh))
+        assert got == want
+        jleaves = jax.tree_util.tree_leaves_with_path(JT.init_cache(
+            jcfg, shape.global_batch, shape.seq_len, as_shape=True))
+        leaves = leaves_with_paths(T.init_cache(
+            cfg, shape.global_batch, shape.seq_len, as_shape=True))
+        assert [(p, x.shape, str(x.dtype).replace("torch.", ""))
+                for p, x in leaves] == [
+            ("/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                      for k in kp), tuple(x.shape), str(x.dtype))
+            for kp, x in jleaves]
+
+
+def test_cache_specs_refuse_unported_caches():
+    mesh = _FakeMesh(CACHE_MESHES["16x16"])
+    cfg = get_smoke_config("qwen2-72b")
+    for bad in (dataclasses.replace(cfg, mla=object()),
+                dataclasses.replace(cfg, block_pattern=("mamba2",) * 2)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+            S.cache_specs(bad, SHAPES["decode_32k"], mesh)
+
+
 @pytest.mark.parametrize("arch,n_layers", [("h2o-danube-3-4b", 4),
                                            ("rwkv6-7b", 2)])
 def test_published_width_lm_workloads_shard_as_the_reference(arch,
@@ -166,7 +212,8 @@ def test_small_batch_replicates_and_enforce_is_idempotent(arch):
     cfg = get_smoke_config(arch)
     mesh = _FakeMesh(MESH_SHAPES["16x16"])
     _, specs = S.input_specs(cfg, ShapeConfig("t", 32, 2, "train"), mesh)
-    assert specs["tokens"][0] is None
+    inputs = "embeds" if cfg.frontend == "audio_stub" else "tokens"
+    assert specs[inputs][0] is None
     once, _ = S.enforce_divisible(cfg, mesh)
     twice, again = S.enforce_divisible(cfg, mesh, specs=once)
     assert again == []
