@@ -27,6 +27,18 @@ so the script exits non-zero and prints no result line:
            iterations) on stripe79 and stripe86; each must reach 90 % of
            the way to the truth by iteration 5 and end within 5e-3 of the
            reference's final fitness, through the gram kernel;
+4b. baselines paper §VI through launch/baselines.py at the reference's
+           settings (stripe "cmp", 15k stars, ANM at m = 150 + 150 for 25
+           iterations, CGD for 150, numerical Newton for 12): ANM reaches
+           the target within one iteration of the reference's 6 and ends
+           within 5e-3 of its final, CGD does not reach the target by
+           ANM's iteration, Newton makes 1 + 209 evaluations an iteration
+           and ends no higher than its start (its final moves with the
+           fitness's last bits and is printed beside the reference's);
+4c. fig3   paper Fig. 3 through launch/fig3.py: 24 one-iteration trials
+           (m = 48 + 256, α_max = 30), all escaping the α = 0 basin as
+           in the reference, each best fitness within 1e-3 of the
+           reference's; best α printed;
 5. grid    the 4096-host batched grid on stripe79 (100k stars, m = 1000),
            pipelined and sync, which must commit bit-identical iterates;
 6. flash   both attention kernels against their plain version, each case
@@ -74,6 +86,15 @@ so the script exits non-zero and prints no result line:
            in-process sync and pipelined, no bucket shape first run
            after warm, and for rwkv6 the work server == act 3's
            in-process run; the kernel once per layer per lane;
+8b. subspace lm  subspace Newton (src/repro/launch/train.py:110's k = 6,
+           sample_scale 0.02) on [lm]'s two cut models, weights and batch:
+           two steps on the kernel route from one generator, each never
+           raising the loss and launching the arch's kernel (m + p + 1)
+           times a layer, 292 for danube and 146 for rwkv6; the first
+           step again on the plain route (use_kernels=False) from the
+           same draws, its losses within 2e-2 of the kernel route's; the
+           randomized line search (p = 8) along the first step's
+           displacement, its best no worse than α = 1;
 9. rowmean the fixed-order row mean against its plain version (the same
            bits) and the float64 mean (≤ 1e-6 relative) at (k, 100000)
            and (k, 4096) for k = 1, 8, 16, 64, 1024, 4096 and at
@@ -144,7 +165,8 @@ so the script exits non-zero and prints no result line:
            over (2, 512, 1280) frame embeddings on the dense non-causal
            route, bf16 against f32, and the serve loop refusing it; each
            prefill launches its kernel once per layer;
-16. the ``kernels`` JSON line, then the ``ok`` JSON line.
+16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
+           line, then the ``ok`` JSON line.
 """
 from __future__ import annotations
 
@@ -169,6 +191,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.core.engine import identical_trajectories  # noqa: E402
+from repro_torch.core.parallel_line_search import (  # noqa: E402
+    LineSearchConfig, randomized_line_search)
+from repro_torch.core.subspace_newton import (  # noqa: E402
+    SubspaceNewtonConfig, init_state, subspace_newton_step)
 from repro_torch.core.orchestrator import (FleetScheduler,  # noqa: E402
                                            SearchDirector)
 from repro_torch.core.substrates.batched_grid import \
@@ -176,17 +202,19 @@ from repro_torch.core.substrates.batched_grid import \
 from repro_torch.core.substrates.eval_backend import \
     InProcessEvalBackend  # noqa: E402
 from repro_torch.core.substrates.eval_cache import EvalCache  # noqa: E402
-from repro_torch.core.substrates.lm_loss import \
-    LmLossEvalBackend  # noqa: E402
+from repro_torch.core.substrates.lm_loss import (  # noqa: E402
+    LmLossEvalBackend, lm_model)
 from repro_torch.core.substrates.pod_mesh import \
     PodMeshEvalBackend  # noqa: E402
 from repro_torch.configs import cut_depth, get_config  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.subspace import basis_to_tree  # noqa: E402
 from repro_torch.core.tree import leaves_with_paths, map_tree  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
-from repro_torch.launch import (anm_lm, fig2, multi_search,  # noqa: E402
-                                obs_postmortem, serve, volunteer_grid)
+from repro_torch.launch import (anm_lm, baselines, fig2, fig3,  # noqa: E402
+                                multi_search, obs_postmortem, serve,
+                                volunteer_grid)
 from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
                                      virtual_devices)
 from repro_torch.models import transformer  # noqa: E402
@@ -297,6 +325,39 @@ SERVE_MATCH_LEN, SERVE_OTHER_LEN = 300, 64
 SERVE_BF16_NORM = 5e-2
 SERVE_INT8_NORM = 5e-2
 
+#: paper §VI's comparison in the reference (benchmarks/anm_vs_baselines.py,
+#: JAX on a CPU, 15k stars): start, truth and target fitness; each method's
+#: iteration reaching the target (None: never), evaluations and final
+REFERENCE_BASELINES = {
+    "start": 5.57915, "truth": 5.17450, "target": 5.27566,
+    "anm": dict(at=6, evals=1800, final=5.16571),
+    "cgd": dict(at=None, evals=511, final=5.38915),
+    "newton_numerical": dict(at=None, evals=2509, final=5.56930),
+}
+#: Newton's final in the port on the CPU (python -m
+#: repro_torch.launch.baselines --device cpu): its last iterations' Hessian
+#: moves with the fitness's last bits, so the card's Newton is held to the
+#: port's own CPU run, within 1e-3, and printed beside the reference's
+PORT_NEWTON_FINAL = 5.49946
+#: Fig. 3 in the reference (benchmarks/fig3_linesearch.py, JAX on a CPU):
+#: each trial's best fitness, all 24 escaping
+REFERENCE_FIG3 = (
+    -0.639034, -0.628546, -0.643081, -0.639821, -0.642154, -0.642681,
+    -0.642050, -0.628778, -0.623850, -0.636789, -0.626312, -0.639397,
+    -0.643431, -0.640613, -0.598712, -0.643621, -0.637655, -0.643030,
+    -0.636977, -0.642756, -0.642495, -0.605648, -0.643065, -0.643533)
+#: the subspace-Newton legs: src/repro/launch/train.py:110's configuration,
+#: [lm]'s weights and batch (make_lm_workload's seed), the generator's
+#: seed, and the line search's candidates (train.py --line-search)
+SUBSPACE_CFG = SubspaceNewtonConfig(k=6, sample_scale=0.02)
+SUBSPACE_WORKLOAD_SEED = 3
+SUBSPACE_SEED = 21
+SUBSPACE_LINE = LineSearchConfig(p=8)
+#: kernel route against plain route, loss by loss at the same points (the
+#: m samples and θ of a step from one seed, the line's candidates from
+#: another), relative: the two routes' losses differ by ~2.5e-5 on an H100
+SUBSPACE_ROUTE_TOL = 1e-3
+
 
 def check(ok: bool, what: str) -> None:
     if not ok:
@@ -313,6 +374,8 @@ def _counts() -> dict:
 
 
 def phase_card(dev: torch.device) -> None:
+    """The card's stamp: nvidia-smi's name and power limit on a line of
+    their own, then the device, torch, CUDA and Python versions."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -608,6 +671,74 @@ def phase_grid(dev: torch.device, iters: int = 3) -> None:
     print(f"[grid] pipelined == sync: bit-identical iterates and engine "
           f"stats; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+
+def phase_baselines(dev: torch.device) -> int:
+    """Paper §VI on the card: launch/baselines.py at the reference's
+    settings; returns the row_mean launches of the run (the fitness's)."""
+    res, wall, counts, peak = _leg(dev, lambda: baselines.run(device=dev))
+    want = REFERENCE_BASELINES
+    print(f"[baselines] {res['n_stars']} stars: start {res['start']:.5f} "
+          f"(reference {want['start']:.5f}), truth {res['truth']:.5f} "
+          f"({want['truth']:.5f}), target {res['target']:.5f} "
+          f"({want['target']:.5f}); wall {wall:.1f}s, peak device memory "
+          f"{peak:.2f} GiB, launches {counts}")
+    for name in ("anm", "cgd", "newton_numerical"):
+        r, w = res[name], want[name]
+        evals = r.get("evals_total", r.get("evals_to_target"))
+        print(f"[baselines] {name}: iterations to target "
+              f"{r['iterations_to_target']} (reference {w['at']}), "
+              f"{r['iterations']} iterations, evaluations {evals} "
+              f"(reference {w['evals']}), final {r['final']:.5f} (reference "
+              f"{w['final']:.5f}), wall {r['wall_s']:.2f}s, parallelism "
+              f"{r['max_parallelism']}")
+    for key in ("start", "truth"):
+        check(abs(res[key] - want[key]) <= 1e-4 * abs(want[key]),
+              f"baselines {key} fitness {res[key]} vs reference {want[key]}")
+    anm, cgd, nw = res["anm"], res["cgd"], res["newton_numerical"]
+    at = anm["iterations_to_target"]
+    check(at is not None and abs(at - want["anm"]["at"]) <= 1,
+          f"ANM reached the target at iteration {at}, the reference at "
+          f"{want['anm']['at']}")
+    check(abs(anm["final"] - want["anm"]["final"])
+          <= 5e-3 * abs(want["anm"]["final"]),
+          f"ANM final {anm['final']} vs reference {want['anm']['final']}")
+    cat = cgd["iterations_to_target"]
+    check(cat is None or cat > at, f"CGD reached the target at iteration "
+          f"{cat}, ANM at {at}")
+    check(nw["evals_total"] == 1 + 209 * nw["iterations"],
+          f"Newton made {nw['evals_total']} evaluations in "
+          f"{nw['iterations']} iterations, not 1 + 209 each")
+    print(f"[baselines] newton_numerical: final {nw['final']:.5f} against the "
+          f"port's CPU run {PORT_NEWTON_FINAL:.5f} (gate 1e-3)")
+    check(abs(nw["final"] - PORT_NEWTON_FINAL) <= 1e-3,
+          f"Newton final {nw['final']} vs the port's CPU run "
+          f"{PORT_NEWTON_FINAL}")
+    check(counts["row_mean_launches"] > 0,
+          "the baselines never launched the row_mean kernel")
+    return counts["row_mean_launches"]
+
+
+def phase_fig3(dev: torch.device) -> None:
+    """Paper Fig. 3 on the card: 24 one-iteration trials, every one
+    escaping the α = 0 basin as in the reference, each best fitness within
+    1e-3 of the reference's."""
+    res, wall, counts, peak = _leg(dev, lambda: fig3.run(device=dev))
+    best = [r["best_fitness"] for r in res["samples"]]
+    alphas = [r["best_alpha"] for r in res["samples"]]
+    worst = max(abs(b - w) for b, w in zip(best, REFERENCE_FIG3))
+    print(f"[fig3] {res['trials']} trials: {res['escapes']} escapes "
+          f"(reference 24); best fitness {min(best):.6f} ... "
+          f"{max(best):.6f}, worst |Δ| against the reference's "
+          f"{worst:.2e}; best α {min(alphas):.4f} ... {max(alphas):.4f}; "
+          f"wall {wall:.2f}s, peak device memory {peak:.3f} GiB, launches "
+          f"{counts}")
+    print(f"[fig3] best α per trial: "
+          + " ".join(f"{a:.4f}" for a in alphas))
+    check(res["escapes"] == len(REFERENCE_FIG3) == res["trials"],
+          f"{res['escapes']} of {res['trials']} trials escaped")
+    check(worst <= 1e-3, f"a trial's best fitness is {worst} from the "
+          f"reference's")
 
 
 def _bound(moved: int, flops: float, peak: float):
@@ -1579,6 +1710,137 @@ def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def _subspace_step(dev, loss, params, state, gen):
+    """One subspace-Newton step drawn from ``gen``; returns (new params,
+    new state, info as floats, wall s, counts, peak GiB)."""
+    (new, state, info), wall, counts, peak = _leg(
+        dev, lambda: subspace_newton_step(loss, params, state, SUBSPACE_CFG,
+                                          gen, device=dev))
+    return (new, state, {k: float(v) for k, v in info.items()}, wall, counts,
+            peak)
+
+
+def _route_gap(kernel: torch.Tensor, plain: torch.Tensor) -> float:
+    """Largest |kernel − plain| / |plain| over losses at the same points."""
+    kernel, plain = kernel.double().cpu(), plain.double().cpu()
+    return float(((kernel - plain).abs() / plain.abs()).max())
+
+
+def phase_subspace_lm(dev: torch.device, arch: str) -> int:
+    """Subspace Newton (paper §III-§IV lifted to the LM) on ``arch`` at
+    published widths, [lm]'s depth, weights and batch: two steps on the
+    kernel route from one generator; the randomized line search from the
+    second step's parameters along its momentum, on both routes from one
+    seed; the first step again on the plain route (``use_kernels=False``)
+    from a generator seeded as the first.  Each loss the plain route takes
+    at a point the kernel route took (the m samples and θ of step 1, the
+    line's candidates) is held to it.  Returns the arch's kernel launches
+    in the kernel-route legs."""
+    counter = LM_KERNEL[arch][0]
+    t0 = time.perf_counter()
+    cfg, batch, params, _ = lm_model(
+        arch, batch_size=2, seq_len=LM_SEQ_LEN, seed=SUBSPACE_WORKLOAD_SEED,
+        full_width=True, n_layers=LM_DEPTH[arch], device=dev)
+    seen = []
+
+    def loss_of(model_cfg):
+        loss_fn = transformer.make_loss_fn(model_cfg)
+
+        def loss(p):
+            out = loss_fn(p, batch)[0]
+            seen.append(out)
+            return out
+        return loss
+
+    loss = loss_of(cfg)
+    plain_loss = loss_of(dataclasses.replace(cfg, use_kernels=False))
+    n_layers, m = cfg.n_layers, SUBSPACE_CFG.m_resolved()
+    per_step = (m + SUBSPACE_CFG.p_line + 1) * n_layers
+    state0 = init_state(params)
+    n_params = state0["momentum"].numel()
+    print(f"[subspace lm] {arch}: {n_layers} layers at published widths, P "
+          f"= {n_params}, basis {SUBSPACE_CFG.k * n_params * 4 / 1e9:.2f} GB "
+          f"(k = {SUBSPACE_CFG.k}, f32), m = {m}, p = "
+          f"{SUBSPACE_CFG.p_line}, sample_scale {SUBSPACE_CFG.sample_scale}")
+    gen = torch.Generator(device=dev).manual_seed(SUBSPACE_SEED)
+    launches, state, cur = 0, state0, params
+    for i in range(2):
+        seen.clear()
+        cur, state, info, wall, counts, peak = _subspace_step(
+            dev, loss, cur, state, gen)
+        if i == 0:
+            info1, at_step1 = info, torch.stack(seen[:m] + seen[-1:])
+        launches += counts[counter]
+        print(f"[subspace lm] {arch} step {i + 1} (kernel route): loss "
+              f"{info['loss_before']:.6f} -> {info['loss_after']:.6f}, α "
+              f"{info['alpha']:.4f}, ‖g‖ {info['grad_norm']:.4g}; wall "
+              f"{wall:.2f}s, peak device memory {peak:.2f} GiB, {counter} "
+              f"{counts[counter]} (want {per_step})")
+        check(math.isfinite(info["loss_after"])
+              and math.isfinite(info["grad_norm"]),
+              f"{arch} step {i + 1}: a loss or ‖g‖ is not finite")
+        check(counts[counter] == per_step
+              and counts["flash_attention_launches"]
+              == counts["flash_attention_wgmma_launches"]
+              and counts["wkv6_launches"] == counts["wkv6_chunked_launches"],
+              f"{arch} step {i + 1}: launches {counts}, want {per_step} of "
+              f"{counter}")
+    # the momentum after two steps is zero only if neither step moved
+    norm = float(torch.linalg.vector_norm(state["momentum"]))
+    check(norm > 0, f"{arch}: neither step moved")
+    update = map_tree(lambda v: v[0], basis_to_tree(state["momentum"][None],
+                                                    cur))
+    line = {}
+    for route, fn in (("kernel", loss), ("plain", plain_loss)):
+        seen.clear()
+        gen = torch.Generator(device=dev).manual_seed(SUBSPACE_SEED + 1)
+        (_, alpha, best), wall, counts, peak = _leg(
+            dev, lambda: randomized_line_search(fn, cur, update, gen,
+                                                SUBSPACE_LINE, device=dev))
+        line[route] = torch.stack(seen)
+        print(f"[subspace lm] {arch} line search ({route} route) from step "
+              f"2's parameters along its momentum (‖·‖ {norm:.4g}), p = "
+              f"{SUBSPACE_LINE.p}: best α {float(alpha):.4f}, loss "
+              f"{float(best):.6f} (at α = 1: {float(seen[0]):.6f}); wall "
+              f"{wall:.2f}s, peak device memory {peak:.2f} GiB, {counter} "
+              f"{counts[counter]}")
+        if route == "kernel":
+            launches += counts[counter]
+            check(counts[counter] == SUBSPACE_LINE.p * n_layers,
+                  f"{arch}: the line search launched {counts[counter]} "
+                  f"kernels")
+        else:
+            check(counts["flash_attention_launches"]
+                  == counts["wkv6_launches"] == 0,
+                  f"{arch}: the plain line search launched a kernel")
+    line_gap = _route_gap(line["kernel"], line["plain"])
+    del cur, state, update
+    seen.clear()
+    _, _, plain, wall, counts, peak = _subspace_step(
+        dev, plain_loss, params, state0,
+        torch.Generator(device=dev).manual_seed(SUBSPACE_SEED))
+    step_gap = _route_gap(at_step1, torch.stack(seen[:m] + seen[-1:]))
+    print(f"[subspace lm] {arch} step 1 (plain route, the same draws): loss "
+          f"{plain['loss_before']:.6f} -> {plain['loss_after']:.6f}, α "
+          f"{plain['alpha']:.4f} (kernel route {info1['alpha']:.4f}); wall "
+          f"{wall:.2f}s, peak device memory {peak:.2f} GiB, kernel "
+          f"launches {counts['flash_attention_launches']} / "
+          f"{counts['wkv6_launches']}")
+    print(f"[subspace lm] {arch} kernel route against plain route, largest "
+          f"relative gap: step 1's {m} samples and θ {step_gap:.3g}, the "
+          f"line's {SUBSPACE_LINE.p} candidates {line_gap:.3g} (gate "
+          f"{SUBSPACE_ROUTE_TOL}); phase wall {time.perf_counter() - t0:.1f}s")
+    check(counts["flash_attention_launches"] == counts["wkv6_launches"] == 0,
+          f"{arch}: the plain route launched a kernel")
+    check(max(step_gap, line_gap) <= SUBSPACE_ROUTE_TOL,
+          f"{arch}: kernel route {step_gap} / {line_gap} from the plain "
+          f"route")
+    del params, state0, seen, at_step1, line
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _lm_acts(dev, arch, search, fleet, backend, n_layers):
     """Acts 2 (both archs) and 3 (rwkv6) on act 1's workload: the arch's
     kernel once per layer per lane evaluated.  Returns act 3's
@@ -1929,6 +2191,8 @@ def main() -> None:
     row_mean = timed("rowmean", phase_rowmean, dev)
     timed("fitness", phase_fitness, dev)
     launches = timed("fig2", phase_fig2, dev)   # the main path, from 0
+    baselines_launches = timed("baselines", phase_baselines, dev)
+    timed("fig3", phase_fig3, dev)
     timed("grid", phase_grid, dev)
     row_mean_launches, server_doc, server_wall = timed("server",
                                                        phase_server, dev)
@@ -1943,8 +2207,13 @@ def main() -> None:
     wkv6_launches, lm = timed("lm rwkv6", phase_lm, dev, "rwkv6-7b",
                               wkv6["ms"])
     timed("pod lm rwkv6", phase_pod_lm, dev, "rwkv6-7b", lm)
+    flash_subspace = timed("subspace lm danube", phase_subspace_lm, dev,
+                           "h2o-danube-3-4b")
+    wkv6_subspace = timed("subspace lm rwkv6", phase_subspace_lm, dev,
+                          "rwkv6-7b")
     serve_launches = timed("serve", phase_serve, dev)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
+    phase_card(dev)                 # the stamp again, near the end
     print(json.dumps({"kernels": [
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
@@ -1954,17 +2223,20 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:81",
          "launches": flash_launches,
-         "serve_launches": serve_launches["flash_attention"], **flash},
+         "serve_launches": serve_launches["flash_attention"],
+         "subspace_launches": flash_subspace, **flash},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6.py:50",
          "launches": wkv6_launches,
-         "serve_launches": serve_launches["wkv6"], **wkv6},
+         "serve_launches": serve_launches["wkv6"],
+         "subspace_launches": wkv6_subspace, **wkv6},
         {"name": "row_mean", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/row_mean.cu",
          "replaces": "src/repro/data/sdss.py:79 (jnp.mean, :79, :80, :85; "
                      "no TPU kernel: port-only)",
-         "launches": row_mean_launches, **row_mean}]}))
+         "launches": row_mean_launches,
+         "baselines_launches": baselines_launches, **row_mean}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

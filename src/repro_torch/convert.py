@@ -16,7 +16,10 @@ object's code, so the port imports nothing of the reference:
   reference one's fields, so both packages run the same search;
 * ``cache_from_reference`` — the port's decode cache from a reference
   cache's arrays, int8 kept as int8, so a decode continues from the
-  reference's state.
+  reference's state;
+* ``subspace_state_from_reference`` — the port's subspace-Newton state
+  from a reference state's (P,) f32 momentum (JAX's leaf order, which is
+  the port's) and step, so a reference run continues in the port.
 
 A reference parameter tree carries across through
 ``transformer.params_from_leaves`` (leaf path -> array), for every
@@ -145,3 +148,17 @@ def cache_from_reference(cfg, cache: Any, batch: int, max_seq: int,
                            for name, spec in want_block.items()})
         out.append(blocks)
     return out
+
+
+def subspace_state_from_reference(state: Dict[str, Any],
+                                  device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's ``subspace_newton.init_state``-shaped state holding a
+    reference state's values: ``momentum`` (P,) f32 and ``step`` int32.
+    ``state``: the reference's dict, as arrays (``jax.tree.map(np.asarray,
+    state)``) or as they are."""
+    momentum = np.array(state["momentum"], np.float32)
+    if momentum.ndim != 1:
+        raise ValueError(f"momentum of shape {momentum.shape}, want (P,)")
+    return {"momentum": torch.from_numpy(momentum).to(device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -5,12 +5,19 @@ Port of ``repro/core/subspace.py`` for the LM-loss backend, sized for one
 card at published widths, where the basis (k × P f32) is tens of GB:
 
 * the basis is made in place: k rows of normal draws, orthonormalised by
-  modified Gram–Schmidt with f64 dot products, not a QR of a (P, k)
-  copy;
+  modified Gram–Schmidt with f64 dot products kept on the device (no
+  host read), not a QR of a (P, k) copy;
 * ``basis_tree`` leaves are VIEWS of the flat basis
   (``basis[:, off:off+size]`` reshaped to (k, *leaf.shape)), not copies;
-* the reference's ``flat0`` (the raveled θ0) and ``unravel`` serve the
-  flat-space optimizer, which is not ported, and are left out;
+* ``flat0`` (the raveled θ0 in f32) is made when asked for, not held:
+  the frozen chart of the LM backend never reads it, and at published
+  width it is P × 4 bytes; ``unravel``, ``lift_flat`` and ``shift_flat``
+  serve the flat-space optimizer (``core/subspace_newton.py``);
+* an ``anchor`` row (the optimizer's momentum) is orthonormalised as the
+  reference's Householder QR gives it: row 0 is a / β with
+  β = −sign(a₀)·‖a‖ (sign(0) = +), and a zero anchor gives e₁ with
+  coordinate 0 of every other row zeroed.  Those rows' signs are the
+  port's own (Gram–Schmidt);
 * ``tree_lift`` may write into a given set of working parameters instead
   of allocating a fresh tree per lane (the JAX package's arrays are
   immutable; the port updates in place to keep one set on the card).
@@ -22,7 +29,6 @@ as the reference's.  Leaves are taken in JAX's flatten order
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Optional
 
 import torch
@@ -34,30 +40,83 @@ from repro_torch.core.tree import leaves_with_paths, map_tree, map_with_paths
 _DOT_CHUNK = 1 << 24
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> float:
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a · b as a 0-d f64 tensor on the device, summed chunk by chunk."""
     acc = torch.zeros((), dtype=torch.float64, device=a.device)
     for s in range(0, a.numel(), _DOT_CHUNK):
         acc += torch.dot(a[s:s + _DOT_CHUNK].double(),
                          b[s:s + _DOT_CHUNK].double())
-    return float(acc)
+    return acc
 
 
-def orthonormalize_(rows: torch.Tensor) -> torch.Tensor:
-    """Orthonormalise the rows of a (k, P) f32 tensor in place (modified
-    Gram–Schmidt, f64 dot products); returns it."""
-    for i in range(rows.shape[0]):
+def ravel_tree(tree: Any) -> torch.Tensor:
+    """The leaves of ``tree`` raveled into one (P,) f32 vector, in JAX's
+    leaf order."""
+    leaves = leaves_with_paths(tree)
+    flat = torch.empty(sum(leaf.numel() for _, leaf in leaves),
+                       dtype=torch.float32, device=leaves[0][1].device)
+    off = 0
+    for _, leaf in leaves:
+        flat[off:off + leaf.numel()].copy_(leaf.reshape(-1))
+        off += leaf.numel()
+    return flat
+
+
+def unravel_like(like: Any, v: torch.Tensor) -> Any:
+    """(P,) → a tree shaped like ``like``: each leaf its slice of ``v``
+    (JAX's leaf order) cast to that leaf's type, as a copy."""
+    offsets, off = {}, 0
+    for path, leaf in leaves_with_paths(like):
+        offsets[path] = off
+        off += leaf.numel()
+    if off != v.numel():
+        raise ValueError(f"a vector of {v.numel()} for {off} parameters")
+    return map_with_paths(
+        lambda path, leaf: v[offsets[path]:offsets[path] + leaf.numel()]
+        .view(leaf.shape).to(leaf.dtype, copy=True), like)
+
+
+def orthonormalize_(rows: torch.Tensor, start: int = 0) -> torch.Tensor:
+    """Orthonormalise rows ``start``.. of a (k, P) f32 tensor in place
+    against every row before each (modified Gram–Schmidt, f64 dot products
+    kept on the device); rows before ``start`` must be orthonormal
+    already.  Returns ``rows``."""
+    for i in range(start, rows.shape[0]):
         for j in range(i):
-            rows[i].sub_(rows[j], alpha=_dot(rows[i], rows[j]))
-        rows[i].div_(math.sqrt(_dot(rows[i], rows[i])))
+            rows[i].addcmul_(rows[j], _dot(rows[i], rows[j]).float(),
+                             value=-1.0)
+        rows[i].div_(torch.sqrt(_dot(rows[i], rows[i])).float())
     return rows
 
 
+def _anchor_row_(rows: torch.Tensor) -> None:
+    """Row 0 (the anchor a) as the reference's QR makes it: a / β with
+    β = −sign(a₀)·‖a‖, or e₁ where a = 0 (and then coordinate 0 of every
+    other row zeroed)."""
+    a = rows[0]
+    norm = torch.sqrt(_dot(a, a))
+    zero = norm == 0
+    beta = torch.where(a[0] < 0, norm, -norm)
+    a.div_(torch.where(zero, torch.ones_like(beta), beta).float())
+    a[0].add_(zero.float())
+    rows[1:, 0].mul_((~zero).float())
+
+
 def orthonormal_basis(n: int, k: int, generator: torch.Generator,
-                      device="cuda") -> torch.Tensor:
-    """(k, n) f32 orthonormal rows from normal draws of ``generator``."""
-    rows = torch.randn((k, n), generator=generator, device=device,
-                       dtype=torch.float32)
-    return orthonormalize_(rows)
+                      device="cuda",
+                      anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(k, n) f32 orthonormal rows: ``anchor`` (the momentum) first when
+    given, then normal draws of ``generator`` (k − 1 rows with an anchor,
+    k without)."""
+    if anchor is None:
+        rows = torch.randn((k, n), generator=generator, device=device,
+                           dtype=torch.float32)
+        return orthonormalize_(rows)
+    rows = torch.empty((k, n), device=device, dtype=torch.float32)
+    rows[0].copy_(anchor)
+    rows[1:].normal_(generator=generator)
+    _anchor_row_(rows)
+    return orthonormalize_(rows, start=1)
 
 
 def basis_to_tree(basis: torch.Tensor, params: Any) -> Any:
@@ -96,7 +155,9 @@ class SubspaceProjection:
 
     ``theta0``: anchor parameters (their own types); ``basis``: (k, P) f32
     orthonormal rows over the raveled parameters (JAX's leaf order);
-    ``basis_tree``: views of it leaf by leaf, (k, *leaf.shape).
+    ``basis_tree``: views of it leaf by leaf, (k, *leaf.shape);
+    ``flat0``: θ0 raveled in f32, made at each access; ``unravel``:
+    (P,) → parameters in θ0's shapes and types.
     """
     theta0: Any
     basis: torch.Tensor
@@ -110,12 +171,20 @@ class SubspaceProjection:
     def n_params(self) -> int:
         return int(self.basis.shape[1])
 
+    @property
+    def flat0(self) -> torch.Tensor:
+        return ravel_tree(self.theta0)
+
+    def unravel(self, v: torch.Tensor) -> Any:
+        return unravel_like(self.theta0, v)
+
     @classmethod
-    def create(cls, params: Any, k: int,
-               generator: torch.Generator) -> "SubspaceProjection":
+    def create(cls, params: Any, k: int, generator: torch.Generator,
+               anchor: Optional[torch.Tensor] = None
+               ) -> "SubspaceProjection":
         n = sum(leaf.numel() for _, leaf in leaves_with_paths(params))
         device = leaves_with_paths(params)[0][1].device
-        basis = orthonormal_basis(n, k, generator, device)
+        basis = orthonormal_basis(n, k, generator, device, anchor)
         return cls.from_basis(params, basis)
 
     @classmethod
@@ -127,3 +196,11 @@ class SubspaceProjection:
     def lift(self, c: torch.Tensor, out: Optional[Any] = None) -> Any:
         """c (k,) → parameters at θ0 + c·V (into ``out`` if given)."""
         return tree_lift(self.theta0, self.basis_tree, c, out)
+
+    def lift_flat(self, c: torch.Tensor) -> torch.Tensor:
+        """c (k,) → the raveled (P,) f32 point θ0 + c·V."""
+        return self.flat0 + c @ self.basis
+
+    def shift_flat(self, c: torch.Tensor) -> torch.Tensor:
+        """c (k,) → the raveled displacement c·V (momentum updates)."""
+        return c @ self.basis

@@ -115,6 +115,20 @@ def make_lm_workload(arch: str, *, k: int = 8, batch_size: int = 2,
     ``torch.Generator`` seeded with ``seed``, with the reference's
     distributions (not its ``jax.random`` values).
     """
+    cfg, batch, params0, gen = lm_model(
+        arch, batch_size=batch_size, seq_len=seq_len, seed=seed,
+        full_width=full_width, n_layers=n_layers, device=device)
+    proj = SubspaceProjection.create(params0, k, gen)
+    return LmWorkload(arch=arch, cfg=cfg, batch=batch, proj=proj, k=k,
+                      coeff_bound=coeff_bound, seed=seed)
+
+
+def lm_model(arch: str, *, batch_size: int = 2, seq_len: int = 32,
+             seed: int = 0, full_width: bool = False,
+             n_layers: Optional[int] = None, device="cuda"):
+    """(cfg, batch tensors, θ0, generator) of ``make_lm_workload``'s model
+    without its chart: the same configuration, batch and weights, and the
+    generator left where the basis would be drawn from it."""
     cfg = get_config(arch) if full_width else get_smoke_config(arch)
     if n_layers is not None:
         cfg = cut_depth(cfg, n_layers)
@@ -122,9 +136,7 @@ def make_lm_workload(arch: str, *, k: int = 8, batch_size: int = 2,
     batch = synthetic_batch(cfg.vocab_size, batch_size, seq_len, seed)
     gen = torch.Generator(device=device).manual_seed(seed)
     params0 = T.init_params(cfg, gen, device)
-    proj = SubspaceProjection.create(params0, k, gen)
-    return LmWorkload(arch=arch, cfg=cfg, batch=batch_tensors(batch, device),
-                      proj=proj, k=k, coeff_bound=coeff_bound, seed=seed)
+    return cfg, batch_tensors(batch, device), params0, gen
 
 
 def batch_tensors(batch: Dict[str, np.ndarray],

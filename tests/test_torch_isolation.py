@@ -27,7 +27,8 @@ from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
 from repro_torch.core.substrates.lm_loss import make_lm_workload
 from repro_torch.data import sdss
 from repro_torch.kernels import ops, ref
-from repro_torch.launch import anm_lm, multi_search, serve
+from repro_torch.core import subspace_newton
+from repro_torch.launch import anm_lm, baselines, fig3, multi_search, serve
 from repro_torch.models import transformer
 from repro_torch.server import sim
 
@@ -150,6 +151,44 @@ def test_serve_modules_import_without_jax_or_the_reference():
         capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert set(SERVE_MODULES) <= set(out.stdout.split())
+
+
+#: the optimisers' slice's modules: the paper's baselines, Fig. 3 and the
+#: subspace Newton with its line search, each of which the walk above
+#: must import
+OPTIM_MODULES = ("repro_torch.optim", "repro_torch.optim.cgd",
+                 "repro_torch.optim.newton_ref",
+                 "repro_torch.core.parallel_line_search",
+                 "repro_torch.core.subspace_newton",
+                 "repro_torch.core.subspace", "repro_torch.launch.baselines",
+                 "repro_torch.launch.fig3", "repro_torch.convert")
+
+
+def test_optim_modules_import_without_jax_or_the_reference():
+    script = _BLOCKED_IMPORT.replace("print(len(names))",
+                                     "print(' '.join(names))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(OPTIM_MODULES) <= set(out.stdout.split())
+    for name in OPTIM_MODULES:
+        path = os.path.join(ROOT, "src", *name.split("."))
+        path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+                else path + ".py")
+        with open(path) as f:
+            text = f.read()
+        assert "import jax" not in text and "from repro." not in text, name
+
+
+def _subspace_step_on_cpu_params():
+    """A subspace-Newton step on parameters on the CPU, device unsaid."""
+    params = {"w": torch.zeros(4)}
+    subspace_newton.subspace_newton_step(
+        lambda p: torch.sum(p["w"] ** 2), params,
+        subspace_newton.init_state(params),
+        subspace_newton.SubspaceNewtonConfig(k=2), torch.Generator())
 
 
 def test_lm_modules_import_without_jax_or_the_reference():
@@ -299,6 +338,9 @@ def _multi_search_main():
     _multi_search_main,
     lambda: serve.main(["--requests", "1", "--gen-len", "1"]),
     lambda: transformer.init_cache(get_smoke_config("qwen2-72b"), 1, 4),
+    lambda: baselines.run(n_stars=50),
+    lambda: fig3.run(),
+    _subspace_step_on_cpu_params,
 ])
 def test_cuda_default_does_not_fall_back_to_cpu(make):
     if torch.cuda.is_available():
