@@ -126,14 +126,14 @@ so the script exits non-zero and prints no result line:
 13. obs    the observability plane on the work server: at paper scale
            the whole plane (metrics hub, a live subscriber, full tracing,
            retention) == the unobserved server run, gram twice per
-           regression finish; the run with checkpoint, eval cache,
-           retention and tracing crashed at 40 % of the messages, its
-           dead epoch reconstructed by the post-mortem (snapshots, spans,
-           the replay log's extent; the store's bytes unchanged), then
-           restored under epoch 2 == uninterrupted.  At the reference's
-           own obs smoke size (48 hosts, m = 12, 200 stars, 3
-           iterations, a quarter of the hosts silent from t = 150):
-           observed over 8 concurrent TCP clients with a subscriber, and
+           regression finish.  At the reference's own obs smoke size (48
+           hosts, m = 12, 200 stars, 3 iterations, a quarter of the
+           hosts silent from t = 150): the run with checkpoint, eval
+           cache, retention and tracing crashed at 40 % of the messages,
+           its dead epoch reconstructed by the post-mortem (snapshots,
+           spans, the replay log's extent; the store's bytes unchanged),
+           then restored under epoch 2 == the unobserved uninterrupted
+           run; observed over 8 concurrent TCP clients with a subscriber, and
            the same under drop_dup chaos == the unobserved serial run;
            the live defense shrinks the reliable set and its schedule
            replays bit for bit; the stall kill is in the schedule and
@@ -165,6 +165,25 @@ so the script exits non-zero and prints no result line:
            over (2, 512, 1280) frame embeddings on the dense non-causal
            route, bf16 against f32, and the serve loop refusing it; each
            prefill launches its kernel once per layer;
+15b. serve moe  MLA and MoE at published widths, bf16 unless named: (f)
+           deepseek-v2-lite-16b whole (27 layers) serves 8 requests at
+           batch 4 through launch/serve.py, ms per step beside the bound
+           of reading every block weight and the head once; one serve
+           step replayed from a CUDA graph (a capture refuses a host read
+           inside the step) and its peak memory; at MoE capacity 16
+           decode == prefill over 64 tokens (5e-2 normwise; the prefill
+           launches no kernel: MLA attends densely, as in the
+           reference), the int8 latent cache against the bf16 cache
+           (5e-2 normwise) with both caches' bytes, the prefill at the
+           published capacity the same bits twice; (f') the same arch cut
+           to 4 layers in f32: decode == prefill within 2e-3 + 2e-3 |ref|
+           and the absorbed decode == the naive one within 2e-4 + 2e-4
+           |naive|; (g) llama4-maverick-400b-a17b cut to one dense and one
+           MoE layer serves the same way, decode == prefill at capacity 16
+           with one wgmma attention launch a layer, and make_loss_fn over
+           2 x 4096 seeded tokens at the published capacity on the kernel
+           route against the plain route (loss and ce within 1e-3
+           relative, aux finite, 2 wgmma launches);
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
            line, then the ``ok`` JSON line.
 """
@@ -217,7 +236,7 @@ from repro_torch.launch import (anm_lm, baselines, fig2, fig3,  # noqa: E402
                                 volunteer_grid)
 from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
                                      virtual_devices)
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.obs import obs_store_path  # noqa: E402
 from repro_torch.server import sim  # noqa: E402
 from repro_torch.server.checkpoint import LOG_NAME  # noqa: E402
@@ -312,7 +331,8 @@ PORTFOLIO = dict(n_searches=6, m=1000, iterations=2)
 #: the serve phase: layers kept at published widths per arch
 SERVE_DEPTH = {"qwen2-72b": 4, "deepseek-coder-33b": 2,
                "command-r-plus-104b": 2, "chameleon-34b": 2,
-               "h2o-danube-3-4b": 4, "rwkv6-7b": 2, "hubert-xlarge": 2}
+               "h2o-danube-3-4b": 4, "rwkv6-7b": 2, "hubert-xlarge": 2,
+               "deepseek-v2-lite-16b": 27, "llama4-maverick-400b-a17b": 2}
 #: leg (a)'s serve loop, and (d)'s (the reference CLI's defaults)
 SERVE_MAIN = dict(requests=16, batch=8, prompt=64, gen=64, max_seq=512)
 SERVE_OTHER = dict(requests=8, batch=4, prompt=16, gen=32, max_seq=128)
@@ -324,6 +344,26 @@ SERVE_MATCH_LEN, SERVE_OTHER_LEN = 300, 64
 #: way (tests/test_torch_serve_models.py::INT8_TOL)
 SERVE_BF16_NORM = 5e-2
 SERVE_INT8_NORM = 5e-2
+#: the MoE / MLA phase: deepseek-v2-lite-16b whole (SERVE_DEPTH: all 27
+#: layers fit the card in bf16) and llama4-maverick cut to one dense and
+#: one MoE layer (one MoE layer's 128 experts are 32.2 GB in bf16); the
+#: f32 MLA leg's depth; the MoE capacity at which a 64-token prefill drops
+#: nothing (tests/test_models_smoke.py:80-82 raises it to 16 for decode ==
+#: prefill); the loss leg's (rows, tokens) at the published capacity and
+#: its kernel-route-against-plain-route gate, relative
+MLA_F32_DEPTH = 4
+MOE_NO_DROP = 16.0
+MOE_LOSS_SHAPE = (2, 4096)
+MOE_LOSS_TOL = 1e-3
+#: bf16 decode == prefill of a MoE model is gated with the decode fed the
+#: prefill's experts: in bf16 the two paths' hidden states differ in their
+#: last bits, which flips near-tied top-k choices (deepseek-v2-lite at 27
+#: layers on an H100: 56 of 64 tokens take another expert somewhere in 26
+#: layers of top-6, each first at a prefill margin ≤ 2.0e-3, and the free
+#: decode lies 5.4 % from the prefill, the fed one 2.0 %); the free decode
+#: is printed, and each token's first flip must come at a near-tie, a
+#: prefill margin (k-th minus (k+1)-th router probability) below this
+MOE_TIE_MARGIN = 1e-2
 
 #: paper §VI's comparison in the reference (benchmarks/anm_vs_baselines.py,
 #: JAX on a CPU, 15k stars): start, truth and target fitness; each method's
@@ -1276,7 +1316,7 @@ def _digest(path: str) -> str:
 def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
     """The observability plane on the work server: at paper scale beside
     ``[server]``'s uninterrupted run (``base``), then at the reference's
-    obs smoke size."""
+    obs smoke size, the flight recorder's crash and restore among them."""
     flags = SERVER_FLAGS + ["--device", str(dev)]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
         # (a) the whole plane on, at paper scale
@@ -1317,11 +1357,22 @@ def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
               f"gram launched {counts['gram_launches']} times for "
               f"{finishes} regression finishes of the observed run")
 
-        # (b) the flight recorder under a crash at 40 % of the messages
+        # (b)-(h) at the reference's obs smoke size
+        smoke = OBS_SMOKE + ["--device", str(dev)]
+        t0 = time.perf_counter()
+        _, _, plain = sim.run_cli(smoke)
+        print(f"[obs] (c) smoke size unobserved serial loopback: "
+              f"{plain['iteration']} iterations, best "
+              f"{plain['best_fitness']:.6f}, {plain['pool']['messages']} "
+              f"messages, reliable set {plain['registry']['reliable_set']}"
+              f", {time.perf_counter() - t0:.1f}s")
+
+        # (b) the flight recorder under a crash at 40 % of the messages,
+        # at the smoke size ([server] crashes the paper-scale run)
         ck = os.path.join(tmp, "b")
-        both = flags + ["--ckpt-dir", ck, "--cache", "--retain",
+        both = smoke + ["--ckpt-dir", ck, "--cache", "--retain",
                         "--trace-rate", "1.0"]
-        crash_at = int(0.4 * doc["pool"]["messages"])
+        crash_at = int(0.4 * plain["pool"]["messages"])
         t0 = time.perf_counter()
         try:
             sim.run_cli(both, max_messages=crash_at)
@@ -1353,26 +1404,17 @@ def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
         _, _, restored = sim.run_cli(both + ["--resume"])
         t2 = time.perf_counter()
         post = obs_postmortem.reconstruct(store)
-        same = _same_run(restored, doc) and _same_run(restored, base)
+        same = _same_run(restored, plain)
         print(f"[obs] (b) restored in {t2 - t1:.1f}s after replaying "
               f"{restored['replayed']} records, store epochs "
               f"{post['store']['epochs']} ({post['store']['records']} "
-              f"records), cache hits {restored['cache']['hits']}; == (a) "
-              f"and the uninterrupted run: {same}")
+              f"records), cache hits {restored['cache']['hits']}; == the "
+              f"uninterrupted run (c): {same}")
         check(post["store"]["epochs"] == [1, 2], "the restored run did not "
               "append under epoch 2")
-        check(same, "the restored observed run differs from (a) or the "
+        check(same, "the restored observed run differs from the "
               "uninterrupted run")
 
-        # (c)-(h) at the reference's obs smoke size
-        smoke = OBS_SMOKE + ["--device", str(dev)]
-        t0 = time.perf_counter()
-        _, _, plain = sim.run_cli(smoke)
-        print(f"[obs] (c) smoke size unobserved serial loopback: "
-              f"{plain['iteration']} iterations, best "
-              f"{plain['best_fitness']:.6f}, {plain['pool']['messages']} "
-              f"messages, reliable set {plain['registry']['reliable_set']}"
-              f", {time.perf_counter() - t0:.1f}s")
         for leg, extra in (("(d)", []), ("(e)", ["--chaos", "drop_dup"])):
             t0 = time.perf_counter()
             _, _, got = sim.run_cli(smoke + OBS_CONCURRENT + OBS_FLAGS
@@ -1929,10 +1971,11 @@ def _serve_loop(dev, cfg, params, spec: dict, seed: int) -> dict:
                 wall=res.wall_s, tokens=len(toks))
 
 
-def _decode_logits(cfg, params, toks, dev) -> torch.Tensor:
+def _decode_logits(cfg, params, toks, dev, absorb=False) -> torch.Tensor:
     """(S, V) logits of ``toks`` (1, S) fed one at a time through the serve
-    step from an empty cache of S rows (a ring of the window's rows)."""
-    step = transformer.make_serve_step(cfg)
+    step from an empty cache of S rows (a ring of the window's rows); MLA
+    through the latent space with ``absorb``."""
+    step = transformer.make_serve_step(cfg, absorb=absorb)
     cache = transformer.init_cache(cfg, 1, toks.shape[1], device=dev)
     outs = []
     for t in range(toks.shape[1]):
@@ -1954,7 +1997,12 @@ def _prefill_logits(cfg, params, toks) -> tuple:
 
 def _kernel_launches(cfg, counts: dict) -> str:
     """The prefill's launches of its arch's kernel, checked: one per
-    layer, and all of them of the variant ops routes its type to."""
+    layer, and all of them of the variant ops routes its type to; none
+    for MLA, which attends through the dense path as the reference."""
+    if cfg.mla is not None:
+        check(not any(counts.values()), f"{cfg.name}: the MLA prefill "
+              f"launched {counts}, want no kernel")
+        return "no kernel launched (MLA attends densely)"
     if cfg.blocks()[0] == "rwkv6":
         names = ("wkv6_launches", "wkv6_chunked_launches"
                  if cfg.dtype == "bfloat16" else "wkv6_serial_launches")
@@ -1970,12 +2018,17 @@ def _kernel_launches(cfg, counts: dict) -> str:
     return f"{names[1]} {variant}"
 
 
+def _match_tokens(cfg, n_tokens: int, seed: int, dev) -> torch.Tensor:
+    """(1, n_tokens) seeded tokens of the decode == prefill legs."""
+    return torch.randint(0, cfg.vocab_size, (1, n_tokens), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed))
+
+
 def _decode_vs_prefill(dev, cfg, params, n_tokens: int, seed: int):
     """Decode == prefill on ``n_tokens`` seeded tokens; returns (decode
     logits, the comparison printed, the prefill's launches printed)."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    toks = torch.randint(0, cfg.vocab_size, (1, n_tokens), generator=gen,
-                         device=dev)
+    toks = _match_tokens(cfg, n_tokens, seed, dev)
     dec = _decode_logits(cfg, params, toks, dev)
     pre, counts = _prefill_logits(cfg, params, toks)
     launches = _kernel_launches(cfg, counts)
@@ -2078,9 +2131,7 @@ def phase_serve(dev: torch.device) -> dict:
     # (c) ... the same tokens through the int8 cache
     t0 = time.perf_counter()
     qcfg = dataclasses.replace(cfg, quantized_cache=True)
-    toks = torch.randint(0, cfg.vocab_size, (1, SERVE_MATCH_LEN),
-                         generator=torch.Generator(device=dev).manual_seed(2),
-                         device=dev)
+    toks = _match_tokens(cfg, SERVE_MATCH_LEN, 2, dev)
     dec_int8 = _decode_logits(qcfg, params, toks, dev)
     norm, row = _norm_err(dec_int8, dec_bf16)
     print(f"[serve] (c) qwen2-72b int8 cache against the bf16 cache over "
@@ -2173,6 +2224,266 @@ def phase_serve(dev: torch.device) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def _routing(forced=None):
+    """Within: each MoE routing of the port recorded, per call, as (its
+    experts, its margin: k-th minus (k+1)-th router probability); with
+    ``forced`` (a one-row prefill's record), each decode step's MoE layers
+    take the experts that prefill chose at the step's position."""
+    own = layers._route
+    calls = []
+
+    def route(x, router, k):
+        probs, gates, idx = own(x, router, k)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        calls.append((idx, top[..., k - 1] - top[..., k]))
+        if forced is not None:
+            t, layer = divmod(len(calls) - 1, len(forced))
+            idx = forced[layer][0][:, t:t + 1]
+            gates = torch.gather(probs, -1, idx)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+        return probs, gates, idx
+    layers._route = route
+    try:
+        yield calls
+    finally:
+        layers._route = own
+
+
+def _first_flips(pre_calls, dec_calls, n_tokens: int) -> list:
+    """The prefill margin at each token's first layer where its decode
+    chose other experts than its prefill (tokens that never flip left
+    out)."""
+    n_moe = len(pre_calls)
+    seen = torch.zeros(n_tokens, dtype=torch.bool)
+    margins = []
+    for layer, (idx, margin) in enumerate(pre_calls):
+        dec = torch.cat([dec_calls[t * n_moe + layer][0]
+                         for t in range(n_tokens)], dim=1)
+        flip = (dec.sort(-1).values != idx.sort(-1).values).any(-1)[0].cpu()
+        new = flip & ~seen
+        margins += margin[0].cpu()[new].tolist()
+        seen |= flip
+    return margins
+
+
+def _moe_decode_vs_prefill(dev, cfg, params, n_tokens: int, seed: int):
+    """bf16 decode == prefill of a MoE model (see MOE_TIE_MARGIN): the
+    decode fed the prefill's experts within SERVE_BF16_NORM; the free
+    decode's distance, its tokens that flip, each first at a near-tie.
+    Returns (the prefill's record, the fed decode's logits, the
+    comparison printed, the prefill's launches printed)."""
+    toks = _match_tokens(cfg, n_tokens, seed, dev)
+    with _routing() as pre_calls:
+        pre, counts = _prefill_logits(cfg, params, toks)
+    launches = _kernel_launches(cfg, counts)
+    with _routing() as dec_calls:
+        free = _decode_logits(cfg, params, toks, dev)
+    with _routing(forced=pre_calls):
+        fed = _decode_logits(cfg, params, toks, dev)
+    norm, row = _norm_err(fed, pre)
+    free_norm, free_row = _norm_err(free, pre)
+    flips = _first_flips(pre_calls, dec_calls, n_tokens)
+    worst = max(flips, default=0.0)
+    what = (f"fed the prefill's experts ‖err‖/‖ref‖ {norm:.4g} (gate "
+            f"{SERVE_BF16_NORM}), worst row {row:.4g}; free routing "
+            f"{free_norm:.4g}, worst row {free_row:.4g}, {len(flips)} of "
+            f"{n_tokens} tokens take other experts, each first at a "
+            f"prefill margin ≤ {worst:.3g} (gate {MOE_TIE_MARGIN})")
+    check(norm <= SERVE_BF16_NORM and worst < MOE_TIE_MARGIN
+          and bool(torch.isfinite(pre).all() and torch.isfinite(free).all()),
+          f"{cfg.name} {cfg.dtype}: decode != prefill over {n_tokens} "
+          f"tokens: {what}")
+    return pre_calls, fed, what, launches
+
+
+def _no_drop(cfg):
+    """``cfg`` with the MoE capacity at which its prefills drop nothing."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_NO_DROP))
+
+
+def _moe_model(arch: str, dtype: str, gen, dev):
+    """``_serve_model`` with its draw's wall and peak memory, and the
+    decode step's bytes bound: every block weight (the capacity buffer
+    runs every expert each step) and the head, once at the HBM rate.
+    Returns (cfg, params, line printed)."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    cfg, params = _serve_model(arch, dtype, gen, dev)
+    torch.cuda.synchronize(dev)
+    drawn = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    blocks = sum(x.numel() * x.element_size()
+                 for _, x in leaves_with_paths(params["segments"]))
+    head = params["head"]["w"]
+    head = head.numel() * head.element_size()
+    bound = (blocks + head) / HBM_BYTES_PER_S * 1e3
+    line = (f"{cfg.n_layers} layers, "
+            f"{transformer.count_params(params) / 1e9:.2f} G parameters "
+            f"{dtype} drawn in {drawn:.1f}s (peak {peak:.2f} GiB)")
+    return cfg, params, dict(line=line, bound=bound, blocks=blocks,
+                             head=head)
+
+
+def _serve_leg(dev, cfg, params, info) -> str:
+    """The serve loop on SERVE_OTHER beside the bytes bound, its peak."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    leg = _serve_loop(dev, cfg, params, SERVE_OTHER, seed=3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    return (f"{SERVE_OTHER['requests']} requests at batch "
+            f"{SERVE_OTHER['batch']}, {leg['tokens']} tokens in "
+            f"{leg['steps']} steps, {leg['ms']:.3f} ms per step (CUDA events "
+            f"around the loop) against a bound of {info['bound']:.3f} ms "
+            f"(block weights {info['blocks'] / 1e9:.2f} GB + head "
+            f"{info['head'] / 1e9:.2f} GB once at 3.35 TB/s), loop wall "
+            f"{leg['wall']:.2f}s, peak {peak:.2f} GiB")
+
+
+def phase_serve_moe(dev: torch.device) -> int:
+    """MLA and MoE at published widths through the serve loop, the serve
+    and prefill steps and the loss; returns the attention kernel's
+    launches in the phase."""
+    launches = 0
+    gen = torch.Generator(device=dev).manual_seed(22)
+    arch = "deepseek-v2-lite-16b"
+    # (f) deepseek-v2-lite-16b whole, bf16
+    t0 = time.perf_counter()
+    cfg, params, info = _moe_model(arch, "bfloat16", gen, dev)
+    served = _serve_leg(dev, cfg, params, info)
+    batch = SERVE_OTHER["batch"]
+    cache = transformer.init_cache(cfg, batch, SERVE_OTHER["max_seq"],
+                                   device=dev)
+    step = transformer.make_serve_step(cfg)
+    tokens = torch.ones((batch, 1), dtype=torch.long, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = _graph_ms(lambda: step(params, cache, tokens, 100), calls=5,
+                        replays=5)
+    graph_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del cache
+    _free()
+    print(f"[serve moe] (f) {arch} {info['line']}: {served}; one serve step "
+          f"replayed from a CUDA graph {step_ms:.3f} ms "
+          f"({step_ms / info['bound']:.2f}x the bound), peak "
+          f"{graph_peak:.2f} GiB; wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    roomy = _no_drop(cfg)
+    pre_calls, dec, what, kl = _moe_decode_vs_prefill(
+        dev, roomy, params, SERVE_OTHER_LEN, seed=4)
+    launches += _counts()["flash_attention_launches"]
+    toks = _match_tokens(cfg, SERVE_OTHER_LEN, 4, dev)
+    with _routing(forced=pre_calls):
+        dec_int8 = _decode_logits(dataclasses.replace(
+            roomy, quantized_cache=True), params, toks, dev)
+    norm, row = _norm_err(dec_int8, dec)
+    check(norm <= SERVE_INT8_NORM and bool(torch.isfinite(dec_int8).all()),
+          f"{arch}: int8 latent cache logits {norm} from the bf16 cache's")
+    prefill = transformer.make_prefill_step(cfg)
+    once = prefill(params, {"tokens": toks})
+    twice = prefill(params, {"tokens": toks})
+    same = bool(torch.equal(once, twice))
+    check(same, f"{arch}: the same prefill gave other bits the second time")
+    drop_norm, _ = _norm_err(once[0], transformer.make_prefill_step(roomy)(
+        params, {"tokens": toks})[0])
+    q, b = (_cache_bytes(dataclasses.replace(cfg, quantized_cache=True),
+                         batch, SERVE_OTHER["max_seq"]),
+            _cache_bytes(cfg, batch, SERVE_OTHER["max_seq"]))
+    print(f"[serve moe] (f) {arch} bf16, capacity {MOE_NO_DROP:g}: decode "
+          f"== prefill over {SERVE_OTHER_LEN} tokens: {what}; prefill {kl}; "
+          f"int8 latent cache against the bf16 cache ‖err‖/‖ref‖ "
+          f"{norm:.4g} (gate {SERVE_INT8_NORM}; both fed the prefill's "
+          f"experts), worst row {row:.4g}; latent "
+          f"cache bytes at batch {batch} x {SERVE_OTHER['max_seq']}: int8 "
+          f"{q} against bf16 {b}; at the published capacity "
+          f"{cfg.moe.capacity_factor} the prefill is the same bits twice: "
+          f"{same}, and lies ‖·‖ {drop_norm:.4g} from the capacity "
+          f"{MOE_NO_DROP:g} prefill (dropped tokens); wall "
+          f"{time.perf_counter() - t0:.1f}s")
+    del params, dec, dec_int8, once, twice, pre_calls
+    _free()
+    # (f') deepseek-v2-lite-16b cut to MLA_F32_DEPTH layers, f32
+    t0 = time.perf_counter()
+    cfg = _no_drop(dataclasses.replace(cut_depth(get_config(arch),
+                                                 MLA_F32_DEPTH),
+                                       dtype="float32"))
+    params = transformer.init_params(cfg, gen, dev)
+    naive, what, kl = _decode_vs_prefill(dev, cfg, params, SERVE_OTHER_LEN,
+                                         seed=5)
+    absorbed = _decode_logits(cfg, params, _match_tokens(
+        cfg, SERVE_OTHER_LEN, 5, dev), dev, absorb=True)
+    gap = float((absorbed - naive).abs().max())
+    ok = bool(torch.all((absorbed - naive).abs()
+                        <= 2e-4 + 2e-4 * naive.abs()))
+    print(f"[serve moe] (f') {arch} {MLA_F32_DEPTH} layers f32, capacity "
+          f"{MOE_NO_DROP:g}: decode == prefill over {SERVE_OTHER_LEN} "
+          f"tokens: {what}; prefill {kl}; absorb == naive decode: max |err| "
+          f"{gap:.3g} (gate 2e-4 + 2e-4 |naive|); wall "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(ok, f"{arch}: the absorbed MLA decode differs from the naive one "
+          f"by {gap}")
+    del params, naive, absorbed
+    _free()
+    # (g) llama4-maverick cut to one dense and one MoE layer, bf16
+    arch = "llama4-maverick-400b-a17b"
+    t0 = time.perf_counter()
+    cfg, params, info = _moe_model(arch, "bfloat16", gen, dev)
+    served = _serve_leg(dev, cfg, params, info)
+    _, _, what, kl = _moe_decode_vs_prefill(dev, _no_drop(cfg), params,
+                                            SERVE_OTHER_LEN, seed=4)
+    launches += _counts()["flash_attention_launches"]
+    print(f"[serve moe] (g) {arch} {info['line']}: {served}; capacity "
+          f"{MOE_NO_DROP:g}: decode == prefill over {SERVE_OTHER_LEN} "
+          f"tokens: {what}; prefill {kl}; wall "
+          f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(22)
+    rows, seq = MOE_LOSS_SHAPE
+    loss_batch = {name: torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (rows, seq)), device=dev)
+        for name in ("tokens", "labels")}
+    out = {}
+    with torch.no_grad():
+        for route, use_kernels in (("kernel", True), ("plain", False)):
+            fn = transformer.make_loss_fn(dataclasses.replace(
+                cfg, use_kernels=use_kernels))
+            (loss, met), wall, counts, peak = _leg(dev, lambda: fn(
+                params, loss_batch))
+            out[route] = dict(loss=float(loss), ce=float(met["ce"]),
+                              aux=float(met["aux"]), wall=wall, peak=peak,
+                              counts=counts)
+    k, p = out["kernel"], out["plain"]
+    gaps = {name: abs(k[name] - p[name]) / abs(p[name])
+            for name in ("loss", "ce")}
+    kc = k["counts"]
+    print(f"[serve moe] (g) {arch} loss over {rows} x {seq} tokens at the "
+          f"published capacity {cfg.moe.capacity_factor}: kernel route "
+          f"loss {k['loss']:.6f} = ce {k['ce']:.6f} + 0.01 aux "
+          f"{k['aux']:.6f} ({k['wall']:.2f}s, peak {k['peak']:.2f} GiB, "
+          f"flash_attention_wgmma_launches "
+          f"{kc['flash_attention_wgmma_launches']}); plain route loss "
+          f"{p['loss']:.6f}, ce {p['ce']:.6f}, aux {p['aux']:.6f} "
+          f"({p['wall']:.2f}s, peak {p['peak']:.2f} GiB); relative gap loss "
+          f"{gaps['loss']:.3g}, ce {gaps['ce']:.3g} (gate {MOE_LOSS_TOL}); "
+          f"wall {time.perf_counter() - t0:.1f}s")
+    check(kc["flash_attention_launches"]
+          == kc["flash_attention_wgmma_launches"] == cfg.n_layers,
+          f"{arch}: the kernel-route loss launched {kc}, want "
+          f"{cfg.n_layers} wgmma launches")
+    check(not any(p["counts"].values()), f"{arch}: the plain-route loss "
+          f"launched {p['counts']}")
+    check(all(math.isfinite(r[n]) for r in (k, p)
+              for n in ("loss", "ce", "aux"))
+          and max(gaps.values()) <= MOE_LOSS_TOL,
+          f"{arch}: kernel-route loss against plain route {gaps}")
+    launches += kc["flash_attention_launches"]
+    del params
+    _free()
+    print(f"[serve moe] attention kernel launches in the phase: {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2212,6 +2523,7 @@ def main() -> None:
     wkv6_subspace = timed("subspace lm rwkv6", phase_subspace_lm, dev,
                           "rwkv6-7b")
     serve_launches = timed("serve", phase_serve, dev)
+    serve_moe_launches = timed("serve moe", phase_serve_moe, dev)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     phase_card(dev)                 # the stamp again, near the end
     print(json.dumps({"kernels": [
@@ -2224,6 +2536,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_attention.py:81",
          "launches": flash_launches,
          "serve_launches": serve_launches["flash_attention"],
+         "serve_moe_launches": serve_moe_launches,
          "subspace_launches": flash_subspace, **flash},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",

@@ -3,10 +3,11 @@
 ``get_config(name)`` / ``get_smoke_config(name)`` cover the LM
 architectures the port's models run, in the reference's order: the dense
 families (qwen2-72b, deepseek-coder-33b, command-r-plus-104b,
-chameleon-34b, the hubert-xlarge encoder), h2o-danube-3-4b's sliding
-window and rwkv6-7b.  The reference's three others (MLA + MoE, and Mamba2
-+ shared attention) are not ported yet: looking one up raises
-``NotImplementedError`` naming ROADMAP.md A.5.  The paper's own
+chameleon-34b, the hubert-xlarge encoder), MLA + MoE
+(deepseek-v2-lite-16b) and interleaved MoE (llama4-maverick-400b-a17b),
+h2o-danube-3-4b's sliding window and rwkv6-7b.  The reference's last one
+(zamba2-2.7b: Mamba2 + shared attention) is not ported yet: looking it
+up raises ``NotImplementedError`` naming ROADMAP.md A.5.  The paper's own
 8-parameter problem is ``paper_anm``.
 """
 from __future__ import annotations
@@ -14,8 +15,9 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
-                                      ShapeConfig, SSMConfig, UNPORTED,
+from repro_torch.configs.base import (SHAPES, MLAConfig,  # noqa: F401
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig, UNPORTED,
                                       cell_is_runnable, config_from_dict,
                                       cut_depth)
 
@@ -25,6 +27,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-3-4b": "repro_torch.configs.h2o_danube_3_4b",
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
@@ -32,8 +36,7 @@ _ARCH_MODULES: Dict[str, str] = {
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)
 
 #: the reference's architectures whose blocks the port has not ported
-UNPORTED_ARCHS = ("deepseek-v2-lite-16b", "llama4-maverick-400b-a17b",
-                  "zamba2-2.7b")
+UNPORTED_ARCHS = ("zamba2-2.7b",)
 
 
 def _module(name: str):

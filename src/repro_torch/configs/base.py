@@ -1,25 +1,51 @@
 """Model and shape configuration dataclasses.
 
 Copy of the parts of ``repro/configs/base.py`` the port's models use:
-``ModelConfig`` keeps every field of the reference's, so a reference
-configuration carries across field by field (``config_from_dict``); the
-port's models refuse the features they do not implement yet (MoE, MLA,
-Mamba2 and the shared attention block: ROADMAP.md A.5) instead of
-ignoring them, and so does ``n_params``.
+``ModelConfig``, ``MoEConfig`` and ``MLAConfig`` keep every field of the
+reference's, so a reference configuration carries across field by field
+(``config_from_dict``); the port's models refuse the blocks they do not
+implement yet (Mamba2 and the shared attention block: ROADMAP.md A.5,
+second half) instead of ignoring them, and so does ``n_params``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 #: what the port says where a configuration asks for a block it has not
 #: ported yet
-UNPORTED = ("not ported yet (ROADMAP.md A.5: MLA + MoE, Mamba2 + shared "
+UNPORTED = ("not ported yet (ROADMAP.md A.5, second half: Mamba2 + shared "
             "attention)")
 
 
 def unported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} {UNPORTED}")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0              # routed experts
+    experts_per_token: int = 0      # top-k
+    n_shared_experts: int = 0
+    expert_d_ff: int = 0            # per-expert hidden dim
+    capacity_factor: float = 1.25
+    # layers [moe_layer_start, n_layers) with stride moe_layer_stride are MoE
+    moe_layer_start: int = 0
+    moe_layer_stride: int = 1
+    router_jitter: float = 0.0
+    # "grouped": per-batch-row dispatch (GShard groups), the default;
+    # "global": one sort over all tokens
+    dispatch: str = "grouped"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0            # 0 = dense q projection (V2-Lite)
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +83,8 @@ class ModelConfig:
     frontend: str = "none"          # none | audio_stub | vision_stub
     # entries in {"attn", "rwkv6", "mamba2", "shared_attn"}; empty -> attn
     block_pattern: Tuple[str, ...] = ()
-    moe: Optional[Any] = None       # the reference's MoEConfig (not ported)
-    mla: Optional[Any] = None       # the reference's MLAConfig (not ported)
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     shared_attn_every: int = 0
     dtype: str = "bfloat16"
@@ -88,20 +114,36 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the
-        reference's formula for the dense, attention and rwkv6 branches."""
-        if self.moe is not None or self.mla is not None:
-            raise unported("n_params of MoE / MLA configurations is")
+        reference's formula for the attention (dense or MLA, with a dense
+        or MoE FFN) and rwkv6 branches."""
         d, v = self.d_model, self.vocab_size
         total = v * d                                   # embed
         if not self.tie_embeddings:
             total += v * d                              # unembed
         hd = self.resolved_head_dim
-        for kind in self.blocks():
+        for idx, kind in enumerate(self.blocks()):
             if kind == "attn":
-                total += d * self.n_heads * hd          # q
-                total += 2 * d * self.n_kv_heads * hd   # k, v
-                total += self.n_heads * hd * d          # o
-                total += 3 * d * self.d_ff              # swiglu
+                if self.mla is not None:
+                    m = self.mla
+                    q_in = m.q_lora_rank or d
+                    total += (d * m.q_lora_rank if m.q_lora_rank else 0)
+                    total += q_in * self.n_heads * (m.qk_nope_head_dim
+                                                    + m.qk_rope_head_dim)
+                    total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    total += m.kv_lora_rank * self.n_heads * (
+                        m.qk_nope_head_dim + m.v_head_dim)
+                    total += self.n_heads * m.v_head_dim * d
+                else:
+                    total += d * self.n_heads * hd          # q
+                    total += 2 * d * self.n_kv_heads * hd   # k, v
+                    total += self.n_heads * hd * d          # o
+                if self._layer_is_moe(idx):
+                    m = self.moe
+                    total += d * m.n_experts                # router
+                    total += ((m.n_experts + m.n_shared_experts) * 3 * d
+                              * m.expert_d_ff)
+                else:
+                    total += 3 * d * self.d_ff              # swiglu
             elif kind == "rwkv6":
                 total += 4 * d * d + d * self.d_ff * 2  # r,k,v,g(+mix); channel-mix
             else:
@@ -115,13 +157,27 @@ class ModelConfig:
         return (idx >= m.moe_layer_start
                 and (idx - m.moe_layer_start) % m.moe_layer_stride == 0)
 
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE counts only the routed top-k
+        and the shared experts)."""
+        if self.moe is None:
+            return self.n_params()
+        d, m = self.d_model, self.moe
+        all_expert = m.n_experts * 3 * d * m.expert_d_ff
+        n_moe = sum(1 for i in range(self.n_layers) if self._layer_is_moe(i))
+        active_expert = m.experts_per_token * 3 * d * m.expert_d_ff
+        return self.n_params() - n_moe * (all_expert - active_expert)
+
 
 def config_from_dict(fields: dict) -> ModelConfig:
     """A ``ModelConfig`` from ``dataclasses.asdict`` of the reference's (or
-    the port's) configuration: plain values, ``ssm`` as a dict."""
+    the port's) configuration: plain values, ``moe``, ``mla`` and ``ssm``
+    as dicts."""
     fields = dict(fields)
-    if fields.get("ssm") is not None:
-        fields["ssm"] = SSMConfig(**fields["ssm"])
+    for name, kind in (("moe", MoEConfig), ("mla", MLAConfig),
+                       ("ssm", SSMConfig)):
+        if isinstance(fields.get(name), dict):
+            fields[name] = kind(**fields[name])
     fields["block_pattern"] = tuple(fields.get("block_pattern", ()))
     return ModelConfig(**fields)
 

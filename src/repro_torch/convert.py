@@ -14,16 +14,17 @@ object's code, so the port imports nothing of the reference:
   batch) and fields: the function that carries weights across;
 * ``search_spec_from_reference`` — the port's ``SearchSpec`` from a
   reference one's fields, so both packages run the same search;
-* ``cache_from_reference`` — the port's decode cache from a reference
-  cache's arrays, int8 kept as int8, so a decode continues from the
-  reference's state;
+* ``cache_from_reference`` — the port's decode cache (KV, MLA latent or
+  RWKV6 states) from a reference cache's arrays, int8 kept as int8 with
+  its f32 scales, so a decode continues from the reference's state;
 * ``subspace_state_from_reference`` — the port's subspace-Newton state
   from a reference state's (P,) f32 momentum (JAX's leaf order, which is
   the port's) and step, so a reference run continues in the port.
 
 A reference parameter tree carries across through
 ``transformer.params_from_leaves`` (leaf path -> array), for every
-configuration the port's models run.
+configuration the port's models run, each leaf in its own type (a MoE
+router stays f32 in a bf16 model).
 
 A reference work server's checkpoint directory (snapshot and
 ``replay.jsonl``) needs no conversion: the port's ``server/checkpoint.py``

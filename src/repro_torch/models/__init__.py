@@ -1,5 +1,5 @@
-"""The model stack (copies of ``repro/models`` less the MLA, MoE, Mamba2
-and shared-attention blocks, ROADMAP.md A.5), its serving steps and its
+"""The model stack (copies of ``repro/models`` less the Mamba2 and
+shared-attention blocks, ROADMAP.md A.5), its serving steps and its
 sharding rules.
 
 ``param_specs`` here is ``sharding.param_specs`` (a ``PartitionSpec`` per

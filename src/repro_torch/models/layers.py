@@ -1,19 +1,19 @@
 """Transformer layers: norms, RoPE, GQA / sliding-window / bidirectional
 attention with its KV cache (ring-buffered for a sliding window, int8
-with per-position scales), SwiGLU.
+with per-position scales), Multi-head Latent Attention with its latent
+cache, SwiGLU and the sort-based top-k MoE.
 
-Port of ``repro/models/layers.py`` less MLA and MoE (ROADMAP.md A.5;
-``models/transformer.py`` refuses configurations that ask for them).
-Everything is a plain function over a dict of parameter tensors, as in
-the reference; the compute type follows the parameters (bf16 by
-default), norm statistics, RoPE and softmax are computed in f32 and cast
-back, as there.  Where the reference returns an updated cache, the port
-writes the cache in place and returns it (a decode step then moves one
-row per layer, not the whole cache).
+Port of ``repro/models/layers.py``.  Everything is a plain function over
+a dict of parameter tensors, as in the reference; the compute type
+follows the parameters (bf16 by default), norm statistics, RoPE, softmax
+and the MoE router are computed in f32 and cast back, as there.  Where
+the reference returns an updated cache, the port writes the cache in
+place and returns it (a decode step then moves one row per layer, not
+the whole cache).
 
-Each ``*_specs`` function describes its parameters as ``Leaf``s (shape
-and how the reference initialises it); ``models/transformer.py`` turns
-them into tensors.
+Each ``*_specs`` function describes its parameters as ``Leaf``s (shape,
+how the reference initialises it and, where it is not the model's, its
+type); ``models/transformer.py`` turns them into tensors.
 """
 from __future__ import annotations
 
@@ -31,10 +31,12 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
-    """One parameter: its shape and its initialisation, one of
-    ("normal", std), ("full", value), ("linspace", start, stop)."""
+    """One parameter: its shape, its initialisation, one of
+    ("normal", std), ("full", value), ("linspace", start, stop), and its
+    type (None: the configuration's)."""
     shape: Tuple[int, ...]
     init: tuple
+    dtype: Optional[torch.dtype] = None
 
 
 def ones(*shape: int) -> Leaf:
@@ -45,8 +47,9 @@ def zeros(*shape: int) -> Leaf:
     return Leaf(tuple(shape), ("full", 0.0))
 
 
-def normal(std: float, *shape: int) -> Leaf:
-    return Leaf(tuple(shape), ("normal", std))
+def normal(std: float, *shape: int, dtype: Optional[torch.dtype] = None
+           ) -> Leaf:
+    return Leaf(tuple(shape), ("normal", std), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -216,15 +219,20 @@ def _prefill_mask(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
     return mask
 
 
+def _clamp_index(idx, rows: int):
+    """``idx`` moved back inside [0, rows), as
+    ``jax.lax.dynamic_update_slice`` clamps its start: a Python int, or a
+    0-d tensor clamped on its device (no host sync)."""
+    if torch.is_tensor(idx):
+        return torch.clamp(idx, 0, rows - 1)
+    return min(max(int(idx), 0), rows - 1)
+
+
 def _cache_index(cfg: ModelConfig, t, window: int):
     """The cache row decode step ``t`` writes: ``t % window`` in a sliding
-    window's ring buffer, else ``t``; moved back inside [0, window), as
-    ``jax.lax.dynamic_update_slice`` clamps its start, so a step at
-    t ≥ max_seq overwrites the last row as in the reference."""
-    idx = t % window if cfg.sliding_window > 0 else t
-    if torch.is_tensor(idx):
-        return torch.clamp(idx, 0, window - 1)
-    return min(max(int(idx), 0), window - 1)
+    window's ring buffer, else ``t``, clamped (``_clamp_index``), so a
+    step at t ≥ max_seq overwrites the last row as in the reference."""
+    return _clamp_index(t % window if cfg.sliding_window > 0 else t, window)
 
 
 def attention_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
@@ -292,7 +300,108 @@ def attention_cache_shape(cfg: ModelConfig, batch: int, max_seq: int):
 
 
 # ---------------------------------------------------------------------------
-# SwiGLU MLP
+# Multi-head Latent Attention (DeepSeek-V2).  The cache holds only the
+# compressed latent c_kv (rank r) and the rope key shared by the heads;
+# ``absorb=True`` is the weight-absorption decode (q taken into the latent
+# space, the cache never decompressed).
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ModelConfig) -> Params:
+    m = cfg.mla
+    d, h, r = cfg.d_model, cfg.n_heads, m.kv_lora_rank
+    sd = d ** -0.5
+    return {
+        "wq": normal(sd, d, h, m.qk_nope_head_dim + m.qk_rope_head_dim),
+        "w_dkv": normal(sd, d, r),
+        "w_krope": normal(sd, d, m.qk_rope_head_dim),
+        "w_uk": normal(r ** -0.5, r, h, m.qk_nope_head_dim),
+        "w_uv": normal(r ** -0.5, r, h, m.v_head_dim),
+        "wo": normal((h * m.v_head_dim) ** -0.5, h, m.v_head_dim, d),
+        "kv_norm": ones(r),
+    }
+
+
+def _mla_attend(q_nope, q_rope, c_kv, k_rope, p: Params,
+                mask: torch.Tensor) -> torch.Tensor:
+    """The latent decompressed into per-head keys (nope | shared rope) and
+    values, then the dense ``_attend``: (B, S, H, v_head_dim)."""
+    h = q_nope.shape[2]
+    k_nope = _project(c_kv, p["w_uk"])
+    v = _project(c_kv, p["w_uv"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        -1, -1, h, -1)], dim=-1)
+    return _attend(torch.cat([q_nope, q_rope], dim=-1), k, v, mask)
+
+
+def mla_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
+              positions: torch.Tensor, cache: Optional[Params] = None,
+              t=None, absorb: bool = False
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """MLA.  Without ``cache``, over the whole sequence through the dense
+    ``_attend``, whatever ``use_kernels`` says: the reference never routes
+    MLA to the attention kernel (its q/k heads are nope + rope wide, 192
+    at published width, v 128).  With ``cache``, one decode step: the
+    step's latent and rope key are written in place at row ``t`` (clamped
+    as ``dynamic_update_slice`` clamps; int8 with per-position scales
+    under ``quantized_cache``), then attended decompressed, or in the
+    latent space with ``absorb``."""
+    m = cfg.mla
+    nope = m.qk_nope_head_dim
+    q = _project(x, p["wq"])
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    c_kv = rms_norm(torch.matmul(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(torch.matmul(x, p["w_krope"])[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is None:
+        out = _mla_attend(q_nope, q_rope, c_kv, k_rope, p,
+                          _prefill_mask(cfg, positions))
+    else:
+        seq = cache["c_kv"].shape[1]
+        idx = _clamp_index(t, seq)
+        if cfg.quantized_cache:
+            quant_write(cache["c_kv"], cache["c_kv_scale"], c_kv, idx)
+            quant_write(cache["k_rope"], cache["k_rope_scale"], k_rope, idx)
+            ck = dequant(cache["c_kv"], cache["c_kv_scale"], x.dtype)
+            cr = dequant(cache["k_rope"], cache["k_rope_scale"], x.dtype)
+        else:
+            _write_at(cache["c_kv"], c_kv, idx)
+            _write_at(cache["k_rope"], k_rope, idx)
+            ck, cr = cache["c_kv"], cache["k_rope"]
+        valid = torch.arange(seq, device=x.device) <= t
+        if absorb:
+            # score = q_nopeᵀ W_uk c_kv + q_ropeᵀ k_rope, no decompression
+            q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"])
+            scores = (torch.einsum("bshr,btr->bhst", q_lat, ck)
+                      + torch.einsum("bshk,btk->bhst", q_rope, cr))
+            scores = scores.to(torch.float32) * (
+                (nope + m.qk_rope_head_dim) ** -0.5)
+            scores = scores.masked_fill(~valid, -1e30)
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            o_lat = torch.einsum("bhst,btr->bshr", probs, ck)
+            out = torch.einsum("bshr,rhv->bshv", o_lat, p["w_uv"])
+        else:
+            out = _mla_attend(q_nope, q_rope, ck, cr, p,
+                              valid[None, None, None, None, :])
+    b, s = x.shape[:2]
+    wo = p["wo"]
+    y = torch.matmul(out.reshape(b, s, -1), wo.reshape(-1, wo.shape[-1]))
+    return y, cache
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, max_seq: int):
+    m = cfg.mla
+    shapes = {"c_kv": (batch, max_seq, m.kv_lora_rank),
+              "k_rope": (batch, max_seq, m.qk_rope_head_dim)}
+    if cfg.quantized_cache:
+        shapes["c_kv_scale"] = (batch, max_seq)
+        shapes["k_rope_scale"] = (batch, max_seq)
+    return shapes
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP and the sort-based top-k MoE
 # ---------------------------------------------------------------------------
 
 def mlp_specs(d: int, ff: int) -> Params:
@@ -307,3 +416,113 @@ def mlp_block(x: torch.Tensor, p: Params) -> torch.Tensor:
     g = F.silu(torch.matmul(x, p["w_gate"]))
     h = torch.matmul(x, p["w_in"])
     return torch.matmul(g * h, p["w_out"])
+
+
+def moe_specs(cfg: ModelConfig) -> Params:
+    """The router (kept in f32 whatever the model's type, as the
+    reference's), the experts' (E, d, ff) / (E, ff, d) weights and the
+    shared experts as one wider MLP."""
+    m = cfg.moe
+    d, ff, e = cfg.d_model, m.expert_d_ff, m.n_experts
+    p: Params = {
+        "router": normal(d ** -0.5, d, e, dtype=torch.float32),
+        "w_gate": normal(d ** -0.5, e, d, ff),
+        "w_in": normal(d ** -0.5, e, d, ff),
+        "w_out": normal(ff ** -0.5, e, ff, d),
+    }
+    if m.n_shared_experts:
+        p["shared"] = mlp_specs(d, ff * m.n_shared_experts)
+    return p
+
+
+def moe_capacity(m, tokens_per_group: int) -> int:
+    cap = int(tokens_per_group * m.experts_per_token * m.capacity_factor
+              / m.n_experts)
+    return max(cap, 4)
+
+
+def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
+              ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    if cfg.moe.dispatch == "grouped":
+        return moe_block_grouped(x, p, cfg, ctx)
+    return moe_block_global(x, p, cfg)
+
+
+def moe_block_grouped(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                      ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-batch-row (GShard group) dispatch: a token's expert slots and
+    drops are decided within its row, capacity ``moe_capacity(S)`` a
+    group.  Returns (y, aux)."""
+    return _moe(x, p, cfg, moe_capacity(cfg.moe, x.shape[1]))
+
+
+def moe_block_global(x: torch.Tensor, p: Params,
+                     cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dispatch over all B·S tokens, capacity ``moe_capacity(B·S)``.
+    Returns (y, aux)."""
+    b, s, d = x.shape
+    y, aux = _moe(x.reshape(1, b * s, d), p, cfg,
+                  moe_capacity(cfg.moe, b * s))
+    return y.view(b, s, d), aux
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """(probs, gates, experts) of x (G, N, d): the router's softmax in f32,
+    each token's top k (ties to the lower expert, as ``jax.lax.top_k``: a
+    stable descending sort) and their probabilities renormalised."""
+    probs = torch.softmax(torch.matmul(x.to(torch.float32), router), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[..., :k], idx[..., :k]
+    return (probs, gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                           min=1e-9), gate_idx)
+
+
+def _moe(x: torch.Tensor, p: Params, cfg: ModelConfig,
+         cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing with static per-expert capacity over G groups of N
+    tokens, x (G, N, d) -> (y (G, N, d), aux).
+
+    The reference's algorithm: the routing of ``_route``; the Switch
+    load-balance loss e·Σ p̄ₑ·fₑ over the first choices; each (token,
+    choice) entry takes the next free slot of its expert in token order
+    (the position the reference's stable argsort gives it), and an entry
+    past ``cap`` is dropped.  Written without a host read (no bincount,
+    nonzero or boolean mask), so a decode step stays capturable in a CUDA
+    graph:
+
+    * dispatch writes each kept entry into its own row of an
+      (E, G·cap, d) buffer, so the expert products are ``torch.bmm``
+      over the stored (E, d, ff) weights, which are never copied;
+      dropped entries go to one spare row past the buffer;
+    * combine gathers each token's k contributions, weighted (0 where
+      dropped), and sums them over k in a fixed order: the same bits on
+      every run, where an atomic scatter-add would not be."""
+    m = cfg.moe
+    g, n, d = x.shape
+    e, k = m.n_experts, m.experts_per_token
+    probs, gate_vals, gate_idx = _route(x, p["router"], k)
+    experts = torch.arange(e, device=x.device)
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean((gate_idx[..., :1] == experts).to(torch.float32),
+                    dim=(0, 1))
+    aux = e * torch.sum(me * ce)
+
+    ids = gate_idx.reshape(g, n * k)     # entry i: token i // k, choice i % k
+    hit = ids[..., None] == experts                            # (G, N·k, E)
+    pos = torch.gather(torch.cumsum(hit, dim=1), 2, ids[..., None])[..., 0] - 1
+    keep = pos < cap
+    group = torch.arange(g, device=x.device)[:, None]
+    slot = (ids * g + group) * cap + torch.where(keep, pos, 0)  # (e, g, pos)
+    spare = e * g * cap
+    buf = x.new_zeros((spare + 1, d))
+    src = x[:, :, None, :].expand(g, n, k, d).reshape(g * n * k, d)
+    buf.index_copy_(0, torch.where(keep, slot, spare).reshape(-1), src)
+    xb = buf[:spare].view(e, g * cap, d)
+    hmid = F.silu(torch.bmm(xb, p["w_gate"])) * torch.bmm(xb, p["w_in"])
+    out = torch.bmm(hmid, p["w_out"]).view(spare, d)
+
+    w = torch.where(keep, gate_vals.reshape(g, n * k), 0.0).to(x.dtype)
+    y = (out[slot] * w[..., None]).view(g, n, k, d).sum(dim=2)
+    if m.n_shared_experts:
+        y = y + mlp_block(x, p["shared"])
+    return y, aux

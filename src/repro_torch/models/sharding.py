@@ -12,8 +12,8 @@ reference's do.
 The reference hands its specs to JAX (``NamedSharding``, ``device_put``);
 the port's ``to_named`` cuts each tensor of a tree into its per-shard
 pieces along its spec (``Sharded``), and ``gather`` puts a tree's pieces
-back together, as the reference's tiled all-gather does.  The rule names
-rules for blocks the port does not run yet (MoE, MLA, Mamba2): the table
+back together, as the reference's tiled all-gather does.  The table
+also names rules for the blocks the port does not run yet (Mamba2): it
 is keyed by name, so they cost nothing until those blocks are ported.
 """
 from __future__ import annotations
@@ -200,9 +200,10 @@ def enforce_divisible(cfg: ModelConfig, mesh, specs=None):
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
     """A ``PartitionSpec`` for every leaf of ``init_cache(cfg,
     shape.global_batch, shape.seq_len)``: the batch over the data axes
-    where it divides them, else the sequence over every axis; k/v and
-    their int8 scales' sequence over ``model``, rwkv6's wkv state's heads
-    over ``model`` where they divide it, its shifts replicated."""
+    where it divides them, else the sequence over every axis; k/v, MLA's
+    c_kv / k_rope and their int8 scales' sequence over ``model``, rwkv6's
+    wkv state's heads over ``model`` where they divide it, its shifts
+    replicated."""
     dp, tp = mesh_axes(mesh)
     dp_size = math.prod(mesh.shape[a] for a in dp)
     tp_size = mesh.shape[tp]
@@ -224,8 +225,10 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
             spec = P(b_spec, tp if _div(h, tp_size) else None, None, None)
         elif name in ("shift_tm", "shift_cm"):
             spec = P(b_spec, None)
-        elif name in ("c_kv", "k_rope", "ssm", "conv_xs", "conv_bc"):
-            raise unported(f"the {name!r} cache (MLA / Mamba2) is")
+        elif name in ("c_kv", "k_rope"):
+            spec = P(b_spec, s_spec, None)
+        elif name in ("ssm", "conv_xs", "conv_bc"):
+            raise unported(f"the {name!r} cache (Mamba2) is")
         else:
             raise ValueError(name)
         if stacked:

@@ -1,15 +1,16 @@
 """The LM: parameters, forward with its decode caches, the chunked
 cross-entropy loss and the serving steps.
 
-Port of ``repro/models/transformer.py`` less the MLA, MoE, Mamba2 and
-shared-attention blocks (ROADMAP.md A.5) and training
+Port of ``repro/models/transformer.py`` less the Mamba2 and
+shared-attention blocks (ROADMAP.md A.5, second half) and training
 (``make_train_step``, which needs ``optim/``): ``init_params`` /
-``forward`` (a whole sequence, or one decode step over a cache) /
-``chunked_cross_entropy`` / ``make_loss_fn`` / ``make_serve_step`` /
-``make_prefill_step`` / ``init_cache`` / ``count_params``.  The forward
-runs eagerly, layer by layer (the reference's ``scan`` and ``remat`` are
-compile-time choices with no eager counterpart; ``unroll`` changes
-nothing here).  A decode step writes its cache in place and returns it.
+``forward`` (a whole sequence, or one decode step over a cache; dense or
+MLA attention, dense or MoE FFN, RWKV6) / ``chunked_cross_entropy`` /
+``make_loss_fn`` / ``make_serve_step`` / ``make_prefill_step`` /
+``init_cache`` / ``count_params``.  The forward runs eagerly, layer by
+layer (the reference's ``scan`` and ``remat`` are compile-time choices
+with no eager counterpart; ``unroll`` changes nothing here).  A decode
+step writes its cache in place and returns it.
 
 The parameters are the reference's pytree as plain nested dicts and
 lists: ``embed/tok``, ``final_norm/scale``, ``head/w`` and
@@ -23,6 +24,7 @@ order, so a flat (k, P) basis maps onto them leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -48,8 +50,6 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def layer_sigs(cfg: ModelConfig) -> List[Sig]:
-    if cfg.moe is not None:
-        raise unported("MoE layers are")
     return [(kind, cfg._layer_is_moe(i)) for i, kind in enumerate(cfg.blocks())]
 
 
@@ -80,15 +80,17 @@ def find_segments(sigs: List[Sig]) -> List[Tuple[Tuple[Sig, ...], int]]:
 # ---------------------------------------------------------------------------
 
 def _block_specs(sig: Sig, cfg: ModelConfig) -> Params:
-    kind, _ = sig
+    kind, is_moe = sig
     p: Params = {"norm1": L.norm_specs(cfg, cfg.d_model)}
     if kind == "attn":
-        if cfg.mla is not None:
-            raise unported("MLA attention is")
-        p["attn"] = L.attention_specs(cfg)
+        p["attn"] = (L.mla_specs(cfg) if cfg.mla is not None
+                     else L.attention_specs(cfg))
         if not cfg.parallel_block:
             p["norm2"] = L.norm_specs(cfg, cfg.d_model)
-        p["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
+        if is_moe:
+            p["moe"] = L.moe_specs(cfg)
+        else:
+            p["mlp"] = L.mlp_specs(cfg.d_model, cfg.d_ff)
     elif kind == "rwkv6":
         p["norm2"] = L.norm_specs(cfg, cfg.d_model)
         p["rwkv"] = S.rwkv6_specs(cfg)
@@ -103,8 +105,8 @@ def param_specs(cfg: ModelConfig) -> Params:
     for unit, repeat in find_segments(layer_sigs(cfg)):
         specs = [_block_specs(sig, cfg) for sig in unit]
         if repeat > 1:
-            specs = map_tree(lambda leaf, n=repeat: L.Leaf(
-                (n,) + leaf.shape, leaf.init), specs)
+            specs = map_tree(lambda leaf, n=repeat: dataclasses.replace(
+                leaf, shape=(n,) + leaf.shape), specs)
         segments.append(specs)
     d, v = cfg.d_model, cfg.vocab_size
     specs: Params = {"segments": segments}
@@ -118,13 +120,33 @@ def param_specs(cfg: ModelConfig) -> Params:
     return specs
 
 
+#: a normal leaf of more elements than this is drawn in slices along its
+#: leading axis, each of at most ``_DRAW_SLICE`` elements, so that its f32
+#: draw never stands whole beside the model (the MoE experts of
+#: deepseek-v2-lite and llama4-maverick; every leaf of the other ported
+#: archs, at the depths they are run, lies under it and is drawn whole)
+_DRAW_WHOLE = 1 << 31
+_DRAW_SLICE = 1 << 28
+
+
 def _draw(leaf: L.Leaf, dtype: torch.dtype, generator: torch.Generator,
           device) -> torch.Tensor:
     kind, *args = leaf.init
+    dtype = leaf.dtype or dtype
     if kind == "normal":
-        x = torch.randn(leaf.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return x.mul_(args[0]).to(dtype)
+        n = math.prod(leaf.shape)
+        if n <= _DRAW_WHOLE:
+            x = torch.randn(leaf.shape, generator=generator, device=device,
+                            dtype=torch.float32)
+            return x.mul_(args[0]).to(dtype)
+        out = torch.empty(leaf.shape, dtype=dtype, device=device)
+        rows = max(1, _DRAW_SLICE // (n // leaf.shape[0]))
+        for r0 in range(0, leaf.shape[0], rows):
+            part = out[r0:r0 + rows]
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=device,
+                                   dtype=torch.float32).mul_(args[0]))
+        return out
     if kind == "full":
         return torch.full(leaf.shape, args[0], dtype=dtype, device=device)
     if kind == "linspace":           # over the trailing dims, same per layer
@@ -154,8 +176,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def params_from_leaves(cfg: ModelConfig, leaves: Dict[str, Any],
                        device="cuda") -> Params:
     """The parameter tree filled from ``{path: array}`` (f32 numpy or
-    tensors holding values of the configuration's type), cast to that
-    type on ``device``.  The paths and shapes must be exactly the tree's."""
+    tensors holding values of each leaf's type), cast to that type (the
+    configuration's, or the leaf's own: a MoE router stays f32) on
+    ``device``.  The paths and shapes must be exactly the tree's."""
     dtype = param_dtype(cfg)
     specs = param_specs(cfg)
     want = {path for path, _ in leaves_with_paths(specs)}
@@ -171,7 +194,7 @@ def params_from_leaves(cfg: ModelConfig, leaves: Dict[str, Any],
         if tuple(x.shape) != leaf.shape:
             raise ValueError(f"{path}: shape {tuple(x.shape)}, want "
                              f"{leaf.shape}")
-        return x.to(device=device, dtype=dtype)
+        return x.to(device=device, dtype=leaf.dtype or dtype)
 
     return map_with_paths(fill, specs)
 
@@ -210,14 +233,20 @@ NULL_CTX = ShardCtx()
 # ---------------------------------------------------------------------------
 
 def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
-                 ctx: ShardCtx, positions: torch.Tensor, cache, t):
+                 ctx: ShardCtx, positions: torch.Tensor, cache, t,
+                 absorb: bool = False):
     """Returns (x, new_cache, aux); ``new_cache`` is None without a cache
-    and ``aux`` is 0 (no MoE block is ported)."""
-    kind, _ = sig
+    and ``aux`` is the MoE block's load-balance loss, None elsewhere."""
+    kind, is_moe = sig
+    aux = None
     if kind == "attn":
         h = L.apply_norm(x, bp["norm1"], cfg)
-        att, new_cache = L.attention_block(h, bp["attn"], cfg, positions,
-                                           cache, t)
+        if cfg.mla is not None:
+            att, new_cache = L.mla_block(h, bp["attn"], cfg, positions,
+                                         cache, t, absorb=absorb)
+        else:
+            att, new_cache = L.attention_block(h, bp["attn"], cfg,
+                                               positions, cache, t)
         if cfg.pin_proj_outputs:
             att = ctx.cons(att, None, None)
         if cfg.parallel_block:
@@ -227,7 +256,11 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
             x = x + att + f
         else:
             x = x + att
-            f = L.mlp_block(L.apply_norm(x, bp["norm2"], cfg), bp["mlp"])
+            h2 = L.apply_norm(x, bp["norm2"], cfg)
+            if is_moe:
+                f, aux = L.moe_block(h2, bp["moe"], cfg, ctx)
+            else:
+                f = L.mlp_block(h2, bp["mlp"])
             if cfg.pin_proj_outputs:
                 f = ctx.cons(f, None, None)
             x = x + f
@@ -248,7 +281,7 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
             new_cache = cache
     else:
         raise unported(f"{kind!r} blocks are")
-    return ctx.cons(x, None, None), new_cache, 0.0
+    return ctx.cons(x, None, None), new_cache, aux
 
 
 def head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -284,8 +317,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     decode step at position ``t`` (a Python int or a 0-d tensor, the same
     for every row): the cache is written in place and returned.  Without
     a cache, positions are ``batch["positions"]`` or ``arange`` per row.
-    ``absorb`` (MLA) and ``unroll`` (the reference's scan) change nothing
-    in the port."""
+    ``absorb`` takes MLA's decode through the latent space; ``unroll``
+    (the reference's scan) changes nothing in the port.  ``aux`` is the
+    f32 sum of the MoE layers' load-balance losses (0 without MoE)."""
     x = embed_inputs(params, cfg, batch)
     x = ctx.cons(x, None, None)
     b = x.shape[0]
@@ -300,16 +334,18 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device).expand(
                 b, x.shape[1])
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, repeat) in enumerate(find_segments(layer_sigs(cfg))):
         seg = params["segments"][si]
         for ri in range(repeat):
             for ui, sig in enumerate(unit):
                 uc = (None if cache is None
                       else _layer(cache[si][ui], ri, repeat))
-                x, _, _ = _apply_block(x, _layer(seg[ui], ri, repeat), sig,
-                                       cfg, ctx, positions, uc, t)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.apply_norm(x, params["final_norm"], cfg), cache, aux
+                x, _, aux = _apply_block(x, _layer(seg[ui], ri, repeat), sig,
+                                         cfg, ctx, positions, uc, t, absorb)
+                if aux is not None:
+                    aux_total = aux_total + aux
+    return L.apply_norm(x, params["final_norm"], cfg), cache, aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -342,19 +378,21 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX) -> Callable:
-    """loss_fn(params, batch) -> (loss, {"ce": ce}).  ``batch`` holds
-    ``tokens`` (or the audio stub's ``embeds``) and ``labels`` (B, S) and
-    optionally a ``mask``.  Without MoE layers the reference's auxiliary
-    loss is 0, so loss == ce."""
+def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
+                 aux_weight: float = 0.01, unroll: bool = False) -> Callable:
+    """loss_fn(params, batch) -> (ce + aux_weight·aux, {"ce": ce, "aux":
+    aux}).  ``batch`` holds ``tokens`` (or the audio stub's ``embeds``)
+    and ``labels`` (B, S) and optionally a ``mask``; ``aux`` is the MoE
+    layers' load-balance loss, 0 without MoE (so loss == ce bit for
+    bit)."""
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
-        hidden, _, _ = forward(params, cfg, batch, ctx)
+        hidden, _, aux = forward(params, cfg, batch, ctx, unroll=unroll)
         weights = batch.get("mask")
         if weights is not None:
             weights = weights.to(torch.float32)
         ce = chunked_cross_entropy(hidden, head_weight(params, cfg),
                                    batch["labels"], weights)
-        return ce, {"ce": ce}
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
     return loss_fn
 
 
@@ -409,14 +447,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     def block_shapes(sig: Sig) -> Dict[str, TensorShape]:
         kind, _ = sig
         if kind == "attn":
-            if cfg.mla is not None:
-                raise unported("MLA caches are")
+            shapes = (L.mla_cache_shape if cfg.mla is not None
+                      else L.attention_cache_shape)(cfg, batch, max_seq)
             return {name: TensorShape(shape, torch.float32
                                       if name.endswith("_scale")
                                       else torch.int8 if cfg.quantized_cache
                                       else cdtype)
-                    for name, shape in L.attention_cache_shape(
-                        cfg, batch, max_seq).items()}
+                    for name, shape in shapes.items()}
         if kind == "rwkv6":
             shp = S.rwkv6_state_shape(cfg, batch)
             return {"shift_tm": TensorShape(shp["shift_tm"], cdtype),

@@ -209,14 +209,13 @@ def test_chunked_cross_entropy_matches_the_reference(s, chunk):
 
 
 def test_unported_features_are_refused():
-    """MoE, MLA and Mamba2 / shared attention are refused, naming the
-    ROADMAP item; the dense route and the features the dense families use
+    """Mamba2 / shared attention are refused, naming the ROADMAP item;
+    the dense route and the features the dense, MLA and MoE families use
     (qkv bias, qk-norm, pad heads, the parallel block, tied embeddings,
-    the audio stub) are ported (tests/test_torch_serve_models.py)."""
+    the audio stub, MLA, MoE) are ported (tests/test_torch_serve_models.py,
+    tests/test_torch_moe_mla.py)."""
     cfg = get_smoke_config("h2o-danube-3-4b")
-    for bad in (dataclasses.replace(cfg, moe=object()),
-                dataclasses.replace(cfg, mla=object()),
-                dataclasses.replace(cfg, block_pattern=("mamba2",) * 2),
+    for bad in (dataclasses.replace(cfg, block_pattern=("mamba2",) * 2),
                 dataclasses.replace(cfg, block_pattern=("shared_attn",) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
             T.param_specs(bad)
@@ -225,7 +224,11 @@ def test_unported_features_are_refused():
                dataclasses.replace(cfg, head_pad_to=8),
                dataclasses.replace(cfg, parallel_block=True),
                dataclasses.replace(cfg, tie_embeddings=True),
-               dataclasses.replace(cfg, frontend="audio_stub")):
+               dataclasses.replace(cfg, frontend="audio_stub"),
+               dataclasses.replace(cfg, mla=get_smoke_config(
+                   "deepseek-v2-lite-16b").mla),
+               dataclasses.replace(cfg, moe=get_smoke_config(
+                   "llama4-maverick-400b-a17b").moe)):
         T.param_specs(ok)
     hidden, _, _ = T.forward(T.init_params(cfg, torch.Generator(), "cpu"),
                              cfg, {"tokens": torch.zeros(1, 4,

@@ -1,7 +1,9 @@
 """The serving path's models against the JAX package: the dense families
 (qwen2-72b, deepseek-coder-33b, command-r-plus-104b, chameleon-34b, the
-hubert-xlarge encoder), h2o-danube-3-4b's sliding-window ring and rwkv6's
-recurrent states.
+hubert-xlarge encoder), MLA + MoE (deepseek-v2-lite-16b) and interleaved
+MoE (llama4-maverick-400b-a17b; tests/test_torch_moe_mla.py holds their
+blocks), h2o-danube-3-4b's sliding-window ring and rwkv6's recurrent
+states.
 
 The reference's parameters are carried across leaf by leaf
 (``params_from_leaves``) and its caches by ``convert.cache_from_reference``;
@@ -40,7 +42,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 NEW_ARCHS = ("qwen2-72b", "deepseek-coder-33b", "command-r-plus-104b",
-             "chameleon-34b", "hubert-xlarge")
+             "chameleon-34b", "hubert-xlarge", "deepseek-v2-lite-16b",
+             "llama4-maverick-400b-a17b")
 SLICE_ARCHS = NEW_ARCHS + ("h2o-danube-3-4b", "rwkv6-7b")
 DECODE_ARCHS = tuple(a for a in SLICE_ARCHS if a != "hubert-xlarge")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -51,6 +54,42 @@ CACHE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 #: port, ‖int8 - bf16‖ / ‖bf16‖ over all steps (chip_smoke.py's [serve]
 #: (c) holds the card to the same gate)
 INT8_TOL = 5e-2
+#: a MoE token whose k-th and (k+1)-th router probabilities lie closer than
+#: this may take another expert in the two packages in bf16 (a one-ulp
+#: difference in its hidden state flips the choice; deepseek's smoke model
+#: has one at 8.4e-05, whose logit row then differs by 3.6e-2 of the
+#: largest logit while every other row stays within 1.6e-2), so in bf16
+#: such tokens' rows are counted and left out of the comparison
+ROUTE_MARGIN = 1e-3
+
+
+class _NearTies:
+    """Within ``with``: the tokens of each of the port's MoE routings whose
+    margin (k-th minus (k+1)-th router probability) is below
+    ``ROUTE_MARGIN``."""
+
+    def __enter__(self):
+        self.route, self.near = L._route, []
+
+        def spy(x, router, k):
+            out = self.route(x, router, k)
+            top = torch.topk(out[0], k + 1, dim=-1).values
+            self.near.append((top[..., k - 1] - top[..., k])
+                             < ROUTE_MARGIN)
+            return out
+        L._route = spy
+        return self
+
+    def __exit__(self, *exc):
+        L._route = self.route
+
+    def tokens(self, b: int, s: int) -> np.ndarray:
+        """(B, S) bool: near a tie in any layer (a global dispatch routes
+        (1, B·S) tokens, a grouped one (B, S): both flatten the same)."""
+        near = np.zeros(b * s, bool)
+        for layer in self.near:
+            near |= layer.reshape(-1).numpy()
+        return near.reshape(b, s)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -142,9 +181,8 @@ def test_n_params_and_cells_equal_the_reference(arch):
 
 def test_n_params_refuses_unported_blocks():
     cfg = get_smoke_config("qwen2-72b")
-    for bad in (dataclasses.replace(cfg, moe=object()),
-                dataclasses.replace(cfg, mla=object()),
-                dataclasses.replace(cfg, block_pattern=("mamba2",) * 2)):
+    for bad in (dataclasses.replace(cfg, block_pattern=("mamba2",) * 2),
+                dataclasses.replace(cfg, block_pattern=("shared_attn",) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
             bad.n_params()
 
@@ -187,10 +225,15 @@ def test_prefill_logits_match_the_reference(arch, use_kernels, dtype):
                                            use_kernels=use_kernels)
     jb, tb = _inputs(cfg, 2, 32, seed=7)
     want = jax.jit(JT.make_prefill_step(cfg))(params, jb)
-    got = T.make_prefill_step(pcfg)(pparams, tb)
+    with _NearTies() as ties:
+        got = T.make_prefill_step(pcfg)(pparams, tb)
     assert got.dtype == T.param_dtype(pcfg)
     assert tuple(got.shape) == tuple(want.shape) == (2, 32, cfg.vocab_size)
-    assert _rel(got, want) <= TOL[dtype]
+    keep = ~ties.tokens(2, 32) if dtype == "bfloat16" else np.ones(
+        (2, 32), bool)
+    assert keep.sum() >= 2 * 32 - 2
+    assert _rel(got[torch.from_numpy(keep)], np.asarray(want)[keep]) \
+        <= TOL[dtype]
 
 
 def test_prefill_on_the_reference_s_pallas_route(monkeypatch):
@@ -242,8 +285,9 @@ def _decode_both(arch, dtype, steps=32, carry_at=8, b=2, max_seq=48,
     twice: once from the reference's cache carried across at ``carry_at``
     and on its own from there (``free``), and once a step at a time, each
     step from the reference's cache of that step (``fresh``).  Returns
-    the worst step's logit errors, max-abs and normwise, of each, and the
-    reference's and the free run's final caches."""
+    the worst step's logit errors, max-abs and normwise, of each, the
+    reference's and the free run's final caches, and the (B, S) positions
+    whose free step routed a token near a tie (``_NearTies``)."""
     (cfg, params), (pcfg, pparams) = _pair(arch, dtype, **fields)
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (b, steps)).astype(np.int32)
@@ -251,6 +295,7 @@ def _decode_both(arch, dtype, steps=32, carry_at=8, b=2, max_seq=48,
     step = T.make_serve_step(pcfg)
     jcache = JT.init_cache(cfg, b, max_seq)
     free = None
+    near = np.zeros((b, max_seq), bool)
     worst = {"free": 0.0, "fresh": 0.0, "fresh_norm": 0.0}
     for t in range(steps):
         fresh = cache_from_reference(pcfg, _ref_cache_np(jcache), b, max_seq,
@@ -266,9 +311,11 @@ def _decode_both(arch, dtype, steps=32, carry_at=8, b=2, max_seq=48,
         worst["fresh"] = max(worst["fresh"], _rel(got, want))
         worst["fresh_norm"] = max(worst["fresh_norm"], _norm_rel(got, want))
         if free is not None:
-            got, free = step(pparams, free, tok, t)
+            with _NearTies() as ties:
+                got, free = step(pparams, free, tok, t)
+            near[:, t] = ties.tokens(b, 1)[:, 0]
             worst["free"] = max(worst["free"], _rel(got, want))
-    return worst, _ref_cache_np(jcache), free
+    return worst, _ref_cache_np(jcache), free, near
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -285,19 +332,28 @@ def test_decode_logits_and_caches_match_the_reference(arch, dtype):
     nearly cancel (rwkv6's smoke model reaches 2.7e-2 of its largest logit
     in one step from the reference's own cache, and 0.17 when two
     trajectories of bf16 states run apart, so the free run is held only
-    on its caches, to ``CACHE_TOL``)."""
-    worst, jcache, cache = _decode_both(arch, dtype)
+    on its caches, to ``CACHE_TOL``; a MoE model's cache rows written by a
+    free step that routed a token near a tie are left out, at most 2)."""
+    worst, jcache, cache, near = _decode_both(arch, dtype)
     if dtype == "float32":
         assert worst["free"] <= TOL[dtype]
+        near[:] = False
     else:
         assert worst["fresh_norm"] <= TOL[dtype]
         assert worst["fresh"] <= 5e-2
+    assert near.sum() <= 2
     want = ref_leaves(jcache)
     got = dict(leaves_with_paths(cache))
     assert sorted(got) == sorted(want)
     for path, x in got.items():
         assert tuple(x.shape) == want[path].shape, path
-        assert _rel(x, want[path]) <= CACHE_TOL[dtype], path
+        x, ref = x.float().numpy(), want[path]
+        if near.any():          # (B, S) rows of a (layers?, B, S, ...) leaf
+            bdim = next(i for i in range(x.ndim - 1)
+                        if x.shape[i:i + 2] == near.shape)
+            rows = (slice(None),) * bdim + (~near,)
+            x, ref = x[rows], ref[rows]
+        assert _rel(torch.from_numpy(x), ref) <= CACHE_TOL[dtype], path
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -307,7 +363,8 @@ def test_int8_cache_decode_matches_the_reference(arch, dtype):
     are within one step of the reference's in f32.  In bf16 the values
     quantized are bf16 k/v that a free run has moved by up to
     ``CACHE_TOL``, so the dequantized cache is held to that instead."""
-    worst, jcache, cache = _decode_both(arch, dtype, quantized_cache=True)
+    worst, jcache, cache, _ = _decode_both(arch, dtype,
+                                           quantized_cache=True)
     if dtype == "float32":
         assert worst["free"] <= TOL[dtype]
     else:
@@ -406,9 +463,14 @@ def test_decode_matches_prefill(arch, use_kernels):
     """tests/test_models_smoke.py::test_decode_matches_prefill, on the
     port and on both prefill routes: 32 tokens one by one through the
     serve step reproduce the prefill logits (2e-3, the reference's gate).
-    danube's cache is a ring of 16 rows, so the decode wraps it."""
+    danube's cache is a ring of 16 rows, so the decode wraps it.  MoE
+    capacity is raised to 16, as the reference's test raises it, so the
+    32-token prefill drops no token a one-token decode step keeps."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                               use_kernels=use_kernels)
+    if cfg.moe is not None:     # no drops in the prefill, as the reference
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0))
     t_len = 32
     params = T.init_params(cfg, torch.Generator().manual_seed(2), "cpu")
     toks = torch.from_numpy(np.random.default_rng(2).integers(

@@ -159,8 +159,8 @@ def test_cache_specs_equal_the_reference(arch, width, mesh_shape, quantized):
 def test_cache_specs_refuse_unported_caches():
     mesh = _FakeMesh(CACHE_MESHES["16x16"])
     cfg = get_smoke_config("qwen2-72b")
-    for bad in (dataclasses.replace(cfg, mla=object()),
-                dataclasses.replace(cfg, block_pattern=("mamba2",) * 2)):
+    for bad in (dataclasses.replace(cfg, block_pattern=("mamba2",) * 2),
+                dataclasses.replace(cfg, block_pattern=("shared_attn",) * 2)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
             S.cache_specs(bad, SHAPES["decode_32k"], mesh)
 
