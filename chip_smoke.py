@@ -44,7 +44,8 @@ so the script exits non-zero and prints no result line:
 6. flash   both attention kernels against their plain version, each case
            on the variant ops.flash_route picks for it: the wgmma variant
            at h2o-danube-3's full shape (2, 4096, 32/8 heads, D = 120,
-           bf16, causal, window 8192 and 512), at D = 128 and 80, at
+           bf16, causal, window 8192 and 512), at zamba2's shared block
+           (2, 4096, 32/32 heads, D = 80, causal), at D = 128 and 80, at
            S = 300 and 1001 (ragged against its 128-row tiles), D = 64,
            non-causal, and with k and v views into one fused tensor; the
            SIMT variant in f32 at D = 64 and 128, non-causal, and bf16 at
@@ -52,10 +53,10 @@ so the script exits non-zero and prints no result line:
            (bf16) or 1e-5 (f32), and, since those scale with the largest
            output, ‖err‖ / ‖ref‖ over the tensor ≤ 1e-2 (bf16) or 1e-4
            (f32) and over each output row ≤ 5e-2 (bf16) or 1e-4 (f32);
-           bitwise repeatable; at the full shape the
+           bitwise repeatable; at danube's full shape the
            wgmma kernel, the SIMT kernel on the same bf16 inputs, the plain
            version and scaled_dot_product_attention, timed in turns, beside
-           the bound;
+           the bound, and at zamba2's the wgmma kernel and SDPA;
 7. wkv6    both RWKV6 kernels against their plain version, each case on
            the variant ops.wkv6_route picks for it: the chunked variant at
            rwkv6-7b's full shape (2, 4096, 64 heads, K = 64; bf16 r/k/v/u
@@ -76,7 +77,8 @@ so the script exits non-zero and prints no result line:
            best ≤ the start, and exactly one launch of the arch's kernel
            per layer per lane evaluated (for danube, every one a wgmma
            launch; for rwkv6, every one a chunked launch);
-           Then act 2 on both archs (2 searches each, coalesced == solo)
+           Then act 2 on both archs (2 searches each, coalesced == solo;
+           rwkv6's of one iteration, danube's of two)
            and act 3 on rwkv6 (the work server crashed at 40 % of its
            messages and restored == uninterrupted), each launching the
            arch's kernel once per layer per lane evaluated.  After each
@@ -184,6 +186,23 @@ so the script exits non-zero and prints no result line:
            2 x 4096 seeded tokens at the published capacity on the kernel
            route against the plain route (loss and ce within 1e-3
            relative, aux finite, 2 wgmma launches);
+15c. serve hybrid  Mamba2 and the weight-shared attention block:
+           (h) zamba2-2.7b whole (54 Mamba2 blocks, 9 applications of the
+           shared block; bf16) serves 8 requests at batch 4 through
+           launch/serve.py, ms per step beside the bound of reading every
+           weight and the caches once; one serve step replayed from a CUDA
+           graph and its peak; decode == prefill over 64 tokens with each
+           block's decode step fed the prefill's input to that block,
+           within 5e-2 normwise on the logits and on every block's output
+           (the free decode's gap printed block by block: 63 blocks of
+           bf16 rounding drift it by ~5 %), the prefill launching one
+           wgmma attention kernel per application (9) and the same bits
+           twice; (i) make_loss_fn over 2 x 4096
+           seeded tokens on the kernel route against the plain route
+           (dense attention) within 1e-3 relative, 9 wgmma launches; (h')
+           cut to 14 blocks (12 Mamba2, 2 applications of the one shared
+           block) in f32: decode == prefill within 2e-3 + 2e-3 |ref|, 2
+           SIMT launches;
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
            line, then the ``ok`` JSON line.
 """
@@ -247,10 +266,13 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 #: (B, S, Hq, Hkv, D, type, causal, window, k/v fused, variant) of the
-#: attention checks; the first is h2o-danube-3's full-width shape, the one
-#: timed.  "k/v fused": k and v are views into one (B, S, 2·Hkv, D) tensor.
+#: attention checks; the first is h2o-danube-3's full-width shape and the
+#: second zamba2's shared block at its published widths (32 heads of 80
+#: over 32 KV heads), the two timed.  "k/v fused": k and v are views into
+#: one (B, S, 2·Hkv, D) tensor.
 FLASH_CASES = [
     (2, 4096, 32, 8, 120, torch.bfloat16, True, 8192, False, "wgmma"),
+    (2, 4096, 32, 32, 80, torch.bfloat16, True, 0, False, "wgmma"),
     (2, 4096, 32, 8, 120, torch.bfloat16, True, 512, False, "wgmma"),
     (2, 2048, 16, 4, 128, torch.bfloat16, True, 0, False, "wgmma"),
     (2, 1024, 8, 8, 80, torch.bfloat16, True, 0, False, "wgmma"),
@@ -279,6 +301,9 @@ WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16, None, "chunked"),
 #: basis over the parameters must fit on one 80 GB card)
 LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 2}
 LM_SEQ_LEN = 4096
+#: act 2's iterations per search (act 1's are 2): rwkv6's act 2 is cut to
+#: one, as danube's holds the same coalesced == solo contract over two
+LM_ACT2_ITERATIONS = {"h2o-danube-3-4b": 2, "rwkv6-7b": 1}
 
 #: the reference's Fig. 2 run (JAX on a CPU, same seeds, 20 iterations):
 #: start and truth fitness, final fitness, iteration reaching 90 %
@@ -364,6 +389,15 @@ MOE_LOSS_TOL = 1e-3
 #: is printed, and each token's first flip must come at a near-tie, a
 #: prefill margin (k-th minus (k+1)-th router probability) below this
 MOE_TIE_MARGIN = 1e-2
+
+#: the hybrid phase: zamba2-2.7b whole (54 Mamba2 blocks and 9
+#: applications of its shared attention block, 4.66 GB in bf16), and cut
+#: to two of its units (12 Mamba2 blocks, 2 applications of the one
+#: shared block) in f32; the loss leg's (rows, tokens)
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_F32_BLOCKS = 14
+HYBRID_LOSS_SHAPE = (2, 4096)
+HYBRID_LOSS_TOL = 1e-3
 
 #: paper §VI's comparison in the reference (benchmarks/anm_vs_baselines.py,
 #: JAX on a CPU, 15k stars): start, truth and target fitness; each method's
@@ -858,7 +892,27 @@ def phase_flash(dev: torch.device) -> dict:
         check(torch.equal(out, again), f"flash_attention {variant} is not "
               f"bitwise repeatable at {case}")
         del q, k, v, out, again, want
-    b, s, hq, hkv, d, dtype, causal, window, fused, _ = FLASH_CASES[0]
+    dev_ms, bound_ms, bound_by = _flash_timing(
+        FLASH_CASES[0], ["plain", "wgmma", "simt", "sdpa", "sdpa", "simt",
+                         "wgmma", "plain"], gen, dev)
+    hybrid_ms, hybrid_bound, hybrid_by = _flash_timing(
+        FLASH_CASES[1], ["wgmma", "sdpa", "sdpa", "wgmma"], gen, dev)
+    return dict(variant="wgmma", max_abs_err=max_abs_err["wgmma"],
+                ms=dev_ms["wgmma"], plain_ms=dev_ms["plain"],
+                library_ms=dev_ms["sdpa"], bound_ms=bound_ms,
+                bound_by=bound_by, norm_rel_err=worst["wgmma"][0],
+                row_rel_err=worst["wgmma"][1], simt_ms=dev_ms["simt"],
+                simt_max_abs_err=max_abs_err["simt"],
+                zamba2_ms=hybrid_ms["wgmma"],
+                zamba2_library_ms=hybrid_ms["sdpa"],
+                zamba2_bound_ms=hybrid_bound, zamba2_bound_by=hybrid_by)
+
+
+def _flash_timing(case, order, gen, dev):
+    """Device ms per call (CUDA graphs) of the variants in ``order`` (in
+    turns, each its best) at ``case``'s shape on fresh inputs, and the
+    bound: (ms by name, bound ms, what bounds it)."""
+    b, s, hq, hkv, d, dtype, causal, window, fused, _ = case
     q, k, v = _flash_inputs(b, s, hq, hkv, d, dtype, fused, gen, dev)
     # SDPA takes (B, H, S, D); the layout change is made once, untimed
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -870,14 +924,15 @@ def phase_flash(dev: torch.device) -> dict:
                                                     window=window),
            "sdpa": lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=True, enable_gqa=True)}
-    check(window >= s, "the timed case's window must cover the sequence "
-          "(so SDPA's plain causal mask is the same function)")
+    check(causal and (window == 0 or window >= s), "a timed case must be "
+          "causal with a window covering the sequence (so SDPA's plain "
+          "causal mask is the same function)")
     torch.cuda.synchronize()
     err, rel = _rel_err(fns["sdpa"]().transpose(1, 2), fns["plain"]())
-    print(f"[flash] SDPA against the plain version: {rel:.3g}")
+    print(f"[flash] SDPA against the plain version at ({b}, {s}, "
+          f"{hq}/{hkv}, {d}): {rel:.3g}")
     dev_ms = {}
-    for name in ["plain", "wgmma", "simt", "sdpa",
-                 "sdpa", "simt", "wgmma", "plain"]:
+    for name in order:
         calls, replays = (2, 2) if name in ("plain", "simt") else (10, 5)
         dev_ms[name] = min(dev_ms.get(name, 1e9),
                            _graph_ms(fns[name], calls, replays))
@@ -885,18 +940,14 @@ def phase_flash(dev: torch.device) -> dict:
     flops = 4.0 * d * pairs * b * hq             # QKᵀ and PV, FMA = 2
     moved = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
     bound_ms, bound_by = _bound(moved, flops, BF16_FLOPS)
+    timed = ", ".join(f"{name} {dev_ms[name]:.4f}"
+                      for name in dict.fromkeys(order))
     print(f"[flash] at ({b}, {s}, {hq}/{hkv}, {d}) {dtype}, device ms per "
-          f"call (CUDA graph): wgmma {dev_ms['wgmma']:.4f}, simt "
-          f"{dev_ms['simt']:.4f}, plain {dev_ms['plain']:.4f}, sdpa "
-          f"{dev_ms['sdpa']:.4f}; bound {bound_ms:.4f} ms ({bound_by}: "
+          f"call (CUDA graph): {timed}; bound {bound_ms:.4f} ms ({bound_by}: "
           f"{moved} B, {flops:.4g} FLOP at the bf16 tensor-core peak); "
           f"wgmma at {flops / dev_ms['wgmma'] / 1e9:.1f} TFLOP/s")
-    return dict(variant="wgmma", max_abs_err=max_abs_err["wgmma"],
-                ms=dev_ms["wgmma"], plain_ms=dev_ms["plain"],
-                library_ms=dev_ms["sdpa"], bound_ms=bound_ms,
-                bound_by=bound_by, norm_rel_err=worst["wgmma"][0],
-                row_rel_err=worst["wgmma"][1], simt_ms=dev_ms["simt"],
-                simt_max_abs_err=max_abs_err["simt"])
+    del q, k, v, qt, kt, vt
+    return dev_ms, bound_ms, bound_by
 
 
 def _wkv6_inputs(b, t, h, kk, dtype, lw_fill, gen, dev):
@@ -1888,7 +1939,9 @@ def _lm_acts(dev, arch, search, fleet, backend, n_layers):
     kernel once per layer per lane evaluated.  Returns act 3's
     uninterrupted server run (None for an arch without act 3)."""
     counter = LM_KERNEL[arch][0]
-    acts = [("act 2", lambda: anm_lm.portfolio(search, fleet, backend, 2))]
+    act2 = dataclasses.replace(search, anm=dataclasses.replace(
+        search.anm, max_iterations=LM_ACT2_ITERATIONS[arch]))
+    acts = [("act 2", lambda: anm_lm.portfolio(act2, fleet, backend, 2))]
     if arch == "rwkv6-7b":
         acts.append(("act 3", lambda: anm_lm.crash_restore(search, fleet,
                                                            backend)))
@@ -1904,7 +1957,8 @@ def _lm_acts(dev, arch, search, fleet, backend, n_layers):
         if act == "act 2":
             res, wall_co, ok, wall_solo = out
             co = res.coalesce_stats
-            what = (f"2 searches coalesced {wall_co:.1f}s ({co.dispatches} "
+            what = (f"2 searches of {act2.anm.max_iterations} iterations "
+                    f"coalesced {wall_co:.1f}s ({co.dispatches} "
                     f"dispatches for {co.lane_blocks} blocks), solo re-runs "
                     f"{wall_solo:.1f}s, coalesced == solo: {ok}, best "
                     f"{res.best.engine.best_fitness:.6f}")
@@ -1996,25 +2050,29 @@ def _prefill_logits(cfg, params, toks) -> tuple:
 
 
 def _kernel_launches(cfg, counts: dict) -> str:
-    """The prefill's launches of its arch's kernel, checked: one per
-    layer, and all of them of the variant ops routes its type to; none
-    for MLA, which attends through the dense path as the reference."""
+    """The prefill's launches of its arch's kernel, checked: one per block
+    that runs it (an RWKV6 block: wkv6; an attention or shared-attention
+    block: the attention kernel; a Mamba2 block: none), all of them of the
+    variant ops routes its type to; none for MLA, which attends through
+    the dense path as the reference."""
     if cfg.mla is not None:
         check(not any(counts.values()), f"{cfg.name}: the MLA prefill "
               f"launched {counts}, want no kernel")
         return "no kernel launched (MLA attends densely)"
-    if cfg.blocks()[0] == "rwkv6":
+    kinds = cfg.blocks()
+    want = kinds.count("rwkv6")
+    if want:
         names = ("wkv6_launches", "wkv6_chunked_launches"
                  if cfg.dtype == "bfloat16" else "wkv6_serial_launches")
     else:
+        want = kinds.count("attn") + kinds.count("shared_attn")
         names = ("flash_attention_launches",
                  "flash_attention_wgmma_launches"
                  if cfg.dtype == "bfloat16" and cfg.resolved_head_dim % 8 == 0
                  else "flash_attention_simt_launches")
     total, variant = (counts[n] for n in names)
-    check(total == variant == cfg.n_layers > 0,
-          f"{cfg.name}: prefill launched {counts}, want {cfg.n_layers} "
-          f"{names[1]}")
+    check(total == variant == want > 0 and sum(counts.values()) == 2 * want,
+          f"{cfg.name}: prefill launched {counts}, want {want} {names[1]}")
     return f"{names[1]} {variant}"
 
 
@@ -2104,7 +2162,7 @@ def phase_serve(dev: torch.device) -> dict:
                            iters=20)
     del cache, logits
     _free()
-    print(f"[serve] (a) qwen2-72b {cfg.n_layers} layers, "
+    print(f"[serve] (a) qwen2-72b {len(cfg.blocks())} blocks, "
           f"{transformer.count_params(params) / 1e9:.2f} G parameters bf16: "
           f"{SERVE_MAIN['requests']} requests at batch {SERVE_MAIN['batch']} "
           f"(prompt {SERVE_MAIN['prompt']}, {SERVE_MAIN['gen']} generated, "
@@ -2166,7 +2224,7 @@ def phase_serve(dev: torch.device) -> dict:
         _, what, kl = _decode_vs_prefill(dev, cfg, params, SERVE_OTHER_LEN,
                                          seed=4)
         add(_counts())
-        print(f"[serve] (d) {arch} {cfg.n_layers} layers bf16: "
+        print(f"[serve] (d) {arch} {len(cfg.blocks())} blocks bf16: "
               f"{SERVE_OTHER['requests']} requests at batch "
               f"{SERVE_OTHER['batch']}, {leg['tokens']} tokens in "
               f"{leg['steps']} steps, {leg['ms']:.3f} ms per step; decode "
@@ -2203,7 +2261,7 @@ def phase_serve(dev: torch.device) -> dict:
     refused = _refuses(lambda: serve.serve(
         bparams, bcfg, [np.ones(4)], lambda lg: lg.argmax(-1), batch=1,
         gen_len=1, max_seq=8), ValueError)
-    print(f"[serve] (e) hubert-xlarge {cfg.n_layers} layers: encoder "
+    print(f"[serve] (e) hubert-xlarge {len(cfg.blocks())} blocks: encoder "
           f"forward over {tuple(emb.shape)} frame embeddings -> logits "
           f"{tuple(f32.shape)}, bf16 against f32 ‖err‖/‖ref‖ {norm:.4g} "
           f"(gate {SERVE_BF16_NORM}), worst row {row:.4g}; kernel launches "
@@ -2321,7 +2379,7 @@ def _moe_model(arch: str, dtype: str, gen, dev):
     head = params["head"]["w"]
     head = head.numel() * head.element_size()
     bound = (blocks + head) / HBM_BYTES_PER_S * 1e3
-    line = (f"{cfg.n_layers} layers, "
+    line = (f"{len(cfg.blocks())} blocks, "
             f"{transformer.count_params(params) / 1e9:.2f} G parameters "
             f"{dtype} drawn in {drawn:.1f}s (peak {peak:.2f} GiB)")
     return cfg, params, dict(line=line, bound=bound, blocks=blocks,
@@ -2484,6 +2542,184 @@ def phase_serve_moe(dev: torch.device) -> int:
     return launches
 
 
+def _fed_decode(cfg, params, toks, dev):
+    """Decode == prefill block by block.  The prefill (``use_kernels``)
+    records each block's input and output at every position; the decode
+    runs twice: free, and fed, each block's step taking the input the
+    prefill gave that block at the step's position (its caches then hold
+    what the prefill's inputs make).  Returns (prefill logits, its
+    launches, free logits, fed logits, per block ‖free - prefill‖ /
+    ‖prefill‖ and the same fed, over the blocks' outputs)."""
+    own = transformer._apply_block
+    ins, outs, seen = [], [], []
+    feed = None
+
+    def traced(x, *args, **kw):
+        if feed is not None:
+            block, t = divmod(len(seen), len(ins))[::-1]
+            x = ins[block][:, t:t + 1] if feed else x
+        else:
+            ins.append(x)
+        out = own(x, *args, **kw)
+        (seen if feed is not None else outs).append(out[0])
+        return out
+    transformer._apply_block = traced
+    try:
+        pre, counts = _prefill_logits(cfg, params, toks)
+        gaps, logits = {}, {}
+        for feed in (False, True):
+            seen.clear()
+            logits[feed] = _decode_logits(cfg, params, toks, dev)
+            n = len(outs)
+            gaps[feed] = [float((torch.cat(seen[b::n], dim=1).float()
+                                 - outs[b].float()).norm()
+                                / outs[b].float().norm()) for b in range(n)]
+    finally:
+        transformer._apply_block = own
+    return pre, counts, logits[False], logits[True], gaps[False], gaps[True]
+
+
+def phase_serve_hybrid(dev: torch.device) -> int:
+    """Mamba2 and the weight-shared attention block (zamba2-2.7b) at its
+    published widths through the serve loop, the serve and prefill steps
+    and the loss; returns the attention kernel's launches in the phase."""
+    arch = HYBRID_ARCH
+    gen = torch.Generator(device=dev).manual_seed(23)
+    launches = 0
+    # (h) zamba2-2.7b whole, bf16
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(arch)
+    params = transformer.init_params(cfg, gen, dev)
+    torch.cuda.synchronize(dev)
+    drawn = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    stored = transformer.count_params(params)
+    weights = sum(x.numel() * x.element_size()
+                  for _, x in leaves_with_paths(params))
+    batch, max_seq = SERVE_OTHER["batch"], SERVE_OTHER["max_seq"]
+    caches = _cache_bytes(cfg, batch, max_seq)
+    bound = (weights + caches) / HBM_BYTES_PER_S * 1e3
+    torch.cuda.reset_peak_memory_stats(dev)
+    leg = _serve_loop(dev, cfg, params, SERVE_OTHER, seed=3)
+    loop_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    cache = transformer.init_cache(cfg, batch, max_seq, device=dev)
+    step = transformer.make_serve_step(cfg)
+    tokens = torch.ones((batch, 1), dtype=torch.long, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = _graph_ms(lambda: step(params, cache, tokens, 100), calls=5,
+                        replays=5)
+    graph_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del cache
+    _free()
+    print(f"[serve hybrid] (h) {arch} {len(cfg.blocks())} blocks "
+          f"({cfg.n_layers} Mamba2, {cfg.blocks().count('shared_attn')} "
+          f"applications of the shared block), {stored} parameters stored "
+          f"(n_params {cfg.n_params()}), bf16, drawn in {drawn:.1f}s (peak "
+          f"{draw_peak:.2f} GiB); {SERVE_OTHER['requests']} requests at "
+          f"batch {batch}, {leg['tokens']} tokens in {leg['steps']} steps, "
+          f"{leg['ms']:.3f} ms per step (CUDA events around the loop) "
+          f"against a bound of {bound:.3f} ms (weights {weights / 1e9:.3f} GB"
+          f" + caches {caches / 1e6:.1f} MB once at 3.35 TB/s), loop wall "
+          f"{leg['wall']:.2f}s, peak {loop_peak:.2f} GiB; one serve step "
+          f"replayed from a CUDA graph {step_ms:.3f} ms "
+          f"({step_ms / bound:.2f}x the bound), peak {graph_peak:.2f} GiB; "
+          f"wall {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    toks = _match_tokens(cfg, SERVE_OTHER_LEN, 4, dev)
+    pre, counts, free, fed, free_gaps, fed_gaps = _fed_decode(
+        cfg, params, toks, dev)
+    kl = _kernel_launches(cfg, counts)
+    launches += counts["flash_attention_launches"]
+    norm, row = _norm_err(fed, pre)
+    free_norm, free_row = _norm_err(free, pre)
+    twice, counts = _prefill_logits(cfg, params, toks)
+    launches += counts["flash_attention_launches"]
+    same = bool(torch.equal(pre, twice))
+    print(f"[serve hybrid] (h) {arch} bf16, the free decode's "
+          f"‖decode - prefill‖ / ‖prefill‖ over each block's output: "
+          + ", ".join(f"{i} {g:.3g}" for i, g in enumerate(free_gaps)))
+    print(f"[serve hybrid] (h) {arch} bf16 decode == prefill over "
+          f"{SERVE_OTHER_LEN} tokens: each block fed the prefill's input "
+          f"‖err‖/‖ref‖ {norm:.4g} (gate {SERVE_BF16_NORM}), worst row "
+          f"{row:.4g}, worst block {max(fed_gaps):.3g} (gate "
+          f"{SERVE_BF16_NORM}); free {free_norm:.4g}, worst row "
+          f"{free_row:.4g}, growing by at most "
+          f"{max(b - a for a, b in zip([0.0] + free_gaps, free_gaps)):.3g} "
+          f"a block; prefill {kl}; the prefill the same bits twice: {same}; "
+          f"wall {time.perf_counter() - t0:.1f}s")
+    check(norm <= SERVE_BF16_NORM and max(fed_gaps) <= SERVE_BF16_NORM
+          and bool(torch.isfinite(pre).all() and torch.isfinite(fed).all()
+                   and torch.isfinite(free).all()),
+          f"{arch} bf16: the fed decode != prefill over {SERVE_OTHER_LEN} "
+          f"tokens: {norm} (worst row {row}, worst block {max(fed_gaps)})")
+    check(same, f"{arch}: the same prefill gave other bits the second time")
+    del free, fed, pre, twice
+    # (i) the loss over HYBRID_LOSS_SHAPE seeded tokens, kernel route
+    # against the plain route (the dense _attend)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(23)
+    rows, seq = HYBRID_LOSS_SHAPE
+    loss_batch = {name: torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (rows, seq)), device=dev)
+        for name in ("tokens", "labels")}
+    out = {}
+    with torch.no_grad():
+        for route, use_kernels in (("kernel", True), ("plain", False)):
+            fn = transformer.make_loss_fn(dataclasses.replace(
+                cfg, use_kernels=use_kernels))
+            (loss, met), wall, counts, peak = _leg(dev, lambda: fn(
+                params, loss_batch))
+            out[route] = dict(loss=float(loss), ce=float(met["ce"]),
+                              wall=wall, peak=peak, counts=counts)
+    k, p = out["kernel"], out["plain"]
+    gap = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    kc = k["counts"]
+    n_attn = cfg.blocks().count("shared_attn")
+    print(f"[serve hybrid] (i) {arch} loss over {rows} x {seq} tokens: "
+          f"kernel route {k['loss']:.6f} ({k['wall']:.2f}s, peak "
+          f"{k['peak']:.2f} GiB, flash_attention_wgmma_launches "
+          f"{kc['flash_attention_wgmma_launches']}); plain route "
+          f"{p['loss']:.6f} ({p['wall']:.2f}s, peak {p['peak']:.2f} GiB); "
+          f"relative gap {gap:.3g} (gate {HYBRID_LOSS_TOL}); ln vocab "
+          f"{math.log(cfg.vocab_size):.6f}; wall "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(kc["flash_attention_launches"]
+          == kc["flash_attention_wgmma_launches"] == n_attn
+          and sum(kc.values()) == 2 * n_attn,
+          f"{arch}: the kernel-route loss launched {kc}, want {n_attn} "
+          f"wgmma launches")
+    check(not any(p["counts"].values()), f"{arch}: the plain-route loss "
+          f"launched {p['counts']}")
+    check(all(math.isfinite(r[n]) for r in (k, p) for n in ("loss", "ce"))
+          and k["loss"] == k["ce"] and gap <= HYBRID_LOSS_TOL,
+          f"{arch}: kernel-route loss {k['loss']} against plain route "
+          f"{p['loss']}")
+    launches += kc["flash_attention_launches"]
+    del params
+    _free()
+    # (h') cut to HYBRID_F32_BLOCKS blocks, f32: one set of shared weights
+    # over two caches
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cut_depth(get_config(arch), HYBRID_F32_BLOCKS),
+                              dtype="float32")
+    params = transformer.init_params(cfg, gen, dev)
+    _, what, kl = _decode_vs_prefill(dev, cfg, params, SERVE_OTHER_LEN,
+                                     seed=5)
+    launches += _counts()["flash_attention_launches"]
+    print(f"[serve hybrid] (h') {arch} {len(cfg.blocks())} blocks "
+          f"({cfg.n_layers} Mamba2, {cfg.blocks().count('shared_attn')} "
+          f"applications of one shared block) f32: decode == prefill over "
+          f"{SERVE_OTHER_LEN} tokens: {what}; prefill {kl}; wall "
+          f"{time.perf_counter() - t0:.1f}s")
+    del params
+    _free()
+    print(f"[serve hybrid] attention kernel launches in the phase: "
+          f"{launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2524,6 +2760,7 @@ def main() -> None:
                           "rwkv6-7b")
     serve_launches = timed("serve", phase_serve, dev)
     serve_moe_launches = timed("serve moe", phase_serve_moe, dev)
+    serve_hybrid_launches = timed("serve hybrid", phase_serve_hybrid, dev)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     phase_card(dev)                 # the stamp again, near the end
     print(json.dumps({"kernels": [
@@ -2537,6 +2774,7 @@ def main() -> None:
          "launches": flash_launches,
          "serve_launches": serve_launches["flash_attention"],
          "serve_moe_launches": serve_moe_launches,
+         "serve_hybrid_launches": serve_hybrid_launches,
          "subspace_launches": flash_subspace, **flash},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",

@@ -1,14 +1,12 @@
 """Experiment configurations of the port (copies of ``repro/configs``).
 
-``get_config(name)`` / ``get_smoke_config(name)`` cover the LM
-architectures the port's models run, in the reference's order: the dense
-families (qwen2-72b, deepseek-coder-33b, command-r-plus-104b,
-chameleon-34b, the hubert-xlarge encoder), MLA + MoE
-(deepseek-v2-lite-16b) and interleaved MoE (llama4-maverick-400b-a17b),
-h2o-danube-3-4b's sliding window and rwkv6-7b.  The reference's last one
-(zamba2-2.7b: Mamba2 + shared attention) is not ported yet: looking it
-up raises ``NotImplementedError`` naming ROADMAP.md A.5.  The paper's own
-8-parameter problem is ``paper_anm``.
+``get_config(name)`` / ``get_smoke_config(name)`` cover every LM
+architecture of the reference, in its order: the dense families
+(qwen2-72b, deepseek-coder-33b, command-r-plus-104b, chameleon-34b, the
+hubert-xlarge encoder), MLA + MoE (deepseek-v2-lite-16b), interleaved
+MoE (llama4-maverick-400b-a17b), h2o-danube-3-4b's sliding window,
+rwkv6-7b and the Mamba2 + shared-attention hybrid zamba2-2.7b.  The
+paper's own 8-parameter problem is ``paper_anm``.
 """
 from __future__ import annotations
 
@@ -17,9 +15,8 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (SHAPES, MLAConfig,  # noqa: F401
                                       ModelConfig, MoEConfig, ShapeConfig,
-                                      SSMConfig, UNPORTED,
-                                      cell_is_runnable, config_from_dict,
-                                      cut_depth)
+                                      SSMConfig, cell_is_runnable,
+                                      config_from_dict, cut_depth)
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
@@ -30,18 +27,14 @@ _ARCH_MODULES: Dict[str, str] = {
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 
 ARCH_NAMES: List[str] = list(_ARCH_MODULES)
 
-#: the reference's architectures whose blocks the port has not ported
-UNPORTED_ARCHS = ("zamba2-2.7b",)
-
 
 def _module(name: str):
-    if name in UNPORTED_ARCHS:
-        raise NotImplementedError(f"arch {name!r} is {UNPORTED}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_NAMES}")
     return importlib.import_module(_ARCH_MODULES[name])

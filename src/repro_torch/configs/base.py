@@ -1,26 +1,15 @@
 """Model and shape configuration dataclasses.
 
-Copy of the parts of ``repro/configs/base.py`` the port's models use:
-``ModelConfig``, ``MoEConfig`` and ``MLAConfig`` keep every field of the
-reference's, so a reference configuration carries across field by field
-(``config_from_dict``); the port's models refuse the blocks they do not
-implement yet (Mamba2 and the shared attention block: ROADMAP.md A.5,
-second half) instead of ignoring them, and so does ``n_params``.
+Copy of ``repro/configs/base.py``: ``ModelConfig``, ``MoEConfig``,
+``MLAConfig`` and ``SSMConfig`` keep every field of the reference's, so a
+reference configuration carries across field by field
+(``config_from_dict``), and ``n_params`` is the reference's formula for
+every block kind.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
-
-#: what the port says where a configuration asks for a block it has not
-#: ported yet
-UNPORTED = ("not ported yet (ROADMAP.md A.5, second half: Mamba2 + shared "
-            "attention)")
-
-
-def unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {UNPORTED}")
-
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
@@ -114,15 +103,18 @@ class ModelConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count (embedding + blocks + head), the
-        reference's formula for the attention (dense or MLA, with a dense
-        or MoE FFN) and rwkv6 branches."""
+        reference's formula: the weight-shared block counted once, a
+        Mamba2 block by its projections alone."""
         d, v = self.d_model, self.vocab_size
         total = v * d                                   # embed
         if not self.tie_embeddings:
             total += v * d                              # unembed
         hd = self.resolved_head_dim
+        shared_counted = False
         for idx, kind in enumerate(self.blocks()):
-            if kind == "attn":
+            if kind == "shared_attn" and shared_counted:
+                continue                # weight-shared block: count once
+            if kind in ("attn", "shared_attn"):
                 if self.mla is not None:
                     m = self.mla
                     q_in = m.q_lora_rank or d
@@ -144,10 +136,15 @@ class ModelConfig:
                               * m.expert_d_ff)
                 else:
                     total += 3 * d * self.d_ff              # swiglu
+                if kind == "shared_attn":
+                    shared_counted = True
             elif kind == "rwkv6":
                 total += 4 * d * d + d * self.d_ff * 2  # r,k,v,g(+mix); channel-mix
-            else:
-                raise unported(f"n_params of {kind!r} blocks is")
+            elif kind == "mamba2":
+                s = self.ssm or SSMConfig()
+                d_in = s.expand * d
+                total += (d * (2 * d_in + 2 * s.n_groups * s.state_size)
+                          + d_in * d)
         return total
 
     def _layer_is_moe(self, idx: int) -> bool:
@@ -182,14 +179,20 @@ def config_from_dict(fields: dict) -> ModelConfig:
     return ModelConfig(**fields)
 
 
-def cut_depth(cfg: ModelConfig, n_layers: int) -> ModelConfig:
-    """``cfg`` with only its first ``n_layers`` blocks (the block pattern is
-    cut with it); every width stays as published."""
-    if not 1 <= n_layers <= cfg.n_layers:
-        raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, cannot cut "
-                         f"to {n_layers}")
-    return dataclasses.replace(cfg, n_layers=n_layers,
-                               block_pattern=cfg.block_pattern[:n_layers])
+def cut_depth(cfg: ModelConfig, n_blocks: int) -> ModelConfig:
+    """``cfg`` with only the first ``n_blocks`` entries of ``blocks()``
+    (the block pattern is cut with it); every width stays as published.
+    ``n_layers`` counts the blocks kept that hold their own weights, as
+    the configurations count it: zamba2's 63 blocks are 54 layers, the
+    applications of its weight-shared block left out."""
+    blocks = cfg.blocks()
+    if not 1 <= n_blocks <= len(blocks):
+        raise ValueError(f"{cfg.name} has {len(blocks)} blocks, cannot cut "
+                         f"to {n_blocks}")
+    kept = blocks[:n_blocks]
+    return dataclasses.replace(
+        cfg, n_layers=sum(kind != "shared_attn" for kind in kept),
+        block_pattern=cfg.block_pattern[:n_blocks])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,8 +32,10 @@ Params = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     """One parameter: its shape, its initialisation, one of
-    ("normal", std), ("full", value), ("linspace", start, stop), and its
-    type (None: the configuration's)."""
+    ("normal", std), ("full", value), ("linspace", start, stop) over the
+    last two dimensions, ("log_linspace", start, stop) the log of a
+    linspace over the last dimension, and its type (None: the
+    configuration's)."""
     shape: Tuple[int, ...]
     init: tuple
     dtype: Optional[torch.dtype] = None

@@ -12,9 +12,7 @@ reference's do.
 The reference hands its specs to JAX (``NamedSharding``, ``device_put``);
 the port's ``to_named`` cuts each tensor of a tree into its per-shard
 pieces along its spec (``Sharded``), and ``gather`` puts a tree's pieces
-back together, as the reference's tiled all-gather does.  The table
-also names rules for the blocks the port does not run yet (Mamba2): it
-is keyed by name, so they cost nothing until those blocks are ported.
+back together, as the reference's tiled all-gather does.
 """
 from __future__ import annotations
 
@@ -23,7 +21,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig, unported
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import TensorShape
 
@@ -203,7 +201,8 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
     where it divides them, else the sequence over every axis; k/v, MLA's
     c_kv / k_rope and their int8 scales' sequence over ``model``, rwkv6's
     wkv state's heads over ``model`` where they divide it, its shifts
-    replicated."""
+    replicated, Mamba2's ssm state's heads and conv_xs's channels over
+    ``model``, conv_bc replicated."""
     dp, tp = mesh_axes(mesh)
     dp_size = math.prod(mesh.shape[a] for a in dp)
     tp_size = mesh.shape[tp]
@@ -227,8 +226,12 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh):
             spec = P(b_spec, None)
         elif name in ("c_kv", "k_rope"):
             spec = P(b_spec, s_spec, None)
-        elif name in ("ssm", "conv_xs", "conv_bc"):
-            raise unported(f"the {name!r} cache (Mamba2) is")
+        elif name == "ssm":
+            spec = P(b_spec, tp, None, None)
+        elif name == "conv_xs":
+            spec = P(b_spec, None, tp)
+        elif name == "conv_bc":
+            spec = P(b_spec, None, None)
         else:
             raise ValueError(name)
         if stacked:

@@ -1,14 +1,17 @@
-"""RWKV6 "Finch" time mix and channel mix (data-dependent decay).
+"""Attention-free mixers: RWKV6 "Finch" (data-dependent decay) and Mamba2.
 
-Port of the RWKV6 part of ``repro/models/ssm.py``, with its recurrent
-state.  Over a whole sequence with ``use_kernels`` (the loss and prefill
-forwards) the time mix's WKV recurrence goes through
-``kernels/ops.py::routed_wkv6`` (a CUDA kernel on the card, the
-sequential plain version on the CPU), as the reference's does;
-``wkv6_chunked``, the reference's chunked form in plain torch, threads
-the state without ``use_kernels`` and is the CPU statement of the
-algorithm the chunked CUDA kernel (``csrc/wkv6.cu``) implements; a decode
-step is ``wkv6_step``.  Mamba2 is not ported (ROADMAP.md A.5).
+Port of ``repro/models/ssm.py``, with the recurrent states.  Over a whole
+sequence with ``use_kernels`` (the loss and prefill forwards) RWKV6's
+WKV recurrence goes through ``kernels/ops.py::routed_wkv6`` (a CUDA
+kernel on the card, the sequential plain version on the CPU), as the
+reference's does; ``wkv6_chunked``, the reference's chunked form in
+plain torch, threads the state without ``use_kernels`` and is the CPU
+statement of the algorithm the chunked CUDA kernel (``csrc/wkv6.cu``)
+implements; a decode step is ``wkv6_step``.
+
+Mamba2 (``mamba2_mixer``) is plain torch on every route, as the
+reference's is plain ``jnp``: the SSD's chunked form (``_ssd_chunked``)
+over a whole sequence, one recurrent step in a decode step.
 """
 from __future__ import annotations
 
@@ -17,13 +20,15 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Leaf, Params, normal, ones
+from repro_torch.models.layers import (Leaf, Params, normal, ones,
+                                       rms_norm, zeros)
 
 # Clamp on the per-step log decay (the reference's; w >= exp(-3.5)).
 # With chunk 16 and the midpoint normalisation, |exponent| <= 3.5 * 16, so
 # even the masked upper-triangle products stay finite (<= e^56) in f32.
 _LOG_DECAY_MIN = -3.5
 _RWKV_CHUNK = 16
+_MAMBA_CHUNK = 64
 
 
 def rwkv6_specs(cfg: ModelConfig) -> Params:
@@ -202,4 +207,172 @@ def rwkv6_state_shape(cfg: ModelConfig, batch: int):
         "shift_tm": (batch, cfg.d_model),
         "shift_cm": (batch, cfg.d_model),
         "wkv": (batch, h, hd, hd),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba2_specs(cfg: ModelConfig) -> Params:
+    """The reference's ``init_mamba2``: the canonical fused in_proj and
+    conv split into z / xs / BC / dt parts (a depthwise conv split per
+    channel is the same conv).  ``a_log`` (log of linspace(1, 16, H)) and
+    ``dt_bias`` are f32 whatever the model's type, as there."""
+    s = cfg.ssm
+    d = cfg.d_model
+    d_in = s.expand * d
+    h = d_in // s.head_dim
+    bc_ch = 2 * s.n_groups * s.state_size
+    sd = d ** -0.5
+    return {
+        "w_z": normal(sd, d, d_in),
+        "w_xs": normal(sd, d, d_in),
+        "w_bc": normal(sd, d, bc_ch),
+        "w_dt": normal(sd, d, h),
+        "conv_w_xs": normal(0.2, s.conv_width, d_in),
+        "conv_b_xs": zeros(d_in),
+        "conv_w_bc": normal(0.2, s.conv_width, bc_ch),
+        "conv_b_bc": zeros(bc_ch),
+        "a_log": Leaf((h,), ("log_linspace", 1.0, 16.0), torch.float32),
+        "dt_bias": Leaf((h,), ("full", 0.0), torch.float32),
+        "dd": ones(h),
+        "norm": ones(d_in),
+        "out_proj": normal(d_in ** -0.5, d_in, d),
+    }
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a: (..., C) log decays -> (..., C, C) lower-triangular decay matrix
+    exp(Σ_{s < τ ≤ t} a_τ); masked to -inf before the exp, as the
+    reference (an exp of a large untaken entry would make gradients NaN)."""
+    c = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=a.device))
+    return torch.exp(seg.masked_fill(~mask, float("-inf")))
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state=None):
+    """Depthwise causal conv.  xbc: (B, T, C); w: (W, C); state: the last
+    W - 1 inputs (B, W - 1, C), zeros without.  Returns (silu(conv + b)
+    in xbc's type, the new state).  The taps are summed in f32 and the
+    result rounded once, as XLA's fusion of the reference's sum rounds it
+    (eager torch would round every add in bf16); the W windows are one
+    strided view, so the conv is a product and a sum, not W of each."""
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((xbc.shape[0], width - 1, xbc.shape[2]),
+                            dtype=xbc.dtype, device=xbc.device)
+    xp = torch.cat([state, xbc], dim=1)
+    f32 = torch.float32
+    windows = xp.to(f32).unfold(1, width, 1)            # (B, T, C, W)
+    out = torch.sum(windows * w.t().to(f32), dim=-1)
+    return F.silu(out + b.to(f32)).to(xbc.dtype), xp[:, -(width - 1):]
+
+
+def mamba2_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, state=None):
+    """Mamba2 block.  x: (B, T, D).  ``state`` ({"conv_xs", "conv_bc":
+    (B, W - 1, C), "ssm": (B, H, P, N) f32}) given: a decode step, T = 1.
+    Returns (y (B, T, D), the new state: convs in x's type, ssm f32)."""
+    s = cfg.ssm
+    b, t, d = x.shape
+    d_in = s.expand * d
+    g, n, pdim = s.n_groups, s.state_size, s.head_dim
+    h = d_in // pdim
+    f32 = torch.float32
+
+    z = torch.matmul(x, p["w_z"])
+    xs_raw = torch.matmul(x, p["w_xs"])
+    bc_raw = torch.matmul(x, p["w_bc"])
+    dt_raw = torch.matmul(x, p["w_dt"])
+    # F.softplus returns x above 20, where log1p(exp(x)) and x are one f32
+    # value: jax.nn.softplus, in f32
+    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])          # (B,T,H)
+
+    st = state or {}
+    xs_c, new_conv_xs = _causal_conv(xs_raw, p["conv_w_xs"], p["conv_b_xs"],
+                                     st.get("conv_xs"))
+    bc_c, new_conv_bc = _causal_conv(bc_raw, p["conv_w_bc"], p["conv_b_bc"],
+                                     st.get("conv_bc"))
+    xs = xs_c.reshape(b, t, h, pdim)
+    # the groups' B and C broadcast over their heads
+    bb = bc_c[..., :g * n].reshape(b, t, g, n).repeat_interleave(h // g, 2)
+    cc = bc_c[..., g * n:].reshape(b, t, g, n).repeat_interleave(h // g, 2)
+
+    a = -torch.exp(p["a_log"])                              # (H,) negative
+    la = dt * a                                             # (B,T,H) log decay
+    xs32 = xs.to(f32) * dt[..., None]                       # dt folded into x
+
+    if state is None:
+        y, s_fin = _ssd_chunked(xs32, la, bb.to(f32), cc.to(f32))
+    else:
+        dec = torch.exp(la[:, 0])                           # (B,H)
+        s_fin = (dec[..., None, None] * state["ssm"]
+                 + xs32[:, 0, :, :, None] * bb[:, 0, :, None, :].to(f32))
+        y = torch.matmul(s_fin, cc[:, 0, :, :, None].to(f32))[:, None, ..., 0]
+
+    y = y + p["dd"].to(f32)[:, None] * xs.to(f32)
+    y = y.reshape(b, t, d_in).to(x.dtype) * F.silu(z)
+    y = rms_norm(y, p["norm"], 1e-5)              # before the out projection
+    out = torch.matmul(y, p["out_proj"])
+    return out, {"conv_xs": new_conv_xs, "conv_bc": new_conv_bc,
+                 "ssm": s_fin}
+
+
+def _ssd_chunked(xs, la, bb, cc, chunk: int = _MAMBA_CHUNK):
+    """Chunked SSD (the reference's form).  xs: (B, T, H, P) f32 with dt
+    folded in; la: (B, T, H) log decay; bb / cc: (B, T, H, N).  T is padded
+    to a multiple of ``chunk``.  Returns (y (B, T, H, P), the final state
+    (B, H, P, N)).  The reference's three-operand contractions are each an
+    elementwise product and one matrix product, so nothing of six
+    dimensions is formed; its scan over chunks is a loop carrying the
+    state, and the states entering the chunks are read back in one
+    product."""
+    b, t, h, pdim = xs.shape
+    n = bb.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        xs, bb, cc = (F.pad(u, (0, 0, 0, 0, 0, pad)) for u in (xs, bb, cc))
+        la = F.pad(la, (0, 0, 0, pad))
+    nc = (t + pad) // chunk
+    xs = xs.reshape(b, nc, chunk, h, pdim)
+    bb = bb.reshape(b, nc, chunk, h, n)
+    cc = cc.reshape(b, nc, chunk, h, n)
+    lam = la.reshape(b, nc, chunk, h).transpose(2, 3)       # (B,nc,H,C)
+
+    # within a chunk: y_c = Σ_s (C_c·B_s) decay(s→c) x_s
+    scores = torch.einsum("bnchk,bnshk->bnhcs", cc, bb)
+    y_diag = torch.einsum("bnhcs,bnshp->bnchp", scores * _segsum(lam), xs)
+
+    # each chunk's own final state, and the decay across a whole chunk
+    cum = torch.cumsum(lam, dim=-1)                         # (B,nc,H,C)
+    dec_to_end = torch.exp(cum[..., -1:] - cum)
+    s_chunk = torch.einsum("bnshk,bnshp->bnhpk",
+                           bb * dec_to_end.transpose(2, 3)[..., None], xs)
+    dec_full = torch.exp(cum[..., -1])[..., None, None]     # (B,nc,H,1,1)
+
+    state = torch.zeros((b, h, pdim, n), dtype=xs.dtype, device=xs.device)
+    entering = []
+    for i in range(nc):
+        entering.append(state)
+        state = torch.addcmul(s_chunk[:, i], dec_full[:, i], state)
+    # from the state entering a chunk: exp(cum) decays from the chunk's
+    # start (exclusive) to c (inclusive)
+    y_off = torch.einsum("bnchk,bnhpk->bnchp", cc,
+                         torch.stack(entering, dim=1))
+    y_off = y_off * torch.exp(cum).transpose(2, 3)[..., None]
+    y = (y_diag + y_off).reshape(b, nc * chunk, h, pdim)
+    return y[:, :t], state
+
+
+def mamba2_state_shape(cfg: ModelConfig, batch: int):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    h = d_in // s.head_dim
+    return {
+        "conv_xs": (batch, s.conv_width - 1, d_in),
+        "conv_bc": (batch, s.conv_width - 1, 2 * s.n_groups * s.state_size),
+        "ssm": (batch, h, s.head_dim, s.state_size),
     }

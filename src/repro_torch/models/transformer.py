@@ -1,11 +1,11 @@
 """The LM: parameters, forward with its decode caches, the chunked
 cross-entropy loss and the serving steps.
 
-Port of ``repro/models/transformer.py`` less the Mamba2 and
-shared-attention blocks (ROADMAP.md A.5, second half) and training
+Port of ``repro/models/transformer.py`` less training
 (``make_train_step``, which needs ``optim/``): ``init_params`` /
 ``forward`` (a whole sequence, or one decode step over a cache; dense or
-MLA attention, dense or MoE FFN, RWKV6) / ``chunked_cross_entropy`` /
+MLA attention, dense or MoE FFN, RWKV6, Mamba2 and the weight-shared
+attention block) / ``chunked_cross_entropy`` /
 ``make_loss_fn`` / ``make_serve_step`` / ``make_prefill_step`` /
 ``init_cache`` / ``count_params``.  The forward runs eagerly, layer by
 layer (the reference's ``scan`` and ``remat`` are compile-time choices
@@ -13,8 +13,11 @@ with no eager counterpart; ``unroll`` changes nothing here).  A decode
 step writes its cache in place and returns it.
 
 The parameters are the reference's pytree as plain nested dicts and
-lists: ``embed/tok``, ``final_norm/scale``, ``head/w`` and
-``segments/<segment>/<block>/...``.  The layer stack is cut into the
+lists: ``embed/tok``, ``final_norm/scale``, ``head/w``,
+``segments/<segment>/<block>/...`` and, where the configuration has
+``shared_attn`` blocks, ``shared_attn/...``: one set of weights that
+every application reads (its slot in the segments holds nothing), while
+each application keeps its own cache.  The layer stack is cut into the
 reference's maximal repeating units (``find_segments``), and each leaf of
 a segment repeated n times carries a leading (n,) axis, as the
 reference's ``jax.lax.scan`` layout stacks it.  Flattened in JAX's order
@@ -30,7 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, unported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import leaves_with_paths, map_tree, map_with_paths
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -81,6 +84,8 @@ def find_segments(sigs: List[Sig]) -> List[Tuple[Tuple[Sig, ...], int]]:
 
 def _block_specs(sig: Sig, cfg: ModelConfig) -> Params:
     kind, is_moe = sig
+    if kind == "shared_attn":
+        return {}                # the weights live in params["shared_attn"]
     p: Params = {"norm1": L.norm_specs(cfg, cfg.d_model)}
     if kind == "attn":
         p["attn"] = (L.mla_specs(cfg) if cfg.mla is not None
@@ -94,9 +99,20 @@ def _block_specs(sig: Sig, cfg: ModelConfig) -> Params:
     elif kind == "rwkv6":
         p["norm2"] = L.norm_specs(cfg, cfg.d_model)
         p["rwkv"] = S.rwkv6_specs(cfg)
+    elif kind == "mamba2":
+        p["mamba"] = S.mamba2_specs(cfg)
     else:
-        raise unported(f"{kind!r} blocks are")
+        raise ValueError(kind)
     return p
+
+
+def _shared_block_specs(cfg: ModelConfig) -> Params:
+    """The weight-shared attention block (the reference's
+    ``_init_shared_block``): a dense attention block with its MLP."""
+    return {"norm1": L.norm_specs(cfg, cfg.d_model),
+            "attn": L.attention_specs(cfg),
+            "norm2": L.norm_specs(cfg, cfg.d_model),
+            "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff)}
 
 
 def param_specs(cfg: ModelConfig) -> Params:
@@ -114,6 +130,8 @@ def param_specs(cfg: ModelConfig) -> Params:
         specs["embed"] = {"mask_emb": L.normal(0.02, d)}
     else:
         specs["embed"] = {"tok": L.normal(d ** -0.5, v, d)}
+    if "shared_attn" in cfg.blocks():
+        specs["shared_attn"] = _shared_block_specs(cfg)
     specs["final_norm"] = L.norm_specs(cfg, d)
     if not cfg.tie_embeddings:
         specs["head"] = {"w": L.normal(d ** -0.5, d, v)}
@@ -153,6 +171,10 @@ def _draw(leaf: L.Leaf, dtype: torch.dtype, generator: torch.Generator,
         n = int(np.prod(leaf.shape[-2:]))
         line = torch.linspace(args[0], args[1], n, dtype=torch.float32,
                               device=device).view(leaf.shape[-2:])
+        return line.to(dtype).expand(leaf.shape).contiguous()
+    if kind == "log_linspace":       # over the last dim, same per layer
+        line = torch.log(torch.linspace(args[0], args[1], leaf.shape[-1],
+                                        dtype=torch.float32, device=device))
         return line.to(dtype).expand(leaf.shape).contiguous()
     raise ValueError(kind)
 
@@ -234,14 +256,18 @@ NULL_CTX = ShardCtx()
 
 def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
                  ctx: ShardCtx, positions: torch.Tensor, cache, t,
-                 absorb: bool = False):
+                 shared_p: Optional[Params] = None, absorb: bool = False):
     """Returns (x, new_cache, aux); ``new_cache`` is None without a cache
-    and ``aux`` is the MoE block's load-balance loss, None elsewhere."""
+    and ``aux`` is the MoE block's load-balance loss, None elsewhere.  A
+    ``shared_attn`` block runs the dense attention block on ``shared_p``
+    (``params["shared_attn"]``) over its own ``cache``."""
     kind, is_moe = sig
     aux = None
-    if kind == "attn":
+    if kind == "shared_attn":
+        bp = shared_p
+    if kind in ("attn", "shared_attn"):
         h = L.apply_norm(x, bp["norm1"], cfg)
-        if cfg.mla is not None:
+        if cfg.mla is not None and kind == "attn":
             att, new_cache = L.mla_block(h, bp["attn"], cfg, positions,
                                          cache, t, absorb=absorb)
         else:
@@ -279,8 +305,17 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
             cache["wkv"].copy_(new_wkv)
             cache["shift_cm"].copy_(new_cm)
             new_cache = cache
+    elif kind == "mamba2":
+        h = L.apply_norm(x, bp["norm1"], cfg)
+        y, new_state = S.mamba2_mixer(h, bp["mamba"], cfg, cache)
+        x = x + y
+        new_cache = None
+        if cache is not None:           # the states, written in place
+            for name, value in new_state.items():
+                cache[name].copy_(value)
+            new_cache = cache
     else:
-        raise unported(f"{kind!r} blocks are")
+        raise ValueError(kind)
     return ctx.cons(x, None, None), new_cache, aux
 
 
@@ -334,6 +369,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device).expand(
                 b, x.shape[1])
+    shared_p = params.get("shared_attn")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, repeat) in enumerate(find_segments(layer_sigs(cfg))):
         seg = params["segments"][si]
@@ -342,7 +378,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 uc = (None if cache is None
                       else _layer(cache[si][ui], ri, repeat))
                 x, _, aux = _apply_block(x, _layer(seg[ui], ri, repeat), sig,
-                                         cfg, ctx, positions, uc, t, absorb)
+                                         cfg, ctx, positions, uc, t, shared_p,
+                                         absorb)
                 if aux is not None:
                     aux_total = aux_total + aux
     return L.apply_norm(x, params["final_norm"], cfg), cache, aux_total
@@ -446,8 +483,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
     def block_shapes(sig: Sig) -> Dict[str, TensorShape]:
         kind, _ = sig
-        if kind == "attn":
+        if kind in ("attn", "shared_attn"):   # each application its own
             shapes = (L.mla_cache_shape if cfg.mla is not None
+                      and kind == "attn"
                       else L.attention_cache_shape)(cfg, batch, max_seq)
             return {name: TensorShape(shape, torch.float32
                                       if name.endswith("_scale")
@@ -459,7 +497,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             return {"shift_tm": TensorShape(shp["shift_tm"], cdtype),
                     "shift_cm": TensorShape(shp["shift_cm"], cdtype),
                     "wkv": TensorShape(shp["wkv"], torch.float32)}
-        raise unported(f"{kind!r} caches are")
+        if kind == "mamba2":
+            shp = S.mamba2_state_shape(cfg, batch)
+            return {"conv_xs": TensorShape(shp["conv_xs"], cdtype),
+                    "conv_bc": TensorShape(shp["conv_bc"], cdtype),
+                    "ssm": TensorShape(shp["ssm"], torch.float32)}
+        raise ValueError(kind)
 
     def make(leaf: TensorShape, repeat: int):
         shape = leaf.shape if repeat == 1 else (repeat,) + leaf.shape

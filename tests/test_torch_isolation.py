@@ -130,7 +130,7 @@ def test_pod_modules_import_without_jax_or_the_reference():
             assert "torch.distributed" not in f.read(), name
 
 
-#: the serving slice's modules: the dense, MLA and MoE families'
+#: the serving slice's modules: the dense, MLA, MoE and hybrid families'
 #: configs and the serve loop, each of which the walk above must import
 SERVE_MODULES = ("repro_torch.configs.qwen2_72b",
                  "repro_torch.configs.deepseek_coder_33b",
@@ -139,6 +139,7 @@ SERVE_MODULES = ("repro_torch.configs.qwen2_72b",
                  "repro_torch.configs.hubert_xlarge",
                  "repro_torch.configs.deepseek_v2_lite_16b",
                  "repro_torch.configs.llama4_maverick_400b",
+                 "repro_torch.configs.zamba2_2p7b",
                  "repro_torch.launch.serve", "repro_torch.models.layers",
                  "repro_torch.models.ssm", "repro_torch.models.transformer",
                  "repro_torch.models.sharding", "repro_torch.convert")

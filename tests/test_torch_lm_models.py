@@ -209,16 +209,34 @@ def test_chunked_cross_entropy_matches_the_reference(s, chunk):
 
 
 def test_unported_features_are_refused():
-    """Mamba2 / shared attention are refused, naming the ROADMAP item;
-    the dense route and the features the dense, MLA and MoE families use
-    (qkv bias, qk-norm, pad heads, the parallel block, tied embeddings,
-    the audio stub, MLA, MoE) are ported (tests/test_torch_serve_models.py,
-    tests/test_torch_moe_mla.py)."""
-    cfg = get_smoke_config("h2o-danube-3-4b")
-    for bad in (dataclasses.replace(cfg, block_pattern=("mamba2",) * 2),
-                dataclasses.replace(cfg, block_pattern=("shared_attn",) * 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
-            T.param_specs(bad)
+    """No feature is refused any more: Mamba2 and shared-attention blocks
+    on danube's smoke widths (zamba2's smoke SSM for Mamba2) give the
+    reference's leaf paths and shapes and run; the dense route and the
+    features the dense, MLA and MoE families use (qkv bias, qk-norm, pad
+    heads, the parallel block, tied embeddings, the audio stub, MLA, MoE)
+    are ported (tests/test_torch_serve_models.py,
+    tests/test_torch_moe_mla.py, tests/test_torch_mamba2.py)."""
+    cfg, jcfg = get_smoke_config("h2o-danube-3-4b"), ref_smoke(
+        "h2o-danube-3-4b")
+    ssm = get_smoke_config("zamba2-2.7b").ssm
+    jssm = ref_smoke("zamba2-2.7b").ssm
+    for pattern, fields, jfields in (
+            (("mamba2",) * 2, {"ssm": ssm}, {"ssm": jssm}),
+            (("shared_attn",) * 2, {}, {})):
+        mine = dataclasses.replace(cfg, block_pattern=pattern, **fields)
+        ref = dataclasses.replace(jcfg, block_pattern=pattern, **jfields)
+        want = [(jax_path(kp), tuple(x.shape)) for kp, x in
+                jax.tree_util.tree_leaves_with_path(jax.eval_shape(
+                    lambda key, ref=ref: JT.init_params(ref, key),
+                    jax.random.key(0)))]
+        assert [(p, leaf.shape) for p, leaf in
+                leaves_with_paths(T.param_specs(mine))] == want
+        hidden, _, _ = T.forward(T.init_params(mine, torch.Generator(),
+                                               "cpu"), mine,
+                                 {"tokens": torch.zeros(1, 4,
+                                                        dtype=torch.long)})
+        assert tuple(hidden.shape) == (1, 4, cfg.d_model)
+        assert bool(torch.isfinite(hidden.float()).all())
     for ok in (dataclasses.replace(cfg, qkv_bias=True),
                dataclasses.replace(cfg, qk_norm=True),
                dataclasses.replace(cfg, head_pad_to=8),

@@ -2,8 +2,9 @@
 (qwen2-72b, deepseek-coder-33b, command-r-plus-104b, chameleon-34b, the
 hubert-xlarge encoder), MLA + MoE (deepseek-v2-lite-16b) and interleaved
 MoE (llama4-maverick-400b-a17b; tests/test_torch_moe_mla.py holds their
-blocks), h2o-danube-3-4b's sliding-window ring and rwkv6's recurrent
-states.
+blocks), h2o-danube-3-4b's sliding-window ring, rwkv6's recurrent
+states and zamba2's Mamba2 states beside its shared block's caches
+(tests/test_torch_mamba2.py holds its blocks).
 
 The reference's parameters are carried across leaf by leaf
 (``params_from_leaves``) and its caches by ``convert.cache_from_reference``;
@@ -33,9 +34,9 @@ from repro.configs import get_config as ref_config
 from repro.configs import get_smoke_config as ref_smoke
 from repro.models import layers as JL
 from repro.models import transformer as JT
-from repro_torch.configs import (ARCH_NAMES, SHAPES, UNPORTED_ARCHS,
-                                 cell_is_runnable, config_from_dict,
-                                 cut_depth, get_config, get_smoke_config)
+from repro_torch.configs import (ARCH_NAMES, SHAPES, cell_is_runnable,
+                                 config_from_dict, cut_depth, get_config,
+                                 get_smoke_config)
 from repro_torch.convert import cache_from_reference
 from repro_torch.core.tree import leaves_with_paths
 from repro_torch.models import layers as L
@@ -43,7 +44,7 @@ from repro_torch.models import transformer as T
 
 NEW_ARCHS = ("qwen2-72b", "deepseek-coder-33b", "command-r-plus-104b",
              "chameleon-34b", "hubert-xlarge", "deepseek-v2-lite-16b",
-             "llama4-maverick-400b-a17b")
+             "llama4-maverick-400b-a17b", "zamba2-2.7b")
 SLICE_ARCHS = NEW_ARCHS + ("h2o-danube-3-4b", "rwkv6-7b")
 DECODE_ARCHS = tuple(a for a in SLICE_ARCHS if a != "hubert-xlarge")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -54,6 +55,15 @@ CACHE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 #: port, ‖int8 - bf16‖ / ‖bf16‖ over all steps (chip_smoke.py's [serve]
 #: (c) holds the card to the same gate)
 INT8_TOL = 5e-2
+#: archs whose smoke model amplifies bf16 rounding past ``TOL``: the
+#: reference's own bf16 prefill of zamba2 (four Mamba2 blocks, each a
+#: gated and normed SSM, and two applications of the shared attention
+#: block) lies 2.5-3.2 % of the largest logit from its f32 prefill on the
+#: same weights, so two packages' bf16 roundings land up to 3.6 % apart.
+#: In bf16 such an arch is held to be at least as accurate as the
+#: reference: no farther from the reference's f32 result (which the port
+#: matches in f32 to 1e-4) than the reference's bf16 result is
+BF16_AS_ACCURATE = ("zamba2-2.7b",)
 #: a MoE token whose k-th and (k+1)-th router probabilities lie closer than
 #: this may take another expert in the two packages in bf16 (a one-ulp
 #: difference in its hidden state flips the choice; deepseek's smoke model
@@ -123,6 +133,13 @@ def _pair(arch: str, dtype: str = "float32", seed: int = 0, **fields):
         pcfg, ref_leaves(params), device="cpu"))
 
 
+def _f32(cfg, params):
+    """The reference's configuration and parameters in f32 (the same
+    values: f32 holds bf16 exactly)."""
+    return (dataclasses.replace(cfg, dtype="float32"),
+            jax.tree.map(lambda a: a.astype(jnp.float32), params))
+
+
 def _inputs(cfg, b: int, s: int, seed: int):
     """The same seeded batch for both packages (tokens, or the audio
     stub's frame embeddings with a mask)."""
@@ -158,15 +175,16 @@ def test_registry_copies_the_reference_configs(arch):
         assert config_from_dict(dataclasses.asdict(theirs)) == mine
 
 
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
+@pytest.mark.parametrize("arch", ["zamba2-2.7b"])
 def test_unported_archs_are_refused_by_name(arch):
-    assert arch in REF_ARCH_NAMES
+    """No arch of the reference is refused any more: ``arch``, the last
+    one ported, and every other are registered in the reference's order,
+    and only a name the reference does not know raises ``KeyError``."""
+    assert ARCH_NAMES == REF_ARCH_NAMES
     for lookup in (get_config, get_smoke_config):
-        with pytest.raises(NotImplementedError,
-                           match=f"{arch}.*ROADMAP.md A.5"):
-            lookup(arch)
-    with pytest.raises(KeyError):
-        get_config("no-such-arch")
+        assert lookup(arch).name.startswith(arch)
+        with pytest.raises(KeyError, match="no-such-arch"):
+            lookup("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", SLICE_ARCHS)
@@ -180,11 +198,19 @@ def test_n_params_and_cells_equal_the_reference(arch):
 
 
 def test_n_params_refuses_unported_blocks():
-    cfg = get_smoke_config("qwen2-72b")
-    for bad in (dataclasses.replace(cfg, block_pattern=("mamba2",) * 2),
-                dataclasses.replace(cfg, block_pattern=("shared_attn",) * 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
-            bad.n_params()
+    """The Mamba2 and shared-attention blocks, once refused, count as the
+    reference counts them: a Mamba2 block by its projections (with the
+    default ``SSMConfig`` where the config has none), the shared block
+    once however often it is applied."""
+    cfg, ref = get_smoke_config("qwen2-72b"), ref_smoke("qwen2-72b")
+    counts = []
+    for pattern in (("mamba2",) * 2, ("shared_attn",) * 2,
+                    ("shared_attn",), ("attn", "shared_attn", "mamba2")):
+        mine = dataclasses.replace(cfg, block_pattern=pattern).n_params()
+        assert mine == dataclasses.replace(
+            ref, block_pattern=pattern).n_params()
+        counts.append(mine)
+    assert counts[1] == counts[2]
 
 
 # -- parameter leaves ------------------------------------------------------------
@@ -220,7 +246,9 @@ def test_leaf_paths_shapes_and_order_are_the_reference_s(arch, width):
 def test_prefill_logits_match_the_reference(arch, use_kernels, dtype):
     """Dense route (``use_kernels=False``; hubert's non-causal attention
     takes it either way) and kernel route (the plain versions on the
-    CPU, the reference's ref oracle)."""
+    CPU, the reference's ref oracle).  A ``BF16_AS_ACCURATE`` arch in bf16
+    is held no farther from the reference's f32 prefill than the
+    reference's bf16 prefill is."""
     (cfg, params), (pcfg, pparams) = _pair(arch, dtype,
                                            use_kernels=use_kernels)
     jb, tb = _inputs(cfg, 2, 32, seed=7)
@@ -232,6 +260,12 @@ def test_prefill_logits_match_the_reference(arch, use_kernels, dtype):
     keep = ~ties.tokens(2, 32) if dtype == "bfloat16" else np.ones(
         (2, 32), bool)
     assert keep.sum() >= 2 * 32 - 2
+    if dtype == "bfloat16" and arch in BF16_AS_ACCURATE:
+        f32 = jax.jit(JT.make_prefill_step(_f32(cfg, params)[0]))(
+            _f32(cfg, params)[1], jb)
+        assert _rel(got, f32) <= _rel(torch.from_numpy(np.asarray(
+            want, np.float32)), f32)
+        return
     assert _rel(got[torch.from_numpy(keep)], np.asarray(want)[keep]) \
         <= TOL[dtype]
 
@@ -287,8 +321,17 @@ def _decode_both(arch, dtype, steps=32, carry_at=8, b=2, max_seq=48,
     step from the reference's cache of that step (``fresh``).  Returns
     the worst step's logit errors, max-abs and normwise, of each, the
     reference's and the free run's final caches, and the (B, S) positions
-    whose free step routed a token near a tie (``_NearTies``)."""
+    whose free step routed a token near a tie (``_NearTies``).  For a
+    ``BF16_AS_ACCURATE`` arch in bf16 the reference also takes each step
+    in f32 from its bf16 cache, and ``fresh_f32`` / ``ref_f32`` are the
+    fresh and the reference's logits' distances from that, normwise over
+    all steps."""
     (cfg, params), (pcfg, pparams) = _pair(arch, dtype, **fields)
+    shadow = dtype == "bfloat16" and arch in BF16_AS_ACCURATE
+    if shadow:
+        cfg32, params32 = _f32(cfg, params)
+        jstep32 = jax.jit(JT.make_serve_step(cfg32))
+        logits = {"fresh": [], "ref": [], "f32": []}
     rng = np.random.default_rng(5)
     toks = rng.integers(0, cfg.vocab_size, (b, steps)).astype(np.int32)
     jstep = jax.jit(JT.make_serve_step(cfg))
@@ -303,11 +346,19 @@ def _decode_both(arch, dtype, steps=32, carry_at=8, b=2, max_seq=48,
         if t == carry_at:
             free = cache_from_reference(pcfg, _ref_cache_np(jcache), b,
                                         max_seq, device="cpu")
+        if shadow:
+            logits["f32"].append(np.asarray(jstep32(
+                params32, jax.tree.map(lambda a: a.astype(jnp.float32),
+                                       jcache),
+                jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))[0]))
         want, jcache = jstep(params, jcache, jnp.asarray(toks[:, t:t + 1]),
                              jnp.int32(t))
         tok = torch.from_numpy(toks[:, t:t + 1]).long()
         got, _ = step(pparams, fresh, tok, t)
         assert tuple(got.shape) == (b, 1, cfg.vocab_size)
+        if shadow:
+            logits["fresh"].append(got.float().numpy())
+            logits["ref"].append(np.asarray(want, np.float32))
         worst["fresh"] = max(worst["fresh"], _rel(got, want))
         worst["fresh_norm"] = max(worst["fresh_norm"], _norm_rel(got, want))
         if free is not None:
@@ -315,6 +366,11 @@ def _decode_both(arch, dtype, steps=32, carry_at=8, b=2, max_seq=48,
                 got, free = step(pparams, free, tok, t)
             near[:, t] = ties.tokens(b, 1)[:, 0]
             worst["free"] = max(worst["free"], _rel(got, want))
+    if shadow:
+        f32 = np.concatenate(logits["f32"], axis=1)
+        for name in ("fresh", "ref"):
+            worst[f"{name}_f32"] = _norm_rel(torch.from_numpy(
+                np.concatenate(logits[name], axis=1)), f32)
     return worst, _ref_cache_np(jcache), free, near
 
 
@@ -333,11 +389,16 @@ def test_decode_logits_and_caches_match_the_reference(arch, dtype):
     in one step from the reference's own cache, and 0.17 when two
     trajectories of bf16 states run apart, so the free run is held only
     on its caches, to ``CACHE_TOL``; a MoE model's cache rows written by a
-    free step that routed a token near a tie are left out, at most 2)."""
+    free step that routed a token near a tie are left out, at most 2).  A
+    ``BF16_AS_ACCURATE`` arch's fresh logits are held, over all steps, no
+    farther from the reference's f32 step than the reference's bf16 step
+    is."""
     worst, jcache, cache, near = _decode_both(arch, dtype)
     if dtype == "float32":
         assert worst["free"] <= TOL[dtype]
         near[:] = False
+    elif arch in BF16_AS_ACCURATE:
+        assert worst["fresh_f32"] <= worst["ref_f32"]
     else:
         assert worst["fresh_norm"] <= TOL[dtype]
         assert worst["fresh"] <= 5e-2

@@ -157,12 +157,22 @@ def test_cache_specs_equal_the_reference(arch, width, mesh_shape, quantized):
 
 
 def test_cache_specs_refuse_unported_caches():
+    """The Mamba2 and shared-attention caches, once refused, shard as the
+    reference's rules shard them, leaf by leaf: qwen2's smoke widths with
+    Mamba2 blocks (zamba2's smoke SSM) and with shared-attention blocks."""
     mesh = _FakeMesh(CACHE_MESHES["16x16"])
-    cfg = get_smoke_config("qwen2-72b")
-    for bad in (dataclasses.replace(cfg, block_pattern=("mamba2",) * 2),
-                dataclasses.replace(cfg, block_pattern=("shared_attn",) * 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
-            S.cache_specs(bad, SHAPES["decode_32k"], mesh)
+    cfg, jcfg = get_smoke_config("qwen2-72b"), j_get_smoke_config("qwen2-72b")
+    ssm = get_smoke_config("zamba2-2.7b").ssm
+    jssm = j_get_smoke_config("zamba2-2.7b").ssm
+    for pattern, fields, jfields in (
+            (("mamba2",) * 2, {"ssm": ssm}, {"ssm": jssm}),
+            (("shared_attn",) * 2, {}, {})):
+        got = _port_leaves(S.cache_specs(dataclasses.replace(
+            cfg, block_pattern=pattern, **fields), SHAPES["decode_32k"], mesh))
+        want = _ref_leaves(JS.cache_specs(dataclasses.replace(
+            jcfg, block_pattern=pattern, **jfields), j_SHAPES["decode_32k"],
+            mesh))
+        assert got == want and got
 
 
 @pytest.mark.parametrize("arch,n_layers", [("h2o-danube-3-4b", 4),
