@@ -77,8 +77,8 @@ so the script exits non-zero and prints no result line:
            best ≤ the start, and exactly one launch of the arch's kernel
            per layer per lane evaluated (for danube, every one a wgmma
            launch; for rwkv6, every one a chunked launch);
-           Then act 2 on both archs (2 searches each, coalesced == solo;
-           rwkv6's of one iteration, danube's of two)
+           Then act 2 on both archs (2 searches of one iteration each,
+           coalesced == solo)
            and act 3 on rwkv6 (the work server crashed at 40 % of its
            messages and restored == uninterrupted), each launching the
            arch's kernel once per layer per lane evaluated.  After each
@@ -112,17 +112,17 @@ so the script exits non-zero and prints no result line:
            run with checkpoint and eval cache crashed at 40 % of the
            messages and restored == uninterrupted, with cache hits; at
            the smoke size (400 stars, m = 24, 192 hosts) TCP, 8 concurrent
-           clients and the 4 chaos presets (8 concurrent TCP clients each)
-           == loopback;
+           clients and the reset_torn chaos preset (8 concurrent TCP
+           clients) == loopback;
 12. pod    the pod-mesh evaluation backend, on this card's (1, 1) mesh
            and on the production 16 x 16 mesh over 256 virtual devices:
            (a) the paper-scale grid in-process sync == in-process
            pipelined == pod (1, 1) pipelined == pod 16 x 16 pipelined,
-           no bucket shape first run after warm; (b) the paper-scale
-           server through --backend pod_mesh == [server]'s run, and at
-           the smoke size crashed at 40 % on pod 16 x 16, restored ==
-           uninterrupted == in-process; (c) [portfolio]'s 6 searches on
-           pod 16 x 16, coalesced == solo, through the eval cache cold ==
+           no bucket shape first run after warm; (b) the smoke-size
+           server through --backend pod_mesh == in-process, and crashed
+           at 40 % on pod 16 x 16, restored == uninterrupted ==
+           in-process; (c) 3 of [portfolio]'s searches on pod 16 x 16,
+           coalesced == solo, through the eval cache cold ==
            warm == cache off with no miss in the warm run; each leg
            prints its wall, peak device memory and launches;
 13. obs    the observability plane on the work server: at paper scale
@@ -203,6 +203,25 @@ so the script exits non-zero and prints no result line:
            cut to 14 blocks (12 Mamba2, 2 applications of the one shared
            block) in f32: decode == prefill within 2e-3 + 2e-3 |ref|, 2
            SIMT launches;
+15d. train  training through launch/train.py, no kernel launched (the
+           launch counters stay at 0; training is use_kernels=False, as
+           the reference's launcher) and a backward through a
+           use_kernels=True model refused: (t3) h2o-danube-3-4b at its
+           published width and depth (3.96 G parameters, bf16, remat),
+           three AdamW steps at 8 x 128, ms a step beside the bound
+           (AdamW's bytes + 8·N·tokens products) and the peak; (t1)
+           lm-100m through train.main with examples/train_lm.py's command
+           line for 100 steps, its loss falling by at least
+           TRAIN_LM_MIN_FALL, ms a step, tokens/s, peak, checkpoints at 50
+           and 100; (t2) the tiny preset crashed at step 9 (exit 42) and
+           resumed from step 8 in subprocesses, its step-12 checkpoint ==
+           an uninterrupted run's bit for bit; (t4) the tiny preset in
+           f32, one step on the card against the CPU from the same weights
+           (loss 1e-5 relative, gradients and new parameters 1e-4
+           normwise), remat giving the plain backward's bits; (t5)
+           benchmarks/train_throughput.py's three numbers on lm-100m and
+           the deterministic mode's cost; (t6) --compress-grads for 10
+           steps, the loss falling and each residual within a quantum;
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
            line, then the ``ok`` JSON line.
 """
@@ -212,6 +231,7 @@ import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import math
 import os
@@ -250,13 +270,17 @@ from repro_torch.core.subspace import basis_to_tree  # noqa: E402
 from repro_torch.core.tree import leaves_with_paths, map_tree  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import (anm_lm, baselines, fig2, fig3,  # noqa: E402
-                                multi_search, obs_postmortem, serve,
+                                multi_search, obs_postmortem, serve, train,
                                 volunteer_grid)
 from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
                                      virtual_devices)
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.obs import obs_store_path  # noqa: E402
+from repro_torch.optim.adamw import AdamW  # noqa: E402
+from repro_torch.optim.compression import (compress_grads,  # noqa: E402
+                                           init_error_state)
 from repro_torch.server import sim  # noqa: E402
 from repro_torch.server.checkpoint import LOG_NAME  # noqa: E402
 
@@ -301,9 +325,9 @@ WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16, None, "chunked"),
 #: basis over the parameters must fit on one 80 GB card)
 LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 2}
 LM_SEQ_LEN = 4096
-#: act 2's iterations per search (act 1's are 2): rwkv6's act 2 is cut to
-#: one, as danube's holds the same coalesced == solo contract over two
-LM_ACT2_ITERATIONS = {"h2o-danube-3-4b": 2, "rwkv6-7b": 1}
+#: act 2's iterations per search (act 1's are 2), cut to one for the
+#: smoke's time (danube's act 2 took 72.0 s with two)
+LM_ACT2_ITERATIONS = 1
 
 #: the reference's Fig. 2 run (JAX on a CPU, same seeds, 20 iterations):
 #: start and truth fitness, final fitness, iteration reaching 90 %
@@ -340,9 +364,12 @@ FITNESS_WIDTHS = tuple(2 ** i for i in range(3, 13))
 SERVER_FLAGS = ["--n-stars", "100000", "--n-hosts", "4096", "--m", "1000",
                 "--iterations", "2", "--snapshot-every", "5000"]
 #: the smoke-size legs that must equal loopback on the card
-SERVER_LEGS = [["--transport", "tcp"], ["--concurrent", "8"]] + [
-    ["--transport", "tcp", "--concurrent", "8", "--chaos", p]
-    for p in ("drop_dup", "reorder_delay", "reset_torn", "degraded")]
+#: (one chaos preset, for the smoke's time: reset_torn, whose
+#: resets and torn frames make the most retries; the CPU tests run all
+#: four, and [obs] (e) runs drop_dup on the card)
+SERVER_LEGS = [["--transport", "tcp"], ["--concurrent", "8"],
+               ["--transport", "tcp", "--concurrent", "8", "--chaos",
+                "reset_torn"]]
 #: the obs phase's smoke-size world: the reference's own obs smokes
 #: (src/repro/launch/dryrun.py:1071,1291), a quarter of the hosts silent
 #: from virtual time 150 so the defense has churn to see
@@ -353,6 +380,9 @@ OBS_FLAGS = ["--obs", "--stats-interval", "10"]
 OBS_CONCURRENT = ["--transport", "tcp", "--concurrent", "8"]
 #: the portfolio phase: searches, per-phase m of half of them, iterations
 PORTFOLIO = dict(n_searches=6, m=1000, iterations=2)
+#: [pod] (c)'s portfolio on the virtual 16 x 16 mesh: three of
+#: [portfolio]'s six searches (cut from six for the smoke's time)
+POD_PORTFOLIO = dict(PORTFOLIO, n_searches=3)
 #: the serve phase: layers kept at published widths per arch
 SERVE_DEPTH = {"qwen2-72b": 4, "deepseek-coder-33b": 2,
                "command-r-plus-104b": 2, "chameleon-34b": 2,
@@ -1599,11 +1629,11 @@ def _leg(dev: torch.device, fn):
     return out, wall, _counts(), peak
 
 
-def phase_pod(dev: torch.device, server_doc: dict) -> None:
+def phase_pod(dev: torch.device) -> None:
     """The pod-mesh evaluation backend on the main path: (a) the
-    paper-scale grid, (b) the work server (``[server]``'s run, then a
-    crash/restore at smoke size), (c) the portfolio and the eval cache,
-    on the (1, 1) mesh of this card and the virtual 16 × 16 mesh."""
+    paper-scale grid, (b) the work server at smoke size (then a
+    crash/restore), (c) the portfolio and the eval cache, on the (1, 1)
+    mesh of this card and the virtual 16 × 16 mesh."""
     # (a) the batched grid at paper scale, four ways
     f_batch, x0 = volunteer_grid.make_problem(n_stars=100_000, device=dev)
     top = min(volunteer_grid.FLEET.n_hosts,
@@ -1650,21 +1680,23 @@ def phase_pod(dev: torch.device, server_doc: dict) -> None:
           "bucket shape after warm")
     del inp, pod1, pod16, engines, f_batch
 
-    # (b) the work server through --backend pod_mesh at paper scale
-    flags = SERVER_FLAGS + ["--device", str(dev), "--backend", "pod_mesh"]
-    (_, res, doc), wall, counts, peak = _leg(dev, lambda: sim.run_cli(flags))
-    finishes = len(res.server.engines[0].phase_finish_s)
-    same = _same_run(doc, server_doc)
-    print(f"[pod] (b) server at paper scale, --backend pod_mesh (1 data "
+    # (b) the work server through --backend pod_mesh, at the smoke size
+    # (the paper-scale re-run of [server]'s run was cut for the
+    # smoke's time: [server] and [obs] (a) run that size)
+    flags = ["--device", str(dev)]
+    _, _, loop = sim.run_cli(flags)
+    (_, res, doc), wall, counts, peak = _leg(
+        dev, lambda: sim.run_cli(flags + ["--backend", "pod_mesh"]))
+    same = _same_run(doc, loop)
+    print(f"[pod] (b) server at the smoke size, --backend pod_mesh (1 data "
           f"shard): {doc['iteration']} iterations, best "
-          f"{doc['best_fitness']:.5f}, {doc['pool']['messages']} messages, "
+          f"{doc['best_fitness']:.6f}, {doc['pool']['messages']} messages, "
           f"wall {wall:.1f}s, peak device memory {peak:.2f} GiB, gram "
-          f"{counts['gram_launches']} ({finishes} finishes), row_mean "
-          f"{counts['row_mean_launches']}; == [server]: {same}")
-    check(same, "the pod_mesh server run differs from [server]'s")
-    check(counts["gram_launches"] == 2 * finishes > 0
-          and counts["row_mean_launches"] > 0,
-          "the pod_mesh server missed the gram or row_mean kernel")
+          f"{counts['gram_launches']}, row_mean "
+          f"{counts['row_mean_launches']}; == in-process: {same}")
+    check(same, "the pod_mesh server run differs from the in-process one")
+    check(counts["row_mean_launches"] > 0,
+          "the pod_mesh server missed the row_mean kernel")
 
     # ... and the crash/restore contract on the virtual 16 × 16 backend
     spec, fleet, f_small = sim.smoke_problem(device=dev)
@@ -1703,11 +1735,11 @@ def phase_pod(dev: torch.device, server_doc: dict) -> None:
     pod = PodMeshEvalBackend(f_batch, mesh=_virtual_pod(dev), device=dev)
     grid = multi_search.fleet(4096)
     (res, _), wall_co, counts, peak = _leg(
-        dev, lambda: multi_search.coalesced(pod, grid, x0, **PORTFOLIO))
+        dev, lambda: multi_search.coalesced(pod, grid, x0, **POD_PORTFOLIO))
     co = res.coalesce_stats
     parity, wall_solo = multi_search.solo_reruns(res, pod)
     print(f"[pod] (c) portfolio on pod 16x16 ({pod.n_shards} data shards): "
-          f"{PORTFOLIO['n_searches']} searches coalesced {wall_co:.1f}s "
+          f"{POD_PORTFOLIO['n_searches']} searches coalesced {wall_co:.1f}s "
           f"({co.dispatches} dispatches for {co.lane_blocks} blocks), solo "
           f"re-runs {wall_solo:.1f}s, coalesced == solo: {parity}; peak "
           f"device memory {peak:.2f} GiB, gram {counts['gram_launches']}, "
@@ -1940,7 +1972,7 @@ def _lm_acts(dev, arch, search, fleet, backend, n_layers):
     uninterrupted server run (None for an arch without act 3)."""
     counter = LM_KERNEL[arch][0]
     act2 = dataclasses.replace(search, anm=dataclasses.replace(
-        search.anm, max_iterations=LM_ACT2_ITERATIONS[arch]))
+        search.anm, max_iterations=LM_ACT2_ITERATIONS))
     acts = [("act 2", lambda: anm_lm.portfolio(act2, fleet, backend, 2))]
     if arch == "rwkv6-7b":
         acts.append(("act 3", lambda: anm_lm.crash_restore(search, fleet,
@@ -2720,6 +2752,350 @@ def phase_serve_hybrid(dev: torch.device) -> int:
     return launches
 
 
+#: (t1): examples/train_lm.py's full command line, 100 steps (its 200 cut
+#: in half), a checkpoint every 50
+TRAIN_LM_ARGV = ["--preset", "lm-100m", "--batch", "4", "--seq", "256",
+                 "--lr", "1e-3", "--steps", "100", "--ckpt-every", "50",
+                 "--log-every", "1"]
+#: the loss of lm-100m must fall from step 1 to step 100 by at least this
+#: (the lower edge of the prediction in PERF.md §6)
+TRAIN_LM_MIN_FALL = 4.0
+#: (t2): tests/test_system.py:111's crash and restart
+TRAIN_CRASH_ARGV = ["--preset", "tiny", "--steps", "12", "--ckpt-every", "4",
+                    "--batch", "2", "--seq", "32"]
+#: (t3): h2o-danube-3-4b at its published width and depth, the launcher's
+#: default batch and sequence, three AdamW steps at lr 1e-4: the weights
+#: are bf16 with no f32 master copy, as the reference's, and a weight of
+#: danube's init scale (d^-0.5 = 0.016) has an ulp of 1.2e-4, so a smaller
+#: step leaves most of them where they were; AdamW's first step moves
+#: every weight by about lr, and with no warm-up the loss rises over
+#: these three steps (PERF.md §6)
+TRAIN_DANUBE = dict(batch=8, seq=128, steps=3, lr=1e-4)
+#: AdamW's bytes a parameter (bf16 p and g read; f32 mu, nu read and
+#: written; bf16 p written) and the products' FLOP a parameter a token
+#: (forward 2, backward 4, remat's recompute 2)
+ADAMW_BYTES_PER_PARAM = 22
+TRAIN_FLOP_PER_PARAM_TOKEN = 8
+#: (t4): the card's f32 step against the CPU's: loss relative, gradients
+#: and new parameters normwise a leaf
+TRAIN_CPU_LOSS_TOL = 1e-5
+TRAIN_CPU_TOL = 1e-4
+#: (t5): benchmarks/train_throughput.py's shape and settings on lm-100m
+TRAIN_BENCH = dict(batch=4, seq=128, p=8, k=4, sample_scale=0.05)
+
+
+def _launch_train(argv, env, timeout=600):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=timeout)
+
+
+def _train_lines(text: str) -> list:
+    return [json.loads(line.split(" ", 1)[1]) for line in text.splitlines()
+            if line.startswith("[train] {")]
+
+
+def _sync_ms(dev, fn, iters: int) -> float:
+    """Host wall per call of ``fn`` over ``iters`` calls ended by a
+    synchronize, after one warm-up call: a training step as its caller
+    pays for it."""
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize(dev)
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def phase_train(dev: torch.device) -> None:
+    """Training on the card through src/repro_torch/launch/train.py: (t1)
+    lm-100m, (t2) crash and restart, (t3) danube at published width and
+    depth, (t4) card == CPU in f32, (t5) throughput of the step, its line
+    search and subspace Newton, (t6) int8 gradient compression.  No kernel
+    runs (training is ``use_kernels=False``, as the reference's launcher);
+    a backward through a kernel route is refused."""
+    _zero_counts()
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # (t3) first, on an empty card: danube, published width and depth
+    _free()
+    t0 = time.perf_counter()
+    cfg = get_config("h2o-danube-3-4b")
+    params = transformer.init_params(cfg, gen, dev)
+    n = transformer.count_params(params)
+    opt = AdamW(lr=TRAIN_DANUBE["lr"], weight_decay=0.01)
+    state = opt.init(params)
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_DANUBE["seq"],
+        global_batch=TRAIN_DANUBE["batch"], seed=0))
+    step = transformer.make_train_step(cfg, opt)
+    first = params["segments"][0][0]["mlp"]["w_in"][0, :4, :4].clone()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses = [], []
+    for i in range(TRAIN_DANUBE["steps"]):
+        batch = train.batch_to(data.batch(i), cfg, dev)
+        t1 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize(dev)
+        walls.append(1e3 * (time.perf_counter() - t1))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the step's two halves, timed apart once
+    t1 = time.perf_counter()
+    grads, _, _ = transformer.value_and_grad(transformer.make_loss_fn(cfg),
+                                             params, batch)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    params, state = opt.update(grads, state, params)
+    torch.cuda.synchronize(dev)
+    t3 = time.perf_counter()
+    del grads
+    moved = not torch.equal(
+        params["segments"][0][0]["mlp"]["w_in"][0, :4, :4], first)
+    tokens = TRAIN_DANUBE["batch"] * TRAIN_DANUBE["seq"]
+    adamw_ms = 1e3 * ADAMW_BYTES_PER_PARAM * n / HBM_BYTES_PER_S
+    flop_ms = 1e3 * TRAIN_FLOP_PER_PARAM_TOKEN * n * tokens / BF16_FLOPS
+    state_gb = (2 * n + 2 * n + 8 * n) / 1e9
+    ms = min(walls[1:])
+    print(f"[train] (t3) {cfg.name} {cfg.n_layers} layers (published), d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, {n:,} params bf16, remat "
+          f"{cfg.remat}; batch {TRAIN_DANUBE['batch']} x seq "
+          f"{TRAIN_DANUBE['seq']}: losses {losses}, ms a step "
+          f"{[round(w, 1) for w in walls]} (best after the first {ms:.1f}); "
+          f"bound {adamw_ms:.1f} (AdamW {ADAMW_BYTES_PER_PARAM} B a param) + "
+          f"{flop_ms:.1f} (8·N·tokens bf16) = {adamw_ms + flop_ms:.1f} ms, "
+          f"{ms / (adamw_ms + flop_ms):.2f}x (forward + backward "
+          f"{1e3 * (t2 - t1):.1f} ms, AdamW {1e3 * (t3 - t2):.1f} ms, timed "
+          f"apart once); reckoned state {state_gb:.1f} "
+          f"GB (params, grads, mu + nu), peak {peak:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(all(math.isfinite(x) for x in losses), "danube's loss is not "
+          "finite")
+    check(moved, "danube's parameters did not change")
+    del params, state, metrics, batch, step, first
+    _free()
+
+    # (t1) lm-100m through the launcher, examples/train_lm.py's command line
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        log = os.path.join(tmp, "log.jsonl")
+        out = io.StringIO()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train.main(TRAIN_LM_ARGV + ["--ckpt-dir", tmp,
+                                             "--log-file", log])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        lines = _train_lines(out.getvalue())
+        saved = sorted(d for d in os.listdir(tmp) if d.startswith("step_"))
+    loss = {x["step"]: x["loss"] for x in lines}
+    ms = float(np.median([x["ms_per_step"] for x in lines[10:]]))
+    params_line = [ln for ln in out.getvalue().splitlines()
+                   if "params=" in ln][0]
+    print(f"[train] (t1) {params_line.split('] ', 1)[1]}, bf16, "
+          f"{' '.join(TRAIN_LM_ARGV[:8])}: loss at step 1 / 50 / 100 "
+          f"{loss[1]} / {loss[50]} / {loss[100]}; {ms:.2f} ms a step "
+          f"(median of steps 11-100, a host read each step), "
+          f"{4 * 256 / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GiB, "
+          f"checkpoints {saved}; {wall:.1f}s")
+    check(rc == 0 and len(lines) == 100, "the lm-100m run did not finish")
+    check(loss[1] - loss[100] >= TRAIN_LM_MIN_FALL,
+          f"lm-100m's loss fell by {loss[1] - loss[100]:.3f}, predicted at "
+          f"least {TRAIN_LM_MIN_FALL}")
+    check(saved == ["step_00000050", "step_00000100"],
+          f"lm-100m's checkpoints: {saved}")
+
+    # (t2) crash and restart in subprocesses, resumed == uninterrupted
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_crash_") as tmp:
+        crashed, straight = (os.path.join(tmp, d) for d in ("ck", "st"))
+        r1 = _launch_train(TRAIN_CRASH_ARGV + ["--ckpt-dir", crashed,
+                                               "--crash-at", "9"], env)
+        r2 = _launch_train(TRAIN_CRASH_ARGV + ["--ckpt-dir", crashed,
+                                               "--resume"], env)
+        with contextlib.redirect_stdout(io.StringIO()):    # uninterrupted
+            rc = train.main(TRAIN_CRASH_ARGV + ["--ckpt-dir", straight])
+        check(r1.returncode == 42, f"the crashed run exited {r1.returncode}: "
+              f"{r1.stderr[-2000:]}")
+        check(r2.returncode == 0 and rc == 0,
+              f"the resumed or uninterrupted run failed: {r2.stderr[-2000:]}")
+        a = np.load(os.path.join(crashed, "step_00000012", "arrays.npz"))
+        b = np.load(os.path.join(straight, "step_00000012", "arrays.npz"))
+        same = sorted(a.files) == sorted(b.files) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a.files)
+        n_leaves = len(a.files)
+    resumed = ("resumed from step 8" in r2.stdout
+               and '"step": 12' in r2.stdout)
+    print(f"[train] (t2) tiny, crashed and resumed in subprocesses: crash "
+          f"at 9 exit {r1.returncode}; resumed from step 8 to step 12: "
+          f"{resumed}; resumed step-12 arrays.npz == an uninterrupted run's "
+          f"(in this process), {n_leaves} leaves bit for bit: {same}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(resumed, "the resumed run did not continue from step 8 to step 12")
+    check(same, "the resumed run differs from the uninterrupted one")
+
+    # (t4) the card's f32 step against the CPU's, from the same weights
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(train.PRESETS["tiny"], dtype="float32")
+    cpu_params = transformer.init_params(
+        cfg, torch.Generator().manual_seed(4), "cpu")
+    batch = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=2)).batch(0)
+    got = {}
+    for where in ("cpu", dev):
+        params = map_tree(lambda x, where=where: x.to(where), cpu_params)
+        b = train.batch_to(batch, cfg, where)
+        grads, loss, _ = transformer.value_and_grad(
+            transformer.make_loss_fn(cfg), params, b)
+        opt = AdamW(lr=3e-3, weight_decay=0.01)
+        new, _, _ = transformer.make_train_step(cfg, opt)(
+            params, opt.init(params), b)
+        got[str(where)] = (float(loss), dict(leaves_with_paths(grads)),
+                           dict(leaves_with_paths(new)))
+    remat_grads, remat_loss, _ = transformer.value_and_grad(
+        transformer.make_loss_fn(dataclasses.replace(cfg, remat=True)),
+        params, b)                      # the card's, units recomputed
+    remat_same = bool(torch.equal(remat_loss, loss)) and all(
+        torch.equal(x, got[str(dev)][1][path])
+        for path, x in leaves_with_paths(remat_grads))
+    (l_cpu, g_cpu, p_cpu), (l_dev, g_dev, p_dev) = got["cpu"], got[str(dev)]
+    g_err = p_err = 0.0
+    left_out = 0
+    for path, g in g_cpu.items():
+        gd = g_dev[path].cpu()
+        g_err = max(g_err, float(torch.linalg.norm(gd - g)
+                                 / torch.linalg.norm(g).clamp(min=1e-30)))
+        diff = (gd - g).abs()
+        keep = (g.abs() > 10 * diff) | (diff == 0)
+        left_out += int((~keep).sum())
+        want, pd = p_cpu[path][keep], p_dev[path].cpu()[keep]
+        p_err = max(p_err, float(torch.linalg.norm(pd - want)
+                                 / torch.linalg.norm(want).clamp(min=1e-30)))
+    l_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    print(f"[train] (t4) tiny f32, one step on each device from one set of "
+          f"weights: loss {l_dev:.7f} / {l_cpu:.7f} ({l_err:.2e} rel), worst "
+          f"leaf's gradient {g_err:.2e} and new parameters {p_err:.2e} "
+          f"normwise ({left_out} elements whose CPU gradient is within ten "
+          f"times its own card-CPU difference left out of the parameters); "
+          f"remat on the card gives the plain backward's bits: {remat_same}; "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(l_err <= TRAIN_CPU_LOSS_TOL and g_err <= TRAIN_CPU_TOL
+          and p_err <= TRAIN_CPU_TOL, "the card's f32 step differs from the "
+          "CPU's")
+    check(remat_same, "remat changed the card's loss or gradients")
+
+    # (t5) benchmarks/train_throughput.py's three numbers on lm-100m
+    t0 = time.perf_counter()
+    cfg = train.PRESETS["lm-100m"]
+    params = transformer.init_params(cfg, gen, dev)
+    opt = AdamW(lr=1e-3)
+    batch = train.batch_to(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_BENCH["seq"],
+        global_batch=TRAIN_BENCH["batch"])).batch(0), cfg, dev)
+    tokens = TRAIN_BENCH["batch"] * TRAIN_BENCH["seq"]
+    loss_fn = transformer.make_loss_fn(cfg)
+    box = {"p": params, "s": opt.init(params), "sn": init_state(params)}
+    adamw = train.make_full_step(cfg, opt, device=dev)
+    search = train.make_full_step(cfg, opt, line_search=TRAIN_BENCH["p"],
+                                  device=dev)
+    sn_cfg = SubspaceNewtonConfig(k=TRAIN_BENCH["k"],
+                                  sample_scale=TRAIN_BENCH["sample_scale"],
+                                  p_line=TRAIN_BENCH["p"])
+
+    def run(step):
+        def once():
+            box["p"], box["s"], _, _ = step(box["p"], box["s"], None, batch,
+                                            train.step_generator(0, 0, dev))
+        return once
+
+    def newton():
+        box["p"], box["sn"], _ = subspace_newton_step(
+            lambda q: loss_fn(q, batch)[0], box["p"], box["sn"], sn_cfg,
+            train.step_generator(0, 1, dev), device=dev)
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        torch.use_deterministic_algorithms(True)
+        ms_det = _sync_ms(dev, run(adamw), 10)
+        ms_ls = _sync_ms(dev, run(search), 5)
+        ms_sn = _sync_ms(dev, newton, 3)
+        torch.use_deterministic_algorithms(False)
+        ms_free = _sync_ms(dev, run(adamw), 10)
+        torch.use_deterministic_algorithms(True)
+        ms_det2 = _sync_ms(dev, run(adamw), 10)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    print(f"[train] (t5) lm-100m batch {TRAIN_BENCH['batch']} x seq "
+          f"{TRAIN_BENCH['seq']}: train_step_adamw {ms_det:.2f} ms, "
+          f"{tokens / ms_det * 1e3:,.0f} tok/s; + line search (p = "
+          f"{TRAIN_BENCH['p']}) {ms_ls:.2f} ms, overhead_x "
+          f"{ms_ls / ms_det:.2f}; subspace newton (k = {TRAIN_BENCH['k']}, "
+          f"sample_scale {TRAIN_BENCH['sample_scale']}, p_line "
+          f"{TRAIN_BENCH['p']}, {sn_cfg.m_resolved() + sn_cfg.p_line} "
+          f"evaluations) {ms_sn:.2f} ms, overhead_x {ms_sn / ms_det:.2f}; "
+          f"deterministic / not / deterministic {ms_det:.2f} / "
+          f"{ms_free:.2f} / {ms_det2:.2f} ms; {time.perf_counter() - t0:.1f}s")
+    del box, params, adamw, search
+    _free()
+
+    # (t6) int8 gradient compression with error feedback on lm-100m
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, gen, dev)
+    opt = AdamW(lr=1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    err = init_error_state(params)
+    data = SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_BENCH["seq"],
+        global_batch=TRAIN_BENCH["batch"]))
+    losses, worst, nonzero = [], 0.0, True
+    for i in range(10):
+        grads, loss, _ = transformer.value_and_grad(
+            loss_fn, params, train.batch_to(data.batch(i), cfg, dev))
+        quanta = [torch.max(torch.abs(g.float() + e)) / 127.0 for g, e in
+                  zip((g for _, g in leaves_with_paths(grads)),
+                      (e for _, e in leaves_with_paths(err)))]
+        grads, err = compress_grads(grads, err)
+        params, state = opt.update(grads, state, params)
+        ratio = torch.stack([torch.max(torch.abs(e)) / q.clamp(min=1e-30)
+                             for (_, e), q in zip(leaves_with_paths(err),
+                                                  quanta)])
+        worst = max(worst, float(ratio.max()))
+        nonzero = nonzero and all(bool(torch.any(e != 0))
+                                  for _, e in leaves_with_paths(err))
+        losses.append(float(loss))
+    print(f"[train] (t6) lm-100m --compress-grads, 10 steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; residual nonzero in every "
+          f"leaf every step: {nonzero}, worst max|e| / quantum "
+          f"{worst:.3f}; {time.perf_counter() - t0:.1f}s")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "the compressed run's loss did not fall")
+    check(nonzero and worst <= 1.0, "the error state is zero or past a "
+          "quantum")
+    del params, state, err, grads
+    _free()
+
+    # no kernel ran; a backward through a kernel route is refused
+    counts = _counts()
+    cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
+                              use_kernels=True)
+    params = transformer.init_params(cfg, gen, dev)
+    opt = AdamW()
+    batch = train.batch_to(SyntheticLM(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)).batch(0),
+        cfg, dev)
+    refused = _refuses(lambda: transformer.make_train_step(cfg, opt)(
+        params, opt.init(params), batch), RuntimeError)
+    print(f"[train] launches across (t1)-(t6): {counts}; a train step of "
+          f"{cfg.name} with use_kernels=True on the card refused: {refused}")
+    check(not any(counts.values()), "a kernel launched on the training path")
+    check(refused and not any(_counts().values()),
+          "a backward through the kernel route was not refused")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2743,7 +3119,7 @@ def main() -> None:
     timed("grid", phase_grid, dev)
     row_mean_launches, server_doc, server_wall = timed("server",
                                                        phase_server, dev)
-    timed("pod", phase_pod, dev, server_doc)
+    timed("pod", phase_pod, dev)
     timed("obs", phase_obs, dev, server_doc, server_wall)
     timed("portfolio", phase_portfolio, dev)
     flash = timed("flash", phase_flash, dev)
@@ -2761,6 +3137,7 @@ def main() -> None:
     serve_launches = timed("serve", phase_serve, dev)
     serve_moe_launches = timed("serve moe", phase_serve_moe, dev)
     serve_hybrid_launches = timed("serve hybrid", phase_serve_hybrid, dev)
+    timed("train", phase_train, dev)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     phase_card(dev)                 # the stamp again, near the end
     print(json.dumps({"kernels": [

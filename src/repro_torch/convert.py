@@ -19,7 +19,12 @@ object's code, so the port imports nothing of the reference:
   its f32 scales, so a decode continues from the reference's state;
 * ``subspace_state_from_reference`` — the port's subspace-Newton state
   from a reference state's (P,) f32 momentum (JAX's leaf order, which is
-  the port's) and step, so a reference run continues in the port.
+  the port's) and step, so a reference run continues in the port;
+* ``opt_state_from_reference`` / ``error_state_from_reference`` — the
+  port's AdamW state (f32 moments, int32 step) and int8-compression
+  residuals from a reference state's arrays, leaf by leaf onto the
+  parameters' devices, so a reference training run continues in the
+  port.
 
 A reference parameter tree carries across through
 ``transformer.params_from_leaves`` (leaf path -> array), for every
@@ -45,6 +50,7 @@ from repro_torch.core.grid import GridConfig
 from repro_torch.core.orchestrator.director import SearchSpec
 from repro_torch.core.subspace import SubspaceProjection
 from repro_torch.core.substrates.lm_loss import LmWorkload, batch_tensors
+from repro_torch.core.tree import leaves_with_paths, map_with_paths
 from repro_torch.models import transformer as T
 
 
@@ -163,3 +169,44 @@ def subspace_state_from_reference(state: Dict[str, Any],
     return {"momentum": torch.from_numpy(momentum).to(device),
             "step": torch.tensor(int(np.asarray(state["step"])),
                                  dtype=torch.int32, device=device)}
+
+
+def _f32_like(params: Any, tree: Any, what: str) -> Any:
+    """``tree`` (a reference tree of arrays shaped like the parameters) as
+    f32 tensors in the port's parameter structure, each on its parameter's
+    device.  Paths and shapes must be exactly the parameters'."""
+    src = dict(leaves_with_paths(tree))
+    want = dict(leaves_with_paths(params))
+    if set(src) != set(want):
+        raise ValueError(f"{what}: leaf paths differ: missing "
+                         f"{sorted(set(want) - set(src))[:5]}, unexpected "
+                         f"{sorted(set(src) - set(want))[:5]}")
+
+    def leaf(path: str, p: torch.Tensor) -> torch.Tensor:
+        x = np.array(src[path], np.float32)
+        if tuple(x.shape) != tuple(p.shape):
+            raise ValueError(f"{what} leaf {path}: shape {x.shape}, want "
+                             f"{tuple(p.shape)}")
+        return torch.from_numpy(x).to(p.device)
+
+    return map_with_paths(leaf, params)
+
+
+def opt_state_from_reference(state: Dict[str, Any],
+                             params: Any) -> Dict[str, Any]:
+    """The port's ``AdamW.init(params)``-shaped state holding a reference
+    AdamW state's values: ``mu`` and ``nu`` in f32 and ``step`` a 0-d
+    int32 tensor, on the parameters' devices.  ``state``: the reference's
+    dict as arrays (``jax.tree.map(np.asarray, state)``)."""
+    device = leaves_with_paths(params)[0][1].device
+    return {"mu": _f32_like(params, state["mu"], "mu"),
+            "nu": _f32_like(params, state["nu"], "nu"),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}
+
+
+def error_state_from_reference(error_state: Any, params: Any) -> Any:
+    """The port's ``init_error_state(params)``-shaped residuals holding a
+    reference error state's f32 values (``jax.tree.map(np.asarray,
+    error_state)``), on the parameters' devices."""
+    return _f32_like(params, error_state, "error state")

@@ -8,6 +8,11 @@ nothing falls back.  Each wrapper counts its launches in a plain integer
 path went through the kernel.  A wrapper checks
 what its kernel takes on both routes, so the CPU tests refuse what the
 card would refuse.
+
+The kernels have no backward (the reference's Pallas kernels define no
+VJP), so every wrapper refuses, on both routes, a call that autograd
+would record: grad enabled and an input that requires grad.  Training
+runs ``use_kernels=False``, as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -147,6 +152,7 @@ def gram(x: torch.Tensor, y: torch.Tensor):
         raise ValueError(f"x on {x.device}, y on {y.device}")
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("gram wants contiguous x and y")
+    _refuse_backward("gram", x, y)
     if x.device.type == "cpu":
         return ref.gram_ref(x, y)
     if x.device.type != "cuda":
@@ -189,6 +195,20 @@ def _gram_call(fn, x, y, m, c, cluster, dev):
     return fn(x.data_ptr(), y.data_ptr(), m, c, cluster, gram_stage_rows(c),
               gram_tile(m, c, cluster), ptr, ptr + 4 * c * c,
               torch._C._cuda_getCurrentRawStream(dev)), out
+
+
+def _refuse_backward(what: str, *tensors) -> None:
+    """Raise where autograd would record the call: a kernel's output has
+    no ``grad_fn``, so a backward through it would stop there and give q,
+    k, v and everything upstream no gradient, while the CPU route's plain
+    version would differentiate.  The same on both routes."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: its CUDA kernel defines none (nor "
+            f"does the reference's Pallas kernel).  Training runs with "
+            f"use_kernels=False, as the reference's launcher does; call the "
+            f"kernel under torch.no_grad() or on tensors that do not "
+            f"require grad")
 
 
 def _kernel_fn(lib: str, name: str, argtypes):
@@ -272,6 +292,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError("flash_attention wants unit stride over D")
     if window < 0:
         raise ValueError(f"window must be ≥ 0, got {window}")
+    _refuse_backward("flash_attention", q, k, v)
     on_card = _device_route("flash_attention", q, k, v)
     variant = flash_route(q, k, v)
     _check_grid(variant, q)
@@ -388,6 +409,7 @@ def wkv6(r, k, v, lw, u):
                          f"(B, T, H), got {tuple(r.shape)}")
     if not all(x.is_contiguous() for x in (r, k, v, lw, u)):
         raise ValueError("wkv6 wants contiguous r, k, v, lw and u")
+    _refuse_backward("wkv6", r, k, v, lw, u)
     if not _device_route("wkv6", r, k, v, lw, u):
         return ref.wkv6_ref(r, k, v, lw, u)[0]
     return _wkv6_launch(r, k, v, lw, u, wkv6_route(r, k, v, lw, u))
@@ -451,6 +473,7 @@ def row_mean(x: torch.Tensor) -> torch.Tensor:
     if n < 1 or k > 2**31 - 1:
         raise ValueError(f"row_mean takes N ≥ 1 and k < 2^31, got "
                          f"{tuple(x.shape)}")
+    _refuse_backward("row_mean", x)
     if not _device_route("row_mean", x):
         return ref.row_mean_ref(x)
     fn = _kernel_fn("row_mean", "row_mean_f32", _ROW_MEAN_ARGTYPES)

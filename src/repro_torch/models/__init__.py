@@ -1,6 +1,5 @@
-"""The model stack (copies of ``repro/models`` less the Mamba2 and
-shared-attention blocks, ROADMAP.md A.5), its serving steps and its
-sharding rules.
+"""The model stack (copies of ``repro/models``), its training and serving
+steps and its sharding rules.
 
 ``param_specs`` here is ``sharding.param_specs`` (a ``PartitionSpec`` per
 parameter), as in the reference; ``transformer.param_specs`` is the
@@ -19,6 +18,7 @@ from repro_torch.models.transformer import (  # noqa: F401
     make_loss_fn,
     make_prefill_step,
     make_serve_step,
+    make_train_step,
 )
 from repro_torch.models.sharding import (  # noqa: F401
     cache_specs,

@@ -1,16 +1,26 @@
 """The LM: parameters, forward with its decode caches, the chunked
-cross-entropy loss and the serving steps.
+cross-entropy loss, the training step and the serving steps.
 
-Port of ``repro/models/transformer.py`` less training
-(``make_train_step``, which needs ``optim/``): ``init_params`` /
-``forward`` (a whole sequence, or one decode step over a cache; dense or
-MLA attention, dense or MoE FFN, RWKV6, Mamba2 and the weight-shared
-attention block) / ``chunked_cross_entropy`` /
-``make_loss_fn`` / ``make_serve_step`` / ``make_prefill_step`` /
-``init_cache`` / ``count_params``.  The forward runs eagerly, layer by
-layer (the reference's ``scan`` and ``remat`` are compile-time choices
-with no eager counterpart; ``unroll`` changes nothing here).  A decode
-step writes its cache in place and returns it.
+Port of ``repro/models/transformer.py``: ``init_params`` / ``forward`` (a
+whole sequence, or one decode step over a cache; dense or MLA attention,
+dense or MoE FFN, RWKV6, Mamba2 and the weight-shared attention block) /
+``chunked_cross_entropy`` / ``make_loss_fn`` / ``make_train_step`` /
+``make_serve_step`` / ``make_prefill_step`` / ``init_cache`` /
+``count_params``.  The forward runs eagerly, layer by layer (the
+reference's ``scan`` is a compile-time choice; ``unroll`` changes nothing
+here).  A decode step writes its cache in place and returns it, under
+``no_grad``.
+
+Training differentiates the eager forward with autograd.  The
+reference's two memory choices keep their counterparts there: ``remat``
+(``jax.checkpoint`` around each unit of a segment) is
+``torch.utils.checkpoint`` around each unit, non-reentrant, when a
+parameter requires grad and there is no cache, and ``remat_policy="dots"``
+(``dots_with_no_batch_dims_saveable``) keeps the outputs of the products
+without batch dimensions (``aten.mm`` / ``aten.addmm``) and recomputes the
+rest; the chunked loss recomputes each chunk's f32 logits in the
+backward, as the reference's ``@jax.checkpoint`` chunk does, so no
+(B, S, V) logits stand for the backward.
 
 The parameters are the reference's pytree as plain nested dicts and
 lists: ``embed/tok``, ``final_norm/scale``, ``head/w``,
@@ -27,11 +37,13 @@ order, so a flat (k, P) basis maps onto them leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import leaves_with_paths, map_tree, map_with_paths
@@ -345,16 +357,69 @@ def _layer(tree, ri: int, repeat: int):
     return tree if repeat == 1 else map_tree(lambda a: a[ri], tree)
 
 
+def _unstack(tree, repeat: int) -> list:
+    """A segment's ``repeat`` layers, each a tree of views into its
+    stacked leaves, from one ``unbind`` a leaf: autograd then stacks the
+    layers' gradients into each leaf once, where one index a layer would
+    make a zero-filled leaf-sized gradient for every layer."""
+    if repeat == 1:
+        return [tree]
+    parts = []
+    map_tree(lambda a: parts.append(a.unbind(0)), tree)
+    layers = []
+    for ri in range(repeat):
+        it = iter(parts)
+        layers.append(map_tree(lambda _, it=it, ri=ri: next(it)[ri], tree))
+    return layers
+
+
+#: the products ``remat_policy="dots"`` keeps for the backward: those
+#: without batch dimensions (JAX's ``dots_with_no_batch_dims_saveable``);
+#: ``bmm`` (attention scores, MoE experts) is recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``cfg.remat_policy``: "full" recomputes everything, "dots" keeps the
+    unbatched products' outputs)."""
+    if cfg.remat_policy == "dots":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   ckpt.create_selective_checkpoint_contexts,
+                                   _dots_policy))
+    return ckpt.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _requires_grad(tree) -> bool:
+    """Whether autograd records a forward over ``tree``'s leaves."""
+    return torch.is_grad_enabled() and any(
+        p.requires_grad for _, p in leaves_with_paths(tree))
+
+
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ctx: ShardCtx = NULL_CTX, cache=None, t=None,
             absorb: bool = False, unroll: bool = False):
     """Returns (hidden, new_cache, aux).  ``cache`` given => a single-token
     decode step at position ``t`` (a Python int or a 0-d tensor, the same
-    for every row): the cache is written in place and returned.  Without
-    a cache, positions are ``batch["positions"]`` or ``arange`` per row.
-    ``absorb`` takes MLA's decode through the latent space; ``unroll``
-    (the reference's scan) changes nothing in the port.  ``aux`` is the
-    f32 sum of the MoE layers' load-balance losses (0 without MoE)."""
+    for every row): the cache is written in place and returned, so a
+    decode step never runs where autograd records it.  Without a cache,
+    positions are ``batch["positions"]`` or ``arange`` per row, and where
+    a parameter requires grad each unit of ``cfg.remat`` runs under
+    activation checkpointing.  ``absorb`` takes MLA's decode through the
+    latent space; ``unroll`` (the reference's scan) changes nothing in
+    the port.  ``aux`` is the f32 sum of the MoE layers' load-balance
+    losses (0 without MoE)."""
+    training = _requires_grad(params)
+    if cache is not None and training:
+        raise RuntimeError("a decode step writes its cache in place: run it "
+                           "under torch.no_grad() (make_serve_step does)")
+    remat = cfg.remat and training
     x = embed_inputs(params, cfg, batch)
     x = ctx.cons(x, None, None)
     b = x.shape[0]
@@ -372,16 +437,26 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     shared_p = params.get("shared_attn")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, repeat) in enumerate(find_segments(layer_sigs(cfg))):
-        seg = params["segments"][si]
-        for ri in range(repeat):
+        layers = _unstack(params["segments"][si], repeat)
+
+        def unit_apply(x, unit_params, ri, unit=unit, si=si, repeat=repeat):
+            auxes = []
             for ui, sig in enumerate(unit):
                 uc = (None if cache is None
                       else _layer(cache[si][ui], ri, repeat))
-                x, _, aux = _apply_block(x, _layer(seg[ui], ri, repeat), sig,
-                                         cfg, ctx, positions, uc, t, shared_p,
-                                         absorb)
+                x, _, aux = _apply_block(x, unit_params[ui], sig, cfg, ctx,
+                                         positions, uc, t, shared_p, absorb)
                 if aux is not None:
-                    aux_total = aux_total + aux
+                    auxes.append(aux)
+            return x, auxes
+
+        for ri in range(repeat):
+            if remat:
+                x, auxes = _remat(cfg, unit_apply, x, layers[ri], ri)
+            else:
+                x, auxes = unit_apply(x, layers[ri], ri)
+            for aux in auxes:
+                aux_total = aux_total + aux
     return L.apply_norm(x, params["final_norm"], cfg), cache, aux_total
 
 
@@ -389,29 +464,43 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # Loss
 # ---------------------------------------------------------------------------
 
+def _chunk_loss(h_c: torch.Tensor, w_head: torch.Tensor, l_c: torch.Tensor,
+                w_c: torch.Tensor):
+    """(Σ weighted CE, Σ weights) of one sequence chunk."""
+    logits = torch.matmul(h_c, w_head).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, l_c[..., None].long())[..., 0]
+    return torch.sum((lse - gold) * w_c), torch.sum(w_c)
+
+
 def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
                           labels: torch.Tensor,
                           weights: Optional[torch.Tensor] = None,
                           chunk: int = 512) -> torch.Tensor:
     """Mean cross-entropy with the logits made one sequence chunk at a time
     (live logits (B, chunk, V), not (B, S, V)).  As the reference, the
-    logits are made in the parameters' type and then widened to f32."""
+    logits are made in the parameters' type and then widened to f32, and
+    where autograd records the loss each chunk's logits are recomputed in
+    the backward (the reference's ``@jax.checkpoint`` chunk)."""
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     if weights is None:
         weights = torch.ones((b, s), dtype=torch.float32,
                              device=hidden.device)
+    recompute = torch.is_grad_enabled() and (hidden.requires_grad
+                                             or w_head.requires_grad)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
-        logits = torch.matmul(hidden[:, c0:c0 + chunk],
-                              w_head).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, c0:c0 + chunk, None].long())[..., 0]
-        w_c = weights[:, c0:c0 + chunk]
-        tot = tot + torch.sum((lse - gold) * w_c)
-        cnt = cnt + torch.sum(w_c)
+        args = (hidden[:, c0:c0 + chunk], w_head, labels[:, c0:c0 + chunk],
+                weights[:, c0:c0 + chunk])
+        if recompute:
+            lsum, wsum = ckpt.checkpoint(_chunk_loss, *args,
+                                         use_reentrant=False)
+        else:
+            lsum, wsum = _chunk_loss(*args)
+        tot = tot + lsum
+        cnt = cnt + wsum
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -431,6 +520,43 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
                                    batch["labels"], weights)
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
     return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = NULL_CTX,
+                    aux_weight: float = 0.01,
+                    unroll: bool = False) -> Callable:
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics
+    {"ce", "aux", "loss"}).  The loss's gradient with respect to every
+    leaf (JAX's leaf order; a leaf the loss does not read gets zeros, as
+    ``jax.grad`` gives it), then ``optimizer.update`` (an
+    ``optim/adamw.py`` object), which returns new parameters and may
+    consume the state in place.  ``params`` is left as it is; the metrics
+    are 0-d tensors on the device (no host read).  The forward runs with
+    no cache: autograd never meets the in-place decode path."""
+    loss_fn = make_loss_fn(cfg, ctx, aux_weight, unroll=unroll)
+
+    def train_step(params: Params, opt_state, batch: Dict[str, torch.Tensor]):
+        grads, loss, metrics = value_and_grad(loss_fn, params, batch)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, dict(metrics, loss=loss)
+
+    return train_step
+
+
+def value_and_grad(loss_fn: Callable, params: Params,
+                   batch: Dict[str, torch.Tensor]):
+    """(grads, loss, aux metrics) of ``loss_fn(params, batch) -> (loss,
+    metrics)``: the gradient a tree shaped like ``params`` (zeros where
+    the loss does not read a leaf), the loss and metrics detached."""
+    live = map_tree(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live, batch)
+        leaves = [p for _, p in leaves_with_paths(live)]
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_path = {path: torch.zeros_like(p) if g is None else g
+               for (path, p), g in zip(leaves_with_paths(params), grads)}
+    return (map_with_paths(lambda path, _: by_path[path], params),
+            loss.detach(), {k: v.detach() for k, v in metrics.items()})
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,8 @@ from repro_torch.core.substrates.lm_loss import make_lm_workload
 from repro_torch.data import sdss
 from repro_torch.kernels import ops, ref
 from repro_torch.core import subspace_newton
-from repro_torch.launch import anm_lm, baselines, fig3, multi_search, serve
+from repro_torch.launch import (anm_lm, baselines, fig3, multi_search, serve,
+                                train)
 from repro_torch.models import transformer
 from repro_torch.server import sim
 
@@ -183,6 +184,37 @@ def test_optim_modules_import_without_jax_or_the_reference():
         with open(path) as f:
             text = f.read()
         assert "import jax" not in text and "from repro." not in text, name
+
+
+#: the training slice's modules: AdamW, int8 compression, the synthetic
+#: pipeline, checkpoints and the launcher, each of which the walk above
+#: must import, none reaching for jax, ml_dtypes or the reference
+TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.compression",
+                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.launch.train", "repro_torch.models.transformer",
+                 "repro_torch.convert")
+
+
+def test_train_modules_import_without_jax_or_the_reference():
+    script = _BLOCKED_IMPORT.replace("print(len(names))",
+                                     "print(' '.join(names))").replace(
+        '("jax", "jaxlib", "repro")', '("jax", "jaxlib", "repro", "ml_dtypes")')
+    assert '"ml_dtypes")' in script
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(TRAIN_MODULES) <= set(out.stdout.split())
+    for name in TRAIN_MODULES:
+        path = os.path.join(ROOT, "src", *name.split("."))
+        path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+                else path + ".py")
+        with open(path) as f:
+            text = f.read()
+        for word in ("import jax", "from repro.", "import ml_dtypes"):
+            assert word not in text, (name, word)
 
 
 def _subspace_step_on_cpu_params():
@@ -344,6 +376,7 @@ def _multi_search_main():
     lambda: baselines.run(n_stars=50),
     lambda: fig3.run(),
     _subspace_step_on_cpu_params,
+    lambda: train.main(["--steps", "1"]),
 ])
 def test_cuda_default_does_not_fall_back_to_cpu(make):
     if torch.cuda.is_available():
