@@ -222,6 +222,20 @@ so the script exits non-zero and prints no result line:
            benchmarks/train_throughput.py's three numbers on lm-100m and
            the deterministic mode's cost; (t6) --compress-grads for 10
            steps, the loss falling and each residual within a quantum;
+15e. dryrun  launch/dryrun.py's reckoning held against real steps, no
+           kernel launched: (d1) (t3)'s danube step and (d2) (a)'s
+           qwen2-72b decode step at t = 300, each reckoned on meta tensors
+           over a (1, 1) mesh of the card and counted once more on the
+           card (one extra, untimed step of that phase): the meta trace's
+           FLOPs equal to FlopCounterMode's on the card, the reckoned
+           peak (argument + the traced peak beside it) within 15 % of the
+           step's max_memory_allocated and the traced peak within 3 % of
+           the card's rise from the step's start to its peak, and the
+           three roofline terms with their bound beside the measured step
+           and the hand-written bound (the memory term counts the eager
+           step's own op traffic, so it moves with the code);
+           (d3) --arch h2o-danube-3-4b --shape train_4k --mesh pod through
+           the command line in a subprocess, exit 0 and its JSON;
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
            line, then the ``ok`` JSON line.
 """
@@ -247,6 +261,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 from repro_torch.core.engine import identical_trajectories  # noqa: E402
 from repro_torch.core.parallel_line_search import (  # noqa: E402
@@ -264,30 +279,29 @@ from repro_torch.core.substrates.lm_loss import (  # noqa: E402
     LmLossEvalBackend, lm_model)
 from repro_torch.core.substrates.pod_mesh import \
     PodMeshEvalBackend  # noqa: E402
-from repro_torch.configs import cut_depth, get_config  # noqa: E402
+from repro_torch.configs import (ShapeConfig, cut_depth,  # noqa: E402
+                                 get_config)
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.subspace import basis_to_tree  # noqa: E402
 from repro_torch.core.tree import leaves_with_paths, map_tree  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.launch import (anm_lm, baselines, fig2, fig3,  # noqa: E402
-                                multi_search, obs_postmortem, serve, train,
-                                volunteer_grid)
-from repro_torch.launch.mesh import (make_production_mesh,  # noqa: E402
+from repro_torch.launch import (anm_lm, baselines, dryrun,  # noqa: E402
+                                fig2, fig3, multi_search, obs_postmortem,
+                                serve, train, volunteer_grid)
+from repro_torch.launch.mesh import (Mesh, make_production_mesh,  # noqa: E402
                                      virtual_devices)
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.obs import obs_store_path  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.optim.compression import (compress_grads,  # noqa: E402
                                            init_error_state)
+from repro_torch.roofline.analysis import (F32_FLOPS, HBM_BW,  # noqa: E402
+                                           PEAK_FLOPS)
 from repro_torch.server import sim  # noqa: E402
 from repro_torch.server.checkpoint import LOG_NAME  # noqa: E402
 
-#: H100 SXM published peaks (NVIDIA data sheet; dense, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 
 #: (B, S, Hq, Hkv, D, type, causal, window, k/v fused, variant) of the
 #: attention checks; the first is h2o-danube-3's full-width shape and the
@@ -846,7 +860,7 @@ def phase_fig3(dev: torch.device) -> None:
 
 
 def _bound(moved: int, flops: float, peak: float):
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_bytes = moved / HBM_BW * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -969,7 +983,7 @@ def _flash_timing(case, order, gen, dev):
     pairs = _attention_pairs(s, causal, window)
     flops = 4.0 * d * pairs * b * hq             # QKᵀ and PV, FMA = 2
     moved = (q.numel() + k.numel() + v.numel() + q.numel()) * q.element_size()
-    bound_ms, bound_by = _bound(moved, flops, BF16_FLOPS)
+    bound_ms, bound_by = _bound(moved, flops, PEAK_FLOPS)
     timed = ", ".join(f"{name} {dev_ms[name]:.4f}"
                       for name in dict.fromkeys(order))
     print(f"[flash] at ({b}, {s}, {hq}/{hkv}, {d}) {dtype}, device ms per "
@@ -1049,7 +1063,7 @@ def phase_wkv6(dev: torch.device) -> dict:
     # increment (2 C K² each), at the bf16 tensor-core peak
     n_chunks = -(-t // 16)
     flops = (4.0 * 16 * 16 * kk + 4.0 * 16 * kk * kk) * n_chunks * b * h
-    bound_ms, bound_by = _bound(moved, flops, BF16_FLOPS)
+    bound_ms, bound_by = _bound(moved, flops, PEAK_FLOPS)
     # the sequential form's 5 K² f32 FLOP per step and (b, h): the bound
     # of the serial kernel, printed beside
     seq_ms, _ = _bound(moved, 5.0 * kk * kk * t * b * h, F32_FLOPS)
@@ -2157,9 +2171,10 @@ def _refuses(fn, exc) -> bool:
     return False
 
 
-def phase_serve(dev: torch.device) -> dict:
+def phase_serve(dev: torch.device) -> tuple:
     """``launch/serve.py`` and the serve / prefill steps at published
-    widths; returns the attention and wkv6 kernels' launches in it."""
+    widths; returns the attention and wkv6 kernels' launches in it, and
+    (a)'s counted step for ``phase_dryrun``."""
     _zero_counts()
     launches = {"flash_attention": 0, "wkv6": 0}
 
@@ -2174,7 +2189,7 @@ def phase_serve(dev: torch.device) -> dict:
     blocks = sum(x.numel() * x.element_size()
                  for _, x in leaves_with_paths(params["segments"]))
     head = params["head"]["w"]
-    bound = (blocks + head.numel() * head.element_size()) / HBM_BYTES_PER_S
+    bound = (blocks + head.numel() * head.element_size()) / HBM_BW
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     leg = _serve_loop(dev, cfg, params, SERVE_MAIN, seed=1)
@@ -2192,8 +2207,15 @@ def phase_serve(dev: torch.device) -> dict:
     sample_gen = torch.Generator(device=dev).manual_seed(7)
     sample_ms = _events_ms(lambda: serve.sample_logits(logits, sample_gen),
                            iters=20)
-    del cache, logits
+    del logits
     _free()
+    # (d2)'s real step: one more at t = 300, untimed, its products counted
+    d2 = _counted_step(dev, lambda: step(params, cache, tokens, 300))
+    del d2["out"], cache
+    _free()
+    d2.update(where="[serve] (a)", cfg=cfg, optimizer=None,
+              shape=ShapeConfig("a", SERVE_MAIN["max_seq"], batch, "decode"),
+              ms=step_ms, hand_bound_ms=bound * 1e3)
     print(f"[serve] (a) qwen2-72b {len(cfg.blocks())} blocks, "
           f"{transformer.count_params(params) / 1e9:.2f} G parameters bf16: "
           f"{SERVE_MAIN['requests']} requests at batch {SERVE_MAIN['batch']} "
@@ -2311,7 +2333,7 @@ def phase_serve(dev: torch.device) -> dict:
     print(f"[serve] kernel launches in the phase: {launches}")
     check(launches["flash_attention"] > 0 and launches["wkv6"] > 0,
           f"[serve] launched no kernel: {launches}")
-    return launches
+    return launches, d2
 
 
 @contextlib.contextmanager
@@ -2410,7 +2432,7 @@ def _moe_model(arch: str, dtype: str, gen, dev):
                  for _, x in leaves_with_paths(params["segments"]))
     head = params["head"]["w"]
     head = head.numel() * head.element_size()
-    bound = (blocks + head) / HBM_BYTES_PER_S * 1e3
+    bound = (blocks + head) / HBM_BW * 1e3
     line = (f"{len(cfg.blocks())} blocks, "
             f"{transformer.count_params(params) / 1e9:.2f} G parameters "
             f"{dtype} drawn in {drawn:.1f}s (peak {peak:.2f} GiB)")
@@ -2632,7 +2654,7 @@ def phase_serve_hybrid(dev: torch.device) -> int:
                   for _, x in leaves_with_paths(params))
     batch, max_seq = SERVE_OTHER["batch"], SERVE_OTHER["max_seq"]
     caches = _cache_bytes(cfg, batch, max_seq)
-    bound = (weights + caches) / HBM_BYTES_PER_S * 1e3
+    bound = (weights + caches) / HBM_BW * 1e3
     torch.cuda.reset_peak_memory_stats(dev)
     leg = _serve_loop(dev, cfg, params, SERVE_OTHER, seed=3)
     loop_peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -2771,6 +2793,13 @@ TRAIN_CRASH_ARGV = ["--preset", "tiny", "--steps", "12", "--ckpt-every", "4",
 #: every weight by about lr, and with no warm-up the loss rises over
 #: these three steps (PERF.md §6)
 TRAIN_DANUBE = dict(batch=8, seq=128, steps=3, lr=1e-4)
+#: [dryrun]: the reckoned peak (argument + the traced peak beside it)
+#: against the card's max_memory_allocated of the same step, relative
+DRYRUN_MEM_TOL = 0.15
+#: [dryrun]: the traced peak beside the arguments against the card's rise
+#: from the step's start to its peak, relative (PERF.md §6: 15.675 GiB
+#: traced against 15.677-15.678 GiB on the card for (d1))
+DRYRUN_RISE_TOL = 0.03
 #: AdamW's bytes a parameter (bf16 p and g read; f32 mu, nu read and
 #: written; bf16 p written) and the products' FLOP a parameter a token
 #: (forward 2, backward 4, remat's recompute 2)
@@ -2808,13 +2837,14 @@ def _sync_ms(dev, fn, iters: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def phase_train(dev: torch.device) -> None:
+def phase_train(dev: torch.device) -> dict:
     """Training on the card through src/repro_torch/launch/train.py: (t1)
     lm-100m, (t2) crash and restart, (t3) danube at published width and
     depth, (t4) card == CPU in f32, (t5) throughput of the step, its line
     search and subspace Newton, (t6) int8 gradient compression.  No kernel
     runs (training is ``use_kernels=False``, as the reference's launcher);
-    a backward through a kernel route is refused."""
+    a backward through a kernel route is refused.  Returns (t3)'s counted
+    step for ``phase_dryrun``."""
     _zero_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -2855,8 +2885,16 @@ def phase_train(dev: torch.device) -> None:
     moved = not torch.equal(
         params["segments"][0][0]["mlp"]["w_in"][0, :4, :4], first)
     tokens = TRAIN_DANUBE["batch"] * TRAIN_DANUBE["seq"]
-    adamw_ms = 1e3 * ADAMW_BYTES_PER_PARAM * n / HBM_BYTES_PER_S
-    flop_ms = 1e3 * TRAIN_FLOP_PER_PARAM_TOKEN * n * tokens / BF16_FLOPS
+    adamw_ms = 1e3 * ADAMW_BYTES_PER_PARAM * n / HBM_BW
+    flop_ms = 1e3 * TRAIN_FLOP_PER_PARAM_TOKEN * n * tokens / PEAK_FLOPS
+    # (d1)'s real step: one more, untimed, its products counted
+    d1 = _counted_step(dev, lambda: step(params, state, batch))
+    params, state, metrics = d1.pop("out")
+    d1.update(where="[train] (t3)", cfg=cfg, optimizer=opt,
+              shape=ShapeConfig("t3", TRAIN_DANUBE["seq"],
+                                TRAIN_DANUBE["batch"], "train"),
+              ms=float(np.median(walls[1:])),
+              hand_bound_ms=adamw_ms + flop_ms)
     state_gb = (2 * n + 2 * n + 8 * n) / 1e9
     ms = min(walls[1:])
     print(f"[train] (t3) {cfg.name} {cfg.n_layers} layers (published), d "
@@ -3094,6 +3132,105 @@ def phase_train(dev: torch.device) -> None:
     check(not any(counts.values()), "a kernel launched on the training path")
     check(refused and not any(_counts().values()),
           "a backward through the kernel route was not refused")
+    return d1
+
+
+def _counted_step(dev: torch.device, fn) -> dict:
+    """One call of ``fn`` (a model step) on the card under
+    ``FlopCounterMode``, the peak statistics reset before it: the
+    products' FLOPs, the bytes allocated before it and at its peak, and
+    its output."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    flops = FlopCounterMode(display=False)
+    with flops:
+        out = fn()
+    torch.cuda.synchronize(dev)
+    return {"flops": flops.get_total_flops(), "allocated": before,
+            "peak": torch.cuda.max_memory_allocated(dev), "out": out}
+
+
+def phase_dryrun(dev: torch.device, d1: dict, d2: dict) -> None:
+    """launch/dryrun.py's reckoning held against real steps: (d1) [train]
+    (t3)'s danube step and (d2) [serve] (a)'s qwen2-72b decode step,
+    each reckoned on meta over a (1, 1) mesh of the card, against one
+    extra step of that phase counted on the card: the same FLOPs; the
+    reckoned peak within DRYRUN_MEM_TOL of the step's
+    max_memory_allocated, and the traced peak beside the arguments (the
+    temps and the new outputs) within DRYRUN_RISE_TOL of the card's rise
+    from the step's start to its peak; the three terms (the memory term
+    is the eager step's own op traffic) beside the measured step and the
+    hand-written bound.  Then (d3) one production cell through the
+    command line.  No kernel runs."""
+    _zero_counts()
+    mesh = Mesh((1, 1), ("data", "model"), [dev])
+    for tag, real in (("d1", d1), ("d2", d2)):
+        t0 = time.perf_counter()
+        cfg, shape = real["cfg"], real["shape"]
+        r = dryrun.reckon(cfg, shape, mesh, optimizer=real["optimizer"])
+        mem = r["memory_analysis"]
+        args, peak = mem["argument_size_bytes"], mem["peak_size_bytes"]
+        err = abs(peak - real["peak"]) / real["peak"]
+        rise = real["peak"] - real["allocated"]
+        rise_err = abs(peak - args - rise) / rise
+        bound = r["step_time_lower_bound_s"] * 1e3
+        print(f"[dryrun] ({tag}) {real['where']} {cfg.name} "
+              f"{len(cfg.blocks())} blocks {cfg.dtype}, {shape.kind} batch "
+              f"{shape.global_batch} x seq {shape.seq_len}: FLOPs traced on "
+              f"meta {r['hlo_flops']:.0f}, counted on the card "
+              f"{real['flops']}, equal {r['hlo_flops'] == real['flops']}; "
+              f"argument {args} B + traced peak beside it {peak - args} B "
+              f"(temp without the outputs {mem['temp_size_bytes']} B) = "
+              f"{peak / 2**30:.3f} GiB reckoned against "
+              f"max_memory_allocated {real['peak'] / 2**30:.3f} GiB "
+              f"({100 * err:.2f} %); the card's rise from the step's start "
+              f"(allocated {real['allocated']} B) to its peak {rise} B "
+              f"({100 * rise_err:.3f} % from the traced peak); bytes "
+              f"accessed (the eager step's op traffic) "
+              f"{r['hlo_bytes_accessed'] / 1e9:.3f} GB; compute "
+              f"{r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, collective "
+              f"{r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}: "
+              f"bound {bound:.3f} ms against {real['ms']:.3f} ms measured "
+              f"a step ({bound / real['ms']:.3f}); "
+              f"hand-written bound {real['hand_bound_ms']:.2f} ms, "
+              f"{real['ms'] / real['hand_bound_ms']:.2f}x; "
+              f"{r['traced_ops']} ops traced in {r['compile_s']}s; "
+              f"{time.perf_counter() - t0:.1f}s")
+        check(r["hlo_flops"] == real["flops"], f"({tag}) the meta trace's "
+              f"FLOPs differ from the card's")
+        check(err <= DRYRUN_MEM_TOL, f"({tag}) the reckoned peak is "
+              f"{100 * err:.1f} % from the card's")
+        check(rise_err <= DRYRUN_RISE_TOL, f"({tag}) the traced peak beside "
+              f"the arguments is {100 * rise_err:.2f} % from the card's rise")
+
+    # (d3) one production cell through the command line
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "h2o-danube-3-4b", "--shape", "train_4k", "--mesh", "pod",
+             "--out", tmp], capture_output=True, text=True, env=env,
+            cwd=ROOT, timeout=300)
+        path = os.path.join(tmp, "h2o-danube-3-4b__train_4k__16x16.json")
+        report = {}
+        if run.returncode == 0 and os.path.exists(path):
+            with open(path) as f:
+                report = json.load(f)
+    print(f"[dryrun] (d3) --arch h2o-danube-3-4b --shape train_4k --mesh "
+          f"pod: exit {run.returncode}; "
+          + (f"{report['hlo_flops']:.4e} FLOPs a device, compute "
+             f"{report['compute_s']:.4f} s, memory {report['memory_s']:.4f}"
+             f" s, collective {report['collective_s']:.4f} s, dominant "
+             f"{report['dominant']}, roofline_fraction "
+             f"{report['roofline_fraction']:.4f}; "
+             if report else "no report; ")
+          + f"{time.perf_counter() - t0:.1f}s")
+    check(bool(report), f"the production dry-run cell failed: "
+          f"{run.stdout[-1000:]} {run.stderr[-2000:]}")
+    check(not any(_counts().values()), "a kernel launched in [dryrun]")
 
 
 def main() -> None:
@@ -3134,10 +3271,11 @@ def main() -> None:
                            "h2o-danube-3-4b")
     wkv6_subspace = timed("subspace lm rwkv6", phase_subspace_lm, dev,
                           "rwkv6-7b")
-    serve_launches = timed("serve", phase_serve, dev)
+    serve_launches, d2 = timed("serve", phase_serve, dev)
     serve_moe_launches = timed("serve moe", phase_serve_moe, dev)
     serve_hybrid_launches = timed("serve hybrid", phase_serve_hybrid, dev)
-    timed("train", phase_train, dev)
+    d1 = timed("train", phase_train, dev)
+    timed("dryrun", phase_dryrun, dev, d1, d2)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     phase_card(dev)                 # the stamp again, near the end
     print(json.dumps({"kernels": [

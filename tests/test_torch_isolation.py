@@ -383,3 +383,30 @@ def test_cuda_default_does_not_fall_back_to_cpu(make):
         pytest.skip("a CUDA device is present")
     with pytest.raises((AssertionError, RuntimeError)):
         make()
+
+
+#: the dry-run slice's modules: the walk above must import each, and a
+#: whole cell reckons in an interpreter where jax and repro cannot load
+DRYRUN_MODULES = ("repro_torch.launch.dryrun", "repro_torch.roofline",
+                  "repro_torch.roofline.analysis")
+
+
+def test_dryrun_modules_import_and_reckon_without_jax_or_the_reference():
+    script = _BLOCKED_IMPORT.replace("print(len(names))", textwrap.dedent("""
+        from repro_torch.configs import SHAPES, get_smoke_config
+        from repro_torch.launch import dryrun
+        report = dryrun.reckon(get_smoke_config("h2o-danube-3-4b"),
+                               SHAPES["decode_32k"],
+                               dryrun.production_mesh(False))
+        assert report["hlo_flops"] > 0
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(' '.join(names))
+    """))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(DRYRUN_MODULES) <= set(out.stdout.split())
