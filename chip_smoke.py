@@ -77,17 +77,22 @@ so the script exits non-zero and prints no result line:
            best ≤ the start, and exactly one launch of the arch's kernel
            per layer per lane evaluated (for danube, every one a wgmma
            launch; for rwkv6, every one a chunked launch);
-           Then act 2 on both archs (2 searches of one iteration each,
-           coalesced == solo)
-           and act 3 on rwkv6 (the work server crashed at 40 % of its
-           messages and restored == uninterrupted), each launching the
-           arch's kernel once per layer per lane evaluated.  After each
-           arch, ``pod lm`` on the same workload: the LM backend's mesh
-           route over the virtual 16 x 16 mesh (θ0 and the basis stored
-           cut over model, gathered at use), act 1 pipelined == [lm]'s
-           in-process sync and pipelined, no bucket shape first run
-           after warm, and for rwkv6 the work server == act 3's
-           in-process run; the kernel once per layer per lane;
+           Then act 2 on danube (2 searches of one iteration each,
+           coalesced == solo), launching the kernel once per layer per
+           lane evaluated.  After each arch, ``pod lm`` on the same
+           workload: for danube the LM backend's mesh route over the
+           virtual 16 x 16 mesh (θ0 and the basis stored cut over model,
+           gathered at use), act 1 pipelined == [lm]'s in-process sync and
+           pipelined, no bucket shape first run after warm; for rwkv6
+           launch/dryrun.py's lm_subspace substrate smoke on [lm]'s
+           workload: sync == pipelined == pod 16 x 16 at act 1's 2
+           iterations, iterates and engine stats, the sync leg == [lm]'s
+           act-1 sync run, no new bucket shape after warm; a 2-search
+           portfolio of act 2's one iteration through the eval cache ==
+           solo, iterates and engine stats, its warm replay fully served;
+           the work server at 2 iterations in-process == pod and crashed
+           at 40 % of its messages, restored == uninterrupted; the kernel
+           once per layer per lane evaluated in every gate, all chunked;
 8b. subspace lm  subspace Newton (src/repro/launch/train.py:110's k = 6,
            sample_scale 0.02) on [lm]'s two cut models, weights and batch:
            two steps on the kernel route from one generator, each never
@@ -116,15 +121,19 @@ so the script exits non-zero and prints no result line:
            clients) == loopback;
 12. pod    the pod-mesh evaluation backend, on this card's (1, 1) mesh
            and on the production 16 x 16 mesh over 256 virtual devices:
-           (a) the paper-scale grid in-process sync == in-process
-           pipelined == pod (1, 1) pipelined == pod 16 x 16 pipelined,
-           no bucket shape first run after warm; (b) the smoke-size
-           server through --backend pod_mesh == in-process, and crashed
-           at 40 % on pod 16 x 16, restored == uninterrupted ==
-           in-process; (c) 3 of [portfolio]'s searches on pod 16 x 16,
-           coalesced == solo, through the eval cache cold ==
-           warm == cache off with no miss in the warm run; each leg
-           prints its wall, peak device memory and launches;
+           (a) launch/dryrun.py's pod_mesh substrate smoke at paper scale
+           (100k stars, 4096 hosts, m = 1000, 3 iterations), on pod 16 x
+           16 and again on pod (1, 1): in-process sync == in-process
+           pipelined == pod pipelined, iterates and engine stats, the two
+           runs' outcomes equal, no bucket shape first run after warm,
+           gram and row_mean in every leg; (b) the smoke-size server
+           through --backend pod_mesh == in-process, and crashed at 40 %
+           on pod 16 x 16, restored ==
+           uninterrupted == in-process; (c) the cached_portfolio
+           substrate smoke (3 of [portfolio]'s 6 searches) on both
+           backends: cache cold == warm == cache off, no miss in the warm
+           run, gram and row_mean in every run; each leg prints its wall,
+           peak device memory and launches;
 13. obs    the observability plane on the work server: at paper scale
            the whole plane (metrics hub, a live subscriber, full tracing,
            retention) == the unobserved server run, gram twice per
@@ -141,10 +150,13 @@ so the script exits non-zero and prints no result line:
            replays bit for bit; the stall kill is in the schedule and
            replays bit for bit; replay logs are byte-identical with
            retention and tracing on and off;
-14. portfolio act 1 of examples/multi_search.py at paper scale (stripe79
-           at 100k stars, 6 searches at m = 1000 / 500 on the 4096-host
-           fleet, 2 iterations): every search coalesced == solo, fewer
-           dispatches than per-search blocks;
+14. portfolio launch/dryrun.py's multi_search substrate smoke at paper
+           scale (100k stars, 6 searches at m = 1000 / 500 on the
+           4096-host fleet, 2 iterations) on the in-process backend and on
+           pod 16 x 16: every search coalesced == solo on both, the
+           backends equal search by search (iterates and engine stats),
+           fewer dispatches than
+           per-search blocks, gram and row_mean on both;
 15. serve  the serving path at published widths, depth cut, bf16 unless
            named: (a) qwen2-72b at 4 layers serves 16 requests at batch 8
            (prompts of 64, 64 generated, max_seq 512) through
@@ -268,13 +280,10 @@ from repro_torch.core.parallel_line_search import (  # noqa: E402
     LineSearchConfig, randomized_line_search)
 from repro_torch.core.subspace_newton import (  # noqa: E402
     SubspaceNewtonConfig, init_state, subspace_newton_step)
-from repro_torch.core.orchestrator import (FleetScheduler,  # noqa: E402
-                                           SearchDirector)
 from repro_torch.core.substrates.batched_grid import \
     BatchedVolunteerGrid  # noqa: E402
 from repro_torch.core.substrates.eval_backend import \
     InProcessEvalBackend  # noqa: E402
-from repro_torch.core.substrates.eval_cache import EvalCache  # noqa: E402
 from repro_torch.core.substrates.lm_loss import (  # noqa: E402
     LmLossEvalBackend, lm_model)
 from repro_torch.core.substrates.pod_mesh import \
@@ -288,7 +297,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch import (anm_lm, baselines, dryrun,  # noqa: E402
-                                fig2, fig3, multi_search, obs_postmortem,
+                                fig2, fig3, obs_postmortem,
                                 serve, train, volunteer_grid)
 from repro_torch.launch.mesh import (Mesh, make_production_mesh,  # noqa: E402
                                      virtual_devices)
@@ -392,11 +401,15 @@ OBS_SMOKE = ["--n-hosts", "48", "--m", "12", "--iterations", "3",
              "0.25"]
 OBS_FLAGS = ["--obs", "--stats-interval", "10"]
 OBS_CONCURRENT = ["--transport", "tcp", "--concurrent", "8"]
-#: the portfolio phase: searches, per-phase m of half of them, iterations
-PORTFOLIO = dict(n_searches=6, m=1000, iterations=2)
-#: [pod] (c)'s portfolio on the virtual 16 x 16 mesh: three of
-#: [portfolio]'s six searches (cut from six for the smoke's time)
-POD_PORTFOLIO = dict(PORTFOLIO, n_searches=3)
+#: [pod] (a): the pod_mesh substrate smoke at paper scale
+SUBSTRATE_GRID = dict(n_stars=100_000, n_hosts=4096, m=1000, iterations=3)
+#: [portfolio]: the multi_search substrate smoke at paper scale on both
+#: backends, m = 1000 / 500, [portfolio]'s 6 searches
+SUBSTRATE_PORTFOLIO = dict(n_searches=6, m=1000, iterations=2,
+                           n_stars=100_000, fleet_hosts=4096)
+#: [pod] (c): the cached_portfolio substrate smoke at the same sizes with
+#: 3 searches, cut for the smoke's time (the reference's runner takes 8)
+SUBSTRATE_CACHED = dict(SUBSTRATE_PORTFOLIO, n_searches=3)
 #: the serve phase: layers kept at published widths per arch
 SERVE_DEPTH = {"qwen2-72b": 4, "deepseek-coder-33b": 2,
                "command-r-plus-104b": 2, "chameleon-34b": 2,
@@ -1126,10 +1139,10 @@ def _lane_split_ms(backend: LmLossEvalBackend, c: torch.Tensor) -> dict:
 
 
 def phase_lm(dev: torch.device, arch: str, kernel_ms: float):
-    """Act 1 over ``arch``'s loss at published widths; returns the arch's
-    kernel launches in the two act-1 runs, and what ``[pod lm]`` reuses:
-    the workload, its search, act 1's engines and act 3's uninterrupted
-    server run (rwkv6)."""
+    """Act 1 over ``arch``'s loss at published widths (and act 2 for
+    danube); returns the arch's kernel launches in the two act-1 runs,
+    and what ``[pod lm]`` reuses: the workload, its search and act 1's
+    engines."""
     counter = LM_KERNEL[arch][0]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1211,14 +1224,15 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float):
           f"; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; phase "
           f"wall {time.perf_counter() - t0:.1f}s")
-    server = _lm_acts(dev, arch, search, fleet, backend, n_layers)
+    if arch != "rwkv6-7b":
+        _lm_act2(dev, arch, search, fleet, backend, n_layers)
     torch.cuda.synchronize()
     del backend
     gc.collect()
     torch.cuda.empty_cache()
     return launches, dict(search=search, fleet=fleet, wl=wl,
                           sync=sync["engine"], pipe=pipe["engine"],
-                          server=server, n_layers=n_layers)
+                          n_layers=n_layers)
 
 
 def _row_mean_bound(k: int, n: int):
@@ -1598,29 +1612,60 @@ def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
               "a byte-compat leg differs from (c) or retained nothing")
 
 
+def _substrate_smoke(dev: torch.device, runner, name: str, **kw):
+    """Run ``dryrun.<runner>`` on ``dev`` into a temporary directory from
+    zeroed launch counts; returns (its report, wall s, peak GiB).  Its
+    result must be True and its report must say so."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_substrate_") as out:
+        ok, wall, _, peak = _leg(dev, lambda: runner(out, device=dev, **kw))
+        with open(os.path.join(out, f"substrate_{name}.json")) as f:
+            report = json.load(f)
+    check(ok and report["parity_ok"], f"the {name} substrate smoke failed")
+    return report, wall, peak
+
+
+def _check_sdss_leg(name: str, launches: dict) -> None:
+    check(launches.get("gram_launches", 0) > 0
+          and launches.get("row_mean_launches", 0) > 0,
+          f"{name} missed the gram or row_mean kernel: {launches}")
+
+
+def _gram_row_mean(launches: dict) -> str:
+    return (f"gram {launches.get('gram_launches', 0)}, row_mean "
+            f"{launches.get('row_mean_launches', 0)}")
+
+
 def phase_portfolio(dev: torch.device) -> None:
-    """Act 1 of examples/multi_search.py at paper scale."""
-    f_batch, x0 = multi_search.make_problem(100_000, 4096, device=dev)
-    backend = InProcessEvalBackend(f_batch, device=dev)
-    grid = multi_search.fleet(4096)
-    _zero_counts()
-    res, wall_co = multi_search.coalesced(backend, grid, x0, **PORTFOLIO)
-    co = res.coalesce_stats
-    gram_co = ops.gram_launches
-    parity, wall_solo = multi_search.solo_reruns(res, backend)
-    print(f"[portfolio] {PORTFOLIO['n_searches']} searches (m = "
-          f"{PORTFOLIO['m']} / {PORTFOLIO['m'] // 2}, "
-          f"{PORTFOLIO['iterations']} iterations) on 4096 hosts, stripe79 "
-          f"at 100k stars: coalesced {wall_co:.1f}s, {res.rounds} rounds, "
-          f"{co.dispatches} dispatches for {co.lane_blocks} blocks, padded "
-          f"lanes {co.padded_lanes} vs {co.solo_padded_lanes} solo; solo "
-          f"re-runs {wall_solo:.1f}s; bit-identical: {parity}; best "
-          f"{res.best.engine.best_fitness:.5f}; gram launches (warm-up "
-          f"and coalesced) {gram_co}")
-    check(parity, "a coalesced search differs from its solo re-run")
-    check(co.dispatches < co.lane_blocks, "coalescing saved no dispatch")
-    check(all(o.engine.iteration == PORTFOLIO["iterations"]
-              for o in res.outcomes), "a portfolio search stopped early")
+    """``launch/dryrun.py``'s multi_search substrate smoke at paper scale:
+    a heterogeneous portfolio coalesced over the in-process backend and
+    over the pod backend on the virtual 16 × 16 mesh, every search ==
+    its solo run on both, the backends equal search by search."""
+    report, wall, peak = _substrate_smoke(
+        dev, dryrun.run_multi_search_smoke, "multi_search",
+        **SUBSTRATE_PORTFOLIO)
+    for name, b in report["backends"].items():
+        print(f"[portfolio] {name}: {report['n_searches']} searches (m = "
+              f"{report['m']} / {report['m'] // 2}, {b['iterations']} "
+              f"iterations) on {report['fleet_hosts']} hosts at "
+              f"{report['n_stars']} stars: {b['rounds']} rounds, "
+              f"{b['dispatches']} dispatches for {b['lane_blocks']} blocks, "
+              f"padded lanes {b['padded_lanes']} vs "
+              f"{b['solo_padded_lanes']} solo; coalesced + solo re-runs "
+              f"{b['wall_s']}s; == solo: {b['parity_per_search']}; best "
+              f"{min(b['final']):.5f}; {_gram_row_mean(b['launches'])}")
+        _check_sdss_leg(f"the {name} portfolio", b["launches"])
+        check(b["dispatches"] < b["lane_blocks"],
+              f"coalescing saved no dispatch on {name}")
+        check(all(i == SUBSTRATE_PORTFOLIO["iterations"]
+                  for i in b["iterations"]),
+              f"a {name} portfolio search stopped early")
+    check(report["cross_backend_stats_equal"],
+          "the backends' portfolios ended with different engine stats")
+    print(f"[portfolio] multi_search substrate smoke on {report['mesh']}: "
+          f"in-process == pod search by search, iterates "
+          f"{report['cross_backend_ok']} and engine stats "
+          f"{report['cross_backend_stats_equal']}; wall {wall:.1f}s, peak "
+          f"device memory {peak:.2f} GiB")
 
 
 def _virtual_pod(dev: torch.device):
@@ -1648,51 +1693,38 @@ def phase_pod(dev: torch.device) -> None:
     paper-scale grid, (b) the work server at smoke size (then a
     crash/restore), (c) the portfolio and the eval cache, on the (1, 1)
     mesh of this card and the virtual 16 × 16 mesh."""
-    # (a) the batched grid at paper scale, four ways
-    f_batch, x0 = volunteer_grid.make_problem(n_stars=100_000, device=dev)
-    top = min(volunteer_grid.FLEET.n_hosts,
-              BatchedVolunteerGrid.warm_max_bucket(1000))
-    inp = InProcessEvalBackend(f_batch, device=dev)
-    pod1 = PodMeshEvalBackend(f_batch, device=dev)
-    pod16 = PodMeshEvalBackend(f_batch, mesh=_virtual_pod(dev), device=dev)
-    shapes = {}
-    for be in (inp, pod1, pod16):
-        be.warm(8, top)
-        shapes[id(be)] = be.compile_count
-    runs = [("in-process sync", inp, False),
-            ("in-process pipelined", inp, True),
-            ("pod (1, 1) pipelined", pod1, True),
-            ("pod 16x16 pipelined", pod16, True)]
-    engines = {}
-    for name, be, pipelined in runs:
-        (engine, stats, _), wall, counts, peak = _leg(
-            dev, lambda: volunteer_grid.run(
-                f_batch, x0, m=1000, iters=3, pipelined=pipelined,
-                device=dev, backend=be))
-        engines[name] = engine
-        shards = getattr(be, "n_shards", 1)
-        print(f"[pod] (a) grid {name}: {shards} data shard(s) "
-              f"(floor {be.min_bucket}), {engine.iteration} iterations, best "
-              f"{engine.best_fitness:.5f}, wall {wall:.3f}s, peak device "
-              f"memory {peak:.2f} GiB, gram {counts['gram_launches']}, "
-              f"row_mean {counts['row_mean_launches']}, bucket_hist "
-              f"{dict(sorted(stats.bucket_hist.items()))}")
-        check(engine.iteration == 3, f"the {name} grid stopped early")
-        check(counts["gram_launches"] > 0
-              and counts["row_mean_launches"] > 0,
-              f"the {name} grid missed the gram or row_mean kernel")
-    sync = engines["in-process sync"]
-    for name, engine in engines.items():
-        check(identical_trajectories(engine, sync)
-              and engine.stats == sync.stats,
-              f"the {name} grid differs from the in-process sync grid")
-    for be in (inp, pod1, pod16):
-        check(be.compile_count == shapes[id(be)],
-              f"a bucket shape was first run mid-run on {be.min_bucket}")
-    print("[pod] (a) in-process sync == in-process pipelined == pod (1, 1) "
-          "== pod 16x16: bit-identical iterates and engine stats, no new "
-          "bucket shape after warm")
-    del inp, pod1, pod16, engines, f_batch
+    # (a) the batched grid at paper scale: the pod_mesh substrate smoke on
+    # the virtual 16 x 16 mesh, then on this card's (1, 1) mesh
+    finals = set()
+    for mesh in (None, Mesh((1, 1), ("data", "model"), [dev])):
+        report, wall, peak = _substrate_smoke(
+            dev, dryrun.run_substrate_smoke, "pod_mesh", mesh=mesh,
+            **SUBSTRATE_GRID)
+        tag = report["mesh"]
+        for leg, launches in report["launches"].items():
+            print(f"[pod] (a) {tag} grid {leg}: "
+                  f"{report['iterations'][leg]} iterations, best "
+                  f"{report['final'][leg]:.5f}, wall "
+                  f"{report['wall_s'][leg]}s, {report['batch_calls'][leg]} "
+                  f"buckets, {_gram_row_mean(launches)}")
+            _check_sdss_leg(f"the {tag} {leg} grid", launches)
+            check(report["iterations"][leg] == SUBSTRATE_GRID["iterations"],
+                  f"the {tag} {leg} grid stopped early")
+            finals.add(report["final"][leg])
+        check(report["new_shapes_after_warm"] == 0,
+              f"a bucket shape was first run after warm on {tag}")
+        check(all(report["stats_equal"].values()),
+              f"a {tag} grid leg's engine stats differ from the sync leg's: "
+              f"{report['stats_equal']}")
+        print(f"[pod] (a) pod_mesh substrate smoke ({report['n_stars']} "
+              f"stars, {report['n_hosts']} hosts, m = {report['m']}) on "
+              f"{tag} ({report['data_shards']} data shard(s), floor "
+              f"{report['min_bucket']}): in-process sync == in-process "
+              f"pipelined == pod pipelined, iterates and engine stats, no "
+              f"bucket shape first run after warm; wall {wall:.1f}s (warm "
+              f"included), peak device memory {peak:.2f} GiB")
+    check(len(finals) == 1, f"the 16x16 and (1, 1) runs ended apart: "
+          f"{sorted(finals)}")
 
     # (b) the work server through --backend pod_mesh, at the smoke size
     # (the paper-scale re-run of [server]'s run was cut for the
@@ -1744,54 +1776,44 @@ def phase_pod(dev: torch.device) -> None:
           "differs from the in-process run")
     del pod, f_small
 
-    # (c) the portfolio of [portfolio] and the eval cache on pod 16x16
-    f_batch, x0 = multi_search.make_problem(100_000, 4096, device=dev)
-    pod = PodMeshEvalBackend(f_batch, mesh=_virtual_pod(dev), device=dev)
-    grid = multi_search.fleet(4096)
-    (res, _), wall_co, counts, peak = _leg(
-        dev, lambda: multi_search.coalesced(pod, grid, x0, **POD_PORTFOLIO))
-    co = res.coalesce_stats
-    parity, wall_solo = multi_search.solo_reruns(res, pod)
-    print(f"[pod] (c) portfolio on pod 16x16 ({pod.n_shards} data shards): "
-          f"{POD_PORTFOLIO['n_searches']} searches coalesced {wall_co:.1f}s "
-          f"({co.dispatches} dispatches for {co.lane_blocks} blocks), solo "
-          f"re-runs {wall_solo:.1f}s, coalesced == solo: {parity}; peak "
-          f"device memory {peak:.2f} GiB, gram {counts['gram_launches']}, "
-          f"row_mean {counts['row_mean_launches']}")
-    check(parity, "a coalesced search on pod 16x16 differs from its solo run")
-    check(counts["row_mean_launches"] > 0, "the pod portfolio never "
-          "launched row_mean")
-    specs = [o.spec for o in res.outcomes]
-    cache = EvalCache(fingerprint="chip_smoke_pod")
-
-    def cached():
-        cold = SearchDirector(FleetScheduler(pod, grid, cache=cache),
-                              specs).run()
-        misses = cache.stats.misses
-        warm = SearchDirector(FleetScheduler(pod, grid, cache=cache),
-                              specs).run()
-        return cold, misses, warm
-    (cold, misses, warm), wall, counts, peak = _leg(dev, cached)
-    same = all(identical_trajectories(a.engine, b.engine)
-               and a.engine.stats == b.engine.stats
-               for run in (cold, warm)
-               for a, b in zip(res.outcomes, run.outcomes))
-    st = cache.stats
-    print(f"[pod] (c) eval cache on pod 16x16: cold + warm {wall:.1f}s, "
-          f"hits {st.hits}, misses {st.misses} (after cold {misses}), full "
-          f"buckets {st.full_buckets}; cold == warm == cache off: {same}; "
-          f"peak device memory {peak:.2f} GiB, gram "
-          f"{counts['gram_launches']}, row_mean "
-          f"{counts['row_mean_launches']}")
-    check(same, "a cached portfolio on pod 16x16 differs from the uncached")
-    check(st.misses == misses and st.hits > 0,
-          "the warm cached portfolio was not served from the cache")
+    # (c) the eval cache under the portfolio: the cached_portfolio smoke
+    report, wall, peak = _substrate_smoke(
+        dev, dryrun.run_cached_portfolio_smoke, "cached_portfolio",
+        **SUBSTRATE_CACHED)
+    for name, b in report["backends"].items():
+        st = b["cache"]
+        print(f"[pod] (c) eval cache, {name}: {report['n_searches']} "
+              f"searches, off / cold / warm {b['wall_s']['off']}s / "
+              f"{b['wall_s']['cold']}s / {b['wall_s']['warm']}s, hits "
+              f"{st['hits']}, misses {st['misses']}, full buckets "
+              f"{st['full_buckets']}; cold == warm == cache off: "
+              f"{b['cold_parity'] and b['warm_parity']}, warm fully "
+              f"served: {b['warm_fully_served']}; " + "; ".join(
+                  f"{run} {_gram_row_mean(n)}"
+                  for run, n in b["launches"].items()))
+        for run, launches in b["launches"].items():
+            _check_sdss_leg(f"the {name} {run} cached portfolio", launches)
+    print(f"[pod] (c) cached_portfolio substrate smoke on {report['mesh']}: "
+          f"wall {wall:.1f}s, peak device memory {peak:.2f} GiB")
 
 
 def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> None:
-    """Act 1 (and for rwkv6 the work server) over ``arch``'s loss on the
-    LM backend's mesh route over the virtual 16 × 16 mesh, reusing
-    ``[lm]``'s workload, engines and server run; frees the workload."""
+    """Danube: act 1 over its loss on the LM backend's mesh route over the
+    virtual 16 × 16 mesh, reusing ``[lm]``'s workload and engines.
+    rwkv6: ``launch/dryrun.py``'s lm_subspace substrate smoke on ``[lm]``'s
+    workload (acts 1 to 3 of the reference's runner).  Frees the
+    workload."""
+    if arch == "rwkv6-7b":
+        _pod_lm_subspace(dev, lm)
+    else:
+        _pod_lm_act1(dev, arch, lm)
+    torch.cuda.synchronize(dev)
+    lm.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pod_lm_act1(dev: torch.device, arch: str, lm: dict) -> None:
     counter = LM_KERNEL[arch][0]
     search, fleet, wl = lm["search"], lm["fleet"], lm["wl"]
     n_layers = lm["n_layers"]
@@ -1806,47 +1828,87 @@ def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> None:
           f"cut 16 ways over model; warmed {pod.compile_count} bucket "
           f"shapes in {time.perf_counter() - t0:.1f}s")
     shapes = pod.compile_count
-    legs = [("act 1 pipelined", lambda: anm_lm.run(search, fleet, pod)[0])]
-    if lm["server"] is not None:
-        legs.append(("server", lambda: sim.result_doc(
-            sim.ServerSubstrate(search, fleet, pod).run())))
-    for name, fn in legs:
-        lanes0 = pod.lanes_evaluated
-        out, wall, counts, peak = _leg(dev, fn)
-        lanes = pod.lanes_evaluated - lanes0
-        launches = counts[counter]
-        if name == "server":
-            ok = (out["history"] == lm["server"]["history"]
-                  and out["engine_stats"] == lm["server"]["engine_stats"])
-            what = (f"{out['pool']['messages']} messages, best "
-                    f"{out['best_fitness']:.6f}; == act 3's in-process "
-                    f"server run: {ok}")
-        else:
-            ok = (identical_trajectories(out, lm["sync"])
-                  and identical_trajectories(out, lm["pipe"])
-                  and out.stats == lm["sync"].stats)
-            what = (f"{out.iteration} iterations, best "
-                    f"{out.best_fitness:.6f}; == in-process sync == "
-                    f"in-process pipelined: {ok}")
-        print(f"[pod lm] {arch} {name} on pod 16x16: {what}; wall "
-              f"{wall:.1f}s, {lanes} lanes, {counter} {launches}, peak "
-              f"device memory {peak:.2f} GiB, all counts {counts}")
-        check(ok, f"{arch} {name}: the pod run differs from in-process")
-        check(launches == lanes * n_layers > 0, f"{arch} {name}: {launches} "
-              f"kernel launches for {lanes} lanes x {n_layers} layers")
-        check(counts["flash_attention_launches"]
-              == counts["flash_attention_wgmma_launches"]
-              and counts["wkv6_launches"] == counts["wkv6_chunked_launches"],
-              f"{arch} {name}: a launch left the main path's variant")
-        # the server warms its own (wider) ladder before it starts
-        check(name == "server" or pod.compile_count == shapes,
-              f"{arch}: a bucket shape was first run after warm on pod "
-              f"16x16")
-    torch.cuda.synchronize(dev)
-    lm.clear()
-    del pod, wl, search
-    gc.collect()
-    torch.cuda.empty_cache()
+    lanes0 = pod.lanes_evaluated
+    out, wall, counts, peak = _leg(
+        dev, lambda: anm_lm.run(search, fleet, pod)[0])
+    lanes = pod.lanes_evaluated - lanes0
+    launches = counts[counter]
+    ok = (identical_trajectories(out, lm["sync"])
+          and identical_trajectories(out, lm["pipe"])
+          and out.stats == lm["sync"].stats)
+    print(f"[pod lm] {arch} act 1 pipelined on pod 16x16: {out.iteration} "
+          f"iterations, best {out.best_fitness:.6f}; == in-process sync == "
+          f"in-process pipelined: {ok}; wall {wall:.1f}s, {lanes} lanes, "
+          f"{counter} {launches}, peak device memory {peak:.2f} GiB, all "
+          f"counts {counts}")
+    check(ok, f"{arch} act 1: the pod run differs from in-process")
+    check(launches == lanes * n_layers > 0, f"{arch} act 1: {launches} "
+          f"kernel launches for {lanes} lanes x {n_layers} layers")
+    check(counts["flash_attention_launches"]
+          == counts["flash_attention_wgmma_launches"]
+          and counts["wkv6_launches"] == counts["wkv6_chunked_launches"],
+          f"{arch} act 1: a launch left the main path's variant")
+    check(pod.compile_count == shapes,
+          f"{arch}: a bucket shape was first run after warm on pod 16x16")
+
+
+def _pod_lm_subspace(dev: torch.device, lm: dict) -> None:
+    """The lm_subspace substrate smoke over rwkv6 at published widths
+    (``[lm]``'s workload; the grid and the server at act 1's iterations,
+    the portfolio at act 2's): every gate's engine stats equal, the sync
+    leg == ``[lm]``'s act-1 sync run, and each gate's wkv6 launches one a
+    layer a lane evaluated, all chunked."""
+    search, n_layers, sync = lm["search"], lm["n_layers"], lm["sync"]
+    report, wall, peak = _substrate_smoke(
+        dev, dryrun.run_lm_subspace_smoke, "lm_subspace",
+        problem=(search, lm["fleet"], lm["wl"]),
+        portfolio_iterations=LM_ACT2_ITERATIONS)
+    g, o, sv = report["grid"], report["orchestrator"], report["server"]
+    print(f"[pod lm] rwkv6-7b lm_subspace substrate smoke on "
+          f"{report['mesh']} ({report['data_shards']} data shards, floor "
+          f"{report['min_bucket']}, spec_fallbacks "
+          f"{report['model_spec_fallbacks']}), P = {report['n_params']}, "
+          f"{report['iterations']} iterations (portfolio "
+          f"{o['iterations']}): warm {report['warm_s']}s; "
+          f"grid sync / pipelined / pod {g['wall_s']['sync']}s / "
+          f"{g['wall_s']['pipelined']}s / {g['wall_s']['pod']}s, best "
+          f"{g['final']['sync']:.6f}, == : {g['pipelined_parity_ok']} / "
+          f"{g['pod_parity_ok']}, new shapes after warm: "
+          f"{not report['compiles']['zero_after_warm']}; portfolio of 2 "
+          f"through the cache {o['wall_s']}s, == solo "
+          f"{o['solo_parity']}, warm fully served "
+          f"{o['warm_fully_served']} (hits {o['cache']['hits']}); server "
+          f"{sv['messages']} messages, in-process == pod "
+          f"{sv['backend_parity_ok']}, crashed and restored after "
+          f"{sv['replayed']} records == uninterrupted "
+          f"{sv['restore_parity_ok']}, {sv['wall_s']}s; wall {wall:.1f}s, "
+          f"peak device memory {peak:.2f} GiB")
+    check(report["n_layers"] == n_layers
+          and report["iterations"] == search.anm.max_iterations
+          and o["iterations"] == LM_ACT2_ITERATIONS,
+          "the lm_subspace smoke ran another workload than [lm]'s")
+    check(g["iterations"]["sync"] == sync.iteration
+          and g["final"]["sync"] == sync.best_fitness,
+          f"the lm_subspace sync leg ({g['iterations']['sync']} iterations, "
+          f"best {g['final']['sync']}) differs from [lm]'s act 1 "
+          f"({sync.iteration}, {sync.best_fitness})")
+    check(all(g["stats_equal"].values()) and all(o["solo_stats_equal"])
+          and o["warm_stats_equal"],
+          f"lm_subspace: engine stats differ: grid {g['stats_equal']}, "
+          f"solo {o['solo_stats_equal']}, warm {o['warm_stats_equal']}")
+    print(f"[pod lm] rwkv6-7b lm_subspace: sync leg == [lm]'s act-1 sync "
+          f"run; engine stats equal: grid {g['stats_equal']}, solo "
+          f"{o['solo_stats_equal']}, warm replay {o['warm_stats_equal']}")
+    for name, k in report["kernels"].items():
+        n = k["launches"]
+        print(f"[pod lm] rwkv6-7b lm_subspace {name}: {k['lanes']} lanes, "
+              f"launches {n}")
+        check(n.get("wkv6_launches", 0) == k["lanes"] * n_layers > 0,
+              f"lm_subspace {name}: {n} for {k['lanes']} lanes x "
+              f"{n_layers} layers")
+        check(n.get("wkv6_chunked_launches", 0) == n.get("wkv6_launches")
+              and not n.get("flash_attention_launches"),
+              f"lm_subspace {name}: a launch left the chunked wkv6 kernel")
 
 
 def _subspace_step(dev, loss, params, state, gen):
@@ -1980,47 +2042,30 @@ def phase_subspace_lm(dev: torch.device, arch: str) -> int:
     return launches
 
 
-def _lm_acts(dev, arch, search, fleet, backend, n_layers):
-    """Acts 2 (both archs) and 3 (rwkv6) on act 1's workload: the arch's
-    kernel once per layer per lane evaluated.  Returns act 3's
-    uninterrupted server run (None for an arch without act 3)."""
+def _lm_act2(dev, arch, search, fleet, backend, n_layers) -> None:
+    """Act 2 on act 1's workload (danube; rwkv6's acts 2 and 3 run in
+    ``[pod lm]``'s lm_subspace substrate smoke): the arch's kernel once
+    per layer per lane evaluated."""
     counter = LM_KERNEL[arch][0]
     act2 = dataclasses.replace(search, anm=dataclasses.replace(
         search.anm, max_iterations=LM_ACT2_ITERATIONS))
-    acts = [("act 2", lambda: anm_lm.portfolio(act2, fleet, backend, 2))]
-    if arch == "rwkv6-7b":
-        acts.append(("act 3", lambda: anm_lm.crash_restore(search, fleet,
-                                                           backend)))
-    server = None
-    for act, run in acts:
-        _zero_counts()
-        lanes0 = backend.lanes_evaluated
-        t0 = time.perf_counter()
-        out = run()
-        wall = time.perf_counter() - t0
-        lanes = backend.lanes_evaluated - lanes0
-        launches = getattr(ops, counter)
-        if act == "act 2":
-            res, wall_co, ok, wall_solo = out
-            co = res.coalesce_stats
-            what = (f"2 searches of {act2.anm.max_iterations} iterations "
-                    f"coalesced {wall_co:.1f}s ({co.dispatches} "
-                    f"dispatches for {co.lane_blocks} blocks), solo re-runs "
-                    f"{wall_solo:.1f}s, coalesced == solo: {ok}, best "
-                    f"{res.best.engine.best_fitness:.6f}")
-        else:
-            base, restored, crash, ok = out
-            server = base
-            what = (f"uninterrupted {base['pool']['messages']} messages, "
-                    f"{crash}, restored after replaying "
-                    f"{restored['replayed']} records, bit-identical: {ok}, "
-                    f"best {restored['best_fitness']:.6f}")
-        print(f"[lm] {arch} {act}: {what}; wall {wall:.1f}s, {lanes} lanes, "
-              f"{counter} {launches}")
-        check(ok, f"{arch} {act}: the bit-identity gate failed")
-        check(launches == lanes * n_layers > 0, f"{arch} {act}: {launches} "
-              f"kernel launches for {lanes} lanes x {n_layers} layers")
-    return server
+    _zero_counts()
+    lanes0 = backend.lanes_evaluated
+    t0 = time.perf_counter()
+    res, wall_co, ok, wall_solo = anm_lm.portfolio(act2, fleet, backend, 2)
+    wall = time.perf_counter() - t0
+    lanes = backend.lanes_evaluated - lanes0
+    launches = getattr(ops, counter)
+    co = res.coalesce_stats
+    print(f"[lm] {arch} act 2: 2 searches of {act2.anm.max_iterations} "
+          f"iterations coalesced {wall_co:.1f}s ({co.dispatches} dispatches "
+          f"for {co.lane_blocks} blocks), solo re-runs {wall_solo:.1f}s, "
+          f"coalesced == solo: {ok}, best "
+          f"{res.best.engine.best_fitness:.6f}; wall {wall:.1f}s, {lanes} "
+          f"lanes, {counter} {launches}")
+    check(ok, f"{arch} act 2: the bit-identity gate failed")
+    check(launches == lanes * n_layers > 0, f"{arch} act 2: {launches} "
+          f"kernel launches for {lanes} lanes x {n_layers} layers")
 
 
 def _norm_err(got: torch.Tensor, want: torch.Tensor):

@@ -26,19 +26,27 @@ What a report holds, per device (``n_chips`` devices of the mesh):
   also holds the elementwise work, and nothing is added here for it; and
   ``hlo_bytes_accessed``, each op's tensor inputs and outputs (views cost
   nothing; an in-place op reads and writes its operand);
-* the traced peaks ÷ the data-parallel shards the batch is cut into,
-  storages followed from the op that makes them to their release, each
-  storage once: ``temp_size_bytes``, the peak of the storages that are
-  neither argument nor output (XLA's meaning), and ``peak_size_bytes``
-  (the port's own key), the arguments plus the peak of everything live
+* the traced peaks, storages followed from the op that makes them to
+  their release, each storage once and each by its piece on one device:
+  ``temp_size_bytes``, the peak of the storages that are neither
+  argument nor output (XLA's meaning), and ``peak_size_bytes`` (the
+  port's own key), the arguments plus the peak of everything live
   beside them, outputs included: the eager step's peak, what a card's
-  ``max_memory_allocated`` reads on a one-device mesh.  The division is
-  a reckoning, not a bound, and nothing checks it on a mesh of more than
-  one device: an activation cut over ``model`` as well is counted whole
-  over ``model`` (too high), and a gradient of a leaf cut over fewer
-  axes than the batch's (a replicated norm's; any leaf's on
-  ``2x16x16``, where the batch is cut 32 ways and ``model`` 16) is
-  divided more than its layout divides it (too low);
+  ``max_memory_allocated`` reads on a one-device mesh.  Each storage is
+  divided by the devices its own layout cuts it over
+  (``TraceCounter``): a gradient by its parameter's spec (after
+  ``enforce_divisible``), the new parameters and AdamW moments by
+  theirs, the logits and decode cache by theirs, an activation by the
+  spec its ``ctx.cons`` / ``ctx.cons_spec`` names (the reference's
+  sharding constraints; ``TraceCtx``); any other storage from the
+  inputs of the op that makes it: by the most cut of those of its own
+  shape, and at least by the batch's data-parallel shards when one of
+  them carries the batch's rows, else whole.
+  An activation that only XLA's propagation would cut over ``model``
+  (no constraint names it: a projection's output, the attention
+  scores) is counted over the data shards alone, so the figure is a
+  reckoning and too high for such steps, and nothing checks it on a
+  mesh of more than one device;
 * ``collective_bytes``: ``roofline.analysis.collective_bytes_from_specs``,
   a model of the collectives from the specs (no machine here has more
   than one card), charged at the link each crosses.
@@ -48,11 +56,23 @@ The two keys named after XLA's analyses (``hlo_flops``,
 reports (``benchmarks/roofline.py::load_reports``) read these; the report's
 ``counted_by`` says how each number was counted.
 
+``--substrate X`` instead runs one substrate smoke of the registry
+(``launch/substrates.py``; ``--list-substrates`` prints it) on
+``--device`` (default ``cuda``): ``pod_mesh`` (``run_substrate_smoke``),
+``multi_search``, ``cached_portfolio`` and ``lm_subspace``, the
+reference's in-process runners, each on the production 16 × 16 mesh
+over virtual devices of the one device (the reference forces 512 host
+devices).  The four server smokes are registered but refused by name
+(exit 2) until they are ported.
+
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--mesh pod|multipod|both]
+    python -m repro_torch.launch.dryrun --list-substrates
+    python -m repro_torch.launch.dryrun --substrate pod_mesh [--device cpu]
 
-Reports go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
+Reports go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``,
+a smoke's to ``artifacts/dryrun_torch/substrate_<X>.json`` (or ``--out``).
 """
 from __future__ import annotations
 
@@ -75,6 +95,8 @@ from repro_torch.configs import (ARCH_NAMES, SHAPES, ModelConfig, ShapeConfig,
                                  cell_is_runnable, get_config)
 from repro_torch.core.tree import map_tree
 from repro_torch.launch.mesh import make_production_mesh, virtual_devices
+from repro_torch.launch.substrates import (NOT_PORTED, SUBSTRATES,
+                                           list_substrates)
 from repro_torch.models import sharding as S
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW, opt_state_specs
@@ -84,10 +106,6 @@ from repro_torch.roofline.analysis import (H100, collective_bytes_from_specs,
 
 ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                          "artifacts", "dryrun_torch")
-
-#: where the substrate smokes wait for their port
-SUBSTRATE_ITEM = ("ROADMAP A.7's substrate registry (launch/substrates.py "
-                  "and its eight runners)")
 
 META = torch.device("meta")
 
@@ -101,13 +119,22 @@ COUNTED_BY = {
     "output_size_bytes": "each output leaf's piece on one device, from the "
                          "sharding specs; donated outputs not counted",
     "temp_size_bytes": "peak of the storages neither argument nor output "
-                       "live in the meta trace, / the batch's data-parallel "
-                       "shards",
+                       "live in the meta trace, each storage's piece on "
+                       "one device (see layout_rule)",
     "peak_size_bytes": "argument_size_bytes + the peak of the storages "
                        "live beside the arguments in the meta trace (temps "
-                       "and the outputs that alias no argument), / the "
-                       "batch's data-parallel shards: the eager step's "
-                       "peak, what a card's max_memory_allocated reads",
+                       "and the outputs that alias no argument), each "
+                       "storage's piece on one device (see layout_rule): "
+                       "the eager step's peak, what a card's "
+                       "max_memory_allocated reads",
+    "layout_rule": "a gradient / the new parameters and AdamW moments / "
+                   "the logits and decode cache: ÷ the devices their specs "
+                   "cut them over; an activation a ctx.cons or "
+                   "ctx.cons_spec constraint names: ÷ that spec's; any "
+                   "other storage: from the inputs of the op that makes "
+                   "it, as the most cut of those of its own shape, and at "
+                   "least ÷ the batch's data shards when one of them "
+                   "carries the batch's rows, else whole",
     "collective_bytes": "roofline.analysis.collective_bytes_from_specs "
                         "(a model from the specs, not a measurement)",
     "compile_s": "wall of the meta trace",
@@ -159,24 +186,90 @@ class TraceCounter(TorchDispatchMode):
     once however many views alias it.  Each such storage gets a serial
     number, and the order of the allocations and releases is kept, so
     that ``peak(without=serials(outputs))`` replays it without the
-    storages the step's outputs hold."""
+    storages the step's outputs hold.
 
-    def __init__(self):
+    Each storage also has its piece on one device of ``mesh``
+    (``local_peak``).  A storage given a layout, an argument's by
+    ``exclude(tree, specs)`` or one the step makes by ``tag(tree,
+    specs)``, is cut as its spec cuts its tensor.  Any other storage is
+    laid out from the inputs of the op that makes it: cut as the most cut
+    of those of its own shape and, if one of them carries the batch's
+    rows (an argument excluded with ``rows=True``, or what is made from
+    one), at least ``row_shards`` ways; else it is whole.  On a
+    one-device mesh every piece is the whole."""
+
+    def __init__(self, mesh=None, row_shards: int = 1):
         super().__init__()
+        self.mesh = mesh
+        self.row_shards = row_shards
         self.bytes_accessed = 0
         self.live = 0
         self.ops = 0
         #: storage → its serial (None for an argument's)
         self._known: Dict[int, Optional[int]] = {}
         self._refs: Dict[int, Any] = {}
-        #: bytes, by serial
+        #: storage → (shape, its share as (local, whole) elements, rows)
+        self._layout: Dict[int, Tuple[tuple, int, int, bool]] = {}
+        #: bytes, by serial: whole and one device's piece
         self._sizes = array("q")
+        self._local = array("q")
         #: in order: serial + 1 where made, -(serial + 1) where freed
         self._events = array("q")
 
-    def exclude(self, tree) -> None:
+    def exclude(self, tree, specs=None, rows: bool = False) -> None:
+        """Name ``tree``'s tensors as arguments, laid out by ``specs``
+        (whole where None) and carrying the batch's rows if ``rows``."""
         for t in _tensors(tree):
             self._known[t.untyped_storage()._cdata] = None
+        if specs is not None:
+            self.tag(tree, specs, rows)
+
+    def tag(self, tree, specs, rows: bool = False) -> None:
+        """Lay out the storages of ``tree``'s tensors by ``specs`` (a tree
+        of one structure, or one spec for a single tensor)."""
+        if isinstance(tree, torch.Tensor):
+            tree, specs = [tree], [specs]
+        S.map_specs(lambda _, t, spec: self._state(t, spec, rows),
+                    tree, specs)
+
+    def _state(self, t: torch.Tensor, spec, rows: bool) -> None:
+        if not isinstance(t, torch.Tensor):
+            return
+        key = t.untyped_storage()._cdata
+        whole = max(t.numel(), 1)
+        local = (whole if self.mesh is None
+                 else local_numel(tuple(t.shape), spec, self.mesh))
+        self._layout[key] = (tuple(t.shape), local, whole, rows)
+        self._place(key)
+
+    def _place(self, key: int) -> None:
+        """Set a made storage's piece from its layout."""
+        s = self._known.get(key)
+        if s is not None:
+            _, local, whole, _ = self._layout[key]
+            self._local[s] = self._sizes[s] * local // whole
+
+    def _inherit(self, key: int, t: torch.Tensor, ins: list) -> None:
+        """A made storage's layout from the op's inputs (class doc): the
+        smallest share among the inputs of its own shape and, where it
+        carries the batch's rows, a ``row_shards``-th."""
+        shape = tuple(t.shape)
+        best, rows = (1, 1), False
+        for x in ins:
+            st = self._layout.get(x.untyped_storage()._cdata)
+            if st is None:
+                continue
+            rows = rows or st[3]
+            if tuple(x.shape) == shape and st[1] * best[1] < best[0] * st[2]:
+                best = (st[1], st[2])
+        if rows and best[0] * self.row_shards > best[1]:
+            best = (1, self.row_shards)
+        self._layout[key] = (shape, best[0], best[1], rows)
+
+    def piece(self, t: torch.Tensor) -> int:
+        """Bytes of one device's piece of the storage ``t`` lies in (a
+        storage the step made and has not released)."""
+        return self._local[self._known[t.untyped_storage()._cdata]]
 
     def serials(self, tree) -> frozenset:
         """The serials of the storages that ``tree``'s tensors hold (none
@@ -188,17 +281,25 @@ class TraceCounter(TorchDispatchMode):
     def peak(self, without: frozenset = frozenset()) -> int:
         """The most bytes live at once, the storages of serials
         ``without`` left out."""
+        return self._replay(self._sizes, without)
+
+    def local_peak(self, without: frozenset = frozenset()) -> int:
+        """``peak`` of the pieces on one device of the mesh."""
+        return self._replay(self._local, without)
+
+    def _replay(self, sizes, without: frozenset) -> int:
         live = peak = 0
         for e in self._events:
             s = abs(e) - 1
             if s not in without:
-                live += self._sizes[s] if e > 0 else -self._sizes[s]
+                live += sizes[s] if e > 0 else -sizes[s]
                 peak = max(peak, live)
         return peak
 
     def _release(self, key: int) -> None:
         s = self._known.pop(key)
         self._refs.pop(key, None)
+        self._layout.pop(key, None)
         self.live -= self._sizes[s]
         self._events.append(-(s + 1))
 
@@ -210,8 +311,8 @@ class TraceCounter(TorchDispatchMode):
             if t.device != META and t.numel():
                 raise RuntimeError(f"{func} made a tensor on {t.device} in "
                                    f"a dry-run, which must stay on meta")
+        ins = _tensors((args, kwargs))
         if not (_is_view(func) or func._opname in _ALLOCATE_ONLY):
-            ins = _tensors((args, kwargs))
             self.bytes_accessed += sum(t.numel() * t.element_size()
                                        for t in ins + outs)
         for t in outs:
@@ -222,11 +323,59 @@ class TraceCounter(TorchDispatchMode):
             s = len(self._sizes)
             self._known[key] = s
             self._sizes.append(st.nbytes())
+            self._local.append(st.nbytes())
             self._events.append(s + 1)
             self._refs[key] = weakref.ref(
                 st, lambda _, key=key: self._release(key))
             self.live += st.nbytes()
+            self._inherit(key, t, ins)
+            self._place(key)
         return out
+
+
+@dataclasses.dataclass
+class LayoutTags:
+    """Where a dry-run step states the layouts of the storages it makes,
+    for the ``TraceCounter`` tracing it (``counter``; outside a trace
+    nothing is recorded): activations through ``TraceCtx``'s
+    constraints, gradients through ``TaggedOptimizer``."""
+    counter: Optional[TraceCounter] = None
+
+    def tag(self, tree, specs, rows: bool = False) -> None:
+        if self.counter is not None:
+            self.counter.tag(tree, specs, rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceCtx(T.ShardCtx):
+    """The dry-run's ``ShardCtx``: each constraint the forward names
+    (the reference's ``with_sharding_constraint``) lays out the storage
+    of its tensor in the trace, and the tensor is returned unchanged, as
+    ``ShardCtx`` returns it on a real step."""
+    tags: LayoutTags = dataclasses.field(default_factory=LayoutTags)
+
+    def cons(self, x, *tail):
+        return self.cons_spec(x, ("dp",) + tail)
+
+    def cons_spec(self, x, spec_entries):
+        entries = tuple(self.dp if e == "dp" else e for e in spec_entries)
+        self.tags.tag(x, S.P(*entries), rows=True)
+        return x
+
+
+class TaggedOptimizer:
+    """The dry-run's optimiser for a train step: lays out each gradient's
+    storage by its parameter's spec, then updates as ``opt``."""
+
+    def __init__(self, opt: AdamW, pspecs, tags: LayoutTags):
+        self.opt, self.pspecs, self.tags = opt, pspecs, tags
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.tags.tag(grads, self.pspecs)
+        return self.opt.update(grads, state, params)
 
 
 # ---------------------------------------------------------------------------
@@ -280,13 +429,16 @@ def _logit_spec(cfg: ModelConfig, shape: ShapeConfig, mesh, pspecs):
 @dataclasses.dataclass
 class Cell:
     """One cell's step, its meta arguments and their specs, the specs of
-    its outputs, and ``donated``: the outputs that alias an argument under
-    ``donate``."""
+    its outputs, ``donated``: the outputs that alias an argument under
+    ``donate``, ``rows``: the arguments that carry the batch's rows, and
+    ``tags``: where the step states its layouts in a trace."""
     step: Callable
     args: tuple
     arg_specs: tuple
     out_specs: tuple
     donated: Tuple[int, ...]
+    rows: Tuple[bool, ...] = ()
+    tags: LayoutTags = dataclasses.field(default_factory=LayoutTags)
 
 
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
@@ -296,10 +448,13 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     ``mesh``: ``make_train_step`` with AdamW (``optimizer``, default
     ``AdamW(lr=1e-4)`` as the reference's), ``make_prefill_step``, or
     ``make_serve_step(absorb=mla_absorb)`` over a cache of
-    ``shape.seq_len`` positions."""
+    ``shape.seq_len`` positions.  The step runs under a ``TraceCtx`` and,
+    in training, a ``TaggedOptimizer``, so that a trace lays out its
+    activations and gradients."""
     cfg = dataclasses.replace(cfg, use_kernels=False)
     dp, tp = S.mesh_axes(mesh)
-    ctx = T.ShardCtx(mesh=mesh, dp=dp, tp=tp)
+    tags = LayoutTags()
+    ctx = TraceCtx(mesh=mesh, dp=dp, tp=tp, tags=tags)
     pspecs, _ = S.enforce_divisible(cfg, mesh,
                                     S.param_specs(cfg, mesh, fsdp=fsdp))
     params = meta_params(cfg)
@@ -309,40 +464,59 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         opt = optimizer or AdamW(lr=1e-4)
         state = opt.init(params)
         ospecs = opt_state_specs(pspecs)
-        step = T.make_train_step(cfg, opt, ctx, unroll=True)
+        step = T.make_train_step(cfg, TaggedOptimizer(opt, pspecs, tags),
+                                 ctx, unroll=True)
         metrics = {k: S.P() for k in ("aux", "ce", "loss")}
         return Cell(step, (params, state, batch), (pspecs, ospecs, bspecs),
-                    (pspecs, ospecs, metrics), donated=(0, 1))
+                    (pspecs, ospecs, metrics), donated=(0, 1),
+                    rows=(False, False, True), tags=tags)
     logits = _logit_spec(cfg, shape, mesh, pspecs)
     if shape.kind == "prefill":
         step = T.make_prefill_step(cfg, ctx, unroll=True)
         return Cell(step, (params, batch), (pspecs, bspecs), (logits,),
-                    donated=())
+                    donated=(), rows=(False, True), tags=tags)
     cache = _shape_tree(T.init_cache(cfg, shape.global_batch, shape.seq_len,
                                      as_shape=True))
     cspecs = S.cache_specs(cfg, shape, mesh)
     step = T.make_serve_step(cfg, ctx, absorb=mla_absorb, unroll=True)
     return Cell(step, (params, cache, batch["tokens"], batch["t"]),
                 (pspecs, cspecs, bspecs["tokens"], bspecs["t"]),
-                (logits, cspecs), donated=(1,))
+                (logits, cspecs), donated=(1,),
+                rows=(False, True, True, False), tags=tags)
 
 
-def trace_step(cell: Cell) -> dict:
+def trace_step(cell: Cell, mesh=None, row_shards: int = 1) -> dict:
     """Run ``cell``'s step once on meta under ``FlopCounterMode`` and a
-    ``TraceCounter``: its global FLOPs, bytes accessed, the peak of the
-    bytes live beside the arguments (``peak_live``) and of those neither
-    argument nor output (``peak_temp``), ops, its outputs and the wall."""
-    counter = TraceCounter()
-    counter.exclude(cell.args)
+    ``TraceCounter`` over ``mesh`` (None: one device): its global FLOPs,
+    bytes accessed, the peak of the bytes live beside the arguments
+    (``peak_live``) and of those neither argument nor output
+    (``peak_temp``), each also of one device's pieces (``local_live``,
+    ``local_temp``), ops, its outputs, the counter and the wall.  The
+    arguments and outputs are laid out by their specs, the arguments in
+    ``cell.rows`` carry the batch's rows, cut ``row_shards`` ways."""
+    counter = TraceCounter(mesh, row_shards)
+    rows = cell.rows or (False,) * len(cell.args)
+    for a, spec, r in zip(cell.args, cell.arg_specs, rows):
+        counter.exclude(a, spec, rows=r)
     flops = FlopCounterMode(display=False)
+    cell.tags.counter = counter
     t0 = time.perf_counter()
-    with flops, counter:
-        out = cell.step(*cell.args)
+    try:
+        with flops, counter:
+            out = cell.step(*cell.args)
+    finally:
+        cell.tags.counter = None
+    outs = out if isinstance(out, tuple) else (out,)
+    for o, spec in zip(outs, cell.out_specs):
+        counter.tag(o, spec)
+    held = counter.serials(out)
     return {"flops": flops.get_total_flops(),
             "bytes_accessed": counter.bytes_accessed,
             "peak_live": counter.peak(),
-            "peak_temp": counter.peak(without=counter.serials(out)),
-            "ops": counter.ops, "out": out,
+            "peak_temp": counter.peak(without=held),
+            "local_live": counter.local_peak(),
+            "local_temp": counter.local_peak(without=held),
+            "ops": counter.ops, "out": out, "counter": counter,
             "seconds": time.perf_counter() - t0}
 
 
@@ -356,7 +530,7 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                       mla_absorb=mla_absorb, fsdp=fsdp)
     t_lower = time.perf_counter() - t0
     n_chips = mesh.size
-    run = trace_step(cell)
+    run = trace_step(cell, mesh, _batch_shards(shape, mesh))
     out = run["out"]
     outs = out if isinstance(out, tuple) else (out,)
     out_bytes = sum(local_bytes(o, s, mesh)
@@ -364,7 +538,6 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                     if not (donate and i in cell.donated))
     arg_bytes = sum(local_bytes(a, s, mesh)
                     for a, s in zip(cell.args, cell.arg_specs))
-    shards = _batch_shards(shape, mesh)
     coll = collective_bytes_from_specs(cfg, shape, mesh, cell.arg_specs[0])
     flops = run["flops"] / n_chips
     bytes_accessed = run["bytes_accessed"] / n_chips
@@ -379,9 +552,9 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         "memory_analysis": {
             "argument_size_bytes": arg_bytes,
             "output_size_bytes": out_bytes,
-            "temp_size_bytes": run["peak_temp"] // shards,
+            "temp_size_bytes": run["local_temp"],
             "generated_code_size_bytes": None,
-            "peak_size_bytes": arg_bytes + run["peak_live"] // shards,
+            "peak_size_bytes": arg_bytes + run["local_live"],
         },
         "hlo_flops": flops,
         "hlo_bytes_accessed": bytes_accessed,
@@ -466,6 +639,577 @@ def run_cell(arch, shape_name, multi_pod, out_dir, skip_existing=False,
         return False
 
 
+# ---------------------------------------------------------------------------
+# The substrate smokes (launch/substrates.py): the in-process runners
+# ---------------------------------------------------------------------------
+
+def _pod_mesh(device, mesh=None):
+    """``mesh``, or the production (16, 16) mesh over 256 virtual devices
+    that are all ``device`` (the reference forces 512 host devices)."""
+    if mesh is not None:
+        return mesh
+    return make_production_mesh(devices=virtual_devices(256, device))
+
+
+def _mesh_tag(mesh) -> str:
+    return "x".join(str(n) for n in mesh.shape.values())
+
+
+def _launches() -> Dict[str, int]:
+    """Every kernel wrapper's launch count (``kernels/ops.py``)."""
+    from repro_torch.kernels import ops
+    return {name: value for name, value in vars(ops).items()
+            if name.endswith("_launches") and isinstance(value, int)}
+
+
+def _since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches since ``before``, counters that moved only."""
+    now = _launches()
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
+def _timed(fn):
+    """(fn(), wall seconds, its launches)."""
+    before = _launches()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0, _since(before)
+
+
+def _write(out_dir: str, name: str, report: dict) -> str:
+    path = os.path.join(out_dir, f"substrate_{name}.json")
+    with open(path, "w") as f:
+        json.dump(report, f, indent=2)
+    return path
+
+
+def _sdss_problem(name: str, seed: int, n_stars: int, device):
+    """(f_batch, x0) of the reference's substrate smokes: the stripe
+    ``name`` from ``seed`` and a start drawn around its truth from
+    ``default_rng(3)``."""
+    import numpy as np
+    from repro_torch.data import sdss
+
+    stripe = sdss.make_stripe(name, n_stars=n_stars, seed=seed)
+    f_batch, _ = sdss.make_fitness(stripe, device=device)
+    rng = np.random.default_rng(3)
+    x0 = np.clip(stripe.truth + rng.normal(0, 0.2, 8).astype(np.float32),
+                 sdss.LO, sdss.HI)
+    return f_batch, x0
+
+
+def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
+                        n_stars: int = 500, n_hosts: int = 512, *,
+                        device="cuda", mesh=None) -> bool:
+    """Pod-mesh + pipelined substrate smoke (``--substrate pod_mesh``).
+
+    Runs the SAME batched-grid workload three ways on ``device`` — the
+    in-process backend with the synchronous tick loop (the reference),
+    in-process PIPELINED, and ``PodMeshEvalBackend`` pipelined with every
+    bucket split over the ``data`` axis of ``mesh`` (default: the
+    production 16 × 16 mesh over virtual devices) — and requires
+    identical committed centers, fitness history and iteration counts
+    across all three (DESIGN.md §6–§7).  Both backends are warmed over
+    the whole bucket ladder first, so no timed leg runs a new bucket
+    shape.  Writes ``substrate_pod_mesh.json`` into ``out_dir`` (the
+    reference's keys, and ``device``, each leg's kernel launches, its
+    new bucket shapes and ``stats_equal``: whether each leg's final
+    engine stats equal the sync leg's); returns pass/fail (the
+    reference's: the trajectories)."""
+    import numpy as np
+
+    from repro_torch.core.engine import (AnmConfig, AnmEngine,
+                                         identical_trajectories)
+    from repro_torch.core.grid import GridConfig
+    from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
+    from repro_torch.core.substrates.eval_backend import (
+        InProcessEvalBackend, bucket_size)
+    from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+    from repro_torch.data import sdss
+
+    mesh = _pod_mesh(device, mesh)
+    f_batch, x0 = _sdss_problem("podmesh_smoke", 17, n_stars, device)
+    anm_cfg = AnmConfig(m_regression=m, m_line_search=m,
+                        max_iterations=iterations)
+    grid_cfg = GridConfig(n_hosts=n_hosts, failure_prob=0.05,
+                          malicious_prob=0.01, seed=9)
+    max_bucket = bucket_size(BatchedVolunteerGrid.warm_max_bucket(m))
+    in_backend = InProcessEvalBackend(f_batch, n_dims=8,
+                                      max_bucket=max_bucket, device=device)
+    pod = PodMeshEvalBackend(f_batch, mesh=mesh, n_dims=8,
+                             max_bucket=max_bucket, device=device)
+    warmed = {id(b): b.compile_count for b in (in_backend, pod)}
+
+    def run_with(backend, pipelined):
+        engine = AnmEngine(x0, sdss.LO, sdss.HI, sdss.DEFAULT_STEP,
+                           anm_cfg, seed=7, device=device)
+        stats, wall, launches = _timed(
+            lambda: BatchedVolunteerGrid(f_batch, grid_cfg, backend=backend,
+                                         pipelined=pipelined,
+                                         device=device).run(engine))
+        return engine, stats, wall, launches
+
+    e_in, s_in, t_in, l_in = run_with(in_backend, False)
+    e_pin, s_pin, t_pin, l_pin = run_with(in_backend, True)
+    e_pod, s_pod, t_pod, l_pod = run_with(pod, True)
+
+    centers_equal = (
+        len(e_in.history) == len(e_pod.history) and
+        all(np.array_equal(a.center, b.center)
+            for a, b in zip(e_in.history, e_pod.history)))
+    fitness_equal = [r.best_fitness for r in e_in.history] == \
+        [r.best_fitness for r in e_pod.history]
+    pipelined_ok = identical_trajectories(e_in, e_pin)
+    pod_ok = identical_trajectories(e_in, e_pod)
+    ok = pipelined_ok and pod_ok
+    report = {
+        "mesh": _mesh_tag(mesh), "data_shards": pod.n_shards,
+        "min_bucket": pod.min_bucket, "n_hosts": n_hosts, "m": m,
+        "iterations": {"in_process": e_in.iteration,
+                       "in_process_pipelined": e_pin.iteration,
+                       "pod_mesh": e_pod.iteration},
+        "final": {"in_process": e_in.best_fitness,
+                  "in_process_pipelined": e_pin.best_fitness,
+                  "pod_mesh": e_pod.best_fitness},
+        "batch_calls": {"in_process": s_in.batch_calls,
+                        "in_process_pipelined": s_pin.batch_calls,
+                        "pod_mesh": s_pod.batch_calls},
+        "wall_s": {"in_process": round(t_in, 3),
+                   "in_process_pipelined": round(t_pin, 3),
+                   "pod_mesh": round(t_pod, 3)},
+        "pipeline": {"spec_blocks": s_pin.spec_blocks,
+                     "spec_discarded": s_pin.spec_discarded,
+                     "max_in_flight": s_pin.max_in_flight,
+                     "pod_max_in_flight": s_pod.max_in_flight},
+        "centers_equal": centers_equal, "fitness_equal": fitness_equal,
+        "pipelined_parity_ok": pipelined_ok, "pod_parity_ok": pod_ok,
+        "parity_ok": ok,
+        "device": str(device), "n_stars": n_stars,
+        "launches": {"in_process": l_in, "in_process_pipelined": l_pin,
+                     "pod_mesh": l_pod},
+        "new_shapes_after_warm": sum(b.compile_count - warmed[id(b)]
+                                     for b in (in_backend, pod)),
+        "stats_equal": {"in_process_pipelined": e_pin.stats == e_in.stats,
+                        "pod_mesh": e_pod.stats == e_in.stats},
+    }
+    path = _write(out_dir, "pod_mesh", report)
+    print(f"[{'ok' if ok else 'FAIL'}] substrate pod_mesh: "
+          f"{pod.n_shards} data shards, iters "
+          f"{e_in.iteration}/{e_pin.iteration}/{e_pod.iteration}, final "
+          f"{e_in.best_fitness:.6f}/{e_pin.best_fitness:.6f}/"
+          f"{e_pod.best_fitness:.6f}, wall {t_in:.2f}s/{t_pin:.2f}s/"
+          f"{t_pod:.2f}s (sync/pipelined/pod-pipelined) -> {path}")
+    return ok
+
+
+def run_multi_search_smoke(out_dir: str, n_searches: int = 4, m: int = 24,
+                           iterations: int = 2, n_stars: int = 400,
+                           fleet_hosts: int = 512, *, device="cuda",
+                           mesh=None) -> bool:
+    """Multi-search orchestrator smoke (``--substrate multi_search``).
+
+    A heterogeneous ``n_searches``-way portfolio (two different per-phase
+    ``m``'s, perturbed starts, per-slot sub-fleets) runs coalesced over
+    one shared backend, twice: through ``InProcessEvalBackend`` and
+    through ``PodMeshEvalBackend`` on ``mesh`` (default: the production
+    16 × 16 mesh over virtual devices), on ``device``.  For EVERY search
+    and BOTH backends, the orchestrated engine must commit bit-identical
+    iterates and identical final stats to the same spec run alone on the
+    same backend, and the two backends' portfolios must agree search by
+    search — the coalescing-safety contract of DESIGN.md §8.  Writes
+    ``substrate_multi_search.json`` (the reference's keys, and
+    ``device``, each backend's kernel launches and
+    ``cross_backend_stats_equal``: whether the backends' final engine
+    stats agree search by search); returns pass/fail (the reference's:
+    the cross-backend check is on the trajectories)."""
+    from repro_torch.core.engine import AnmConfig, identical_trajectories
+    from repro_torch.core.grid import GridConfig
+    from repro_torch.core.orchestrator import (FleetScheduler,
+                                               SearchDirector,
+                                               multi_start_specs)
+    from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+    from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+    from repro_torch.data import sdss
+
+    mesh = _pod_mesh(device, mesh)
+    f_batch, x0 = _sdss_problem("multisearch_smoke", 23, n_stars, device)
+    fleet = GridConfig(n_hosts=fleet_hosts, failure_prob=0.05,
+                       malicious_prob=0.01, seed=9)
+    configs = [AnmConfig(m_regression=m, m_line_search=m,
+                         max_iterations=iterations),
+               AnmConfig(m_regression=m // 2, m_line_search=m // 2,
+                         max_iterations=iterations)]
+
+    def run_portfolio(backend):
+        sched = FleetScheduler(backend, fleet)
+        specs = multi_start_specs(sched, x0, sdss.LO, sdss.HI,
+                                  sdss.DEFAULT_STEP, configs[0], n_searches,
+                                  seed=7, jitter=0.3, configs=configs)
+        res, wall, launches = _timed(SearchDirector(sched, specs).run)
+        parity = []
+        for o in res.outcomes:
+            solo = o.spec.solo_run(backend)
+            parity.append(identical_trajectories(o.engine, solo)
+                          and o.engine.stats == solo.stats)
+        return res, wall, parity, launches
+
+    backends = {
+        "in_process": InProcessEvalBackend(f_batch, device=device),
+        "pod_mesh": PodMeshEvalBackend(f_batch, mesh=mesh, device=device),
+    }
+    report = {"mesh": _mesh_tag(mesh), "n_searches": n_searches,
+              "fleet_hosts": fleet_hosts, "backends": {},
+              "device": str(device), "n_stars": n_stars, "m": m}
+    ok = True
+    cross = {}
+    for name, backend in backends.items():
+        res, wall, parity, launches = run_portfolio(backend)
+        co = res.coalesce_stats
+        report["backends"][name] = {
+            "parity_per_search": parity,
+            "iterations": [o.engine.iteration for o in res.outcomes],
+            "final": [o.engine.best_fitness for o in res.outcomes],
+            "rounds": res.rounds,
+            "dispatches": co.dispatches, "lane_blocks": co.lane_blocks,
+            "padded_lanes": co.padded_lanes,
+            "solo_padded_lanes": co.solo_padded_lanes,
+            "wall_s": round(wall, 3),
+            "launches": launches,
+        }
+        cross[name] = res
+        ok = ok and all(parity)
+    # row-independence also means the portfolio itself must agree across
+    # backends, search by search
+    backend_pair_ok = all(
+        identical_trajectories(a.engine, b.engine)
+        for a, b in zip(cross["in_process"].outcomes,
+                        cross["pod_mesh"].outcomes))
+    ok = ok and backend_pair_ok
+    report["cross_backend_ok"] = backend_pair_ok
+    report["cross_backend_stats_equal"] = all(
+        a.engine.stats == b.engine.stats
+        for a, b in zip(cross["in_process"].outcomes,
+                        cross["pod_mesh"].outcomes))
+    report["parity_ok"] = ok
+    path = _write(out_dir, "multi_search", report)
+    rb = report["backends"]
+    print(f"[{'ok' if ok else 'FAIL'}] substrate multi_search: "
+          f"{n_searches} searches, dispatches "
+          f"{rb['in_process']['dispatches']}/{rb['pod_mesh']['dispatches']} "
+          f"for {rb['in_process']['lane_blocks']} blocks, wall "
+          f"{rb['in_process']['wall_s']}s/{rb['pod_mesh']['wall_s']}s "
+          f"(in-process/pod), cross-backend "
+          f"{'ok' if backend_pair_ok else 'FAIL'} -> {path}")
+    return ok
+
+
+def run_cached_portfolio_smoke(out_dir: str, n_searches: int = 8,
+                               m: int = 24, iterations: int = 2,
+                               n_stars: int = 400, fleet_hosts: int = 512,
+                               *, device="cuda", mesh=None) -> bool:
+    """Eval-cache smoke (``--substrate cached_portfolio``).
+
+    An ``n_searches``-way coalesced portfolio runs three times per
+    backend (``InProcessEvalBackend`` and ``PodMeshEvalBackend`` on
+    ``mesh``, default the production 16 × 16 mesh over virtual devices,
+    on ``device``): cache-off, cache-on cold, and cache-on warm (same
+    cache, whole portfolio replayed).  The §10 gates:
+
+      * bit-exact parity — both cache-on runs commit bit-identical
+        iterates and identical final stats to cache-off, per search;
+      * the warm rerun is FULLY served — zero new misses, hits > 0
+        (only malicious lanes touch the device again).
+
+    Writes ``substrate_cached_portfolio.json`` (the reference's keys, and
+    ``device``, the cache-off searches' iterations and final fitness and
+    each run's kernel launches); returns pass/fail."""
+    from repro_torch.core.engine import AnmConfig, identical_trajectories
+    from repro_torch.core.grid import GridConfig
+    from repro_torch.core.orchestrator import (FleetScheduler,
+                                               SearchDirector,
+                                               multi_start_specs)
+    from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
+    from repro_torch.core.substrates.eval_cache import EvalCache
+    from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+    from repro_torch.data import sdss
+
+    mesh = _pod_mesh(device, mesh)
+    f_batch, x0 = _sdss_problem("cached_portfolio_smoke", 23, n_stars,
+                                device)
+    fleet = GridConfig(n_hosts=fleet_hosts, failure_prob=0.05,
+                       malicious_prob=0.01, seed=9)
+    anm = AnmConfig(m_regression=m, m_line_search=m,
+                    max_iterations=iterations)
+
+    def portfolio(backend, cache):
+        sched = FleetScheduler(backend, fleet, cache=cache)
+        specs = multi_start_specs(sched, x0, sdss.LO, sdss.HI,
+                                  sdss.DEFAULT_STEP, anm, n_searches,
+                                  seed=7, jitter=0.3)
+        return _timed(SearchDirector(sched, specs).run)
+
+    def pairwise_identical(a, b):
+        return all(identical_trajectories(x.engine, y.engine)
+                   and x.engine.stats == y.engine.stats
+                   for x, y in zip(a.outcomes, b.outcomes))
+
+    backends = {
+        "in_process": InProcessEvalBackend(f_batch, device=device),
+        "pod_mesh": PodMeshEvalBackend(f_batch, mesh=mesh, device=device),
+    }
+    report = {"mesh": _mesh_tag(mesh), "n_searches": n_searches,
+              "fleet_hosts": fleet_hosts, "backends": {},
+              "device": str(device), "n_stars": n_stars, "m": m}
+    ok = True
+    for name, backend in backends.items():
+        off, wall_off, l_off = portfolio(backend, None)
+        cache = EvalCache(fingerprint=f"cached_portfolio/{name}")
+        cold, wall_cold, l_cold = portfolio(backend, cache)
+        misses0 = cache.stats.misses
+        hits0 = cache.stats.hits
+        warm, wall_warm, l_warm = portfolio(backend, cache)
+        cold_parity = pairwise_identical(off, cold)
+        warm_parity = pairwise_identical(off, warm)
+        warm_served = (cache.stats.misses == misses0
+                       and cache.stats.hits > hits0)
+        b_ok = cold_parity and warm_parity and warm_served
+        report["backends"][name] = {
+            "iterations": [o.engine.iteration for o in off.outcomes],
+            "final": [o.engine.best_fitness for o in off.outcomes],
+            "cold_parity": cold_parity, "warm_parity": warm_parity,
+            "warm_fully_served": warm_served,
+            "cache": cache.status(),
+            "lanes_deduped": (warm.coalesce_stats.lanes_deduped
+                              if warm.coalesce_stats else 0),
+            "wall_s": {"off": round(wall_off, 3),
+                       "cold": round(wall_cold, 3),
+                       "warm": round(wall_warm, 3)},
+            "launches": {"off": l_off, "cold": l_cold, "warm": l_warm},
+        }
+        ok = ok and b_ok
+    report["parity_ok"] = ok
+    path = _write(out_dir, "cached_portfolio", report)
+    rb = report["backends"]
+    ip = rb["in_process"]
+    print(f"[{'ok' if ok else 'FAIL'}] substrate cached_portfolio: "
+          f"{n_searches} searches, hit_rate "
+          f"{ip['cache']['hit_rate']:.2f}, wall off/cold/warm "
+          f"{ip['wall_s']['off']}s/{ip['wall_s']['cold']}s/"
+          f"{ip['wall_s']['warm']}s (in-process), pod warm_parity "
+          f"{rb['pod_mesh']['warm_parity']} -> {path}")
+    return ok
+
+
+def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
+                          k: int = 6, m: int = 12, iterations: int = 2,
+                          n_hosts: int = 48, *, device="cuda", mesh=None,
+                          problem=None,
+                          portfolio_iterations: Optional[int] = None
+                          ) -> bool:
+    """LM-loss workload smoke (``--substrate lm_subspace``).
+
+    The model stack IS the fitness function: an ``LmWorkload`` over
+    ``arch``'s smoke config (``server.sim.lm_problem``), or the ``(spec,
+    fleet, workload)`` of ``problem``, already built (e.g. at published
+    widths), searched in its k-dim subspace-coefficient box by the full
+    asynchronous stack on ``device``.  Gates (DESIGN.md §11):
+
+      1. sync == pipelined == pod: the batched grid commits bit-identical
+         iterates through the in-process backend (both tick loops) and
+         through the pod backend — lanes split over ``data``, θ0 and the
+         basis stored cut over ``model`` of ``mesh`` (default: the
+         production 16 × 16 mesh over virtual devices) — with no new
+         bucket shape once warmed;
+      2. orchestrator + cache: a coalesced 2-search portfolio over the
+         shared backend, evaluated through ``CachingSubmitter``; every
+         search bit-identical to its solo run, warm replay fully served
+         (its searches run ``portfolio_iterations``, default the spec's);
+      3. work server: the same workload through the crash-recoverable
+         server (simulated crash at 40 % of the messages, restore from
+         snapshot + replay log) — restored == uninterrupted, and
+         in-process == pod through the whole server stack.
+
+    Writes ``substrate_lm_subspace.json`` (the reference's keys, and
+    ``device``, ``n_layers``, each gate's lanes and kernel launches, and
+    whether the final engine stats agree: ``grid/stats_equal`` against
+    the sync leg, ``orchestrator/solo_stats_equal`` and
+    ``warm_stats_equal``); returns pass/fail (the reference's: gates 1
+    and 2 on the trajectories)."""
+    import tempfile
+
+    from repro_torch.core.engine import identical_trajectories
+    from repro_torch.core.orchestrator import (FleetScheduler,
+                                               SearchDirector,
+                                               multi_start_specs)
+    from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
+    from repro_torch.core.substrates.eval_backend import bucket_size
+    from repro_torch.core.substrates.eval_cache import EvalCache
+    from repro_torch.core.substrates.lm_loss import LmLossEvalBackend
+    from repro_torch.server.sim import (ServerSubstrate, SimulatedCrash,
+                                        lm_problem, result_doc)
+
+    mesh = _pod_mesh(device, mesh)
+    spec, fleet, wl = problem or lm_problem(
+        arch=arch, k=k, n_hosts=n_hosts, m=m, iterations=iterations,
+        device=device)
+    arch, k, m = wl.arch, wl.k, spec.anm.m_regression
+    iterations = spec.anm.max_iterations
+    max_bucket = bucket_size(BatchedVolunteerGrid.warm_max_bucket(m))
+    t0 = time.perf_counter()
+    in_backend = LmLossEvalBackend(wl, n_dims=k, max_bucket=max_bucket)
+    pod = LmLossEvalBackend(wl, mesh=mesh, n_dims=k, max_bucket=max_bucket)
+    t_warm = time.perf_counter() - t0
+    compiles_warm = (in_backend.compile_count, pod.compile_count)
+    backends = (in_backend, pod)
+
+    def lanes() -> int:
+        return sum(b.lanes_evaluated for b in backends)
+
+    def gate(fn):
+        """(fn(), wall, {"lanes": lanes evaluated, "launches": ...})."""
+        lanes0 = lanes()
+        out, wall, launches = _timed(fn)
+        return out, wall, {"lanes": lanes() - lanes0, "launches": launches}
+
+    # -- gate 1: sync == pipelined == pod, no new shape after warm --------
+    def grid_run(backend, pipelined):
+        engine = spec.build_engine()
+        stats, wall, _ = _timed(
+            lambda: BatchedVolunteerGrid(None, spec.grid, backend=backend,
+                                         pipelined=pipelined).run(engine))
+        return engine, stats, wall
+
+    def grid():
+        return (grid_run(in_backend, False), grid_run(in_backend, True),
+                grid_run(pod, True))
+    runs, _, grid_k = gate(grid)
+    (e_sync, s_sync, t_sync), (e_pipe, s_pipe, t_pipe), \
+        (e_pod, s_pod, t_pod) = runs
+    pipe_ok = identical_trajectories(e_sync, e_pipe)
+    pod_ok = identical_trajectories(e_sync, e_pod)
+    zero_compiles = (in_backend.compile_count == compiles_warm[0]
+                     and pod.compile_count == compiles_warm[1])
+
+    # -- gate 2: coalesced portfolio through CachingSubmitter --------------
+    cache = EvalCache(fingerprint=f"lm_subspace/{arch}/{k}")
+
+    anm = (spec.anm if portfolio_iterations is None else
+           dataclasses.replace(spec.anm, max_iterations=portfolio_iterations))
+
+    def portfolio():
+        sched = FleetScheduler(in_backend, fleet, cache=cache)
+        specs = multi_start_specs(sched, spec.x0, spec.lo, spec.hi,
+                                  spec.step, anm, 2, seed=7, jitter=0.3)
+        return SearchDirector(sched, specs).run()
+
+    def orchestrate():
+        cold = portfolio()
+        counts = cache.stats.misses, cache.stats.hits
+        warm = portfolio()
+        solo = [o.spec.solo_run(in_backend) for o in cold.outcomes]
+        return cold, counts, warm, solo
+    (cold, (misses0, hits0), warm, solos), t_port, orch_k = gate(
+        orchestrate)
+    solo_parity = [identical_trajectories(o.engine, e)
+                   for o, e in zip(cold.outcomes, solos)]
+    warm_parity = all(identical_trajectories(a.engine, b.engine)
+                      for a, b in zip(cold.outcomes, warm.outcomes))
+    warm_served = (cache.stats.misses == misses0
+                   and cache.stats.hits > hits0)
+    orch_ok = all(solo_parity) and warm_parity and warm_served
+
+    # -- gate 3: the crash-recoverable work server -------------------------
+    def serve():
+        base = result_doc(ServerSubstrate(spec, fleet, in_backend).run())
+        on_pod = result_doc(ServerSubstrate(spec, fleet, pod).run())
+        kill_after = max(50, int(0.4 * base["pool"]["messages"]))
+        with tempfile.TemporaryDirectory(prefix="lm_server_") as ckpt:
+            try:
+                ServerSubstrate(spec, fleet, in_backend, ckpt_dir=ckpt,
+                                snapshot_every=25,
+                                max_messages=kill_after).run()
+                crashed = False        # finished before the crash: fail
+            except SimulatedCrash:
+                crashed = True
+            resumed = ServerSubstrate(spec, fleet, in_backend,
+                                      ckpt_dir=ckpt).run(resume=True)
+        return base, on_pod, crashed, result_doc(resumed)
+    (base_doc, pod_doc, crashed, res_doc), t_server, server_k = gate(serve)
+    server_backend_ok = (
+        base_doc["history"] == pod_doc["history"]
+        and base_doc["engine_stats"] == pod_doc["engine_stats"])
+    restore_ok = (crashed and not res_doc["recovered_done"]
+                  and res_doc["history"] == base_doc["history"]
+                  and res_doc["engine_stats"] == base_doc["engine_stats"])
+
+    ok = (pipe_ok and pod_ok and zero_compiles and orch_ok
+          and server_backend_ok and restore_ok)
+    report = {
+        "arch": arch, "k": k, "m": m, "iterations": iterations,
+        "mesh": _mesh_tag(mesh), "n_params": int(wl.proj.n_params),
+        "data_shards": pod.n_shards, "min_bucket": pod.min_bucket,
+        "model_spec_fallbacks": len(pod.spec_fallbacks),
+        "warm_s": round(t_warm, 3),
+        "compiles": {"in_process": in_backend.compile_count,
+                     "pod": pod.compile_count,
+                     "zero_after_warm": zero_compiles},
+        "grid": {
+            "iterations": {"sync": e_sync.iteration,
+                           "pipelined": e_pipe.iteration,
+                           "pod": e_pod.iteration},
+            "final": {"sync": e_sync.best_fitness,
+                      "pipelined": e_pipe.best_fitness,
+                      "pod": e_pod.best_fitness},
+            "batch_calls": {"sync": s_sync.batch_calls,
+                            "pipelined": s_pipe.batch_calls,
+                            "pod": s_pod.batch_calls},
+            "wall_s": {"sync": round(t_sync, 3),
+                       "pipelined": round(t_pipe, 3),
+                       "pod": round(t_pod, 3)},
+            "pipelined_parity_ok": pipe_ok, "pod_parity_ok": pod_ok,
+            "stats_equal": {"pipelined": e_pipe.stats == e_sync.stats,
+                            "pod": e_pod.stats == e_sync.stats},
+        },
+        "orchestrator": {
+            "solo_parity": solo_parity, "warm_replay_parity": warm_parity,
+            "warm_fully_served": warm_served, "cache": cache.status(),
+            "wall_s": round(t_port, 3), "parity_ok": orch_ok,
+            "iterations": anm.max_iterations,
+            "solo_stats_equal": [o.engine.stats == e.stats
+                                 for o, e in zip(cold.outcomes, solos)],
+            "warm_stats_equal": all(
+                a.engine.stats == b.engine.stats
+                for a, b in zip(cold.outcomes, warm.outcomes)),
+        },
+        "server": {
+            "iterations": base_doc["iteration"],
+            "best": base_doc["best_fitness"],
+            "messages": base_doc["pool"]["messages"],
+            "backend_parity_ok": server_backend_ok,
+            "crashed_mid_run": crashed,
+            "replayed": res_doc["replayed"],
+            "resumed_leases": res_doc["pool"]["resumed_leases"],
+            "restore_parity_ok": restore_ok,
+            "wall_s": round(t_server, 3),
+        },
+        "parity_ok": ok,
+        "device": str(device), "n_layers": wl.cfg.n_layers,
+        "kernels": {"grid": grid_k, "orchestrator": orch_k,
+                    "server": server_k},
+    }
+    path = _write(out_dir, "lm_subspace", report)
+    print(f"[{'ok' if ok else 'FAIL'}] substrate lm_subspace: {arch} "
+          f"({wl.proj.n_params} params, k={k}), grid "
+          f"{'ok' if pipe_ok and pod_ok else 'FAIL'} "
+          f"(wall {t_sync:.1f}s/{t_pipe:.1f}s/{t_pod:.1f}s "
+          f"sync/pipelined/pod), compiles "
+          f"{'0' if zero_compiles else 'NONZERO'} after warm, "
+          f"orchestrator {'ok' if orch_ok else 'FAIL'}, server "
+          f"{'ok' if server_backend_ok and restore_ok else 'FAIL'} "
+          f"-> {path}")
+    return ok
+
+
 def _variant(cfg: ModelConfig, args) -> ModelConfig:
     """``cfg`` with the perf-variant flags' fields replaced."""
     moe = cfg.moe
@@ -509,20 +1253,33 @@ def main(argv=None) -> int:
     ap.add_argument("--quant-cache", action="store_true",
                     help="int8 KV/latent cache (perf variant)")
     ap.add_argument("--suffix", default="", help="artifact filename suffix")
+    # choices come from the ONE substrate registry (launch/substrates.py):
+    # an unknown substrate fails at parse time instead of falling through
+    # to the model-cell path
     ap.add_argument("--substrate", default=None,
-                    help="not ported yet: exits non-zero")
+                    choices=sorted(SUBSTRATES),
+                    help="run the substrate smoke instead of model cells")
     ap.add_argument("--list-substrates", action="store_true",
-                    help="not ported yet: exits non-zero")
+                    help="print the registered substrate smokes and exit")
+    ap.add_argument("--device", default="cuda",
+                    help="where a substrate smoke runs (the model cells "
+                         "are reckoned on meta)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    if args.substrate is not None or args.list_substrates:
-        print(f"dryrun: the substrate smokes are not ported yet; they are "
-              f"the next slice, {SUBSTRATE_ITEM}")
+    if args.list_substrates:
+        print(list_substrates())
+        return 0
+    if args.substrate in NOT_PORTED:
+        print(f"dryrun: substrate {args.substrate!r} is registered but not "
+              f"ported yet: {NOT_PORTED[args.substrate]}")
         return 2
 
     out_dir = args.out or os.path.abspath(ARTIFACTS)
     os.makedirs(out_dir, exist_ok=True)
+    if args.substrate is not None:
+        runner = SUBSTRATES[args.substrate].resolve()
+        return 0 if runner(out_dir, device=args.device) else 1
     meshes = {"pod": [False], "multipod": [True],
               "both": [False, True]}[args.mesh]
     archs = ARCH_NAMES if (args.all or args.arch is None) else [args.arch]

@@ -455,7 +455,7 @@ def moe_block_grouped(x: torch.Tensor, p: Params, cfg: ModelConfig,
     """Per-batch-row (GShard group) dispatch: a token's expert slots and
     drops are decided within its row, capacity ``moe_capacity(S)`` a
     group.  Returns (y, aux)."""
-    return _moe(x, p, cfg, moe_capacity(cfg.moe, x.shape[1]))
+    return _moe(x, p, cfg, moe_capacity(cfg.moe, x.shape[1]), ctx)
 
 
 def moe_block_global(x: torch.Tensor, p: Params,
@@ -479,8 +479,8 @@ def _route(x: torch.Tensor, router: torch.Tensor, k: int):
                                            min=1e-9), gate_idx)
 
 
-def _moe(x: torch.Tensor, p: Params, cfg: ModelConfig,
-         cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe(x: torch.Tensor, p: Params, cfg: ModelConfig, cap: int,
+         ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing with static per-expert capacity over G groups of N
     tokens, x (G, N, d) -> (y (G, N, d), aux).
 
@@ -520,6 +520,10 @@ def _moe(x: torch.Tensor, p: Params, cfg: ModelConfig,
     src = x[:, :, None, :].expand(g, n, k, d).reshape(g * n * k, d)
     buf.index_copy_(0, torch.where(keep, slot, spare).reshape(-1), src)
     xb = buf[:spare].view(e, g * cap, d)
+    if ctx is not None:
+        # experts over model, groups over the data axes: the reference's
+        # constraint on its (G, E, cap, d) buffer (a no-op off a dry-run)
+        xb = ctx.cons_spec(xb, (ctx.tp, "dp", None))
     hmid = F.silu(torch.bmm(xb, p["w_gate"])) * torch.bmm(xb, p["w_in"])
     out = torch.bmm(hmid, p["w_out"]).view(spare, d)
 

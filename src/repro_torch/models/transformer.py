@@ -434,6 +434,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device).expand(
                 b, x.shape[1])
+        # one row of positions per row of the batch (a no-op here; a
+        # dry-run's context lays the masks made from them out as the rows)
+        positions = ctx.cons(positions, None)
     shared_p = params.get("shared_attn")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, repeat) in enumerate(find_segments(layer_sigs(cfg))):

@@ -45,9 +45,10 @@ from repro_torch.configs import (ARCH_NAMES, SHAPES, ShapeConfig,
                                  cell_is_runnable, get_config,
                                  get_smoke_config)
 from repro_torch.launch import dryrun as D
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import Mesh, make_host_mesh, virtual_devices
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW
+from repro_torch.roofline.analysis import local_numel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -221,6 +222,118 @@ def test_trace_counter_refuses_a_tensor_off_meta():
     assert counter.peak() == 0
 
 
+# -- per-device pieces: each storage by its own layout -----------------------
+
+def _mesh(*sizes):
+    names = ("pod", "data", "model")[-len(sizes):]
+    return Mesh(sizes, names, virtual_devices(math.prod(sizes), "meta"))
+
+
+def test_an_activation_constrained_over_model_counts_half():
+    """On 2 × 2 the batch's rows are cut 2 ways: an activation the
+    forward constrains over ``model`` as well is a quarter a device,
+    half the piece of one that carries the rows alone."""
+    mesh = _mesh(2, 2)
+    counter = D.TraceCounter(mesh, row_shards=2)
+    x = torch.empty(4, 8, 16, device="meta")           # 2048 bytes
+    counter.exclude(x, D.S.P("data", None, None), rows=True)
+    ctx = D.TraceCtx(mesh=mesh, dp=("data",), tp="model",
+                     tags=D.LayoutTags(counter))
+    with counter:
+        a = ctx.cons_spec(x * 2, ("dp", "model", None))
+        b = ctx.cons(x * 3, None, None)
+        c = x * 4                                      # no constraint
+        d = a + 1                                      # a's own shape
+    assert [counter.piece(t) for t in (a, b, c, d)] == [512, 1024, 1024,
+                                                        512]
+    assert counter.local_peak() == 512 + 1024 + 1024 + 512
+    assert counter.peak() == 4 * 2048
+
+
+class _KeepGrads:
+    """AdamW that keeps the gradients it is handed (so that the trace's
+    counter still knows their storages after the step)."""
+
+    def __init__(self):
+        self.opt, self.grads = AdamW(lr=1e-4), None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.opt.update(grads, state, params)
+
+
+def _traced_grads(mesh):
+    """(grads, their specs, the counter, the batch's row shards) of a
+    smoke-width qwen2 train step traced over ``mesh``."""
+    cfg, shape = get_smoke_config("qwen2-72b"), ShapeConfig("t", 32, 4,
+                                                             "train")
+    keep = _KeepGrads()
+    cell = D.build_cell(cfg, shape, mesh, optimizer=keep)
+    shards = D._batch_shards(shape, mesh)
+    run = D.trace_step(cell, mesh, shards)
+    return keep.grads, cell.arg_specs[0], run["counter"], shards
+
+
+def test_a_replicated_norms_gradient_counts_whole():
+    """2 × 2: a norm's replicated gradient is whole on every device, not
+    ÷ the batch's 2 data shards; every gradient is its parameter's piece."""
+    mesh = _mesh(2, 2)
+    grads, specs, counter, shards = _traced_grads(mesh)
+    assert shards == 4 // mesh.shape["model"]
+    norm = grads["final_norm"]["scale"]
+    assert all(e is None for e in specs["final_norm"]["scale"])
+    assert counter.piece(norm) == norm.numel() * norm.element_size()
+    D.S.map_specs(lambda path, g, spec: _check_piece(counter, g, spec,
+                                                     mesh, path),
+                  grads, specs)
+
+
+def _check_piece(counter, g, spec, mesh, path):
+    assert counter.piece(g) == local_numel(tuple(g.shape), spec, mesh) * \
+        g.element_size(), path
+
+
+def test_a_gradient_cut_over_model_only_is_halved_on_2x2x2():
+    """2 × 2 × 2: the batch's rows are cut 4 ways (pod × data); a gradient
+    whose parameter is cut over ``model`` alone is ÷ 2, not ÷ 4."""
+    mesh = _mesh(2, 2, 2)
+    grads, specs, counter, shards = _traced_grads(mesh)
+    assert shards == 4
+    seen = []
+
+    def check(path, g, spec):
+        if [e for e in spec if e is not None] == ["model"]:
+            whole = g.numel() * g.element_size()
+            assert counter.piece(g) == whole // 2, path
+            seen.append(path)
+    D.S.map_specs(check, grads, specs)
+    assert seen
+
+
+#: ``reckon``'s memory_analysis on a (1, 1) mesh before the pieces were
+#: laid out storage by storage (each the same there: every piece whole)
+ONE_DEVICE = {
+    ("qwen2-72b", "train"): {
+        "argument_size_bytes": 1583748, "output_size_bytes": 1582736,
+        "temp_size_bytes": 1211652, "generated_code_size_bytes": None,
+        "peak_size_bytes": 2795412},
+    ("deepseek-v2-lite-16b", "decode"): {
+        "argument_size_bytes": 535640, "output_size_bytes": 17408,
+        "temp_size_bytes": 43088, "generated_code_size_bytes": None,
+        "peak_size_bytes": 578728},
+}
+
+
+@pytest.mark.parametrize("arch,kind", list(ONE_DEVICE))
+def test_one_device_figures_are_unchanged(arch, kind):
+    report = D.reckon(get_smoke_config(arch), KINDS[kind],
+                      make_host_mesh("meta"))
+    assert report["memory_analysis"] == ONE_DEVICE[(arch, kind)]
+
+
 class _Watch(TorchDispatchMode):
     """Every device an op's output of at least one element lies on."""
     def __init__(self):
@@ -292,11 +405,13 @@ def test_variant_flags_replace_config_fields():
     assert dense.moe is None and dense.pin_proj_outputs
 
 
-@pytest.mark.parametrize("argv", [["--substrate", "pod_mesh"],
-                                  ["--list-substrates"]])
-def test_substrate_refused(argv, tmp_path, capsys):
-    assert D.main(argv + ["--out", str(tmp_path)]) != 0
-    assert "ROADMAP A.7" in capsys.readouterr().out
+@pytest.mark.parametrize("name", ["server", "chaos_server", "obs_server",
+                                  "postmortem"])
+def test_substrate_refused(name, tmp_path, capsys):
+    """The four server smokes are registered but not ported: refused by
+    name, before their runner is looked up, and nothing is written."""
+    assert D.main(["--substrate", name, "--out", str(tmp_path)]) == 2
+    assert "ROADMAP A.7 (ii)" in capsys.readouterr().out
     assert not os.listdir(tmp_path)
 
 

@@ -410,3 +410,39 @@ def test_dryrun_modules_import_and_reckon_without_jax_or_the_reference():
         capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert set(DRYRUN_MODULES) <= set(out.stdout.split())
+
+
+#: the substrate registry and the modules its four runners import: the
+#: walk above must import each, and the pod_mesh runner runs where jax
+#: and repro cannot load
+SUBSTRATE_MODULES = (
+    "repro_torch.launch.substrates", "repro_torch.launch.dryrun",
+    "repro_torch.core.engine", "repro_torch.core.grid",
+    "repro_torch.core.orchestrator", "repro_torch.core.substrates.batched_grid",
+    "repro_torch.core.substrates.eval_backend",
+    "repro_torch.core.substrates.eval_cache",
+    "repro_torch.core.substrates.lm_loss",
+    "repro_torch.core.substrates.pod_mesh", "repro_torch.data.sdss",
+    "repro_torch.kernels.ops", "repro_torch.server.sim")
+
+
+def test_substrate_modules_import_and_run_without_jax_or_the_reference(
+        tmp_path):
+    script = _BLOCKED_IMPORT.replace("print(len(names))", textwrap.dedent(f"""
+        from repro_torch.launch import dryrun, substrates
+        for name in set(substrates.SUBSTRATES) - set(substrates.NOT_PORTED):
+            assert callable(substrates.SUBSTRATES[name].resolve())
+        assert dryrun.run_substrate_smoke({str(tmp_path)!r}, m=12,
+                                          n_stars=200, n_hosts=48,
+                                          device="cpu")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print(' '.join(names))
+    """))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", script, os.path.join(ROOT, "chip_smoke.py")],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(SUBSTRATE_MODULES) <= set(out.stdout.split())
