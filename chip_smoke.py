@@ -113,12 +113,21 @@ so the script exits non-zero and prints no result line:
            and alone;
 11. server the FGDO work server at paper scale through its command line
            (100k stars, 4096 hosts, m = 1000, 2 iterations): an improving
-           commit, gram launched twice per regression phase finish; the
-           run with checkpoint and eval cache crashed at 40 % of the
-           messages and restored == uninterrupted, with cache hits; at
-           the smoke size (400 stars, m = 24, 192 hosts) TCP, 8 concurrent
-           clients and the reset_torn chaos preset (8 concurrent TCP
-           clients) == loopback;
+           commit, gram launched twice per regression phase finish (its
+           crash at 40 % and warm restore were cut for the smoke's time:
+           the server smoke below crashes and restores warm at the
+           reference's size); then
+           launch/dryrun.py's server and chaos_server substrate smokes at
+           the reference's sizes, every leg a child process of
+           server/sim.py on this card: the loopback baseline, --backend
+           pod_mesh and the virtual 16 x 16 mesh in this process equal to
+           it, three children SIGKILLed mid-run (loopback, TCP, loopback
+           with the eval cache, which restores warm) and restored equal
+           to it; 8 concurrent TCP clients clean (intake parked) and
+           under drop_dup, reorder_delay and reset_torn (faults injected),
+           a SIGKILL mid-chaos restored, the pod backend over 16 x 16
+           under drop_dup, all equal to the serial baseline; every child
+           on the card and launching row_mean;
 12. pod    the pod-mesh evaluation backend, on this card's (1, 1) mesh
            and on the production 16 x 16 mesh over 256 virtual devices:
            (a) launch/dryrun.py's pod_mesh substrate smoke at paper scale
@@ -137,19 +146,21 @@ so the script exits non-zero and prints no result line:
 13. obs    the observability plane on the work server: at paper scale
            the whole plane (metrics hub, a live subscriber, full tracing,
            retention) == the unobserved server run, gram twice per
-           regression finish.  At the reference's own obs smoke size (48
-           hosts, m = 12, 200 stars, 3 iterations, a quarter of the
-           hosts silent from t = 150): the run with checkpoint, eval
-           cache, retention and tracing crashed at 40 % of the messages,
-           its dead epoch reconstructed by the post-mortem (snapshots,
-           spans, the replay log's extent; the store's bytes unchanged),
-           then restored under epoch 2 == the unobserved uninterrupted
-           run; observed over 8 concurrent TCP clients with a subscriber, and
-           the same under drop_dup chaos == the unobserved serial run;
-           the live defense shrinks the reliable set and its schedule
-           replays bit for bit; the stall kill is in the schedule and
-           replays bit for bit; replay logs are byte-identical with
-           retention and tracing on and off;
+           regression finish.  Then launch/dryrun.py's obs_server and
+           postmortem substrate smokes at the reference's sizes (48
+           hosts, m = 12, 200 stars, 3 iterations, a quarter of the hosts
+           silent from t = 150), every leg a child process on this card:
+           observed over 8 concurrent TCP clients with a subscriber, and
+           under drop_dup, == the unobserved baseline; observed,
+           SIGKILLed mid-run and restored == it; the live defense
+           shrinks the reliable set and its schedule replays bit for
+           bit; replay logs byte-identical with retention and tracing on
+           and off; chaotic TCP with retention and tracing SIGKILLed,
+           its dead store read by python -m
+           repro_torch.launch.obs_postmortem as epoch [1] and after the
+           restore (== the baseline) as [1, 2]; the stall window kills
+           search 0 and its replay equals it; every server child on the
+           card and launching row_mean;
 14. portfolio launch/dryrun.py's multi_search substrate smoke at paper
            scale (100k stars, 6 searches at m = 1000 / 500 on the
            4096-host fleet, 2 iterations) on the in-process backend and on
@@ -226,7 +237,7 @@ so the script exits non-zero and prints no result line:
            line for 100 steps, its loss falling by at least
            TRAIN_LM_MIN_FALL, ms a step, tokens/s, peak, checkpoints at 50
            and 100; (t2) the tiny preset crashed at step 9 (exit 42) and
-           resumed from step 8 in subprocesses, its step-12 checkpoint ==
+           resumed from step 8 in child processes, its step-12 checkpoint ==
            an uninterrupted run's bit for bit; (t4) the tiny preset in
            f32, one step on the card against the CPU from the same weights
            (loss 1e-5 relative, gradients and new parameters 1e-4
@@ -247,7 +258,7 @@ so the script exits non-zero and prints no result line:
            and the hand-written bound (the memory term counts the eager
            step's own op traffic, so it moves with the code);
            (d3) --arch h2o-danube-3-4b --shape train_4k --mesh pod through
-           the command line in a subprocess, exit 0 and its JSON;
+           the command line in a child process, exit 0 and its JSON;
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
            line, then the ``ok`` JSON line.
 """
@@ -256,7 +267,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
-import hashlib
 import io
 import json
 import math
@@ -296,9 +306,9 @@ from repro_torch.core.tree import leaves_with_paths, map_tree  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.launch import (anm_lm, baselines, dryrun,  # noqa: E402
-                                fig2, fig3, obs_postmortem,
-                                serve, train, volunteer_grid)
+from repro_torch.launch import (anm_lm, baselines, child,  # noqa: E402
+                                dryrun, fig2, fig3, serve, train,
+                                volunteer_grid)
 from repro_torch.launch.mesh import (Mesh, make_production_mesh,  # noqa: E402
                                      virtual_devices)
 from repro_torch.models import layers, transformer  # noqa: E402
@@ -309,7 +319,6 @@ from repro_torch.optim.compression import (compress_grads,  # noqa: E402
 from repro_torch.roofline.analysis import (F32_FLOPS, HBM_BW,  # noqa: E402
                                            PEAK_FLOPS)
 from repro_torch.server import sim  # noqa: E402
-from repro_torch.server.checkpoint import LOG_NAME  # noqa: E402
 
 
 #: (B, S, Hq, Hkv, D, type, causal, window, k/v fused, variant) of the
@@ -386,21 +395,6 @@ FITNESS_WIDTHS = tuple(2 ** i for i in range(3, 13))
 #: the server phase's command line at paper scale (iterations cut to 2)
 SERVER_FLAGS = ["--n-stars", "100000", "--n-hosts", "4096", "--m", "1000",
                 "--iterations", "2", "--snapshot-every", "5000"]
-#: the smoke-size legs that must equal loopback on the card
-#: (one chaos preset, for the smoke's time: reset_torn, whose
-#: resets and torn frames make the most retries; the CPU tests run all
-#: four, and [obs] (e) runs drop_dup on the card)
-SERVER_LEGS = [["--transport", "tcp"], ["--concurrent", "8"],
-               ["--transport", "tcp", "--concurrent", "8", "--chaos",
-                "reset_torn"]]
-#: the obs phase's smoke-size world: the reference's own obs smokes
-#: (src/repro/launch/dryrun.py:1071,1291), a quarter of the hosts silent
-#: from virtual time 150 so the defense has churn to see
-OBS_SMOKE = ["--n-hosts", "48", "--m", "12", "--iterations", "3",
-             "--n-stars", "200", "--silence-at", "150", "--silence-frac",
-             "0.25"]
-OBS_FLAGS = ["--obs", "--stats-interval", "10"]
-OBS_CONCURRENT = ["--transport", "tcp", "--concurrent", "8"]
 #: [pod] (a): the pod_mesh substrate smoke at paper scale
 SUBSTRATE_GRID = dict(n_stars=100_000, n_hosts=4096, m=1000, iterations=3)
 #: [portfolio]: the multi_search substrate smoke at paper scale on both
@@ -1340,8 +1334,8 @@ def _improving_commits(res) -> int:
 
 def phase_server(dev: torch.device):
     """The FGDO work server through its command line; returns the row-mean
-    launches, the result doc and the wall of the uninterrupted paper-scale
-    run."""
+    launches of the uninterrupted paper-scale run, those of the server
+    substrate smokes' children, and that run's result doc and wall."""
     flags = SERVER_FLAGS + ["--device", str(dev)]
     _zero_counts()                  # this slice's path, counted from 0
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1370,44 +1364,89 @@ def phase_server(dev: torch.device):
           "the row_mean kernel")
     row_mean_launches = counts["row_mean_launches"]
 
-    crash_at = int(0.4 * pool["messages"])
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_server_") as ckpt:
-        both = flags + ["--ckpt-dir", ckpt, "--cache"]
-        t0 = time.perf_counter()
-        try:
-            sim.run_cli(both, max_messages=crash_at)
-            check(False, "the server finished before its crash point")
-        except sim.SimulatedCrash as e:
-            crash = str(e)
-        t1 = time.perf_counter()
-        _, _, restored = sim.run_cli(both + ["--resume"])
-        t2 = time.perf_counter()
-    same = (restored["history"] == doc["history"]
-            and restored["engine_stats"] == doc["engine_stats"])
-    hits = restored["cache"]["hits"]
-    print(f"[server] {crash} (snapshots every 5000 messages, eval cache "
-          f"on) in {t1 - t0:.1f}s; restored: replayed {restored['replayed']} "
-          f"log records, re-leased {restored['pool']['resumed_leases']}, "
-          f"cache hits {hits} / misses {restored['cache']['misses']}, "
-          f"{t2 - t1:.1f}s; bit-identical to uninterrupted: {same}")
-    check(same, "the restored server run differs from the uninterrupted one")
-    check(hits > 0, "the restored run's eval cache served no hits")
+    # the server and chaos_server substrate smokes: every leg a child
+    # process on this card (the paper-scale run's buffers released first)
+    del res
+    reports = _server_runners(dev, "server",
+                              server=dryrun.run_server_smoke,
+                              chaos_server=dryrun.run_chaos_server_smoke)
+    children = sum(sum(r["children"]["row_mean_launches"])
+                   for r in reports.values())
+    report = reports["server"]
+    for leg, k in report["kill_restore"].items():
+        print(f"[server] server smoke {leg}: SIGKILLed mid-run "
+              f"{k['killed_mid_run']}, restored after replaying "
+              f"{k['replayed']} records, re-leased {k['resumed_leases']}, "
+              f"== the baseline {k['trajectory_equal']}"
+              + (f", cache hits {k['cache']['hits']} (store "
+                 f"{k['cache']['store_size']}), warm {k['warm_after_restore']}"
+                 if "cache" in k else ""))
+    check(report["backend_parity_ok"] and report["production_mesh_parity_ok"],
+          "the server smoke's pod or 16 x 16 run differs from its baseline")
+    report = reports["chaos_server"]
+    plans = report["fault_plans"]
+    print(f"[server] chaos_server smoke: concurrent clean parked "
+          f"{report['concurrent_clean']['intake']['parked']}; "
+          + "; ".join(f"{name} {p['faults_injected']} faults, "
+                      f"{p['chaos']['retries']} retries, == the baseline "
+                      f"{p['trajectory_equal']}"
+                      for name, p in plans.items())
+          + f"; pod {report['production_mesh_chaos']['mesh']} under "
+          f"drop_dup == the baseline "
+          f"{report['production_mesh_chaos']['trajectory_equal']}")
+    return row_mean_launches, children, doc, wall
 
-    _, _, loop = sim.run_cli(["--device", str(dev)])
-    legs = []
-    for extra in SERVER_LEGS:
-        t0 = time.perf_counter()
-        _, _, got = sim.run_cli(["--device", str(dev)] + extra)
-        ok = (got["history"] == loop["history"]
-              and got["engine_stats"] == loop["engine_stats"])
-        legs.append(f"{' '.join(extra)}: {ok} ({time.perf_counter() - t0:.1f}"
-                    f"s, {(got['chaos'] or {}).get('retries', 0)} retries)")
-        check(ok, f"the smoke server over {' '.join(extra)} differs from "
-              f"loopback")
-    print(f"[server] smoke size on the card (loopback best "
-          f"{loop['best_fitness']:.6f}, {loop['pool']['messages']} "
-          f"messages); equal to loopback: " + "; ".join(legs))
-    return row_mean_launches, doc, wall
+
+def _server_runners(dev: torch.device, tag: str, **runners) -> dict:
+    """launch/dryrun.py's server substrate smokes ``runners`` (name →
+    runner) on ``dev``, at once (a runner's thread mostly waits on its
+    children), from zeroed launch counts and a reset memory peak: each
+    one True, its children's devices and row_mean launches, its kill legs
+    and walls printed under ``[tag]`` and checked; returns the reports by
+    name."""
+    _free()           # the children's CUDA contexts need the card's room
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[{tag}] before the children: {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB free on the card, this process holding "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_substrate_") as out:
+        legs = {name: (lambda r=runner: r(out, device=dev))
+                for name, runner in runners.items()}
+        oks, wall, counts, peak = _leg(
+            dev, lambda: dryrun.ServerChildren.parallel(legs))
+        reports = {}
+        for name in runners:
+            with open(os.path.join(out, f"substrate_{name}.json")) as f:
+                reports[name] = json.load(f)
+    for name, report in reports.items():
+        check(oks[name] and report["parity_ok"],
+              f"the {name} substrate smoke failed")
+        kids = report["children"]
+        if name == "server":
+            kills = list(report["kill_restore"].values())
+        else:
+            kills = [report.get("kill_restore") or report["flight_recorder"]]
+        print(f"[{tag}] {name} substrate smoke ({report['n_hosts']} hosts, "
+              f"m = {report['m']}, {report['iterations']} iterations): "
+              f"baseline {report['baseline']['iterations']} iterations, "
+              f"best {report['baseline']['best']:.6f}, "
+              f"{report['baseline']['messages']} messages; "
+              f"{kids['children']} children on {kids['devices']}, row_mean "
+              f"launches {kids['row_mean_launches']}; {len(kills)} "
+              f"SIGKILLed mid-run and restored; child walls "
+              + ", ".join(f"{leg} {t:.1f}s"
+                          for leg, t in report["wall_s"].items()))
+        check(kids["ok"] and kids["devices"] == [str(dev)]
+              and all(n > 0 for n in kids["row_mean_launches"]),
+              f"a {name} child did not run on {dev} or missed row_mean")
+        check(all(k["killed_mid_run"] and not k.get("recovered_done")
+                  and k["trajectory_equal"] for k in kills),
+              f"a {name} kill leg was not killed mid-run or not restored "
+              f"equal")
+    print(f"[{tag}] {' and '.join(runners)} substrate smokes at once: wall "
+          f"{wall:.1f}s, peak device memory {peak:.2f} GiB, in this "
+          f"process {_gram_row_mean(counts)}")
+    return reports
 
 
 def _same_run(a: dict, b: dict) -> bool:
@@ -1417,15 +1456,12 @@ def _same_run(a: dict, b: dict) -> bool:
                                       "engine_stats"))
 
 
-def _digest(path: str) -> str:
-    with open(path, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
-
-
-def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
+def phase_obs(dev: torch.device, base: dict, base_wall: float) -> int:
     """The observability plane on the work server: at paper scale beside
-    ``[server]``'s uninterrupted run (``base``), then at the reference's
-    obs smoke size, the flight recorder's crash and restore among them."""
+    ``[server]``'s uninterrupted run (``base``), then the obs_server and
+    postmortem substrate smokes, the flight recorder's SIGKILL and
+    restore among them; returns the row-mean launches of the smokes'
+    children."""
     flags = SERVER_FLAGS + ["--device", str(dev)]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
         # (a) the whole plane on, at paper scale
@@ -1466,150 +1502,43 @@ def phase_obs(dev: torch.device, base: dict, base_wall: float) -> None:
               f"gram launched {counts['gram_launches']} times for "
               f"{finishes} regression finishes of the observed run")
 
-        # (b)-(h) at the reference's obs smoke size
-        smoke = OBS_SMOKE + ["--device", str(dev)]
-        t0 = time.perf_counter()
-        _, _, plain = sim.run_cli(smoke)
-        print(f"[obs] (c) smoke size unobserved serial loopback: "
-              f"{plain['iteration']} iterations, best "
-              f"{plain['best_fitness']:.6f}, {plain['pool']['messages']} "
-              f"messages, reliable set {plain['registry']['reliable_set']}"
-              f", {time.perf_counter() - t0:.1f}s")
-
-        # (b) the flight recorder under a crash at 40 % of the messages,
-        # at the smoke size ([server] crashes the paper-scale run)
-        ck = os.path.join(tmp, "b")
-        both = smoke + ["--ckpt-dir", ck, "--cache", "--retain",
-                        "--trace-rate", "1.0"]
-        crash_at = int(0.4 * plain["pool"]["messages"])
-        t0 = time.perf_counter()
-        try:
-            sim.run_cli(both, max_messages=crash_at)
-            check(False, "the observed server finished before its crash "
-                  "point")
-        except sim.SimulatedCrash as e:
-            crash = str(e)
-        t1 = time.perf_counter()
-        store, log = obs_store_path(ck), os.path.join(ck, LOG_NAME)
-        before = (_digest(store), _digest(log))
-        dead = obs_postmortem.reconstruct(store, replay_log=log, epoch=1)
-        untouched = (_digest(store), _digest(log)) == before
-        ep = dead["epochs"][0]
-        print(f"[obs] (b) {crash} in {t1 - t0:.1f}s; post-mortem of epoch "
-              f"{dead['store']['epochs']}: {ep['snapshots']} snapshots (seq "
-              f"{ep['seq_range']}), {dead['spans']} spans (turnaround p50 "
-              f"{dead['turnaround']['p50']}, max "
-              f"{dead['turnaround']['max']}), {len(dead['phases'])} phase "
-              f"transitions, replay log {dead['replay_log']['records']} "
-              f"records (last {dead['replay_log']['last_kind']!r} at t = "
-              f"{dead['replay_log']['last_now']}); store and log bytes "
-              f"unchanged: {untouched}")
-        check(dead["store"]["epochs"] == [1] and ep["snapshots"] > 0
-              and dead["spans"] > 0 and len(dead["phases"]) > 0
-              and 0 < dead["replay_log"]["records"] <= crash_at,
-              "the post-mortem of the crashed epoch lacks snapshots, spans, "
-              "phases or the replay log's extent")
-        check(untouched, "the post-mortem changed the store or the log")
-        _, _, restored = sim.run_cli(both + ["--resume"])
-        t2 = time.perf_counter()
-        post = obs_postmortem.reconstruct(store)
-        same = _same_run(restored, plain)
-        print(f"[obs] (b) restored in {t2 - t1:.1f}s after replaying "
-              f"{restored['replayed']} records, store epochs "
-              f"{post['store']['epochs']} ({post['store']['records']} "
-              f"records), cache hits {restored['cache']['hits']}; == the "
-              f"uninterrupted run (c): {same}")
-        check(post["store"]["epochs"] == [1, 2], "the restored run did not "
-              "append under epoch 2")
-        check(same, "the restored observed run differs from the "
-              "uninterrupted run")
-
-        for leg, extra in (("(d)", []), ("(e)", ["--chaos", "drop_dup"])):
-            t0 = time.perf_counter()
-            _, _, got = sim.run_cli(smoke + OBS_CONCURRENT + OBS_FLAGS
-                                    + ["--subscribe"] + extra)
-            sub, ch = got["subscriber"], got["chaos"] or {}
-            injected = sum(ch.get(k, 0) for k in (
-                "drops_request", "drops_reply", "duplicates", "delays",
-                "resets", "torn_writes"))
-            same = _same_run(got, plain)
-            print(f"[obs] {leg} {' '.join(OBS_CONCURRENT + extra)}, hub + "
-                  f"subscriber: {got['obs']['snapshots']} snapshots, "
-                  f"received {sub['snapshots']} (stamped and increasing: "
-                  f"{sub['stamped_ok']}, errors {len(sub['errors'])}), "
-                  f"faults injected {injected}, retries "
-                  f"{ch.get('retries', 0)}; == (c): {same} "
-                  f"({time.perf_counter() - t0:.1f}s)")
-            check(same, f"obs leg {leg} differs from the unobserved run")
-            check(sub["snapshots"] >= 2 and sub["stamped_ok"]
-                  and not sub["errors"], f"obs leg {leg}: the subscriber "
-                  f"received fewer than 2 stamped snapshots, or erred")
-            check(not extra or injected > 0, "obs leg (e) injected no fault")
-
-        sched = os.path.join(tmp, "defense.json")
-        _, _, live = sim.run_cli(smoke + OBS_FLAGS + [
-            "--defense", "--defense-out", sched])
-        _, _, again = sim.run_cli(smoke + OBS_FLAGS + [
-            "--defense-replay", sched])
-        d = live["defense"]
-        same = _same_run(live, again)
-        print(f"[obs] (f) defense live: {d['events']} events "
-              f"{d['by_action']}, quarantined {d['quarantined_now']}, "
-              f"reliable set {live['registry']['reliable_set']} against "
-              f"{plain['registry']['reliable_set']} undefended; replayed "
-              f"({again['defense']['mode']}): == live: {same}")
-        check(d["quarantined_now"] > 0 and live["registry"]["reliable_set"]
-              < plain["registry"]["reliable_set"], "the live defense did "
-              "not shrink the reliable set")
-        check(same and again["defense"]["mode"] == "replay"
-              and again["defense"]["quarantined_now"] == d["quarantined_now"],
-              "the replayed defense differs from the live one")
-
-        stall = os.path.join(tmp, "stall.json")
-        _, _, killed = sim.run_cli(smoke + [
-            "--stats-interval", "10", "--stall-window", "3",
-            "--defense-out", stall])
-        _, _, again = sim.run_cli(smoke + [
-            "--stats-interval", "10", "--defense-replay", stall])
-        d = killed["defense"]
-        with open(stall) as f:
-            kills = [e for e in json.load(f)["events"]
-                     if e["action"] == "kill_search"]
-        same = _same_run(killed, again)
-        print(f"[obs] (g) stall window 3: killed {d['searches_killed']} at "
-              f"seq {[e['seq'] for e in kills]}, iteration "
-              f"{killed['iteration']} against {plain['iteration']} "
-              f"undefended; replayed: killed "
-              f"{again['defense']['searches_killed']}, == live: {same}")
-        check(d["searches_killed"] == [0] and len(kills) >= 1
-              and killed["iteration"] < plain["iteration"],
-              "the stall window killed no search through the schedule")
-        check(same and again["defense"]["searches_killed"] == [0]
-              and again["defense"]["mode"] == "replay",
-              "the replayed stall kill differs from the live one")
-
-        logs, docs = [], []
-        for leg, extra in (("off", []), ("on", [
-                "--retain", "--trace-rate", "1.0", "--stats-interval",
-                "10"])):
-            ck = os.path.join(tmp, f"h_{leg}")
-            _, _, got = sim.run_cli(smoke + ["--ckpt-dir", ck,
-                                             "--snapshot-every", "150"]
-                                    + extra)
-            with open(os.path.join(ck, LOG_NAME), "rb") as f:
-                logs.append(f.read())
-            docs.append(got)
-        kept = docs[1]["retention"]
-        print(f"[obs] (h) replay logs with retention + tracing off / on: "
-              f"{len(logs[0])} / {len(logs[1])} bytes, identical: "
-              f"{logs[0] == logs[1]}; retained {kept['snapshots_stored']} "
-              f"snapshots + {kept['spans_stored']} spans; both == (c): "
-              f"{all(_same_run(g, plain) for g in docs)}")
-        check(logs[0] == logs[1] and len(logs[0]) > 0, "the replay logs "
-              "differ with retention and tracing on and off")
-        check(all(_same_run(g, plain) for g in docs)
-              and kept["snapshots_stored"] > 0 and kept["spans_stored"] > 0,
-              "a byte-compat leg differs from (c) or retained nothing")
+    # the obs_server and postmortem substrate smokes: every leg a child
+    # process on this card (the paper-scale run's buffers released first)
+    del res
+    reports = _server_runners(dev, "obs",
+                              obs_server=dryrun.run_obs_server_smoke,
+                              postmortem=dryrun.run_postmortem_smoke)
+    children = sum(sum(r["children"]["row_mean_launches"])
+                   for r in reports.values())
+    report = reports["obs_server"]
+    live, d = report["observed_live"], report["defense"]
+    sub = live["subscriber"]
+    print(f"[obs] obs_server smoke: observed live {live['hub_snapshots']} "
+          f"snapshots, subscriber received {sub['snapshots']} (stamped and "
+          f"increasing {sub['stamped_ok']}, errors {len(sub['errors'])}); "
+          f"under drop_dup {report['observed_chaos']['faults_injected']} "
+          f"faults; restored after a SIGKILL with "
+          f"{report['kill_restore']['hub_snapshots']} hub snapshots; "
+          f"defense {d['events']} events {d['by_action']}, reliable set "
+          f"{d['reliable_set_defended']} against "
+          f"{d['reliable_set_undefended']} undefended, replay == live "
+          f"{d['replay_trajectory_equal']}")
+    report = reports["postmortem"]
+    rec, stall = report["flight_recorder"], report["stall_kill"]
+    print(f"[obs] postmortem smoke: replay logs "
+          f"{report['replay_log_byte_compat']['bytes']} bytes, identical "
+          f"with retention and tracing on and off "
+          f"{report['replay_log_byte_compat']['identical']}; the dead "
+          f"store read as epochs {rec['dead_epochs']} ("
+          f"{rec['dead_snapshots']} snapshots, {rec['dead_spans']} spans, "
+          f"{rec['dead_phase_transitions']} phase transitions, "
+          f"{rec['replay_log_records']} log records), after the restore "
+          f"{rec['post_restore_epochs']}; stall window killed "
+          f"{stall['searches_killed']} at iteration "
+          f"{stall['defended_iteration']} of "
+          f"{stall['baseline_iteration']}, replay == live "
+          f"{stall['replay_trajectory_equal']}")
+    return children
 
 
 def _substrate_smoke(dev: torch.device, runner, name: str, **kw):
@@ -2859,9 +2788,9 @@ TRAIN_BENCH = dict(batch=4, seq=128, p=8, k=4, sample_scale=0.05)
 
 
 def _launch_train(argv, env, timeout=600):
-    return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *argv],
-        capture_output=True, text=True, env=env, cwd=ROOT, timeout=timeout)
+    """``python -m repro_torch.launch.train`` in a child process (forked,
+    ``launch/child.py``); its exit code, stdout and stderr."""
+    return child.run("repro_torch.launch.train", argv, env, timeout)
 
 
 def _train_lines(text: str) -> list:
@@ -2991,7 +2920,7 @@ def phase_train(dev: torch.device) -> dict:
     check(saved == ["step_00000050", "step_00000100"],
           f"lm-100m's checkpoints: {saved}")
 
-    # (t2) crash and restart in subprocesses, resumed == uninterrupted
+    # (t2) crash and restart in child processes, resumed == uninterrupted
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_crash_") as tmp:
@@ -3014,7 +2943,7 @@ def phase_train(dev: torch.device) -> dict:
         n_leaves = len(a.files)
     resumed = ("resumed from step 8" in r2.stdout
                and '"step": 12' in r2.stdout)
-    print(f"[train] (t2) tiny, crashed and resumed in subprocesses: crash "
+    print(f"[train] (t2) tiny, crashed and resumed in child processes: crash "
           f"at 9 exit {r1.returncode}; resumed from step 8 to step 12: "
           f"{resumed}; resumed step-12 arrays.npz == an uninterrupted run's "
           f"(in this process), {n_leaves} leaves bit for bit: {same}; "
@@ -3254,11 +3183,9 @@ def phase_dryrun(dev: torch.device, d1: dict, d2: dict) -> None:
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
-        run = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "h2o-danube-3-4b", "--shape", "train_4k", "--mesh", "pod",
-             "--out", tmp], capture_output=True, text=True, env=env,
-            cwd=ROOT, timeout=300)
+        run = child.run("repro_torch.launch.dryrun", [
+            "--arch", "h2o-danube-3-4b", "--shape", "train_4k", "--mesh",
+            "pod", "--out", tmp], env, timeout=300)
         path = os.path.join(tmp, "h2o-danube-3-4b__train_4k__16x16.json")
         report = {}
         if run.returncode == 0 and os.path.exists(path):
@@ -3296,13 +3223,16 @@ def main() -> None:
     row_mean = timed("rowmean", phase_rowmean, dev)
     timed("fitness", phase_fitness, dev)
     launches = timed("fig2", phase_fig2, dev)   # the main path, from 0
+    # the forkserver of the child processes ([server], [obs], [train],
+    # [dryrun]) imports torch and the port beside the phases before them
+    child.warm()
     baselines_launches = timed("baselines", phase_baselines, dev)
     timed("fig3", phase_fig3, dev)
     timed("grid", phase_grid, dev)
-    row_mean_launches, server_doc, server_wall = timed("server",
-                                                       phase_server, dev)
+    row_mean_launches, children, server_doc, server_wall = timed(
+        "server", phase_server, dev)
     timed("pod", phase_pod, dev)
-    timed("obs", phase_obs, dev, server_doc, server_wall)
+    children += timed("obs", phase_obs, dev, server_doc, server_wall)
     timed("portfolio", phase_portfolio, dev)
     flash = timed("flash", phase_flash, dev)
     wkv6 = timed("wkv6", phase_wkv6, dev)
@@ -3321,6 +3251,7 @@ def main() -> None:
     serve_hybrid_launches = timed("serve hybrid", phase_serve_hybrid, dev)
     d1 = timed("train", phase_train, dev)
     timed("dryrun", phase_dryrun, dev, d1, d2)
+    child.stop()                    # no process left behind
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     phase_card(dev)                 # the stamp again, near the end
     print(json.dumps({"kernels": [
@@ -3347,7 +3278,8 @@ def main() -> None:
          "replaces": "src/repro/data/sdss.py:79 (jnp.mean, :79, :80, :85; "
                      "no TPU kernel: port-only)",
          "launches": row_mean_launches,
-         "baselines_launches": baselines_launches, **row_mean}]}))
+         "baselines_launches": baselines_launches,
+         "server_children_launches": children, **row_mean}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -62,6 +62,13 @@ wkv6_chunked_launches = 0
 wkv6_serial_launches = 0
 row_mean_launches = 0
 
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by its counter's name."""
+    return {name: value for name, value in globals().items()
+            if name.endswith("_launches") and isinstance(value, int)}
+
+
 _TYPES = (torch.float32, torch.bfloat16)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 

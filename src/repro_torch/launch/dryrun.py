@@ -33,20 +33,20 @@ What a report holds, per device (``n_chips`` devices of the mesh):
   port's own key), the arguments plus the peak of everything live
   beside them, outputs included: the eager step's peak, what a card's
   ``max_memory_allocated`` reads on a one-device mesh.  Each storage is
-  divided by the devices its own layout cuts it over
-  (``TraceCounter``): a gradient by its parameter's spec (after
-  ``enforce_divisible``), the new parameters and AdamW moments by
+  divided by the devices its own layout cuts it over, dimension by
+  dimension (``TraceCounter``): a gradient by its parameter's spec
+  (after ``enforce_divisible``), the new parameters and AdamW moments by
   theirs, the logits and decode cache by theirs, an activation by the
   spec its ``ctx.cons`` / ``ctx.cons_spec`` names (the reference's
   sharding constraints; ``TraceCtx``); any other storage from the
-  inputs of the op that makes it: by the most cut of those of its own
-  shape, and at least by the batch's data-parallel shards when one of
-  them carries the batch's rows, else whole.
-  An activation that only XLA's propagation would cut over ``model``
-  (no constraint names it: a projection's output, the attention
-  scores) is counted over the data shards alone, so the figure is a
-  reckoning and too high for such steps, and nothing checks it on a
-  mesh of more than one device;
+  inputs of the op that makes it, as XLA's propagation would lay it
+  out: a product's output by its operands' free dimensions (the batch's
+  rows by the data shards, a weight's output dimension by the spec that
+  cuts it, the heads of q, k and v, and so the scores and probabilities,
+  by ``model``; a contraction over a cut dimension leaves a partial sum
+  cut as its free dimensions alone), a copy, a cast or an elementwise
+  op by its inputs' cuts.  The figure is a reckoning: nothing checks it
+  on a mesh of more than one device;
 * ``collective_bytes``: ``roofline.analysis.collective_bytes_from_specs``,
   a model of the collectives from the specs (no machine here has more
   than one card), charged at the link each crosses.
@@ -58,18 +58,21 @@ reports (``benchmarks/roofline.py::load_reports``) read these; the report's
 
 ``--substrate X`` instead runs one substrate smoke of the registry
 (``launch/substrates.py``; ``--list-substrates`` prints it) on
-``--device`` (default ``cuda``): ``pod_mesh`` (``run_substrate_smoke``),
-``multi_search``, ``cached_portfolio`` and ``lm_subspace``, the
-reference's in-process runners, each on the production 16 × 16 mesh
-over virtual devices of the one device (the reference forces 512 host
-devices).  The four server smokes are registered but refused by name
-(exit 2) until they are ported.
+``--device`` (default ``cuda``).  ``pod_mesh`` (``run_substrate_smoke``),
+``multi_search``, ``cached_portfolio`` and ``lm_subspace`` run in this
+process, each on the production 16 × 16 mesh over virtual devices of the
+one device (the reference forces 512 host devices); ``server``,
+``chaos_server``, ``obs_server`` and ``postmortem`` run their legs as
+child processes of ``server/sim.py`` on the same device, SIGKILL some of
+them mid-run and restore them (``ServerChildren``), and run their
+in-process legs on the same virtual mesh.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--mesh pod|multipod|both]
     python -m repro_torch.launch.dryrun --list-substrates
     python -m repro_torch.launch.dryrun --substrate pod_mesh [--device cpu]
+    python -m repro_torch.launch.dryrun --substrate server [--device cpu]
 
 Reports go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``,
 a smoke's to ``artifacts/dryrun_torch/substrate_<X>.json`` (or ``--out``).
@@ -77,10 +80,15 @@ a smoke's to ``artifacts/dryrun_torch/substrate_<X>.json`` (or ``--out``).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import math
 import os
+import shutil
+import signal
+import sys
+import tempfile
 import time
 import traceback
 import weakref
@@ -94,9 +102,10 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs import (ARCH_NAMES, SHAPES, ModelConfig, ShapeConfig,
                                  cell_is_runnable, get_config)
 from repro_torch.core.tree import map_tree
+from repro_torch.kernels import ops
+from repro_torch.launch import child
 from repro_torch.launch.mesh import make_production_mesh, virtual_devices
-from repro_torch.launch.substrates import (NOT_PORTED, SUBSTRATES,
-                                           list_substrates)
+from repro_torch.launch.substrates import SUBSTRATES, list_substrates
 from repro_torch.models import sharding as S
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW, opt_state_specs
@@ -127,14 +136,17 @@ COUNTED_BY = {
                        "storage's piece on one device (see layout_rule): "
                        "the eager step's peak, what a card's "
                        "max_memory_allocated reads",
-    "layout_rule": "a gradient / the new parameters and AdamW moments / "
-                   "the logits and decode cache: ÷ the devices their specs "
-                   "cut them over; an activation a ctx.cons or "
-                   "ctx.cons_spec constraint names: ÷ that spec's; any "
-                   "other storage: from the inputs of the op that makes "
-                   "it, as the most cut of those of its own shape, and at "
-                   "least ÷ the batch's data shards when one of them "
-                   "carries the batch's rows, else whole",
+    "layout_rule": "each storage's piece from the cuts of its "
+                   "dimensions: a gradient / the new parameters and AdamW "
+                   "moments / the logits and decode cache: their specs'; "
+                   "an activation a ctx.cons or ctx.cons_spec constraint "
+                   "names: that spec's; any other storage: from the op "
+                   "that makes it, a product's output by its operands' "
+                   "free dimensions (a contraction over a cut dimension "
+                   "a partial sum), any other op's by its inputs' "
+                   "dimensions matched from the left and the right, and "
+                   "at least / the batch's data shards when an input "
+                   "carries the batch's rows; made from nothing, whole",
     "collective_bytes": "roofline.analysis.collective_bytes_from_specs "
                         "(a model from the specs, not a measurement)",
     "compile_s": "wall of the meta trace",
@@ -174,6 +186,12 @@ _ALLOCATE_ONLY = {"empty", "empty_like", "empty_strided", "new_empty",
                   "new_empty_strided"}
 
 
+#: the aten products whose output follows their operands' free dims: name
+#: → the positions of (a, b) in the op's arguments; a bias or accumulator
+#: before them is laid out as any other input
+_PRODUCTS = {"mm": 0, "addmm": 1, "bmm": 0, "baddbmm": 1}
+
+
 class TraceCounter(TorchDispatchMode):
     """Bytes accessed and live bytes of the ops run under it, and a guard
     that every tensor made lies on ``meta`` (or holds no element:
@@ -189,27 +207,54 @@ class TraceCounter(TorchDispatchMode):
     storages the step's outputs hold.
 
     Each storage also has its piece on one device of ``mesh``
-    (``local_peak``).  A storage given a layout, an argument's by
-    ``exclude(tree, specs)`` or one the step makes by ``tag(tree,
-    specs)``, is cut as its spec cuts its tensor.  Any other storage is
-    laid out from the inputs of the op that makes it: cut as the most cut
-    of those of its own shape and, if one of them carries the batch's
-    rows (an argument excluded with ``rows=True``, or what is made from
-    one), at least ``row_shards`` ways; else it is whole.  On a
-    one-device mesh every piece is the whole."""
+    (``local_peak``), from the cuts of its dimensions.  A cut is a mesh
+    axis splitting one index of the storage, kept as (axis, ways, stride,
+    extent): the index of that element stride and extent is split into
+    ``ways`` blocks (so a view that merges, splits or transposes
+    dimensions finds each cut on the dimension that holds that stride).
+    A storage given a layout, an argument's by ``exclude(tree, specs)`` or
+    one the step makes by ``tag(tree, specs)``, is cut as its spec cuts
+    its tensor.  Any other storage takes its cuts from the inputs of the
+    op that makes it, dimension by dimension:
+
+    * a product (``mm``, ``addmm``, ``bmm``, ``baddbmm``; what ``matmul``,
+      ``linear`` and ``einsum`` lower to) takes its operands' free
+      dimensions' cuts: the rows of ``a``, the columns of ``b``, and the
+      batch dimension of both.  A cut of the contracted dimension is
+      dropped: the output is a partial sum, whole but for its free cuts
+      (the storage a row-parallel product's all-reduce fills);
+    * any other op matches each input's dimensions to the output's from
+      the left and from the right while their sizes agree (a copy, a cast
+      or an elementwise op keeps its input's cuts; a reduction keeps
+      those of the dimensions it keeps; broadcasting aligns from the
+      right), the most cut input first;
+
+    a mesh axis cuts at most its own size over all of a storage's
+    dimensions, and a dimension only by a factor of its size.  A storage
+    made from the batch's rows (an argument excluded with ``rows=True``,
+    or what is made from one) whose cuts split the data axes fewer than
+    ``row_shards`` ways counts at least a ``row_shards``-th (a partial sum
+    over the rows, or a layout the matching missed); a storage made from
+    no laid-out input is whole.  On a one-device mesh every piece is the
+    whole."""
 
     def __init__(self, mesh=None, row_shards: int = 1):
         super().__init__()
         self.mesh = mesh
         self.row_shards = row_shards
+        #: the mesh axes cut more than one way, their sizes; the data axes
+        self._axes = ({} if mesh is None else
+                      {a: n for a, n in mesh.shape.items() if n > 1})
+        self._dp = (frozenset(S.mesh_axes(mesh)[0]) if mesh is not None
+                    else frozenset())
         self.bytes_accessed = 0
         self.live = 0
         self.ops = 0
         #: storage → its serial (None for an argument's)
         self._known: Dict[int, Optional[int]] = {}
         self._refs: Dict[int, Any] = {}
-        #: storage → (shape, its share as (local, whole) elements, rows)
-        self._layout: Dict[int, Tuple[tuple, int, int, bool]] = {}
+        #: storage → (its cuts, rows, its share as (local, whole) elements)
+        self._layout: Dict[int, Tuple[tuple, bool, int, int]] = {}
         #: bytes, by serial: whole and one device's piece
         self._sizes = array("q")
         self._local = array("q")
@@ -239,32 +284,111 @@ class TraceCounter(TorchDispatchMode):
         whole = max(t.numel(), 1)
         local = (whole if self.mesh is None
                  else local_numel(tuple(t.shape), spec, self.mesh))
-        self._layout[key] = (tuple(t.shape), local, whole, rows)
+        dims = []
+        for n, entry in zip(t.shape, tuple(spec) + (None,) * t.dim()):
+            cuts, left = [], n
+            for a in (() if entry is None else
+                      entry if isinstance(entry, tuple) else (entry,)):
+                f = self._axes.get(a, 1)
+                if f > 1 and left % f == 0:
+                    cuts.append((a, f, 1, left))
+                    left //= f
+            dims.append(cuts)
+        self._layout[key] = (self._to_storage(t, dims), rows, local, whole)
         self._place(key)
 
     def _place(self, key: int) -> None:
         """Set a made storage's piece from its layout."""
         s = self._known.get(key)
         if s is not None:
-            _, local, whole, _ = self._layout[key]
+            _, _, local, whole = self._layout[key]
             self._local[s] = self._sizes[s] * local // whole
 
-    def _inherit(self, key: int, t: torch.Tensor, ins: list) -> None:
-        """A made storage's layout from the op's inputs (class doc): the
-        smallest share among the inputs of its own shape and, where it
-        carries the batch's rows, a ``row_shards``-th."""
-        shape = tuple(t.shape)
-        best, rows = (1, 1), False
+    @staticmethod
+    def _to_storage(t: torch.Tensor, dims) -> tuple:
+        """The cuts of ``t``'s dimensions as cuts of its storage."""
+        return tuple((a, f, s * inner, ext)
+                     for s, cuts in zip(t.stride(), dims)
+                     for a, f, inner, ext in cuts)
+
+    def _dims(self, t: torch.Tensor, cuts: tuple) -> list:
+        """The cuts of each dimension of ``t``, a view of a storage cut by
+        ``cuts``: each (axis, ways, inner, extent) splitting the index
+        ``(i // inner) % extent`` of that dimension.  A cut whose stride
+        range ``t`` spans over several dimensions goes to the outer ones
+        first, each taking what its part of the range divides."""
+        dims = [[] for _ in range(t.dim())]
+        shape, strides = t.shape, t.stride()
+        for a, f, st, ext in cuts:
+            hi = st * ext
+            over = sorted(((s, n, i) for i, (n, s) in
+                           enumerate(zip(shape, strides))
+                           if n > 1 and 0 < s < hi and s * n > st),
+                          reverse=True)
+            for s, n, i in over:
+                lo = max(s, st)
+                part = min(s * n, hi) // lo
+                g = math.gcd(f, part)
+                if g > 1:
+                    dims[i].append((a, g, lo // s, part))
+                    f //= g
+                if f == 1:
+                    break
+        return dims
+
+    def _inherit(self, key: int, t: torch.Tensor, func, args,
+                 ins: list) -> None:
+        """A made storage's layout from the op's inputs (class doc)."""
+        rows, laid = False, []
         for x in ins:
             st = self._layout.get(x.untyped_storage()._cdata)
-            if st is None:
-                continue
-            rows = rows or st[3]
-            if tuple(x.shape) == shape and st[1] * best[1] < best[0] * st[2]:
-                best = (st[1], st[2])
-        if rows and best[0] * self.row_shards > best[1]:
-            best = (1, self.row_shards)
-        self._layout[key] = (shape, best[0], best[1], rows)
+            if st is not None:
+                rows = rows or st[1]
+                if st[0]:
+                    laid.append((x, self._dims(x, st[0])))
+        shape = tuple(t.shape)
+        pairs = []                       # (output dim, cut), in priority
+        first = _PRODUCTS.get(func._opname)
+        if first is not None and laid:
+            a, b = args[first], args[first + 1]
+            da = next((d for x, d in laid if x is a), None)
+            db = next((d for x, d in laid if x is b), None)
+            batch = t.dim() - 2          # bmm's leading dimension
+            for d, free in ((da, batch), (db, batch + 1)):
+                if d is not None:
+                    pairs += [(free, c) for c in d[free]]
+                    pairs += [(0, c) for c in (d[0] if batch else ())]
+            laid = [(x, d) for x, d in laid if x is not a and x is not b]
+        laid.sort(key=lambda xd: -math.prod(c[1] for cuts in xd[1]
+                                            for c in cuts))
+        for x, d in laid:
+            xs = tuple(x.shape)
+            k = min(len(xs), len(shape))
+            j = 0
+            while j < k and xs[j] == shape[j]:
+                pairs += [(j, c) for c in d[j]]
+                j += 1
+            if j < k:
+                i = 1
+                while i <= k - j and xs[-i] == shape[-i]:
+                    pairs += [(len(shape) - i, c) for c in d[-i]]
+                    i += 1
+        dims = [[] for _ in shape]
+        used: Dict[str, int] = {}
+        ways = [1] * len(shape)
+        for i, (a, f, inner, ext) in pairs:
+            if (used.get(a, 1) * f <= self._axes[a]
+                    and shape[i] % (ways[i] * f) == 0
+                    and all(c[0] != a for c in dims[i])):
+                dims[i].append((a, f, inner, ext))
+                used[a] = used.get(a, 1) * f
+                ways[i] *= f
+        whole = math.prod(ways)
+        if rows:
+            dp = math.prod(n for a, n in used.items() if a in self._dp)
+            if dp < self.row_shards:
+                whole *= self.row_shards // math.gcd(self.row_shards, dp)
+        self._layout[key] = (self._to_storage(t, dims), rows, 1, whole)
 
     def piece(self, t: torch.Tensor) -> int:
         """Bytes of one device's piece of the storage ``t`` lies in (a
@@ -328,8 +452,9 @@ class TraceCounter(TorchDispatchMode):
             self._refs[key] = weakref.ref(
                 st, lambda _, key=key: self._release(key))
             self.live += st.nbytes()
-            self._inherit(key, t, ins)
-            self._place(key)
+            if self._axes:
+                self._inherit(key, t, func, args, ins)
+                self._place(key)
         return out
 
 
@@ -655,22 +780,15 @@ def _mesh_tag(mesh) -> str:
     return "x".join(str(n) for n in mesh.shape.values())
 
 
-def _launches() -> Dict[str, int]:
-    """Every kernel wrapper's launch count (``kernels/ops.py``)."""
-    from repro_torch.kernels import ops
-    return {name: value for name, value in vars(ops).items()
-            if name.endswith("_launches") and isinstance(value, int)}
-
-
 def _since(before: Dict[str, int]) -> Dict[str, int]:
     """The launches since ``before``, counters that moved only."""
-    now = _launches()
+    now = ops.launch_counts()
     return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
 def _timed(fn):
     """(fn(), wall seconds, its launches)."""
-    before = _launches()
+    before = ops.launch_counts()
     t0 = time.perf_counter()
     out = fn()
     return out, time.perf_counter() - t0, _since(before)
@@ -1035,8 +1153,6 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
     the sync leg, ``orchestrator/solo_stats_equal`` and
     ``warm_stats_equal``); returns pass/fail (the reference's: gates 1
     and 2 on the trajectories)."""
-    import tempfile
-
     from repro_torch.core.engine import identical_trajectories
     from repro_torch.core.orchestrator import (FleetScheduler,
                                                SearchDirector,
@@ -1210,6 +1326,724 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
     return ok
 
 
+# ---------------------------------------------------------------------------
+# The substrate smokes: the server runners, each leg a child process
+# ---------------------------------------------------------------------------
+
+#: the seeded server smoke's command line, and the post-mortem reader's
+SIM_MODULE = "repro_torch.server.sim"
+POSTMORTEM_MODULE = "repro_torch.launch.obs_postmortem"
+#: the fault counters of a chaos run's doc
+_FAULTS = ("drops_request", "drops_reply", "duplicates", "delays", "resets",
+           "torn_writes")
+
+
+def trajectories_equal(a: dict, b: dict) -> bool:
+    """The server runners' parity gate on two result docs: the committed
+    history, iteration and best fitness, and the final engine stats."""
+    return all(a[k] == b[k] for k in ("history", "iteration", "best_fitness",
+                                      "engine_stats"))
+
+
+def _faults_injected(chaos: dict) -> int:
+    return sum(chaos[k] for k in _FAULTS)
+
+
+class ServerChildren:
+    """What the four server runners share: their legs run as child
+    processes of ``server/sim.py``'s command line (``SIM_MODULE``), each
+    ``spec_args`` + ``--device`` + the leg's own flags, from a temporary
+    directory (``path``; removed by ``close``).  A child is forked from
+    the forkserver of ``launch/child.py``, which imported torch and the
+    port once: it opens its own CUDA context, and a SIGKILL ends it as it
+    ends any process.  Independent legs run at once (``parallel``).  On a
+    CUDA device the kernels are built here before any child starts, so
+    no child compiles and no SIGKILL lands inside ``nvcc``.  Every
+    child's result doc is kept for ``device_gate``, each leg's wall in
+    ``walls``."""
+
+    def __init__(self, prefix: str, device, spec_args):
+        self.device = str(device)
+        self.cuda = torch.device(device).type == "cuda"
+        if self.cuda:
+            from repro_torch.kernels import build
+            build.build_all()
+        src = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                           ".."))
+        self.env = dict(os.environ)
+        self.env["PYTHONPATH"] = src + (
+            ":" + self.env["PYTHONPATH"] if self.env.get("PYTHONPATH")
+            else "")
+        self.spec_args = list(spec_args)
+        self.tmp = tempfile.mkdtemp(prefix=prefix)
+        self.docs: list = []
+        self.walls: Dict[str, float] = {}
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.tmp, name)
+
+    def argv(self, extra, module: str = SIM_MODULE) -> list:
+        """A child's command line: ``python -m <module>`` and these."""
+        args = (self.spec_args + ["--device", self.device]
+                if module == SIM_MODULE else [])
+        return [*args, *extra]
+
+    def start(self, leg: str, extra, module: str = SIM_MODULE):
+        """Start one child; its stderr goes to ``<leg>.stderr``."""
+        return child.start(module, self.argv(extra, module), self.env,
+                           err_path=self.path(f"{leg}.stderr"), name=leg)
+
+    def _failed(self, leg: str, proc) -> None:
+        with open(self.path(f"{leg}.stderr")) as f:
+            print(f"[FAIL] {leg} child exited {proc.exitcode}:\n"
+                  f"{f.read()[-2000:]}")
+
+    def run(self, leg: str, extra, module: str = SIM_MODULE) -> dict:
+        """Run one child to its end, ``--out`` into ``<leg>.json``, and
+        return that doc.  A child that exits nonzero (or is still running
+        after 600 s, and is killed) prints the end of its stderr and
+        raises: no leg falls back to this process or the CPU."""
+        out = self.path(f"{leg}.json")
+        t0 = time.perf_counter()
+        proc = self.start(leg, [*extra, "--out", out], module)
+        proc.join(600)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        self.walls[leg] = round(time.perf_counter() - t0, 3)
+        if proc.exitcode != 0:
+            self._failed(leg, proc)
+            raise RuntimeError(f"{leg} child failed")
+        with open(out) as f:
+            doc = json.load(f)
+        if module == SIM_MODULE:
+            self.docs.append(doc)
+        return doc
+
+    def kill_mid_run(self, leg: str, extra, ckpt: str, floor: int,
+                     base_messages: int) -> bool:
+        """Start a child checkpointing into ``ckpt`` and SIGKILL it once a
+        snapshot is on disk and its replay log holds ``max(floor, 40 % of
+        base_messages)`` records, polling every 20 ms for 300 s.
+        Returns whether it was killed mid-run (False: it ended first, or
+        never got there)."""
+        kill_after = max(floor, int(0.4 * base_messages))
+        log_path = os.path.join(ckpt, "replay.jsonl")
+        t0 = time.perf_counter()
+        proc = self.start(leg, extra)
+        killed = False
+        try:
+            deadline = time.time() + 300
+            while time.time() < deadline and proc.is_alive():
+                has_snap = os.path.isdir(ckpt) and any(
+                    f.startswith("snapshot_") for f in os.listdir(ckpt))
+                lines = 0
+                if os.path.exists(log_path):
+                    with open(log_path, "rb") as f:
+                        lines = f.read().count(b"\n")
+                if has_snap and lines >= kill_after:
+                    os.kill(proc.pid, signal.SIGKILL)
+                    proc.join(30)
+                    killed = True
+                    break
+                time.sleep(0.02)
+        finally:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(30)
+        self.walls[leg] = round(time.perf_counter() - t0, 3)
+        if not killed and proc.exitcode:
+            self._failed(leg, proc)
+        return killed
+
+    @staticmethod
+    def parallel(legs: Dict[str, Callable[[], Any]]) -> Dict[str, Any]:
+        """Run independent legs at once, a thread each (a leg waits on its
+        children); their results by name.  A leg that raises raises here,
+        once every leg has ended."""
+        with concurrent.futures.ThreadPoolExecutor(len(legs)) as pool:
+            futures = {name: pool.submit(fn) for name, fn in legs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+    def device_gate(self) -> dict:
+        """Whether every child's doc says it ran on this device (and, on
+        CUDA, that it launched the row_mean kernel)."""
+        want = torch.device(self.device).type
+        devices = [d["device"] for d in self.docs]
+        row_mean = [d["launches"].get("row_mean_launches", 0)
+                    for d in self.docs]
+        ok = bool(devices) and all(torch.device(d).type == want
+                                   for d in devices)
+        if self.cuda:
+            ok = ok and all(n > 0 for n in row_mean)
+        return {"children": len(devices), "devices": sorted(set(devices)),
+                "row_mean_launches": row_mean, "ok": ok}
+
+    def close(self) -> None:
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def _spec_args(n_hosts: int, m: int, iterations: int, n_stars: int,
+               silence: bool = False) -> list:
+    args = ["--n-hosts", str(n_hosts), "--m", str(m), "--iterations",
+            str(iterations), "--n-stars", str(n_stars)]
+    return args + (["--silence-at", "150", "--silence-frac", "0.25"]
+                   if silence else [])
+
+
+def _baseline(doc: dict) -> dict:
+    return {"iterations": doc["iteration"], "best": doc["best_fitness"],
+            "messages": doc["pool"]["messages"],
+            "registry": doc["registry"]}
+
+
+def _kill_restore(kids: ServerChildren, leg: str, extra, ckpt: str,
+                  floor: int, base: dict) -> Tuple[dict, Optional[dict]]:
+    """A child SIGKILLed mid-run (``ServerChildren.kill_mid_run``), then
+    restored with ``--resume`` to its end: (the reference's kill-leg
+    entry, the restored doc or None)."""
+    if not kids.kill_mid_run(f"kill_{leg}", extra, ckpt, floor,
+                             base["pool"]["messages"]):
+        return {"killed_mid_run": False, "ok": False}, None
+    try:
+        res = kids.run(f"resume_{leg}", [*extra, "--resume"])
+    except RuntimeError:
+        return {"killed_mid_run": True, "ok": False,
+                "error": "resume child failed"}, None
+    equal = trajectories_equal(base, res)
+    return {"killed_mid_run": True, "recovered_done": res["recovered_done"],
+            "replayed": res["replayed"],
+            "resumed_leases": res["pool"]["resumed_leases"],
+            "trajectory_equal": equal,
+            "ok": equal and not res["recovered_done"]}, res
+
+
+def _on_mesh(device, mesh, n_hosts: int, m: int, iterations: int,
+             n_stars: int, **kw) -> Tuple[dict, str]:
+    """The smoke search in this process, evaluated through the pod backend
+    over ``mesh`` (default: the production 16 × 16 mesh over virtual
+    devices of ``device``), ``kw`` to ``ServerSubstrate``: (its result
+    doc, the mesh's tag)."""
+    from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+    from repro_torch.server.sim import (ServerSubstrate, result_doc,
+                                        smoke_problem)
+
+    spec, fleet, f_batch = smoke_problem(
+        n_stars=n_stars, n_hosts=n_hosts, m=m, iterations=iterations,
+        device=device)
+    backend = PodMeshEvalBackend(f_batch, mesh=_pod_mesh(device, mesh),
+                                 device=device)
+    doc = result_doc(ServerSubstrate(spec, fleet, backend, **kw).run())
+    return doc, _mesh_tag(backend.mesh)
+
+
+def _finish(name: str, out_dir: str, report: dict, kids: ServerChildren,
+            ok: bool) -> Tuple[bool, str]:
+    """Gate the children's devices, write the report; (ok, its path)."""
+    gate = kids.device_gate()
+    ok = ok and gate["ok"]
+    report.update(device=kids.device, children=gate, wall_s=kids.walls,
+                  parity_ok=ok)
+    return ok, _write(out_dir, name, report)
+
+
+def run_server_smoke(out_dir: str, n_hosts: int = 160, m: int = 24,
+                     iterations: int = 4, n_stars: int = 400, *,
+                     device="cuda", mesh=None) -> bool:
+    """Service-layer kill/restore smoke (``--substrate server``).
+
+    The seeded smoke search (``repro_torch.server.sim.smoke_problem``)
+    runs four ways, every leg but one a child process on ``device``
+    (``ServerChildren``; legs 2-5 at once, after 1):
+
+      1. uninterrupted, loopback transport                → the baseline;
+      2. uninterrupted, pod-mesh evaluation path          → must equal 1
+         (row-independence across evaluation widths, DESIGN.md §6/§8) —
+         plus an IN-PROCESS run over ``mesh`` (default: the production
+         16 × 16 mesh over virtual devices of ``device``) here in the
+         parent, exercising the partitioning;
+      3. SIGKILLed mid-search on loopback, restored from snapshot +
+         replay log, run to completion                    → must equal 1;
+      4. the same kill/restore over the TCP transport     → must equal 1;
+      5. the same loopback kill/restore with ``--cache``  → must equal 1,
+         AND the restored process must come back WARM: its eval-cache
+         store survives the SIGKILL in the checkpoint dir and serves the
+         re-leased in-flight points (``cache.hits > 0``, DESIGN.md §10).
+
+    "Equal" is the hard service-layer contract: bit-identical committed
+    centers and fitness history AND identical final ``EngineStats``.
+    Writes ``substrate_server.json`` (the reference's keys, and
+    ``device``, ``mesh``, ``children``: every child's device and
+    row_mean launches, and each leg's wall); returns pass/fail, which
+    also requires every child to have run on ``device``."""
+    kids = ServerChildren("server_smoke_", device,
+                          _spec_args(n_hosts, m, iterations, n_stars))
+    report = {"n_hosts": n_hosts, "m": m, "iterations": iterations}
+    ok = True
+    try:
+        base = kids.run("base", [])
+
+        def kill(variant, transport, cache_args):
+            # kill once ~40% of the baseline's message count has been
+            # logged: deep enough that the kill lands well past the
+            # bootstrap, with most of the run still ahead (the throttle
+            # in the child stretches the wall-clock window so the 20 ms
+            # poll cannot miss it)
+            ckpt = kids.path(f"ckpt_{variant}")
+            entry, res = _kill_restore(
+                kids, variant,
+                ["--transport", transport, "--ckpt-dir", ckpt,
+                 "--snapshot-every", "200", "--throttle-s", "0.002",
+                 *cache_args], ckpt, 200, base)
+            if res is not None and cache_args:
+                # the §10 warm-restore gate: the store survived the kill
+                # and the restored process actually served from it
+                warm = (res["cache"] is not None
+                        and res["cache"]["hits"] > 0
+                        and res["cache"]["store_size"] > 0)
+                entry.update(cache=res["cache"], warm_after_restore=warm,
+                             ok=entry["ok"] and warm)
+            return entry
+
+        legs = kids.parallel({
+            "pod": lambda: kids.run("pod", ["--backend", "pod_mesh"]),
+            "mesh": lambda: _on_mesh(device, mesh, n_hosts, m, iterations,
+                                     n_stars),
+            "loopback": lambda: kill("loopback", "loopback", []),
+            "tcp": lambda: kill("tcp", "tcp", []),
+            "loopback_cache": lambda: kill("loopback_cache", "loopback",
+                                           ["--cache"])})
+        backend_ok = trajectories_equal(base, legs["pod"])
+        mesh_doc, tag = legs["mesh"]
+        mesh_ok = trajectories_equal(base, mesh_doc)
+        kills = {v: legs[v] for v in ("loopback", "tcp", "loopback_cache")}
+        report.update({
+            "baseline": _baseline(base),
+            "backend_parity_ok": backend_ok,
+            "production_mesh_parity_ok": mesh_ok,
+            "mesh": tag,
+            "kill_restore": kills,
+        })
+        ok = (backend_ok and mesh_ok
+              and all(k["ok"] for k in kills.values()))
+    except Exception as e:  # noqa: BLE001 — smoke must report, not die
+        report["error"] = str(e)
+        ok = False
+    finally:
+        kids.close()
+    ok, path = _finish("server", out_dir, report, kids, ok)
+    kr = report.get("kill_restore", {})
+    print(f"[{'ok' if ok else 'FAIL'}] substrate server: "
+          f"backend_parity={report.get('backend_parity_ok')} "
+          f"mesh_parity={report.get('production_mesh_parity_ok')} "
+          f"loopback_kill={kr.get('loopback', {}).get('ok')} "
+          f"tcp_kill={kr.get('tcp', {}).get('ok')} "
+          f"cache_kill={kr.get('loopback_cache', {}).get('ok')} "
+          f"warm={kr.get('loopback_cache', {}).get('warm_after_restore')} "
+          f"-> {path}")
+    return ok
+
+
+def run_chaos_server_smoke(out_dir: str, n_hosts: int = 48, m: int = 12,
+                           iterations: int = 3, n_stars: int = 200,
+                           n_clients: int = 8, *, device="cuda",
+                           mesh=None) -> bool:
+    """Chaos-hardened work-service smoke (``--substrate chaos_server``,
+    DESIGN.md §12).
+
+    The seeded smoke search runs once serially on loopback with no faults
+    (the baseline), then as ``n_clients`` truly concurrent TCP clients —
+    clean, and under each of three seeded ``FaultPlan`` presets (drops +
+    duplication, reordering delay, resets + torn writes) — every time in
+    a child process on ``device``.  The hard gate is the tentpole
+    contract: bit-identical committed iterates and identical final engine
+    stats vs the fault-free serial baseline, with the fault counters
+    proving the schedule actually injected.  Two more legs:
+
+      * a SIGKILL mid-chaos (concurrent TCP + reset_torn), restored from
+        snapshot + replay log and run to completion → must equal the
+        baseline;
+      * a concurrent+chaos run in the parent evaluating through the pod
+        backend over ``mesh`` (default: the production 16 × 16 mesh over
+        virtual devices of ``device``) — fault tolerance and the
+        production partitioning composed.
+
+    Every leg after the baseline runs at once.  Writes
+    ``substrate_chaos_server.json`` (the reference's keys, and
+    ``baseline``, ``device``, ``children`` and each leg's wall); returns
+    pass/fail, which also requires every child to have run on
+    ``device``."""
+    kids = ServerChildren("chaos_smoke_", device,
+                          _spec_args(n_hosts, m, iterations, n_stars))
+    conc_args = ["--transport", "tcp", "--concurrent", str(n_clients)]
+    report = {"n_hosts": n_hosts, "m": m, "iterations": iterations,
+              "n_clients": n_clients}
+    presets = ("drop_dup", "reorder_delay", "reset_torn")
+    ok = True
+    try:
+        base = kids.run("base", [])
+        report["baseline"] = _baseline(base)
+
+        def plan(preset):
+            try:
+                doc = kids.run(preset, [*conc_args, "--chaos", preset])
+            except RuntimeError:
+                return {"ok": False, "error": "child failed"}
+            ch = doc["chaos"]
+            injected = _faults_injected(ch)
+            return {"trajectory_equal": trajectories_equal(base, doc),
+                    "faults_injected": injected,
+                    "chaos": {k: v for k, v in ch.items() if k != "plan"},
+                    "ok": trajectories_equal(base, doc) and injected > 0}
+
+        # SIGKILL mid-chaos + restore under the same plan
+        ckpt = kids.path("ckpt_chaos")
+        kill_args = [*conc_args, "--chaos", "reset_torn", "--ckpt-dir",
+                     ckpt, "--snapshot-every", "150", "--throttle-s",
+                     "0.002"]
+        legs = kids.parallel({
+            # clean concurrency: the intake + release machinery alone
+            "concurrent": lambda: kids.run("concurrent", conc_args),
+            **{p: (lambda p=p: plan(p)) for p in presets},
+            "kill": lambda: _kill_restore(kids, "chaos", kill_args, ckpt,
+                                          150, base)[0],
+            # concurrent + chaos over the 16x16 mesh, in the parent
+            "mesh": lambda: _on_mesh(device, mesh, n_hosts, m, iterations,
+                                     n_stars, transport="tcp",
+                                     concurrent=n_clients,
+                                     chaos="drop_dup")})
+        clean = legs["concurrent"]
+        concurrent_ok = (trajectories_equal(base, clean)
+                         and clean["intake"]["parked"] > 0)
+        report["concurrent_clean"] = {
+            "trajectory_equal": trajectories_equal(base, clean),
+            "intake": clean["intake"], "ok": concurrent_ok}
+        report["fault_plans"] = {p: legs[p] for p in presets}
+        kill = legs["kill"]
+        report["kill_restore"] = kill
+        mesh_doc, tag = legs["mesh"]
+        mesh_ok = trajectories_equal(base, mesh_doc)
+        report["production_mesh_chaos"] = {
+            "mesh": tag, "trajectory_equal": mesh_ok,
+            "chaos": {k: v for k, v in mesh_doc["chaos"].items()
+                      if k != "plan"},
+            "ok": mesh_ok}
+        ok = (concurrent_ok and mesh_ok and kill["ok"]
+              and all(legs[p]["ok"] for p in presets))
+    except Exception as e:  # noqa: BLE001 — smoke must report, not die
+        report["error"] = str(e)
+        ok = False
+    finally:
+        kids.close()
+    ok, path = _finish("chaos_server", out_dir, report, kids, ok)
+    fp = report.get("fault_plans", {})
+    print(f"[{'ok' if ok else 'FAIL'}] substrate chaos_server: "
+          f"concurrent={report.get('concurrent_clean', {}).get('ok')} "
+          f"drop_dup={fp.get('drop_dup', {}).get('ok')} "
+          f"reorder={fp.get('reorder_delay', {}).get('ok')} "
+          f"reset_torn={fp.get('reset_torn', {}).get('ok')} "
+          f"kill={report.get('kill_restore', {}).get('ok')} "
+          f"mesh={report.get('production_mesh_chaos', {}).get('ok')} "
+          f"-> {path}")
+    return ok
+
+
+def run_obs_server_smoke(out_dir: str, n_hosts: int = 48, m: int = 12,
+                         iterations: int = 3, n_stars: int = 200,
+                         n_clients: int = 8, *, device="cuda",
+                         mesh=None) -> bool:
+    """Observability-plane smoke (``--substrate obs_server``, DESIGN.md
+    §13).
+
+    Every leg shares one injected fleet failure — a quarter of the host
+    ids go silent at virtual time 150 — so the anomaly machinery always
+    has churn to see, and every parity pair lives in the same world;
+    each leg is a child process on ``device``, 2-5 at once after 1:
+
+      1. the UNOBSERVED serial loopback baseline;
+      2. observed live: metrics hub + ``n_clients`` truly concurrent TCP
+         clients + a real background ``subscribe_stats`` subscriber
+         polling over its own socket during the run → bit-identical to 1,
+         and the subscriber must have received ≥ 2 stamped snapshots with
+         strictly increasing seqs;
+      3. observed under chaos (``drop_dup`` fault plan, concurrent TCP) →
+         bit-identical to 1 with faults provably injected (monitoring
+         traffic bypasses the injector, so the fault schedule — keyed on
+         stamped client messages — is unchanged);
+      4. observed + subscribed, SIGKILLed mid-stream on loopback,
+         restored from snapshot + replay log with obs re-attached →
+         bit-identical to 1 (the hub owns no replayable state);
+      5. anomaly defense live: detectors quarantine the silenced cohort
+         out of the registry's reliable set (measurably smaller than the
+         undefended baseline's), recording the verdict schedule — then a
+         REPLAY run applies the recorded schedule with detectors off and
+         must reproduce the defended trajectory bit-for-bit.
+
+    ``mesh`` is taken as the other runners take it and unused: no leg
+    runs on a mesh.  Writes ``substrate_obs_server.json`` (the
+    reference's keys, and ``baseline``, ``device``, ``children`` and
+    each leg's wall); returns pass/fail, which also requires every
+    child to have run on ``device``."""
+    kids = ServerChildren("obs_smoke_", device, _spec_args(
+        n_hosts, m, iterations, n_stars, silence=True))
+    obs_args = ["--obs", "--stats-interval", "10"]
+    conc_args = ["--transport", "tcp", "--concurrent", str(n_clients)]
+    report = {"n_hosts": n_hosts, "m": m, "iterations": iterations,
+              "n_clients": n_clients, "silence_at": 150.0,
+              "silence_frac": 0.25}
+    ok = True
+    try:
+        # 1: the unobserved baseline (same silenced world as every leg)
+        base = kids.run("base", [])
+        report["baseline"] = _baseline(base)
+
+        ckpt = kids.path("ckpt_obs")
+        kill_args = [*obs_args, "--subscribe", "--ckpt-dir", ckpt,
+                     "--snapshot-every", "150", "--throttle-s", "0.002"]
+        sched_path = kids.path("schedule.json")
+
+        def kill():
+            entry, res = _kill_restore(kids, "obs", kill_args, ckpt, 150,
+                                       base)
+            if res is not None:
+                entry = {k: v for k, v in entry.items()
+                         if k != "resumed_leases"}
+                entry["hub_snapshots"] = res["obs"]["snapshots"]
+            return entry
+
+        def defense():
+            defended = kids.run("defended", [*obs_args, "--defense",
+                                             "--defense-out", sched_path])
+            return defended, kids.run("replayed", [
+                *obs_args, "--defense-replay", sched_path])
+
+        legs = kids.parallel({
+            # 2: observed + live TCP subscriber + concurrent clients
+            "live": lambda: kids.run("observed", [*conc_args, *obs_args,
+                                                  "--subscribe"]),
+            # 3: observed under an injected fault schedule
+            "chaos": lambda: kids.run("observed_chaos", [
+                *conc_args, *obs_args, "--chaos", "drop_dup"]),
+            # 4: SIGKILL mid-stream, restore with obs re-attached
+            "kill": kill,
+            # 5: live defense records its schedule; a replay reproduces it
+            "defense": defense})
+
+        live = legs["live"]
+        sub = live["subscriber"]
+        live_ok = (trajectories_equal(base, live)
+                   and live["obs"]["snapshots"] >= 2
+                   and sub["snapshots"] >= 2 and sub["stamped_ok"]
+                   and not sub["errors"])
+        report["observed_live"] = {
+            "trajectory_equal": trajectories_equal(base, live),
+            "hub_snapshots": live["obs"]["snapshots"],
+            "subscriber": sub, "ok": live_ok}
+
+        cdoc = legs["chaos"]
+        injected = _faults_injected(cdoc["chaos"])
+        chaos_ok = trajectories_equal(base, cdoc) and injected > 0
+        report["observed_chaos"] = {
+            "trajectory_equal": trajectories_equal(base, cdoc),
+            "faults_injected": injected, "ok": chaos_ok}
+
+        report["kill_restore"] = legs["kill"]
+
+        defended, replayed = legs["defense"]
+        d = defended["defense"]
+        shrunk = (defended["registry"]["reliable_set"]
+                  < base["registry"]["reliable_set"])
+        defense_ok = (d["quarantined_now"] > 0 and shrunk
+                      and trajectories_equal(defended, replayed)
+                      and replayed["defense"]["mode"] == "replay"
+                      and replayed["defense"]["quarantined_now"]
+                      == d["quarantined_now"])
+        report["defense"] = {
+            "events": d["events"], "by_action": d["by_action"],
+            "quarantined_now": d["quarantined_now"],
+            "reliable_set_defended": defended["registry"]["reliable_set"],
+            "reliable_set_undefended": base["registry"]["reliable_set"],
+            "reliable_set_shrunk": shrunk,
+            "replay_trajectory_equal": trajectories_equal(defended,
+                                                          replayed),
+            "ok": defense_ok}
+        ok = live_ok and chaos_ok and legs["kill"]["ok"] and defense_ok
+    except Exception as e:  # noqa: BLE001 — smoke must report, not die
+        report["error"] = str(e)
+        ok = False
+    finally:
+        kids.close()
+    ok, path = _finish("obs_server", out_dir, report, kids, ok)
+    print(f"[{'ok' if ok else 'FAIL'}] substrate obs_server: "
+          f"live={report.get('observed_live', {}).get('ok')} "
+          f"chaos={report.get('observed_chaos', {}).get('ok')} "
+          f"kill={report.get('kill_restore', {}).get('ok')} "
+          f"defense={report.get('defense', {}).get('ok')} "
+          f"-> {path}")
+    return ok
+
+
+def run_postmortem_smoke(out_dir: str, n_hosts: int = 48, m: int = 12,
+                         iterations: int = 3, n_stars: int = 200,
+                         n_clients: int = 8, *, device="cuda",
+                         mesh=None) -> bool:
+    """Post-mortem-plane smoke (``--substrate postmortem``, DESIGN.md
+    §14).  Same silenced smoke world as the obs_server smoke, each server
+    leg a child process on ``device``, 2-4 at once after 1:
+
+      1. the UNOBSERVED serial loopback baseline;
+      2. retention byte-compatibility: two checkpointed runs — retention
+         plus full tracing ON vs OFF — must write byte-identical replay
+         logs (the §14 recovery-compatibility argument) and both match
+         the baseline trajectory;
+      3. flight recorder under fire: chaotic concurrent TCP with
+         retention + tracing, SIGKILLed mid-run.  The CLI
+         (``repro_torch.launch.obs_postmortem``, a child that needs no
+         card) must reconstruct the dead server's timeline from the
+         surviving store (epoch 1: snapshots, spans, phase transitions,
+         replay-log extent) WITHOUT writing an epoch marker; the restored
+         run then appends under epoch 2 and its trajectory is
+         bit-identical to the baseline;
+      4. windowed stall defense: ``--stall-window`` kills the stalled
+         search through the director seam, the verdict is recorded in
+         the anomaly schedule, and a REPLAY run applies the recorded
+         kill at the recorded seq — bit-identical to the defended run
+         (which, having been truncated by the kill, differs from the
+         undefended baseline).
+
+    ``mesh`` is taken as the other runners take it and unused.  Writes
+    ``substrate_postmortem.json`` (the reference's keys, and
+    ``baseline``, ``device``, ``children`` and each leg's wall); returns
+    pass/fail, which also requires every server child to have run on
+    ``device``."""
+    kids = ServerChildren("postmortem_smoke_", device, _spec_args(
+        n_hosts, m, iterations, n_stars, silence=True))
+    retain_args = ["--retain", "--trace-rate", "1.0",
+                   "--stats-interval", "10"]
+    conc_args = ["--transport", "tcp", "--concurrent", str(n_clients)]
+    report = {"n_hosts": n_hosts, "m": m, "iterations": iterations,
+              "n_clients": n_clients, "silence_at": 150.0,
+              "silence_frac": 0.25}
+    ok = True
+    try:
+        # 1: the unobserved baseline
+        base = kids.run("base", [])
+        report["baseline"] = _baseline(base)
+        kill_after = max(150, int(0.4 * base["pool"]["messages"]))
+
+        def retained(leg, extra):
+            ck = kids.path(f"ck_{leg}")
+            doc = kids.run(f"retain_{leg}", ["--ckpt-dir", ck,
+                                             "--snapshot-every", "150",
+                                             *extra])
+            with open(os.path.join(ck, "replay.jsonl"), "rb") as f:
+                return doc, f.read()
+
+        ckpt = kids.path("ckpt_pm")
+        kill_args = [*conc_args, "--chaos", "drop_dup", *retain_args,
+                     "--ckpt-dir", ckpt, "--snapshot-every", "150",
+                     "--throttle-s", "0.002"]
+
+        def recorder():
+            if not kids.kill_mid_run("kill_pm", kill_args, ckpt, 150,
+                                     base["pool"]["messages"]):
+                return {"killed_mid_run": False, "ok": False}
+            # the CLI reconstructs the DEAD run's timeline, read-only
+            dead = kids.run("pm_dead", ["--ckpt-dir", ckpt, "--json"],
+                            module=POSTMORTEM_MODULE)
+            dead_ok = (dead["store"]["epochs"] == [1]
+                       and dead["store"]["records"] > 0
+                       and dead["spans"] > 0
+                       and len(dead["phases"]) > 0
+                       and dead["replay_log"]["records"] >= kill_after)
+            try:
+                res = kids.run("resume_pm", [*kill_args, "--resume"])
+            except RuntimeError:
+                return {"killed_mid_run": True, "dead_report_ok": dead_ok,
+                        "ok": False, "error": "resume failed"}
+            post = kids.run("pm_post", ["--ckpt-dir", ckpt, "--json"],
+                            module=POSTMORTEM_MODULE)
+            # the read-only CLI added no epoch; the restored server
+            # appended under epoch 2
+            epochs_ok = post["store"]["epochs"] == [1, 2]
+            return {
+                "killed_mid_run": True,
+                "dead_epochs": dead["store"]["epochs"],
+                "dead_snapshots": dead["store"]["by_type"].get("snap"),
+                "dead_spans": dead["spans"],
+                "dead_phase_transitions": len(dead["phases"]),
+                "replay_log_records": dead["replay_log"]["records"],
+                "post_restore_epochs": post["store"]["epochs"],
+                "replayed": res["replayed"],
+                "recovered_done": res["recovered_done"],
+                "trajectory_equal": trajectories_equal(base, res),
+                "ok": (dead_ok and epochs_ok
+                       and trajectories_equal(base, res)
+                       and not res["recovered_done"])}
+
+        sched_path = kids.path("stall_schedule.json")
+
+        def stall():
+            defended = kids.run("stalled", ["--stats-interval", "10",
+                                            "--stall-window", "3",
+                                            "--defense-out", sched_path])
+            return defended, kids.run("stall_replayed", [
+                "--stats-interval", "10", "--defense-replay", sched_path])
+
+        legs = kids.parallel({
+            # 2: replay logs byte-compatible with retention on/off
+            "off": lambda: retained("off", []),
+            "on": lambda: retained("on", retain_args),
+            # 3: chaotic TCP + retention + tracing, SIGKILL, reconstruct,
+            # restore under a new epoch
+            "recorder": recorder,
+            # 4: stall-window kill recorded live, replayed bit-identically
+            "stall": stall})
+
+        (off_doc, log_off), (on_doc, log_on) = legs["off"], legs["on"]
+        bytes_ok = (log_off == log_on and len(log_off) > 0
+                    and trajectories_equal(base, off_doc)
+                    and trajectories_equal(base, on_doc)
+                    and on_doc["retention"]["snapshots_stored"] > 0
+                    and on_doc["retention"]["spans_stored"] > 0)
+        report["replay_log_byte_compat"] = {
+            "bytes": len(log_off), "identical": log_off == log_on,
+            "retention": on_doc["retention"], "trace": on_doc["trace"],
+            "ok": bytes_ok}
+
+        report["flight_recorder"] = legs["recorder"]
+
+        defended, replayed = legs["stall"]
+        d = defended["defense"]
+        stall_ok = (d["searches_killed"] == [0]
+                    and d["by_action"].get("kill_search", 0) >= 1
+                    and trajectories_equal(defended, replayed)
+                    and replayed["defense"]["searches_killed"] == [0]
+                    and replayed["defense"]["mode"] == "replay"
+                    and defended["iteration"] < base["iteration"])
+        report["stall_kill"] = {
+            "searches_killed": d["searches_killed"],
+            "by_action": d["by_action"],
+            "defended_iteration": defended["iteration"],
+            "baseline_iteration": base["iteration"],
+            "replay_trajectory_equal": trajectories_equal(defended,
+                                                          replayed),
+            "ok": stall_ok}
+        ok = bytes_ok and legs["recorder"]["ok"] and stall_ok
+    except Exception as e:  # noqa: BLE001 — smoke must report, not die
+        report["error"] = str(e)
+        ok = False
+    finally:
+        kids.close()
+    ok, path = _finish("postmortem", out_dir, report, kids, ok)
+    print(f"[{'ok' if ok else 'FAIL'}] substrate postmortem: "
+          f"bytes={report.get('replay_log_byte_compat', {}).get('ok')} "
+          f"recorder={report.get('flight_recorder', {}).get('ok')} "
+          f"stall={report.get('stall_kill', {}).get('ok')} "
+          f"-> {path}")
+    return ok
+
+
 def _variant(cfg: ModelConfig, args) -> ModelConfig:
     """``cfg`` with the perf-variant flags' fields replaced."""
     moe = cfg.moe
@@ -1270,10 +2104,6 @@ def main(argv=None) -> int:
     if args.list_substrates:
         print(list_substrates())
         return 0
-    if args.substrate in NOT_PORTED:
-        print(f"dryrun: substrate {args.substrate!r} is registered but not "
-              f"ported yet: {NOT_PORTED[args.substrate]}")
-        return 2
 
     out_dir = args.out or os.path.abspath(ARTIFACTS)
     os.makedirs(out_dir, exist_ok=True)

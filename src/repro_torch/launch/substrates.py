@@ -5,10 +5,7 @@ Port of ``repro/launch/substrates.py``.  ``repro_torch.launch.dryrun
 name fails at parse time) and ``--list-substrates`` prints it, so adding
 a substrate smoke is ONE entry here.  The eight names and descriptions
 are the reference's; the runners are the port's, in
-``repro_torch.launch.dryrun``.  The four server smokes (``server``,
-``chaos_server``, ``obs_server``, ``postmortem``) are registered under
-their names but not ported yet: the dry-run refuses them by name
-(``NOT_PORTED``) before it resolves a runner.
+``repro_torch.launch.dryrun``.
 
 Import-side-effect free on purpose: runners are referenced by dotted
 path and resolved lazily, so a reader of the names imports neither the
@@ -89,13 +86,6 @@ SUBSTRATES: Dict[str, SubstrateSmoke] = {
         "schedule replays bit-identically through the director seam",
         "repro_torch.launch.dryrun:run_postmortem_smoke"),
 }
-
-#: the registered smokes whose runners are not ported yet, and the
-#: roadmap item that ports them
-NOT_PORTED = {name: "ROADMAP A.7 (ii)"
-              for name in ("server", "chaos_server", "obs_server",
-                           "postmortem")}
-
 
 def list_substrates() -> str:
     width = max(len(n) for n in SUBSTRATES)

@@ -952,9 +952,14 @@ def lm_search(wl, n_hosts: int = 48, m: int = 12, iterations: int = 2,
 def result_doc(res: ServerRunResult) -> dict:
     """JSON-able run outcome: the full committed trajectory + stats, the
     exact objects the kill/restore gates compare bit-for-bit (float64
-    round-trips exactly through JSON)."""
+    round-trips exactly through JSON); and where the engine ran
+    (``device``) and this process's kernel launches so far
+    (``launches``), so that a run in a child process shows where it went."""
+    from repro_torch.kernels import ops
+
     eng = res.server.engines[0]
     return {
+        "device": str(eng.device), "launches": ops.launch_counts(),
         "resumed": res.resumed, "replayed": res.replayed,
         "recovered_done": res.recovered_done,
         "iteration": eng.iteration,

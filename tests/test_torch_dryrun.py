@@ -277,6 +277,70 @@ def _traced_grads(mesh):
     return keep.grads, cell.arg_specs[0], run["counter"], shards
 
 
+def _products(mesh, rows_spec):
+    """The column-parallel, row-parallel and attention products of a
+    (4, 8, 16) f32 batch whose rows are laid out by ``rows_spec``, traced
+    over ``mesh``: {name: (global bytes, one device's piece)}."""
+    axes = rows_spec if isinstance(rows_spec, tuple) else (rows_spec,)
+    counter = D.TraceCounter(mesh, math.prod(mesh.shape[a] for a in axes))
+    x = torch.empty(4, 8, 16, device="meta")
+    w_col = torch.empty(16, 32, device="meta")
+    w_row = torch.empty(32, 16, device="meta")
+    w_qkv = torch.empty(16, 16, device="meta")
+    counter.exclude(x, D.S.P(rows_spec, None, None), rows=True)
+    counter.exclude(w_col, D.S.P(None, "model"))
+    counter.exclude(w_row, D.S.P("model", None))
+    counter.exclude(w_qkv, D.S.P(None, "model"))
+    with counter:
+        col = torch.matmul(x, w_col)                   # (4, 8, 32)
+        row = torch.matmul(col, w_row)                 # partial sums
+        q, k, v = (torch.matmul(x, w_qkv).view(4, 8, 2, 8)
+                   for _ in range(3))                  # 2 heads of 8
+        scores = torch.einsum("bshd,bthd->bhst", q, k)
+        probs = torch.softmax(scores, dim=-1)
+        pv = torch.einsum("bhst,bthd->bshd", probs, v)
+    return {name: (t.numel() * t.element_size(), counter.piece(t))
+            for name, t in (("col", col), ("row", row), ("scores", scores),
+                            ("probs", probs), ("pv", pv))}
+
+
+def test_a_products_output_is_cut_as_its_operands_free_dimensions():
+    """2 × 2, the rows cut 2 ways: x times a weight cut over ``model`` on
+    its output dimension is a quarter a device; the row-parallel product
+    (its weight cut over ``model`` on the contracted dimension) a partial
+    sum cut as its rows alone; the scores, their softmax and PV from
+    heads cut over ``model`` a quarter."""
+    assert _products(_mesh(2, 2), "data") == {
+        "col": (4096, 1024), "row": (2048, 1024), "scores": (2048, 512),
+        "probs": (2048, 512), "pv": (2048, 512)}
+
+
+def test_the_column_parallel_product_is_cut_8_ways_on_2x2x2():
+    """2 × 2 × 2: the rows cut 4 ways (pod × data), the weight's output
+    dimension 2 ways (``model``)."""
+    got = _products(_mesh(2, 2, 2), ("pod", "data"))
+    assert got["col"] == (4096, 4096 // 8)
+    assert got["row"] == (2048, 2048 // 4)
+
+
+def test_a_copy_keeps_its_inputs_cut_whatever_its_shape():
+    """A transposed copy, a reshape that copies and a cast keep the cuts
+    of the dimensions they move: each a quarter on 2 × 2."""
+    mesh = _mesh(2, 2)
+    counter = D.TraceCounter(mesh, row_shards=2)
+    x = torch.empty(4, 8, 16, device="meta")
+    counter.exclude(x, D.S.P("data", None, "model"), rows=True)
+    with counter:
+        moved = x.transpose(0, 2).contiguous()         # (16, 8, 4)
+        flat = x.transpose(1, 2).reshape(4, 128)       # a copy
+        cast = moved.to(torch.float16)
+        whole = x.sum(dim=(0, 2))                      # (8,): cut away
+    assert [counter.piece(t) for t in (moved, flat)] == [512, 512]
+    assert counter.piece(cast) == 256
+    # a reduction over the cut dimensions: whole but for the row floor
+    assert counter.piece(whole) == 32 // 2
+
+
 def test_a_replicated_norms_gradient_counts_whole():
     """2 × 2: a norm's replicated gradient is whole on every device, not
     ÷ the batch's 2 data shards; every gradient is its parameter's piece."""
@@ -407,12 +471,17 @@ def test_variant_flags_replace_config_fields():
 
 @pytest.mark.parametrize("name", ["server", "chaos_server", "obs_server",
                                   "postmortem"])
-def test_substrate_refused(name, tmp_path, capsys):
-    """The four server smokes are registered but not ported: refused by
-    name, before their runner is looked up, and nothing is written."""
-    assert D.main(["--substrate", name, "--out", str(tmp_path)]) == 2
-    assert "ROADMAP A.7 (ii)" in capsys.readouterr().out
-    assert not os.listdir(tmp_path)
+def test_substrate_refused(name, tmp_path, monkeypatch):
+    """The four server smokes, once refused by name, run through the
+    command line on the CPU (their children on one thread each), exit 0
+    and write their report."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    assert D.main(["--substrate", name, "--device", "cpu", "--out",
+                   str(tmp_path)]) == 0
+    with open(tmp_path / f"substrate_{name}.json") as f:
+        report = json.load(f)
+    assert report["parity_ok"] and report["device"] == "cpu"
+    assert os.listdir(tmp_path) == [f"substrate_{name}.json"]
 
 
 def test_published_cell_through_the_command_line(tmp_path):

@@ -430,8 +430,8 @@ def test_substrate_modules_import_and_run_without_jax_or_the_reference(
         tmp_path):
     script = _BLOCKED_IMPORT.replace("print(len(names))", textwrap.dedent(f"""
         from repro_torch.launch import dryrun, substrates
-        for name in set(substrates.SUBSTRATES) - set(substrates.NOT_PORTED):
-            assert callable(substrates.SUBSTRATES[name].resolve())
+        for smoke in substrates.SUBSTRATES.values():
+            assert callable(smoke.resolve())
         assert dryrun.run_substrate_smoke({str(tmp_path)!r}, m=12,
                                           n_stars=200, n_hosts=48,
                                           device="cpu")
@@ -446,3 +446,68 @@ def test_substrate_modules_import_and_run_without_jax_or_the_reference(
         capture_output=True, text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
     assert set(SUBSTRATE_MODULES) <= set(out.stdout.split())
+
+
+#: a ``sitecustomize`` that blocks jax and the reference in every
+#: interpreter that finds it on its path, and leaves a mark that it ran
+_SITE_BLOCK = textwrap.dedent("""
+    import os, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    with open(os.path.join(os.environ["BLOCK_MARKS"], str(os.getpid())),
+              "w") as f:
+        f.write(" ".join(sys.orig_argv))
+""")
+
+
+def test_the_server_runners_and_their_children_import_no_jax_or_reference(
+        tmp_path):
+    """The server runners' parent and every child they start run where
+    jax and repro cannot load: a child of ``server/sim.py`` with the
+    observability plane, retention, tracing, the defense, the eval cache
+    and chaos over concurrent TCP on, and the post-mortem reader, each
+    started through ``ServerChildren`` as the runners start them (forked
+    from a forkserver that imported the port, under the same blocker)."""
+    site, marks = tmp_path / "site", tmp_path / "marks"
+    site.mkdir()
+    marks.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_BLOCK)
+    script = textwrap.dedent(f"""
+        import sys
+        from repro_torch.launch import dryrun
+        kids = dryrun.ServerChildren("iso_", "cpu", dryrun._spec_args(
+            48, 12, 2, 200, silence=True))
+        ckpt = kids.path("ckpt")
+        try:
+            doc = kids.run("all", [
+                "--transport", "tcp", "--concurrent", "4", "--chaos",
+                "drop_dup", "--obs", "--subscribe", "--retain",
+                "--trace-rate", "1.0", "--defense", "--cache",
+                "--ckpt-dir", ckpt, "--stats-interval", "10"])
+            dead = kids.run("pm", ["--ckpt-dir", ckpt, "--json"],
+                            module="repro_torch.launch.obs_postmortem")
+        finally:
+            kids.close()
+        assert doc["device"] == "cpu" and dead["store"]["epochs"] == [1]
+        assert kids.device_gate()["ok"]
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="1", BLOCK_MARKS=str(marks),
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
+                                           str(site)]))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    # the forkserver the children are forked from loaded the blocker (a
+    # forked child inherits its import hooks), as did the parent
+    argvs = [(marks / name).read_text() for name in os.listdir(marks)]
+    assert any("multiprocessing.forkserver" in a for a in argvs), argvs
+    assert any(a.endswith(script) for a in argvs), argvs

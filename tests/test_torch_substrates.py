@@ -172,18 +172,15 @@ def _held_at_reference_centers(f_batch, ref_engine, iterations: int,
 
 def test_substrate_registry_names():
     """The reference's eight names and descriptions, in its order; each
-    runner in the port's dry-run; the four ported ones resolve, the four
-    server smokes are named as not ported."""
+    runner in the port's dry-run; all eight resolve."""
     assert list(S.SUBSTRATES) == list(JS.SUBSTRATES)
     for name, smoke in S.SUBSTRATES.items():
         ref = JS.SUBSTRATES[name]
         assert (smoke.name, smoke.description) == (ref.name, ref.description)
         assert smoke.runner == ref.runner.replace("repro.", "repro_torch.", 1)
     assert S.list_substrates() == JS.list_substrates()
-    assert set(S.NOT_PORTED) == {"server", "chaos_server", "obs_server",
-                                 "postmortem"}
-    for name in set(S.SUBSTRATES) - set(S.NOT_PORTED):
-        assert callable(S.SUBSTRATES[name].resolve())
+    for smoke in S.SUBSTRATES.values():
+        assert smoke.resolve() is getattr(D, smoke.runner.split(":")[1])
 
 
 def test_registry_import_loads_neither_the_dry_run_nor_the_models():
