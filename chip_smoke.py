@@ -70,7 +70,8 @@ so the script exits non-zero and prints no result line:
            and the plain version, timed in turns, beside the bound;
 8. lm      act 1 of examples/anm_lm.py over the LM loss at published
            widths: h2o-danube-3-4b cut to 4 layers and rwkv6-7b cut to 2
-           (the k = 6 f32 basis must fit), 2 x 4096 tokens; the θ0 loss
+           (the k = 6 f32 basis must fit), 2 x 4096 tokens, one iteration
+           (the example's 2 cut for the smoke's time); the θ0 loss
            against the same lane with the kernel swapped for its plain
            version (≤ 2e-2 relative), pipelined == sync bit-identical, a
            lane's loss the same bits in a bucket of 8 and of 32, a finite
@@ -85,13 +86,13 @@ so the script exits non-zero and prints no result line:
            gathered at use), act 1 pipelined == [lm]'s in-process sync and
            pipelined, no bucket shape first run after warm; for rwkv6
            launch/dryrun.py's lm_subspace substrate smoke on [lm]'s
-           workload: sync == pipelined == pod 16 x 16 at act 1's 2
-           iterations, iterates and engine stats, the sync leg == [lm]'s
-           act-1 sync run, no new bucket shape after warm; a 2-search
-           portfolio of act 2's one iteration through the eval cache ==
-           solo, iterates and engine stats, its warm replay fully served;
-           the work server at 2 iterations in-process == pod and crashed
-           at 40 % of its messages, restored == uninterrupted; the kernel
+           workload and search: sync == pipelined == pod 16 x 16,
+           iterates and engine stats, the sync leg == [lm]'s act-1 sync
+           run, no new bucket shape after warm; a 2-search portfolio of
+           act 2's one iteration through the eval cache == solo, iterates
+           and engine stats, its warm replay fully served; the work
+           server in-process == pod and crashed at 40 % of its messages,
+           restored == uninterrupted; the kernel
            once per layer per lane evaluated in every gate, all chunked;
 8b. subspace lm  subspace Newton (src/repro/launch/train.py:110's k = 6,
            sample_scale 0.02) on [lm]'s two cut models, weights and batch:
@@ -168,6 +169,19 @@ so the script exits non-zero and prints no result line:
            backends equal search by search (iterates and engine stats),
            fewer dispatches than
            per-search blocks, gram and row_mean on both;
+14b. examples the example launchers (launch/{volunteer_grid,train_lm,
+           fgdo_service,multi_search,observability,quickstart,serve_lm}.py)
+           at their examples' sizes, each through its command line as a
+           child process forked from the forkserver, two at once: the
+           per-event 256-host grid through FgdoAnmServer and acts 2-3,
+           train_lm --fast, the service's four acts (loopback, in-process
+           crash and warm restore, TCP, 8 chaotic concurrent clients), the
+           portfolio's three director policies, the observability plane's
+           three acts, the quickstart bowl and serve_lm's default
+           deepseek-v2-lite smoke config; every child exits 0 on this card
+           with every gate of its --out doc true, row_mean launched in
+           every act that evaluates the SDSS fitness, and gram launched as
+           fit_quadratic routes it (never: m·cols ≤ 5760 < 32768);
 15. serve  the serving path at published widths, depth cut, bf16 unless
            named: (a) qwen2-72b at 4 layers serves 16 requests at batch 8
            (prompts of 64, 64 generated, max_seq 512) through
@@ -234,9 +248,9 @@ so the script exits non-zero and prints no result line:
            three AdamW steps at 8 x 128, ms a step beside the bound
            (AdamW's bytes + 8·N·tokens products) and the peak; (t1)
            lm-100m through train.main with examples/train_lm.py's command
-           line for 100 steps, its loss falling by at least
-           TRAIN_LM_MIN_FALL, ms a step, tokens/s, peak, checkpoints at 50
-           and 100; (t2) the tiny preset crashed at step 9 (exit 42) and
+           line (built by launch/train_lm.py) for 100 steps, its loss
+           falling by at least TRAIN_LM_MIN_FALL, ms a step, tokens/s,
+           peak, checkpoints at 50 and 100; (t2) the tiny preset crashed at step 9 (exit 42) and
            resumed from step 8 in child processes, its step-12 checkpoint ==
            an uninterrupted run's bit for bit; (t4) the tiny preset in
            f32, one step on the card against the CPU from the same weights
@@ -306,8 +320,14 @@ from repro_torch.core.tree import leaves_with_paths, map_tree  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.data import sdss  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.launch import (anm_lm, baselines, child,  # noqa: E402
-                                dryrun, fig2, fig3, serve, train,
+from repro_torch.core.regression import \
+    GRAM_KERNEL_MIN_ELEMENTS  # noqa: E402
+# the example launchers are imported here so that the forkserver, which
+# preloads this process's modules, starts [examples]' children with them
+from repro_torch.launch import (anm_lm, baselines, child,  # noqa: E402,F401
+                                dryrun, fgdo_service, fig2, fig3,
+                                multi_search, observability, quickstart,
+                                serve, serve_lm, train, train_lm,
                                 volunteer_grid)
 from repro_torch.launch.mesh import (Mesh, make_production_mesh,  # noqa: E402
                                      virtual_devices)
@@ -357,8 +377,11 @@ WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16, None, "chunked"),
 #: basis over the parameters must fit on one 80 GB card)
 LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 2}
 LM_SEQ_LEN = 4096
-#: act 2's iterations per search (act 1's are 2), cut to one for the
-#: smoke's time (danube's act 2 took 72.0 s with two)
+#: act 1's iterations (examples/anm_lm.py's 2), cut to one for the
+#: smoke's time; [pod lm] and the lm_subspace runner run [lm]'s search
+LM_ACT1_ITERATIONS = 1
+#: act 2's iterations per search, cut to one for the smoke's time
+#: (danube's act 2 took 72.0 s with two)
 LM_ACT2_ITERATIONS = 1
 
 #: the reference's Fig. 2 run (JAX on a CPU, same seeds, 20 iterations):
@@ -1142,7 +1165,7 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float):
     t0 = time.perf_counter()
     search, fleet, wl = anm_lm.lm_problem(
         arch=arch, device=dev, full_width=True, n_layers=LM_DEPTH[arch],
-        seq_len=LM_SEQ_LEN)
+        seq_len=LM_SEQ_LEN, iterations=LM_ACT1_ITERATIONS)
     torch.cuda.synchronize()
     n_layers = wl.cfg.n_layers          # every layer runs the arch's kernel
     n_params = wl.proj.n_params
@@ -1539,6 +1562,117 @@ def phase_obs(dev: torch.device, base: dict, base_wall: float) -> int:
           f"{stall['baseline_iteration']}, replay == live "
           f"{stall['replay_trajectory_equal']}")
     return children
+
+
+#: [examples]: each example launcher (``launch/<name>.py``) and the flags
+#: of its command line beside ``--device`` and ``--out``, at its example's
+#: size, the longest first; the launchers whose every act evaluates the
+#: SDSS fitness; and how many children run at once
+EXAMPLES = (("volunteer_grid", []), ("train_lm", ["--fast"]),
+            ("fgdo_service", []), ("multi_search", []),
+            ("observability", []), ("quickstart", []), ("serve_lm", []))
+EXAMPLES_SDSS = ("volunteer_grid", "fgdo_service", "multi_search",
+                 "observability")
+EXAMPLES_AT_ONCE = 2
+
+
+def _example_children(dev: torch.device, tmp: str) -> dict:
+    """Every example launcher as a child forked from the forkserver on
+    ``dev``, ``EXAMPLES_AT_ONCE`` at a time, each writing its doc to
+    ``<name>.json`` and its output to ``<name>.out`` / ``.err``; returns
+    {name: (exit code, wall s)}."""
+    from multiprocessing.connection import wait
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    queue, running, done = list(EXAMPLES), {}, {}
+    while queue or running:
+        while queue and len(running) < EXAMPLES_AT_ONCE:
+            name, flags = queue.pop(0)
+            extra = (["--ckpt-dir", os.path.join(tmp, "train_ckpt")]
+                     if name == "train_lm" else [])
+            argv = [*flags, *extra, "--device", str(dev),
+                    "--out", os.path.join(tmp, f"{name}.json")]
+            proc = child.start(f"repro_torch.launch.{name}", argv, env,
+                               os.path.join(tmp, f"{name}.out"),
+                               os.path.join(tmp, f"{name}.err"), name=name)
+            running[proc.sentinel] = (name, proc, time.perf_counter())
+        for sentinel in wait(list(running), timeout=600):
+            name, proc, t0 = running.pop(sentinel)
+            proc.join()
+            done[name] = (proc.exitcode, time.perf_counter() - t0)
+        for sentinel, (name, proc, t0) in list(running.items()):
+            if time.perf_counter() - t0 > 600:       # hung: end it
+                proc.kill()
+                proc.join()
+                running.pop(sentinel)
+                done[name] = (proc.exitcode, time.perf_counter() - t0)
+    return done
+
+
+def _act_summary(name: str, act: str, rec: dict) -> str:
+    n = rec["launches"]
+    best = (f", best {rec['best_fitness']:.5f}"
+            if rec.get("best_fitness") is not None else "")
+    its = (f" {rec['iterations']} iterations" if "iterations" in rec
+           else "")
+    evals = (f", {rec['evaluations']} evaluations"
+             if "evaluations" in rec else "")
+    return (f"{act}{its}{best}{evals}, row_mean {n['row_mean_launches']}, "
+            f"gram {n['gram_launches']}, {rec['wall_s']:.1f}s")
+
+
+def phase_examples(dev: torch.device) -> int:
+    """The example launchers on the card, each through its command line
+    as a child process: exit 0 on ``dev`` with every gate of its doc
+    true, row_mean launched in every act that evaluates the SDSS fitness,
+    and gram launched as ``fit_quadratic`` routes it (m·cols under
+    ``GRAM_KERNEL_MIN_ELEMENTS``: never).  Returns the children's
+    row_mean launches."""
+    _free()           # the children's CUDA contexts need the card's room
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[examples] before the children: {free / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB free on the card, this process holding "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB")
+    row_means = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        done = _example_children(dev, tmp)
+        wall = time.perf_counter() - t0
+        for name, _ in EXAMPLES:
+            rc, child_wall = done[name]
+            if rc != 0:
+                for ext in ("out", "err"):
+                    with open(os.path.join(tmp, f"{name}.{ext}")) as f:
+                        print(f"[examples] {name} std{ext} (end):\n"
+                              f"{f.read()[-3000:]}")
+            check(rc == 0, f"the {name} launcher exited {rc}")
+            with open(os.path.join(tmp, f"{name}.json")) as f:
+                doc = json.load(f)
+            acts = doc["acts"]
+            print(f"[examples] {name} on {doc['device']} (child "
+                  f"{child_wall:.1f}s): "
+                  + "; ".join(_act_summary(name, a, r)
+                              for a, r in acts.items()))
+            failed = [f"{a}: {g}" for a, r in acts.items()
+                      for g, held in r["gates"].items() if not held]
+            check(doc["device"] == str(dev) and doc["ok"] and not failed,
+                  f"{name}: device {doc['device']}, failed gates {failed}")
+            for act, rec in acts.items():
+                n = rec["launches"]
+                routed = rec.get("fit_elements", 0) >= \
+                    GRAM_KERNEL_MIN_ELEMENTS
+                check((n["gram_launches"] > 0) == routed,
+                      f"{name} {act}: gram launched {n['gram_launches']} "
+                      f"times for fits of {rec.get('fit_elements')} "
+                      f"elements")
+                if name in EXAMPLES_SDSS:
+                    check(n["row_mean_launches"] > 0
+                          and rec["evaluations"] > 0,
+                          f"{name} {act} missed row_mean: {n}")
+                row_means += n["row_mean_launches"]
+    print(f"[examples] {len(EXAMPLES)} launchers, {EXAMPLES_AT_ONCE} at "
+          f"once: wall {wall:.1f}s, row_mean launches {row_means}")
+    return row_means
 
 
 def _substrate_smoke(dev: torch.device, runner, name: str, **kw):
@@ -2748,11 +2882,9 @@ def phase_serve_hybrid(dev: torch.device) -> int:
     return launches
 
 
-#: (t1): examples/train_lm.py's full command line, 100 steps (its 200 cut
-#: in half), a checkpoint every 50
-TRAIN_LM_ARGV = ["--preset", "lm-100m", "--batch", "4", "--seq", "256",
-                 "--lr", "1e-3", "--steps", "100", "--ckpt-every", "50",
-                 "--log-every", "1"]
+#: (t1): examples/train_lm.py's full command line (``launch/train_lm.py``
+#: builds it), 100 steps (its 200 cut in half), a checkpoint every 50
+TRAIN_LM_STEPS = 100
 #: the loss of lm-100m must fall from step 1 to step 100 by at least this
 #: (the lower edge of the prediction in PERF.md §6)
 TRAIN_LM_MIN_FALL = 4.0
@@ -2897,8 +3029,9 @@ def phase_train(dev: torch.device) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = train.main(TRAIN_LM_ARGV + ["--ckpt-dir", tmp,
-                                             "--log-file", log])
+            rc = train.main(train_lm.example_argv(
+                steps=TRAIN_LM_STEPS, ckpt_dir=tmp)
+                + ["--log-every", "1", "--log-file", log])
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         lines = _train_lines(out.getvalue())
@@ -2908,7 +3041,8 @@ def phase_train(dev: torch.device) -> dict:
     params_line = [ln for ln in out.getvalue().splitlines()
                    if "params=" in ln][0]
     print(f"[train] (t1) {params_line.split('] ', 1)[1]}, bf16, "
-          f"{' '.join(TRAIN_LM_ARGV[:8])}: loss at step 1 / 50 / 100 "
+          f"{' '.join(train_lm.example_argv(steps=TRAIN_LM_STEPS)[:10])}: "
+          f"loss at step 1 / 50 / 100 "
           f"{loss[1]} / {loss[50]} / {loss[100]}; {ms:.2f} ms a step "
           f"(median of steps 11-100, a host read each step), "
           f"{4 * 256 / ms * 1e3:,.0f} tokens/s, peak {peak:.2f} GiB, "
@@ -3234,6 +3368,7 @@ def main() -> None:
     timed("pod", phase_pod, dev)
     children += timed("obs", phase_obs, dev, server_doc, server_wall)
     timed("portfolio", phase_portfolio, dev)
+    examples_launches = timed("examples", phase_examples, dev)
     flash = timed("flash", phase_flash, dev)
     wkv6 = timed("wkv6", phase_wkv6, dev)
     flash_launches, lm = timed("lm danube", phase_lm, dev,
@@ -3279,7 +3414,8 @@ def main() -> None:
                      "no TPU kernel: port-only)",
          "launches": row_mean_launches,
          "baselines_launches": baselines_launches,
-         "server_children_launches": children, **row_mean}]}))
+         "server_children_launches": children,
+         "examples_launches": examples_launches, **row_mean}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,8 +28,10 @@ from repro_torch.core.substrates.lm_loss import make_lm_workload
 from repro_torch.data import sdss
 from repro_torch.kernels import ops, ref
 from repro_torch.core import subspace_newton
-from repro_torch.launch import (anm_lm, baselines, fig3, multi_search, serve,
-                                train)
+from repro_torch.launch import (anm_lm, baselines, fgdo_service, fig3,
+                                multi_search, observability, quickstart,
+                                serve, serve_lm, train, train_lm,
+                                volunteer_grid)
 from repro_torch.models import transformer
 from repro_torch.server import sim
 
@@ -92,7 +94,13 @@ SERVER_MODULES = ("repro_torch.server.registry", "repro_torch.core.fgdo",
                   "repro_torch.server.transport", "repro_torch.server.chaos",
                   "repro_torch.server.checkpoint",
                   "repro_torch.server.server", "repro_torch.server.sim",
-                  "repro_torch.launch.multi_search")
+                  "repro_torch.launch.multi_search",
+                  "repro_torch.launch.acts", "repro_torch.launch.quickstart",
+                  "repro_torch.launch.volunteer_grid",
+                  "repro_torch.launch.fgdo_service",
+                  "repro_torch.launch.observability",
+                  "repro_torch.launch.serve_lm",
+                  "repro_torch.launch.train_lm")
 
 
 def test_server_modules_import_without_jax_or_the_reference():
@@ -377,6 +385,13 @@ def _multi_search_main():
     lambda: fig3.run(),
     _subspace_step_on_cpu_params,
     lambda: train.main(["--steps", "1"]),
+    lambda: quickstart.main([]),
+    lambda: volunteer_grid.main([]),
+    lambda: multi_search.main(["--policy", "restart"]),
+    lambda: fgdo_service.main([]),
+    lambda: observability.main([]),
+    lambda: serve_lm.main([]),
+    lambda: train_lm.main(["--fast"]),
 ])
 def test_cuda_default_does_not_fall_back_to_cpu(make):
     if torch.cuda.is_available():
