@@ -69,8 +69,9 @@ so the script exits non-zero and prints no result line:
            the chunked kernel, the serial kernel on the same bf16 inputs
            and the plain version, timed in turns, beside the bound;
 8. lm      act 1 of examples/anm_lm.py over the LM loss at published
-           widths: h2o-danube-3-4b cut to 4 layers and rwkv6-7b cut to 2
-           (the k = 6 f32 basis must fit), 2 x 4096 tokens, one iteration
+           widths: h2o-danube-3-4b cut to 4 layers and rwkv6-7b cut to 1
+           (the k = 6 f32 basis must fit; rwkv6's 2 cut to 1 for the
+           smoke's time), 2 x 4096 tokens, one iteration
            (the example's 2 cut for the smoke's time); the θ0 loss
            against the same lane with the kernel swapped for its plain
            version (≤ 2e-2 relative), pipelined == sync bit-identical, a
@@ -94,11 +95,17 @@ so the script exits non-zero and prints no result line:
            server in-process == pod and crashed at 40 % of its messages,
            restored == uninterrupted; the kernel
            once per layer per lane evaluated in every gate, all chunked;
+           then act 1 over 2 gloo ranks sharing this card (each a child
+           process building [lm]'s workload from its seeds, the LM
+           backend's mesh route on the (2, 1) mesh over the ranks, each
+           rank scoring half of every bucket's lanes and all-gathering the
+           rest): every rank == [lm]'s in-process sync run, iterates and
+           engine stats, its chunked wkv6 launches == its lanes x layers;
 8b. subspace lm  subspace Newton (src/repro/launch/train.py:110's k = 6,
            sample_scale 0.02) on [lm]'s two cut models, weights and batch:
            two steps on the kernel route from one generator, each never
            raising the loss and launching the arch's kernel (m + p + 1)
-           times a layer, 292 for danube and 146 for rwkv6; the first
+           times a layer, 292 for danube and 73 for rwkv6; the first
            step again on the plain route (use_kernels=False) from the
            same draws, its losses within 2e-2 of the kernel route's; the
            randomized line search (p = 8) along the first step's
@@ -136,11 +143,20 @@ so the script exits non-zero and prints no result line:
            16 and again on pod (1, 1): in-process sync == in-process
            pipelined == pod pipelined, iterates and engine stats, the two
            runs' outcomes equal, no bucket shape first run after warm,
-           gram and row_mean in every leg; (b) the smoke-size server
+           gram and row_mean in every leg; (a2) with the 16 x 16 run, the
+           pod leg over 2 gloo ranks sharing this card, 8 of the 16 data
+           shards each (launch/ranks.py: each rank a child process forked
+           from the forkserver, evaluating its own row blocks and
+           all-gathering the rest): every rank == (a)'s pod leg, iterates
+           and engine stats, the ranks' row_mean launches summing to its,
+           gram on every rank (each runs the engine); (a3) the same over a
+           one-rank NCCL group at (b)'s smoke size (and over two NCCL
+           ranks on distinct cards where the machine has two); a failed
+           rank fails the smoke; (b) the smoke-size server
            through --backend pod_mesh == in-process, and crashed at 40 %
            on pod 16 x 16, restored ==
            uninterrupted == in-process; (c) the cached_portfolio
-           substrate smoke (3 of [portfolio]'s 6 searches) on both
+           substrate smoke (2 of [portfolio]'s 6 searches) on both
            backends: cache cold == warm == cache off, no miss in the warm
            run, gram and row_mean in every run; each leg prints its wall,
            peak device memory and launches;
@@ -274,7 +290,9 @@ so the script exits non-zero and prints no result line:
            (d3) --arch h2o-danube-3-4b --shape train_4k --mesh pod through
            the command line in a child process, exit 0 and its JSON;
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
-           line, then the ``ok`` JSON line.
+           line (each kernel's ``ranks_launches``: its launches in the
+           ranks of [pod] (a2), (a3) and [pod lm], summed), then the
+           ``ok`` JSON line.
 """
 from __future__ import annotations
 
@@ -327,7 +345,7 @@ from repro_torch.core.regression import \
 from repro_torch.launch import (anm_lm, baselines, child,  # noqa: E402,F401
                                 dryrun, fgdo_service, fig2, fig3,
                                 multi_search, observability, quickstart,
-                                serve, serve_lm, train, train_lm,
+                                ranks, serve, serve_lm, train, train_lm,
                                 volunteer_grid)
 from repro_torch.launch.mesh import (Mesh, make_production_mesh,  # noqa: E402
                                      virtual_devices)
@@ -374,15 +392,30 @@ WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16, None, "chunked"),
               (2, 1024, 8, 64, torch.bfloat16, -1e-6, "chunked"),
               (2, 256, 4, 8, torch.bfloat16, None, "serial")]
 #: the LM phase: arch -> layers kept at published widths (a k = 6 f32
-#: basis over the parameters must fit on one 80 GB card)
-LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 2}
+#: basis over the parameters must fit on one 80 GB card); rwkv6's cut from
+#: 2 to 1 for the smoke's time (its lanes run [lm], [pod lm]'s runner and
+#: ranks, and [subspace lm])
+LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 1}
 LM_SEQ_LEN = 4096
 #: act 1's iterations (examples/anm_lm.py's 2), cut to one for the
 #: smoke's time; [pod lm] and the lm_subspace runner run [lm]'s search
 LM_ACT1_ITERATIONS = 1
-#: act 2's iterations per search, cut to one for the smoke's time
-#: (danube's act 2 took 72.0 s with two)
+#: act 2's iterations per search (danube's in [lm], rwkv6's in [pod lm]'s
+#: lm_subspace runner), cut to one for the smoke's time (danube's act 2
+#: took 72.0 s with two)
 LM_ACT2_ITERATIONS = 1
+#: [pod lm] rwkv6's act 1 over ranks: gloo ranks sharing this card, each
+#: on the (2, 1) mesh's one data position (a model axis of 1 keeps every
+#: leaf whole: two ranks' k = 6 f32 bases fit on one 80 GB card)
+LM_RANKS = 2
+LM_RANKS_MESH = [2, 1]
+
+
+def lm_problem_kw(arch: str) -> dict:
+    """``anm_lm.lm_problem``'s arguments for [lm]'s workload and search,
+    which the ranks of [pod lm] rebuild from them."""
+    return dict(arch=arch, full_width=True, n_layers=LM_DEPTH[arch],
+                seq_len=LM_SEQ_LEN, iterations=LM_ACT1_ITERATIONS)
 
 #: the reference's Fig. 2 run (JAX on a CPU, same seeds, 20 iterations):
 #: start and truth fitness, final fitness, iteration reaching 90 %
@@ -424,9 +457,14 @@ SUBSTRATE_GRID = dict(n_stars=100_000, n_hosts=4096, m=1000, iterations=3)
 #: backends, m = 1000 / 500, [portfolio]'s 6 searches
 SUBSTRATE_PORTFOLIO = dict(n_searches=6, m=1000, iterations=2,
                            n_stars=100_000, fleet_hosts=4096)
+#: [pod] (a2): (a)'s 16 x 16 run over gloo ranks sharing this card; (a3):
+#: a one-rank NCCL group at (b)'s smoke size
+POD_RANKS = 2
+SUBSTRATE_NCCL = dict(n_stars=400, n_hosts=192, m=24, iterations=4)
 #: [pod] (c): the cached_portfolio substrate smoke at the same sizes with
-#: 3 searches, cut for the smoke's time (the reference's runner takes 8)
-SUBSTRATE_CACHED = dict(SUBSTRATE_PORTFOLIO, n_searches=3)
+#: 2 searches, cut for the smoke's time (the reference's runner takes 8;
+#: [portfolio] coalesces 6 at these sizes)
+SUBSTRATE_CACHED = dict(SUBSTRATE_PORTFOLIO, n_searches=2)
 #: the serve phase: layers kept at published widths per arch
 SERVE_DEPTH = {"qwen2-72b": 4, "deepseek-coder-33b": 2,
                "command-r-plus-104b": 2, "chameleon-34b": 2,
@@ -1163,9 +1201,7 @@ def phase_lm(dev: torch.device, arch: str, kernel_ms: float):
     counter = LM_KERNEL[arch][0]
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    search, fleet, wl = anm_lm.lm_problem(
-        arch=arch, device=dev, full_width=True, n_layers=LM_DEPTH[arch],
-        seq_len=LM_SEQ_LEN, iterations=LM_ACT1_ITERATIONS)
+    search, fleet, wl = anm_lm.lm_problem(device=dev, **lm_problem_kw(arch))
     torch.cuda.synchronize()
     n_layers = wl.cfg.n_layers          # every layer runs the arch's kernel
     n_params = wl.proj.n_params
@@ -1751,18 +1787,67 @@ def _leg(dev: torch.device, fn):
     return out, wall, _counts(), peak
 
 
-def phase_pod(dev: torch.device) -> None:
+def _ranks_leg(tag: str, report: dict, devices: list) -> dict:
+    """Gate and print a pod_mesh smoke's leg over ranks: every rank
+    exited 0 on its device in ``devices`` and committed the pod leg's
+    iterates and engine stats, with no bucket shape first run after warm;
+    the ranks' row_mean launches sum to the pod leg's (each evaluates its
+    own row blocks) and each rank's gram launches equal it (each runs the
+    engine).  Returns the ranks' summed launches."""
+    per = report["per_rank"]
+    check(report["ranks_parity_ok"], f"{tag}: over {report['ranks']} "
+          f"{report['dist_backend']} ranks: "
+          f"{report['ranks_failed'] or 'a rank left the pod leg'}")
+    one = report["launches"]["pod_mesh"]
+    summed = {}
+    for r, doc in enumerate(per):
+        print(f"[pod] {tag} rank {r} of {report['ranks']} "
+              f"({report['dist_backend']}) on {doc['device']}: "
+              f"{doc['data_shards']} data shards, grid wall "
+              f"{doc['wall_s']}s, peak device memory {doc['peak_gib']:.2f} "
+              f"GiB, {_gram_row_mean(doc['launches'])}")
+        check(doc["device"] == str(devices[r]),
+              f"{tag}: rank {r} ran on {doc['device']}, not {devices[r]}")
+        check(doc["new_shapes_after_warm"] == 0,
+              f"{tag}: rank {r} first ran a bucket shape after warm")
+        check(doc["launches"].get("gram_launches", 0)
+              == one.get("gram_launches", 0),
+              f"{tag}: rank {r}'s gram launches {doc['launches']} against "
+              f"the pod leg's {one}")
+        for key, n in doc["launches"].items():
+            summed[key] = summed.get(key, 0) + n
+    check(summed.get("row_mean_launches", 0)
+          == one.get("row_mean_launches", 0) > 0,
+          f"{tag}: the ranks' row_mean launches {summed} against the pod "
+          f"leg's {one}")
+    print(f"[pod] {tag} over {report['ranks']} {report['dist_backend']} "
+          f"ranks: every rank == the one-process pod leg ({report['mesh']}), "
+          f"iterates and engine stats, best "
+          f"{report['final']['pod_mesh']:.5f}; "
+          f"row_mean summed {summed.get('row_mean_launches', 0)} == the pod "
+          f"leg's; wall {report['ranks_wall_s']}s (forks, each rank's "
+          f"problem, warm and grid)")
+    return summed
+
+
+def phase_pod(dev: torch.device) -> dict:
     """The pod-mesh evaluation backend on the main path: (a) the
-    paper-scale grid, (b) the work server at smoke size (then a
-    crash/restore), (c) the portfolio and the eval cache, on the (1, 1)
-    mesh of this card and the virtual 16 × 16 mesh."""
+    paper-scale grid, with (a2) its pod leg over gloo ranks sharing this
+    card, (a3) a one-rank NCCL group at smoke size, (b) the work server
+    at smoke size (then a crash/restore), (c) the portfolio and the eval
+    cache, on the (1, 1) mesh of this card and the virtual 16 × 16 mesh.
+    Returns the launches of the legs over ranks, summed over the
+    ranks."""
     # (a) the batched grid at paper scale: the pod_mesh substrate smoke on
-    # the virtual 16 x 16 mesh, then on this card's (1, 1) mesh
+    # the virtual 16 x 16 mesh, with (a2) its pod leg over gloo ranks,
+    # then on this card's (1, 1) mesh
     finals = set()
-    for mesh in (None, Mesh((1, 1), ("data", "model"), [dev])):
+    ranks_launches = {}
+    for mesh, over in ((None, POD_RANKS),
+                       (Mesh((1, 1), ("data", "model"), [dev]), 0)):
         report, wall, peak = _substrate_smoke(
             dev, dryrun.run_substrate_smoke, "pod_mesh", mesh=mesh,
-            **SUBSTRATE_GRID)
+            ranks=over, dist_backend="gloo", **SUBSTRATE_GRID)
         tag = report["mesh"]
         for leg, launches in report["launches"].items():
             print(f"[pod] (a) {tag} grid {leg}: "
@@ -1779,15 +1864,35 @@ def phase_pod(dev: torch.device) -> None:
         check(all(report["stats_equal"].values()),
               f"a {tag} grid leg's engine stats differ from the sync leg's: "
               f"{report['stats_equal']}")
+        ranks_wall = report.get("ranks_wall_s", 0)
         print(f"[pod] (a) pod_mesh substrate smoke ({report['n_stars']} "
               f"stars, {report['n_hosts']} hosts, m = {report['m']}) on "
               f"{tag} ({report['data_shards']} data shard(s), floor "
               f"{report['min_bucket']}): in-process sync == in-process "
               f"pipelined == pod pipelined, iterates and engine stats, no "
-              f"bucket shape first run after warm; wall {wall:.1f}s (warm "
-              f"included), peak device memory {peak:.2f} GiB")
+              f"bucket shape first run after warm; wall "
+              f"{wall - ranks_wall:.1f}s (warm included; (a2) not), peak "
+              f"device memory {peak:.2f} GiB")
+        if over:
+            ranks_launches = _ranks_leg("(a2)", report, [dev] * over)
     check(len(finals) == 1, f"the 16x16 and (1, 1) runs ended apart: "
           f"{sorted(finals)}")
+
+    # (a3) a one-rank NCCL group at (b)'s smoke size, the backend chosen
+    # and printed plainly; two NCCL ranks where there are two cards
+    for world in [1] + ([2] if torch.cuda.device_count() >= 2 else []):
+        devices = [torch.device("cuda", r) for r in range(world)]
+        report, wall, peak = _substrate_smoke(
+            dev, dryrun.run_substrate_smoke, "pod_mesh", ranks=world,
+            dist_backend="nccl", **SUBSTRATE_NCCL)
+        print(f"[pod] (a3) pod_mesh substrate smoke ({report['n_stars']} "
+              f"stars, {report['n_hosts']} hosts, m = {report['m']}) on "
+              f"{report['mesh']} over {world} rank(s), backend "
+              f"{report['dist_backend']} on {[str(d) for d in devices]}: "
+              f"one-process legs == each other; wall {wall:.1f}s, of it "
+              f"the ranks {report['ranks_wall_s']}s")
+        for key, n in _ranks_leg("(a3)", report, devices).items():
+            ranks_launches[key] = ranks_launches.get(key, 0) + n
 
     # (b) the work server through --backend pod_mesh, at the smoke size
     # (the paper-scale re-run of [server]'s run was cut for the
@@ -1858,22 +1963,69 @@ def phase_pod(dev: torch.device) -> None:
             _check_sdss_leg(f"the {name} {run} cached portfolio", launches)
     print(f"[pod] (c) cached_portfolio substrate smoke on {report['mesh']}: "
           f"wall {wall:.1f}s, peak device memory {peak:.2f} GiB")
+    return ranks_launches
 
 
-def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> None:
+def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> int:
     """Danube: act 1 over its loss on the LM backend's mesh route over the
     virtual 16 × 16 mesh, reusing ``[lm]``'s workload and engines.
     rwkv6: ``launch/dryrun.py``'s lm_subspace substrate smoke on ``[lm]``'s
-    workload (acts 1 to 3 of the reference's runner).  Frees the
-    workload."""
+    workload (acts 1 to 3 of the reference's runner), then, the workload
+    freed, act 1 over ranks (``_pod_lm_ranks``).  Frees the workload;
+    returns the kernel launches of the ranks (0 for danube)."""
     if arch == "rwkv6-7b":
         _pod_lm_subspace(dev, lm)
     else:
         _pod_lm_act1(dev, arch, lm)
+    sync, n_layers = lm["sync"], lm["n_layers"]
     torch.cuda.synchronize(dev)
     lm.clear()
     gc.collect()
     torch.cuda.empty_cache()
+    return _pod_lm_ranks(dev, arch, sync, n_layers) if arch == "rwkv6-7b" \
+        else 0
+
+
+def _pod_lm_ranks(dev: torch.device, arch: str, sync, n_layers: int) -> int:
+    """Act 1 at ``[lm]``'s one iteration over ``LM_RANKS`` gloo ranks
+    sharing this card, the LM backend's mesh route on the (2, 1) mesh over
+    them (``dryrun.lm_grid_rank``: each rank builds ``[lm]``'s workload
+    from its seeds, scores its half of every bucket's lanes and
+    all-gathers the rest): every rank on this card and == ``[lm]``'s
+    in-process sync run, iterates and engine stats; each rank's chunked
+    wkv6 launches == its lanes × layers.  Returns the ranks' wkv6
+    launches, summed."""
+    counter = LM_KERNEL[arch][0]
+    rep = dryrun.over_ranks(
+        "repro_torch.launch.dryrun:lm_grid_rank",
+        dict(lm_problem_kw(arch), mesh_shape=LM_RANKS_MESH,
+             axis_names=["data", "model"]),
+        LM_RANKS, "gloo", dev, sync)
+    check(rep["ranks_parity_ok"], f"[pod lm] {arch} over ranks: "
+          f"{rep['ranks_failed'] or 'a rank left [lm] act 1 sync run'}")
+    total = 0
+    for r, doc in enumerate(rep["per_rank"]):
+        n = doc["launches"]
+        print(f"[pod lm] {arch} act 1 rank {r} of {LM_RANKS} (gloo) on "
+              f"{doc['device']}: {doc['data_shards']} data shard, "
+              f"{doc['lanes']} lanes, grid wall {doc['wall_s']}s, peak "
+              f"device memory {doc['peak_gib']:.2f} GiB, launches {n}")
+        check(doc["device"] == str(dev),
+              f"[pod lm] rank {r} ran on {doc['device']}")
+        check(doc["n_layers"] == n_layers and n.get(counter, 0)
+              == n.get("wkv6_launches", 0) == doc["lanes"] * n_layers > 0,
+              f"[pod lm] rank {r}: {n} for {doc['lanes']} lanes x "
+              f"{n_layers} layers")
+        check(doc["new_shapes_after_warm"] == 0,
+              f"[pod lm] rank {r} first ran a bucket shape after warm")
+        total += n.get("wkv6_launches", 0)
+    print(f"[pod lm] {arch} act 1 over {LM_RANKS} gloo ranks on the "
+          f"{LM_RANKS_MESH[0]}x{LM_RANKS_MESH[1]} mesh: every rank == [lm]'s "
+          f"sync run ({sync.iteration} iterations, best "
+          f"{sync.best_fitness:.6f}), iterates and engine stats; wall "
+          f"{rep['ranks_wall_s']}s (forks, each rank's workload, warm and "
+          f"act 1)")
+    return total
 
 
 def _pod_lm_act1(dev: torch.device, arch: str, lm: dict) -> None:
@@ -3365,7 +3517,7 @@ def main() -> None:
     timed("grid", phase_grid, dev)
     row_mean_launches, children, server_doc, server_wall = timed(
         "server", phase_server, dev)
-    timed("pod", phase_pod, dev)
+    pod_ranks = timed("pod", phase_pod, dev)
     children += timed("obs", phase_obs, dev, server_doc, server_wall)
     timed("portfolio", phase_portfolio, dev)
     examples_launches = timed("examples", phase_examples, dev)
@@ -3373,10 +3525,11 @@ def main() -> None:
     wkv6 = timed("wkv6", phase_wkv6, dev)
     flash_launches, lm = timed("lm danube", phase_lm, dev,
                                "h2o-danube-3-4b", flash["ms"])
-    timed("pod lm danube", phase_pod_lm, dev, "h2o-danube-3-4b", lm)
+    flash_ranks = timed("pod lm danube", phase_pod_lm, dev,
+                        "h2o-danube-3-4b", lm)
     wkv6_launches, lm = timed("lm rwkv6", phase_lm, dev, "rwkv6-7b",
                               wkv6["ms"])
-    timed("pod lm rwkv6", phase_pod_lm, dev, "rwkv6-7b", lm)
+    wkv6_ranks = timed("pod lm rwkv6", phase_pod_lm, dev, "rwkv6-7b", lm)
     flash_subspace = timed("subspace lm danube", phase_subspace_lm, dev,
                            "h2o-danube-3-4b")
     wkv6_subspace = timed("subspace lm rwkv6", phase_subspace_lm, dev,
@@ -3393,11 +3546,12 @@ def main() -> None:
         {"name": "gram", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gram.cu",
          "replaces": "src/repro/kernels/gram.py:44",
-         "launches": launches, **gram},
+         "launches": launches,
+         "ranks_launches": pod_ranks.get("gram_launches", 0), **gram},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:81",
-         "launches": flash_launches,
+         "launches": flash_launches, "ranks_launches": flash_ranks,
          "serve_launches": serve_launches["flash_attention"],
          "serve_moe_launches": serve_moe_launches,
          "serve_hybrid_launches": serve_hybrid_launches,
@@ -3405,7 +3559,7 @@ def main() -> None:
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6.py:50",
-         "launches": wkv6_launches,
+         "launches": wkv6_launches, "ranks_launches": wkv6_ranks,
          "serve_launches": serve_launches["wkv6"],
          "subspace_launches": wkv6_subspace, **wkv6},
         {"name": "row_mean", "route": "cuda",
@@ -3413,6 +3567,7 @@ def main() -> None:
          "replaces": "src/repro/data/sdss.py:79 (jnp.mean, :79, :80, :85; "
                      "no TPU kernel: port-only)",
          "launches": row_mean_launches,
+         "ranks_launches": pod_ranks.get("row_mean_launches", 0),
          "baselines_launches": baselines_launches,
          "server_children_launches": children,
          "examples_launches": examples_launches, **row_mean}]}))

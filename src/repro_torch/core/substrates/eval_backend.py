@@ -74,7 +74,9 @@ class EvalHandle(NamedTuple):
     owns until collected, and ``seq`` the submission's ownership token for
     that slot (a stale or double ``collect`` must not free a slot now
     owned by a newer submission).  ``event`` is the CUDA event recorded
-    after the copy back, ``None`` on the CPU.  ``tags`` is the per-lane
+    after the copy back, ``None`` on the CPU; on a mesh over ranks, the
+    all-gather in flight (``pod_mesh.Gathered``).  ``collect`` calls its
+    ``synchronize()``.  ``tags`` is the per-lane
     submitter-id array shipped with a coalesced multi-search bucket
     (DESIGN.md §8): host-side framing metadata saying which search owns
     each lane, never read by the device computation and not the demux
@@ -143,6 +145,23 @@ class EvalBackend:
         """(kp, n) f32 bucket on the device -> (kp,) fitness."""
         raise NotImplementedError
 
+    def _own_lanes(self, kp: int) -> tuple:
+        """The lanes [lo, hi) of a bucket of ``kp`` this process evaluates:
+        all of them, but on a mesh over ranks (``pod_mesh.OverRanks``)."""
+        return 0, kp
+
+    def _deliver(self, ys: torch.Tensor, out: torch.Tensor, stream):
+        """Put the evaluated lanes ``ys`` into the slot's host buffer
+        ``out`` (on ``stream``, None on the CPU).  Returns what marks
+        them there: a CUDA event, or None where the copy is done."""
+        if stream is None:
+            out.copy_(ys)
+            return None
+        out.copy_(ys, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(stream)
+        return event
+
     def _finalize(self, pts: torch.Tensor, u: torch.Tensor,
                   k: int) -> torch.Tensor:
         ys = self._raw_eval(pts).to(torch.float32)
@@ -154,28 +173,30 @@ class EvalBackend:
         return ys
 
     def _run_bucket(self, slot: _Slot, k: int):
-        """Evaluate a staged slot into its output buffer.  Returns the CUDA
-        event that marks the results ready (None on the CPU, where the
-        call is synchronous)."""
+        """Evaluate this process's lanes of a staged slot into its output
+        buffer.  Returns what ``_deliver`` returns: the CUDA event that
+        marks the results ready (None on the CPU, where the call is
+        synchronous)."""
         key = tuple(slot.pts.shape[::-1])            # (n_dims, kp)
         if key not in self._ran:
             self._ran.add(key)
             self.compile_count += 1
-        self.lanes_evaluated += key[1]
+        lo, hi = self._own_lanes(key[1])
+        self.lanes_evaluated += hi - lo
+        real = max(k - lo, 0)                        # own lanes before pads
         if not self._cuda:
-            slot.out.copy_(self._finalize(slot.pts, slot.u, k))
-            return None
+            return self._deliver(
+                self._finalize(slot.pts[lo:hi], slot.u[lo:hi], real),
+                slot.out, None)
         stream = self._stream
         # order after the caller's work on its stream (the fitness'
         # resident tensors were made there)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            pts = slot.pts.to(self.device, non_blocking=True)
-            u = slot.u.to(self.device, non_blocking=True)
-            slot.out.copy_(self._finalize(pts, u, k), non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return event
+            pts = slot.pts[lo:hi].to(self.device, non_blocking=True)
+            u = slot.u[lo:hi].to(self.device, non_blocking=True)
+            return self._deliver(self._finalize(pts, u, real), slot.out,
+                                 stream)
 
     # -- framing -------------------------------------------------------------
 
@@ -213,15 +234,17 @@ class EvalBackend:
         Idempotent: shapes already run are skipped."""
         kp = bucket_size(1, self.min_bucket)
         top = bucket_size(max_k, self.min_bucket)
+        ran = []
         while True:
             if (n_dims, kp) not in self._ran:
                 i = self._staging(kp, n_dims)
-                self._run_bucket(self._bufs[kp][i], kp)
+                ran.append(self._run_bucket(self._bufs[kp][i], kp))
             if kp >= top:
                 break
             kp *= 2
-        if self._cuda:
-            self._stream.synchronize()
+        for done in ran:
+            if done is not None:
+                done.synchronize()
         return self
 
     # -- the async protocol --------------------------------------------------

@@ -19,9 +19,15 @@ Two evaluation modes, one class, as in the reference:
     and fall back explicitly, ``spec_fallbacks``).  Before a bucket the
     pieces are gathered back, once for each distinct device, and every
     data shard evaluates its lanes on the whole leaves; the gathered copy
-    is freed after the bucket.  The port accepts meshes whose devices are
-    all the workload's device (the (1, 1) mesh and virtual meshes), on
-    which the stored pieces are views and cost no memory.
+    is freed after the bucket (where no leaf is cut, a model axis of 1,
+    the pieces are the leaves and nothing is copied).  A one-process mesh
+    must lie on the workload's device (the (1, 1) mesh and virtual
+    meshes), on which the stored pieces are views and cost no memory.
+    Over ranks (``Mesh.over_ranks``), every rank builds θ0, the basis and
+    the batch from the workload's seed, stores and gathers the pieces of
+    its own positions (the model axis stays inside a rank), holds the
+    batch whole, scores its own lanes and all-gathers the lane losses
+    (``pod_mesh.OverRanks``).
 
 Gather-at-use keeps pod == in-process bit for bit: the gathered basis is
 written into a (k, P) buffer at each leaf's offset, so every lane's lift
@@ -51,7 +57,7 @@ from repro_torch.core.subspace import (SubspaceProjection, basis_to_tree,
                                        tree_lift)
 from repro_torch.core.substrates.eval_backend import (DEFAULT_MIN_BUCKET,
                                                       EvalBackend, bucket_size)
-from repro_torch.core.substrates.pod_mesh import data_shards
+from repro_torch.core.substrates.pod_mesh import OverRanks, data_shards
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import sharding
 from repro_torch.models import transformer as T
@@ -145,7 +151,7 @@ def batch_tensors(batch: Dict[str, np.ndarray],
             for key, val in batch.items()}
 
 
-class LmLossEvalBackend(EvalBackend):
+class LmLossEvalBackend(OverRanks, EvalBackend):
     """``EvalBackend`` whose ``_raw_eval`` lifts each lane's (k,) subspace
     coefficients to model parameters and returns the forward/CE loss on
     the workload's fixed batch, on the workload's device.
@@ -186,6 +192,11 @@ class LmLossEvalBackend(EvalBackend):
             shape = ShapeConfig("lm_subspace", seq_len=tokens.shape[1],
                                 global_batch=tokens.shape[0], kind="train")
             _, in_specs = sharding.input_specs(workload.cfg, shape, mesh)
+            if mesh.spans_ranks:
+                # every lane scores the whole batch, and a rank holds only
+                # its own data positions: it keeps the batch whole
+                in_specs = sharding.map_specs(lambda *_: sharding.P(),
+                                              in_specs)
             self._theta = sharding.to_named(workload.proj.theta0, pspecs,
                                             mesh)
             self._basis = sharding.to_named(workload.proj.basis_tree, bspecs,
@@ -222,12 +233,16 @@ class LmLossEvalBackend(EvalBackend):
         # reference gives each data shard its slice when the batch divides
         # the data axes, ROADMAP C)
         wl = self.workload
-        basis = basis_to_tree(torch.empty_like(wl.proj.basis), wl.proj.theta0)
-        sharding.gather(self._basis, out=basis)
+        basis = sharding.held_whole(self._basis)
+        if basis is None:
+            basis = basis_to_tree(torch.empty_like(wl.proj.basis),
+                                  wl.proj.theta0)
+            sharding.gather(self._basis, out=basis)
         theta0 = sharding.gather(self._theta)
         batch = sharding.gather(self._batch)
         # data shard s's lanes are the s-th block of kp / n_shards rows,
-        # each run in order: over the shards in order, every lane in order
+        # each run in order: over this process's shards in order, every
+        # lane in order
         for i in range(pts.shape[0]):
             out[i] = self._loss(theta0, basis, batch, pts[i])
         return out

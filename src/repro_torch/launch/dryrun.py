@@ -65,7 +65,10 @@ one device (the reference forces 512 host devices); ``server``,
 ``chaos_server``, ``obs_server`` and ``postmortem`` run their legs as
 child processes of ``server/sim.py`` on the same device, SIGKILL some of
 them mid-run and restore them (``ServerChildren``), and run their
-in-process legs on the same virtual mesh.
+in-process legs on the same virtual mesh.  ``--ranks N`` (``pod_mesh``,
+``lm_subspace``) adds the pod leg over N ranks of a ``torch.distributed``
+group (``--dist-backend``, ``launch/ranks.py``), the mesh's data axis cut
+over them, each rank a child process on its device (``over_ranks``).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen2-72b --shape train_4k
@@ -73,6 +76,8 @@ Usage:
     python -m repro_torch.launch.dryrun --list-substrates
     python -m repro_torch.launch.dryrun --substrate pod_mesh [--device cpu]
     python -m repro_torch.launch.dryrun --substrate server [--device cpu]
+    python -m repro_torch.launch.dryrun --substrate pod_mesh --ranks 2 \
+        [--dist-backend gloo|nccl] [--device cpu]
 
 Reports go to ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``,
 a smoke's to ``artifacts/dryrun_torch/substrate_<X>.json`` (or ``--out``).
@@ -117,6 +122,9 @@ ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                          "artifacts", "dryrun_torch")
 
 META = torch.device("meta")
+
+#: the substrate smokes that take ``--ranks``
+RANKS_SUBSTRATES = ("pod_mesh", "lm_subspace")
 
 COUNTED_BY = {
     "hlo_flops": "FlopCounterMode over the step traced on meta (products "
@@ -816,9 +824,148 @@ def _sdss_problem(name: str, seed: int, n_stars: int, device):
     return f_batch, x0
 
 
+def engine_doc(engine) -> dict:
+    """An engine's committed trajectory and stats as JSON (float64
+    round-trips exactly): what a rank reports and the parity gates of a
+    leg over ranks compare."""
+    return json.loads(json.dumps({
+        "iteration": engine.iteration, "best_fitness": engine.best_fitness,
+        "history": {"centers": [r.center.tolist() for r in engine.history],
+                    "best_fitness": [r.best_fitness
+                                     for r in engine.history]},
+        "engine_stats": dataclasses.asdict(engine.stats)}))
+
+
+_ENGINE_KEYS = ("iteration", "best_fitness", "history", "engine_stats")
+
+
+def over_ranks(target: str, kwargs: dict, ranks: int, dist_backend: str,
+               device, expect) -> dict:
+    """Run ``target`` (a rank function of this module) over ``ranks``
+    ranks of ``dist_backend`` (``launch/ranks.py``; gloo ranks all on
+    ``device``, nccl rank r on ``cuda:r``) and hold every rank's engine
+    against ``expect``, the one-process engine of the same leg.  Returns
+    the report's ranks part: ``ranks_parity_ok`` is whether every rank
+    exited 0 and committed ``expect``'s iterates, fitness history and
+    engine stats (so each other's too)."""
+    from repro_torch.launch import ranks as R
+
+    devices = R.default_devices(dist_backend, ranks, device)
+    with tempfile.TemporaryDirectory(prefix="ranks_") as workdir:
+        res = R.run(target, kwargs, world=ranks, backend=dist_backend,
+                    devices=devices, workdir=workdir)
+    want = engine_doc(expect)
+    docs = res.docs
+    parity = res.returncode == 0 and all(
+        all(d[k] == want[k] for k in _ENGINE_KEYS) for d in docs)
+    return {
+        "ranks": ranks, "dist_backend": dist_backend,
+        "ranks_parity_ok": parity, "ranks_returncode": res.returncode,
+        "ranks_failed": res.failed, "ranks_wall_s": round(res.wall_s, 3),
+        "per_rank": [None if d is None else
+                     {k: v for k, v in d.items() if k not in _ENGINE_KEYS}
+                     for d in docs],
+    }
+
+
+def _pod_problem(m: int, iterations: int, n_stars: int, n_hosts: int,
+                 device):
+    """The pod_mesh runner's problem on ``device``, as its one-process
+    legs and every rank of its leg over ranks build it (same seeds):
+    (f_batch, the warm ladder's top, ``run``), where ``run(backend,
+    pipelined)`` drives a fresh engine through the batched grid on
+    ``backend`` and returns (engine, grid stats, wall, launches)."""
+    from repro_torch.core.anm import AnmConfig
+    from repro_torch.core.engine import AnmEngine
+    from repro_torch.core.grid import GridConfig
+    from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
+    from repro_torch.core.substrates.eval_backend import bucket_size
+    from repro_torch.data import sdss
+
+    f_batch, x0 = _sdss_problem("podmesh_smoke", 17, n_stars, device)
+    anm_cfg = AnmConfig(m_regression=m, m_line_search=m,
+                        max_iterations=iterations)
+    grid_cfg = GridConfig(n_hosts=n_hosts, failure_prob=0.05,
+                          malicious_prob=0.01, seed=9)
+
+    def run(backend, pipelined):
+        engine = AnmEngine(x0, sdss.LO, sdss.HI, sdss.DEFAULT_STEP,
+                           anm_cfg, seed=7, device=device)
+        stats, wall, launches = _timed(
+            lambda: BatchedVolunteerGrid(f_batch, grid_cfg, backend=backend,
+                                         pipelined=pipelined,
+                                         device=device).run(engine))
+        return engine, stats, wall, launches
+    return f_batch, bucket_size(BatchedVolunteerGrid.warm_max_bucket(m)), run
+
+
+def _peak_gib(device) -> Optional[float]:
+    """The peak of this process's CUDA memory on ``device`` so far, GiB
+    (None on the CPU, which has no device memory to read)."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def pod_mesh_rank(group, *, m: int, iterations: int, n_stars: int,
+                  n_hosts: int, mesh_shape: list, axis_names: list) -> dict:
+    """One rank of ``run_substrate_smoke``'s leg over ranks: the same
+    stripe, engine and grid as every rank (SPMD), the pod backend on the
+    mesh ``mesh_shape`` with its data axis over the group, pipelined.
+    Returns the rank's doc: ``engine_doc``, and its device, data shards,
+    wall, launches (the warm's left out) and peak device memory."""
+    from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
+
+    device = group.device
+    f_batch, max_bucket, run = _pod_problem(m, iterations, n_stars, n_hosts,
+                                            device)
+    pod = PodMeshEvalBackend(f_batch, mesh=group.mesh(mesh_shape, axis_names),
+                             n_dims=8, max_bucket=max_bucket, device=device)
+    shapes = pod.compile_count
+    engine, _, wall, launches = run(pod, True)
+    return dict(engine_doc(engine), rank=group.rank, device=str(device),
+                data_shards=pod.local_shards, wall_s=round(wall, 3),
+                launches=launches, peak_gib=_peak_gib(device),
+                new_shapes_after_warm=pod.compile_count - shapes)
+
+
+def lm_grid_rank(group, *, mesh_shape: list, axis_names: list,
+                 **problem_kw) -> dict:
+    """One rank of an LM grid leg over ranks: ``server.sim.lm_problem``
+    (``problem_kw``) built on the rank's device from the workload's seed,
+    the LM backend on the mesh ``mesh_shape`` with its data axis over the
+    group, warmed, act 1 pipelined.  Returns the rank's doc:
+    ``engine_doc``, and its device, data shards, lanes, layers, wall,
+    launches (the warm's left out) and peak device memory."""
+    from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
+    from repro_torch.core.substrates.eval_backend import bucket_size
+    from repro_torch.core.substrates.lm_loss import LmLossEvalBackend
+    from repro_torch.server.sim import lm_problem
+
+    device = group.device
+    spec, fleet, wl = lm_problem(device=device, **problem_kw)
+    m = spec.anm.m_regression
+    backend = LmLossEvalBackend(
+        wl, mesh=group.mesh(mesh_shape, axis_names), n_dims=wl.k,
+        max_bucket=bucket_size(BatchedVolunteerGrid.warm_max_bucket(m)))
+    engine = spec.build_engine()
+    lanes0, shapes = backend.lanes_evaluated, backend.compile_count
+    _, wall, launches = _timed(
+        lambda: BatchedVolunteerGrid(None, fleet, backend=backend,
+                                     pipelined=True).run(engine))
+    return dict(engine_doc(engine), rank=group.rank, device=str(device),
+                data_shards=backend.n_shards // group.world,
+                lanes=backend.lanes_evaluated - lanes0,
+                n_layers=wl.cfg.n_layers, wall_s=round(wall, 3),
+                launches=launches, peak_gib=_peak_gib(device),
+                new_shapes_after_warm=backend.compile_count - shapes)
+
+
 def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
                         n_stars: int = 500, n_hosts: int = 512, *,
-                        device="cuda", mesh=None) -> bool:
+                        device="cuda", mesh=None, ranks: int = 0,
+                        dist_backend: str = "gloo") -> bool:
     """Pod-mesh + pipelined substrate smoke (``--substrate pod_mesh``).
 
     Runs the SAME batched-grid workload three ways on ``device`` — the
@@ -833,39 +980,28 @@ def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
     reference's keys, and ``device``, each leg's kernel launches, its
     new bucket shapes and ``stats_equal``: whether each leg's final
     engine stats equal the sync leg's); returns pass/fail (the
-    reference's: the trajectories)."""
+    reference's: the trajectories).
+
+    With ``ranks`` > 0, a fourth leg runs the pod backend over ``ranks``
+    ranks of ``dist_backend`` (``over_ranks``: the data axis of
+    ``mesh``'s shape cut over the ranks, each rank a child process on its
+    device), and every rank must commit the pod leg's iterates and engine
+    stats; the report gains ``over_ranks``' keys and the result its
+    ``ranks_parity_ok``."""
     import numpy as np
 
-    from repro_torch.core.engine import (AnmConfig, AnmEngine,
-                                         identical_trajectories)
-    from repro_torch.core.grid import GridConfig
-    from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
-    from repro_torch.core.substrates.eval_backend import (
-        InProcessEvalBackend, bucket_size)
+    from repro_torch.core.engine import identical_trajectories
+    from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
     from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
-    from repro_torch.data import sdss
 
     mesh = _pod_mesh(device, mesh)
-    f_batch, x0 = _sdss_problem("podmesh_smoke", 17, n_stars, device)
-    anm_cfg = AnmConfig(m_regression=m, m_line_search=m,
-                        max_iterations=iterations)
-    grid_cfg = GridConfig(n_hosts=n_hosts, failure_prob=0.05,
-                          malicious_prob=0.01, seed=9)
-    max_bucket = bucket_size(BatchedVolunteerGrid.warm_max_bucket(m))
+    f_batch, max_bucket, run_with = _pod_problem(m, iterations, n_stars,
+                                                 n_hosts, device)
     in_backend = InProcessEvalBackend(f_batch, n_dims=8,
                                       max_bucket=max_bucket, device=device)
     pod = PodMeshEvalBackend(f_batch, mesh=mesh, n_dims=8,
                              max_bucket=max_bucket, device=device)
     warmed = {id(b): b.compile_count for b in (in_backend, pod)}
-
-    def run_with(backend, pipelined):
-        engine = AnmEngine(x0, sdss.LO, sdss.HI, sdss.DEFAULT_STEP,
-                           anm_cfg, seed=7, device=device)
-        stats, wall, launches = _timed(
-            lambda: BatchedVolunteerGrid(f_batch, grid_cfg, backend=backend,
-                                         pipelined=pipelined,
-                                         device=device).run(engine))
-        return engine, stats, wall, launches
 
     e_in, s_in, t_in, l_in = run_with(in_backend, False)
     e_pin, s_pin, t_pin, l_pin = run_with(in_backend, True)
@@ -910,14 +1046,35 @@ def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
         "stats_equal": {"in_process_pipelined": e_pin.stats == e_in.stats,
                         "pod_mesh": e_pod.stats == e_in.stats},
     }
+    if ranks:
+        report.update(over_ranks(
+            "repro_torch.launch.dryrun:pod_mesh_rank",
+            dict(m=m, iterations=iterations, n_stars=n_stars,
+                 n_hosts=n_hosts, mesh_shape=list(mesh.shape.values()),
+                 axis_names=list(mesh.axis_names)),
+            ranks, dist_backend, device, e_pod))
+        ok = ok and report["ranks_parity_ok"]
     path = _write(out_dir, "pod_mesh", report)
     print(f"[{'ok' if ok else 'FAIL'}] substrate pod_mesh: "
           f"{pod.n_shards} data shards, iters "
           f"{e_in.iteration}/{e_pin.iteration}/{e_pod.iteration}, final "
           f"{e_in.best_fitness:.6f}/{e_pin.best_fitness:.6f}/"
           f"{e_pod.best_fitness:.6f}, wall {t_in:.2f}s/{t_pin:.2f}s/"
-          f"{t_pod:.2f}s (sync/pipelined/pod-pipelined) -> {path}")
+          f"{t_pod:.2f}s (sync/pipelined/pod-pipelined)"
+          + _ranks_line(report) + f" -> {path}")
     return ok
+
+
+def _ranks_line(report: dict) -> str:
+    """The print's part for a leg over ranks ('' without one)."""
+    if "ranks" not in report:
+        return ""
+    devices = [r and r["device"] for r in report["per_rank"]]
+    return (f"; over {report['ranks']} {report['dist_backend']} ranks on "
+            f"{devices}: == pod {report['ranks_parity_ok']}, wall "
+            f"{report['ranks_wall_s']}s"
+            + ("" if report["ranks_failed"] is None
+               else f" ({report['ranks_failed']})"))
 
 
 def run_multi_search_smoke(out_dir: str, n_searches: int = 4, m: int = 24,
@@ -1122,7 +1279,8 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
                           k: int = 6, m: int = 12, iterations: int = 2,
                           n_hosts: int = 48, *, device="cuda", mesh=None,
                           problem=None,
-                          portfolio_iterations: Optional[int] = None
+                          portfolio_iterations: Optional[int] = None,
+                          ranks: int = 0, dist_backend: str = "gloo"
                           ) -> bool:
     """LM-loss workload smoke (``--substrate lm_subspace``).
 
@@ -1152,7 +1310,16 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
     whether the final engine stats agree: ``grid/stats_equal`` against
     the sync leg, ``orchestrator/solo_stats_equal`` and
     ``warm_stats_equal``); returns pass/fail (the reference's: gates 1
-    and 2 on the trajectories)."""
+    and 2 on the trajectories).
+
+    With ``ranks`` > 0, gate 1 gains a leg over ``ranks`` ranks of
+    ``dist_backend`` (``over_ranks``, ``lm_grid_rank``: every rank builds
+    the workload from its seed, so ``problem`` must be None): every rank
+    must commit the pod leg's iterates and engine stats; the report gains
+    ``over_ranks``' keys and the result its ``ranks_parity_ok``."""
+    if ranks and problem is not None:
+        raise ValueError("a leg over ranks builds the workload on every "
+                         "rank from its seed: pass no problem")
     from repro_torch.core.engine import identical_trajectories
     from repro_torch.core.orchestrator import (FleetScheduler,
                                                SearchDirector,
@@ -1260,6 +1427,15 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
 
     ok = (pipe_ok and pod_ok and zero_compiles and orch_ok
           and server_backend_ok and restore_ok)
+    ranks_report = {}
+    if ranks:
+        ranks_report = over_ranks(
+            "repro_torch.launch.dryrun:lm_grid_rank",
+            dict(arch=arch, k=k, n_hosts=n_hosts, m=m, iterations=iterations,
+                 mesh_shape=list(mesh.shape.values()),
+                 axis_names=list(mesh.axis_names)),
+            ranks, dist_backend, device, e_pod)
+        ok = ok and ranks_report["ranks_parity_ok"]
     report = {
         "arch": arch, "k": k, "m": m, "iterations": iterations,
         "mesh": _mesh_tag(mesh), "n_params": int(wl.proj.n_params),
@@ -1312,6 +1488,7 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
         "device": str(device), "n_layers": wl.cfg.n_layers,
         "kernels": {"grid": grid_k, "orchestrator": orch_k,
                     "server": server_k},
+        **ranks_report,
     }
     path = _write(out_dir, "lm_subspace", report)
     print(f"[{'ok' if ok else 'FAIL'}] substrate lm_subspace: {arch} "
@@ -1321,8 +1498,8 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
           f"sync/pipelined/pod), compiles "
           f"{'0' if zero_compiles else 'NONZERO'} after warm, "
           f"orchestrator {'ok' if orch_ok else 'FAIL'}, server "
-          f"{'ok' if server_backend_ok and restore_ok else 'FAIL'} "
-          f"-> {path}")
+          f"{'ok' if server_backend_ok and restore_ok else 'FAIL'}"
+          + _ranks_line(report) + f" -> {path}")
     return ok
 
 
@@ -2098,6 +2275,15 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where a substrate smoke runs (the model cells "
                          "are reckoned on meta)")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="with --substrate pod_mesh or lm_subspace: also run "
+                         "the pod leg over N ranks of a torch.distributed "
+                         "group, one child process a rank "
+                         "(launch/ranks.py)")
+    ap.add_argument("--dist-backend", default="gloo",
+                    choices=["gloo", "nccl"],
+                    help="the ranks' backend: gloo (CPU or CUDA, ranks may "
+                         "share a card) or nccl (a distinct card a rank)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -2109,7 +2295,17 @@ def main(argv=None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     if args.substrate is not None:
         runner = SUBSTRATES[args.substrate].resolve()
-        return 0 if runner(out_dir, device=args.device) else 1
+        kw = {}
+        if args.ranks:
+            if args.substrate not in RANKS_SUBSTRATES:
+                ap.error(f"--ranks runs with --substrate "
+                         f"{' or '.join(RANKS_SUBSTRATES)}")
+            kw = dict(ranks=args.ranks, dist_backend=args.dist_backend)
+        try:
+            return 0 if runner(out_dir, device=args.device, **kw) else 1
+        finally:
+            if args.ranks:
+                child.stop()
     meshes = {"pod": [False], "multipod": [True],
               "both": [False, True]}[args.mesh]
     archs = ARCH_NAMES if (args.all or args.arch is None) else [args.arch]

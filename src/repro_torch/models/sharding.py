@@ -293,7 +293,9 @@ class Sharded:
     whose index along d is c's row-major index over those axes (JAX's
     placement).  Each distinct block is kept once, on the device of the
     first coordinate holding it: a piece placed on the device its source
-    already lies on is a view of the source, not a copy.
+    already lies on is a view of the source, not a copy.  Only the
+    positions this process holds (``mesh.local_positions()``) get their
+    blocks: on a mesh over ranks a rank keeps its own.
     """
 
     def __init__(self, x: torch.Tensor, spec: P, mesh):
@@ -310,7 +312,7 @@ class Sharded:
                                  f"divide into {n} blocks ({spec})")
         self._pos = {a: i for i, a in enumerate(mesh.axis_names)}
         self.pieces: Dict[tuple, torch.Tensor] = {}
-        for coords in _ndindex(mesh.devices.shape):
+        for coords in mesh.local_positions():
             block = self.block_of(coords)
             if block not in self.pieces:
                 self.pieces[block] = self._narrow(x, block).to(
@@ -338,9 +340,22 @@ class Sharded:
         """The piece the device at mesh ``coords`` holds."""
         return self.pieces[self.block_of(coords)]
 
+    def whole(self) -> Optional[torch.Tensor]:
+        """The one piece if it is the whole tensor (no dimension cut),
+        else None."""
+        if all(n == 1 for n in self.cuts):
+            return self.pieces[(0,) * len(self.shape)]
+        return None
+
     def gather(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The whole tensor, its pieces written in block order into
-        ``out`` (a new tensor on the first piece's device if None)."""
+        ``out`` (a new tensor on the first piece's device if None).  Every
+        block must be held here: across ranks a gather is a collective."""
+        if len(self.pieces) != math.prod(self.cuts):
+            raise ValueError(
+                f"this process holds {len(self.pieces)} of the "
+                f"{math.prod(self.cuts)} blocks of {self.shape} ({self.spec} "
+                f"over {self.mesh})")
         first = next(iter(self.pieces.values()))
         if out is None:
             out = torch.empty(self.shape, dtype=self.dtype,
@@ -348,15 +363,6 @@ class Sharded:
         for block, piece in self.pieces.items():
             self._narrow(out, block).copy_(piece)
         return out
-
-
-def _ndindex(shape: tuple):
-    if not shape:
-        yield ()
-        return
-    for i in range(shape[0]):
-        for rest in _ndindex(shape[1:]):
-            yield (i,) + rest
 
 
 def to_named(tree: Any, specs: Any, mesh) -> Any:
@@ -371,6 +377,16 @@ def gather(tree: Any, out: Any = None) -> Any:
     if out is None:
         return map_specs(lambda _, s: s.gather(), tree)
     return map_specs(lambda _, s, dst: s.gather(dst), tree, out)
+
+
+def held_whole(tree: Any) -> Optional[Any]:
+    """A tree of ``Sharded`` as its pieces if every leaf is held whole
+    (``Sharded.whole``): the source's own tensors where they lie on the
+    mesh's device, gathered at no cost.  None if any leaf is cut."""
+    pieces = map_specs(lambda _, s: s.whole(), tree)
+    if any(p is None for _, p in spec_leaves(pieces)):
+        return None
+    return pieces
 
 
 def sharded_numel(cfg: ModelConfig, specs: Any,

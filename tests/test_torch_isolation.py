@@ -118,10 +118,14 @@ def test_server_modules_import_without_jax_or_the_reference():
 
 
 #: the pod-mesh slice's modules: the walk above must import each, and
-#: none may reach for a process group (the port's mesh is one process)
+#: only two reach for a process group: the launcher of ranks, and the pod
+#: backend, which issues the one collective of a mesh over ranks
 POD_MODULES = ("repro_torch.launch.mesh", "repro_torch.models.sharding",
                "repro_torch.core.substrates.pod_mesh",
-               "repro_torch.core.substrates.lm_loss")
+               "repro_torch.core.substrates.lm_loss",
+               "repro_torch.launch.ranks")
+PROCESS_GROUP_MODULES = ("repro_torch.core.substrates.pod_mesh",
+                         "repro_torch.launch.ranks")
 
 
 def test_pod_modules_import_without_jax_or_the_reference():
@@ -136,7 +140,8 @@ def test_pod_modules_import_without_jax_or_the_reference():
     for name in POD_MODULES:
         path = os.path.join(ROOT, "src", *name.split(".")) + ".py"
         with open(path) as f:
-            assert "torch.distributed" not in f.read(), name
+            uses = "torch.distributed" in f.read()
+        assert uses == (name in PROCESS_GROUP_MODULES), name
 
 
 #: the serving slice's modules: the dense, MLA, MoE and hybrid families'

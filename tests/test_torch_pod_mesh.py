@@ -111,7 +111,7 @@ def test_production_mesh_over_virtual_devices():
 
 
 def test_host_and_data_meshes_are_one_by_one_on_the_cpu():
-    for mesh in (make_host_mesh(), make_data_mesh("cpu")):
+    for mesh in (make_host_mesh("cpu"), make_data_mesh("cpu")):
         assert list(mesh.shape.items()) == [("data", 1), ("model", 1)]
         assert mesh.distinct_devices() == [torch.device("cpu")]
 
