@@ -275,6 +275,17 @@ so the script exits non-zero and prints no result line:
            benchmarks/train_throughput.py's three numbers on lm-100m and
            the deterministic mode's cost; (t6) --compress-grads for 10
            steps, the loss falling and each residual within a quantum;
+           then the data axis over ranks through launch/train.py
+           (over_ranks, each rank a child forked from the forkserver):
+           (t7) lm-100m over 2 gloo ranks sharing the card, batch 8 x 128
+           cut in two, 5 steps: each loss within 2e-2 of the one-process
+           step on the hosts' concatenated batches, every rank's
+           parameters the same bits after every step, the gradient bytes
+           a rank hands its all-reduce x 2 equal to the dry-run's
+           data-parallel gradient entries on the (2, 1) mesh, each rank's
+           peak within 15 % of the reckoned per-device peak, ms a step
+           and the all-reduce's share printed; (t8) the tiny preset over
+           a one-rank NCCL group == this process's run bit for bit;
 15e. dryrun  launch/dryrun.py's reckoning held against real steps, no
            kernel launched: (d1) (t3)'s danube step and (d2) (a)'s
            qwen2-72b decode step at t = 300, each reckoned on meta tensors
@@ -3069,6 +3080,18 @@ TRAIN_CPU_LOSS_TOL = 1e-5
 TRAIN_CPU_TOL = 1e-4
 #: (t5): benchmarks/train_throughput.py's shape and settings on lm-100m
 TRAIN_BENCH = dict(batch=4, seq=128, p=8, k=4, sample_scale=0.05)
+#: (t7): lm-100m (the launcher's preset, bf16) over 2 gloo ranks sharing
+#: the card, the global batch of 8 x 128 cut in two, 5 AdamW steps
+TRAIN_RANKS = 2
+TRAIN_RANKS_ARGV = ["--preset", "lm-100m", "--batch", "8", "--seq", "128",
+                    "--steps", "5", "--log-every", "1"]
+#: (t7): each step's loss over the ranks against the one-process step on
+#: the hosts' concatenated batches, relative (the bf16 loss tolerance,
+#: ROADMAP C)
+TRAIN_RANKS_LOSS_TOL = 2e-2
+#: (t8): the tiny preset over a one-rank NCCL group and in this process
+TRAIN_NCCL_ARGV = ["--preset", "tiny", "--batch", "2", "--seq", "32",
+                   "--steps", "4", "--log-every", "100"]
 
 
 def _launch_train(argv, env, timeout=600):
@@ -3099,7 +3122,8 @@ def phase_train(dev: torch.device) -> dict:
     """Training on the card through src/repro_torch/launch/train.py: (t1)
     lm-100m, (t2) crash and restart, (t3) danube at published width and
     depth, (t4) card == CPU in f32, (t5) throughput of the step, its line
-    search and subspace Newton, (t6) int8 gradient compression.  No kernel
+    search and subspace Newton, (t6) int8 gradient compression, (t7) and
+    (t8) the data axis over ranks (``_train_over_ranks``).  No kernel
     runs (training is ``use_kernels=False``, as the reference's launcher);
     a backward through a kernel route is refused.  Returns (t3)'s counted
     step for ``phase_dryrun``."""
@@ -3376,6 +3400,8 @@ def phase_train(dev: torch.device) -> dict:
     del params, state, err, grads
     _free()
 
+    _train_over_ranks(dev)
+
     # no kernel ran; a backward through a kernel route is refused
     counts = _counts()
     cfg = dataclasses.replace(get_smoke_config("h2o-danube-3-4b"),
@@ -3387,12 +3413,108 @@ def phase_train(dev: torch.device) -> dict:
         cfg, dev)
     refused = _refuses(lambda: transformer.make_train_step(cfg, opt)(
         params, opt.init(params), batch), RuntimeError)
-    print(f"[train] launches across (t1)-(t6): {counts}; a train step of "
+    print(f"[train] launches across (t1)-(t8): {counts}; a train step of "
           f"{cfg.name} with use_kernels=True on the card refused: {refused}")
     check(not any(counts.values()), "a kernel launched on the training path")
     check(refused and not any(_counts().values()),
           "a backward through the kernel route was not refused")
     return d1
+
+
+def _train_over_ranks(dev: torch.device) -> None:
+    """Training's data axis over ranks through ``launch/train.py``
+    (``over_ranks``, ``launch/ranks.py``): (t7) lm-100m over 2 gloo ranks
+    sharing the card against the one-process step on the hosts'
+    concatenated batches, every rank's parameters the same bits after
+    every step, the gradient bytes a rank hands its all-reduce x 2 equal
+    to the dry-run's data-parallel gradient entries on the (2, 1) mesh,
+    each rank's peak memory against the reckoned per-device peak, ms a
+    step and the all-reduce's share; (t8) the tiny preset over a one-rank
+    NCCL group == this process's run bit for bit."""
+    t0 = time.perf_counter()
+    _free()
+    w = TRAIN_RANKS
+    res, _ = train.over_ranks(TRAIN_RANKS_ARGV + [
+        "--ranks", str(w), "--dist-backend", "gloo"], measure=True)
+    check(res.returncode == 0, f"(t7) the run over ranks failed: "
+          f"{res.failed}")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        one = train.run(TRAIN_RANKS_ARGV, hosts=w)
+    t2 = time.perf_counter()
+    docs = res.docs
+    steps = len(one["losses"])
+    errs = [abs(a - b) / abs(b)
+            for a, b in zip(docs[0]["losses"], one["losses"])]
+    same = all(d["digests"] == docs[0]["digests"] and d["losses"]
+               == docs[0]["losses"] for d in docs) \
+        and len(docs[0]["digests"]) == steps
+    cfg = train.PRESETS["lm-100m"]
+    report = dryrun.reckon(
+        cfg, ShapeConfig("t7", 128, 8, "train"),
+        Mesh((w, 1), ("data", "model"), virtual_devices(w, dryrun.META)),
+        optimizer=AdamW(lr=3e-3, weight_decay=0.01))
+    t3 = time.perf_counter()
+    reckoned = report["gradient_all_reduce_bytes"]
+    per_step = [d["gradient_bytes"] / steps for d in docs]
+    bytes_ok = all(d["gradient_all_reduces"] == steps and 2 * p == reckoned
+                   for d, p in zip(docs, per_step))
+    peak = report["memory_analysis"]["peak_size_bytes"]
+    mem_errs = [abs(d["peak_bytes"] - peak) / peak for d in docs]
+    step_ms = [round(1e3 * x, 1) for x in docs[0]["step_s"]]
+    share = [round(a / s, 3) for a, s in zip(docs[0]["all_reduce_s"],
+                                             docs[0]["step_s"])]
+    print(f"[train] (t7) {cfg.name} bf16 over {w} gloo ranks sharing "
+          f"{dev} (launch/train.py --ranks {w}), global batch 8 x 128, "
+          f"{steps} steps: losses {[round(x, 5) for x in docs[0]['losses']]}"
+          f" against one process on the hosts' concatenated batches "
+          f"{[round(x, 5) for x in one['losses']]} (worst "
+          f"{max(errs):.2e} rel, gate {TRAIN_RANKS_LOSS_TOL}); every rank's "
+          f"parameters the same bits after every step: {same}; gradient "
+          f"bytes a step a rank {per_step[0]:.0f} (one bf16 buffer), x 2 = "
+          f"{2 * per_step[0]:.0f} against the dry-run's gradient entries "
+          f"{reckoned} on the ({w}, 1) mesh: equal {bytes_ok}; the ring's "
+          f"traffic a rank 2(W-1)/W x bytes = "
+          f"{2 * (w - 1) / w * per_step[0]:.0f} B a step; loss sums "
+          f"{docs[0]['loss_bytes']} B in {docs[0]['loss_all_reduces']} "
+          f"all-reduces; ms a step (synchronized) {step_ms}, the gradient "
+          f"all-reduce's share {share}; peak "
+          f"{[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a rank "
+          f"against the reckoned per-device peak {peak / 2**30:.3f} GiB "
+          f"({', '.join(f'{100 * e:.2f} %' for e in mem_errs)}); ranks "
+          f"{res.wall_s:.1f} s with their starts (each rank's run "
+          f"{[round(d['run_s'], 1) for d in docs]} s, its set-up "
+          f"{[round(d['setup_s'], 1) for d in docs]} s), the one-process "
+          f"run {t2 - t1:.1f} s, the reckoning {t3 - t2:.1f} s; "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(max(errs) <= TRAIN_RANKS_LOSS_TOL, f"(t7) a loss over ranks is "
+          f"{max(errs):.2e} from the one-process step's")
+    check(same, "(t7) the ranks' parameters differ")
+    check(bytes_ok, "(t7) the gradient bytes differ from the dry-run's")
+    check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t7) a rank's peak is "
+          f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
+
+    # (t8) the tiny preset over a one-rank NCCL group, and in this process
+    t0 = time.perf_counter()
+    res, _ = train.over_ranks(TRAIN_NCCL_ARGV + [
+        "--ranks", "1", "--dist-backend", "nccl"], measure=True)
+    check(res.returncode == 0, f"(t8) the NCCL rank failed: {res.failed}")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        one = train.run(TRAIN_NCCL_ARGV, measure=True)
+    doc = res.docs[0]
+    same = doc["digests"] == one["digests"] and doc["losses"] == \
+        one["losses"]
+    print(f"[train] (t8) tiny over a one-rank NCCL group on {doc['device']} "
+          f"against this process, {len(one['losses'])} steps: losses "
+          f"{[round(x, 5) for x in doc['losses']]}, every step's "
+          f"parameters the same bits: {same}; gradient bytes "
+          f"{doc['gradient_bytes']} in {doc['gradient_all_reduces']} "
+          f"all-reduces; the rank {res.wall_s:.1f} s with its start (its "
+          f"run {doc['run_s']:.1f} s), this process's run "
+          f"{time.perf_counter() - t1:.1f} s; "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(same, "(t8) the one-rank NCCL run differs from one process")
 
 
 def _counted_step(dev: torch.device, fn) -> dict:

@@ -23,6 +23,11 @@ reference ``device_put``s it onto a ``NamedSharding``.  The
 reference restarts a 256-chip checkpoint on 512 chips that way; the port's
 meshes lie on one device, and placement over distinct GPUs waits for the
 multi-GPU mesh (ROADMAP A.8).
+
+Over the ranks of a process group (training's data axis,
+``launch/train.py --ranks``) every rank holds the same state: ``save``
+with the mesh writes once, from rank 0, behind a barrier, and every rank
+restores from the same files.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tree import leaves_with_paths
 from repro_torch.models.sharding import Sharded, spec_leaves
@@ -80,12 +86,23 @@ def _decode(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def save(ckpt_dir: str, step: int, tree, extras: Optional[Dict] = None,
-         keep: int = 3, async_save: bool = False):
+         keep: int = 3, async_save: bool = False, mesh=None):
     """Write a checkpoint bundle.  Atomic via tmp-dir + rename.  With
     ``async_save`` the leaves are copied to the host first and a thread
     writes them (returned; join it before the next save reads the
     directory): the next step may update the moments in place, so the
-    thread never reads device memory."""
+    thread never reads device memory.  On a ``mesh`` whose data axis
+    spans ranks (``Mesh.over_ranks``; every rank holds the same tree)
+    rank 0 writes and every rank waits for it at a barrier of the
+    default process group, so the save is synchronous there."""
+    if mesh is not None and mesh.spans_ranks:
+        if async_save:
+            raise ValueError("a save over ranks ends at a barrier: it "
+                             "cannot be asynchronous")
+        if mesh.rank == 0:
+            save(ckpt_dir, step, tree, extras, keep)
+        dist.barrier()
+        return None
     host = {k: _encode(v) for k, v in leaves_with_paths(tree)}
 
     def _write():

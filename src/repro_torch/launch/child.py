@@ -38,15 +38,23 @@ def _body(module: str, argv: list, env: dict, out_path: str,
     sys.exit(importlib.import_module(module).main(argv) or 0)
 
 
+#: what the forkserver imports beside the port: torch, and the module
+#: ``torch.use_deterministic_algorithms`` imports at its first call
+#: (inductor's config, which brings in dynamo), which every training child
+#: makes (``launch/train.py``): 2–3 s a child on an 8-core CPU host, ~7 s
+#: on an H100's host
+PRELOAD = ("torch", "torch._inductor.config")
+
+
 def _context():
     """The forkserver's context, its preload set from this process's
-    modules (what the server imports when it starts: torch, this module
-    and the port's modules this process has, but its main module, which
-    each child runs as ``__mp_main__``)."""
+    modules (what the server imports when it starts: ``PRELOAD``, this
+    module and the port's modules this process has, but its main module,
+    which each child runs as ``__mp_main__``)."""
     main = getattr(sys.modules["__main__"].__spec__, "name", None)
     ctx = multiprocessing.get_context("forkserver")
     ctx.set_forkserver_preload(sorted(
-        ({"torch", "repro_torch.launch.child"}
+        ({*PRELOAD, "repro_torch.launch.child"}
          | {m for m in sys.modules if m.startswith("repro_torch.")})
         - {main}))
     return ctx

@@ -157,6 +157,11 @@ COUNTED_BY = {
                    "carries the batch's rows; made from nothing, whole",
     "collective_bytes": "roofline.analysis.collective_bytes_from_specs "
                         "(a model from the specs, not a measurement)",
+    "gradient_all_reduce_bytes": "its data-parallel gradient all-reduce "
+                                 "entries: 2 x each parameter's piece in "
+                                 "its type (the ring); a step over ranks "
+                                 "hands half of it to its all-reduces "
+                                 "(sharding.RankSum.gradient_bytes)",
     "compile_s": "wall of the meta trace",
     "lower_s": "wall of building the stand-ins and specs",
 }
@@ -697,6 +702,7 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         "collective_count_by_kind": coll.count_by_kind,
         "collective_bytes_by_link": coll.bytes_by_link,
         "top_collectives": coll.top_ops,
+        "gradient_all_reduce_bytes": coll.gradient_all_reduce_bytes,
         "model_flops": mf,
         "useful_flops_ratio": (mf / (flops * n_chips)) if flops else None,
         "peaks": {"flops": H100.flops, "hbm_bw": H100.hbm_bw,

@@ -14,7 +14,10 @@ arrays on all of them.  A port ``Mesh`` is named axes over an array of
   [r·d/world, (r+1)·d/world) with the whole of every other axis, on its
   own device.  PyTorch's idiom for several devices, one process each, as
   JAX's own on a multi-host pod; a backend on such a mesh evaluates the
-  rank's positions and gathers the rest.
+  rank's positions and gathers the rest, and training on a (W, 1) such
+  mesh (``launch/train.py --ranks W``) takes its host's rows of the
+  batch and sums the loss's reductions and the gradients over the ranks
+  (``models/sharding.py::RankSum``, in the step's ``ShardCtx``).
 
 Single pod: (data=16, model=16) = 256 devices.  Multi-pod: (pod=2,
 data=16, model=16) = 512, the "pod" axis an outer data-parallel axis.

@@ -15,6 +15,27 @@ Newton as training options.
         --steps 50 --crash-at 25 --ckpt-dir /tmp/ck && \\
         PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --steps 50 --ckpt-dir /tmp/ck --resume   # fault-tolerant restart
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+        --ranks 2 --dist-backend gloo --device cpu   # the data axis over ranks
+
+The data axis (``--ranks W``, ``--dist-backend gloo|nccl``).  The
+reference trains data-parallel on its production mesh with the batch
+cut over ``data`` (``repro/launch/dryrun.py`` jits ``make_train_step``
+with ``in_shardings``; GSPMD inserts the gradient all-reduce), each host
+drawing its own rows (``data/pipeline.py``'s ``n_hosts`` / ``host_id``).
+The port runs W ranks of a ``torch.distributed`` group
+(``launch/ranks.py``: each a child forked from ``launch/child.py``'s
+forkserver; gloo ranks may share a device, nccl takes one card a rank):
+rank r holds data block r of a (W, 1) mesh (``Mesh.over_ranks``), draws
+host r's rows, and steps in the ``ShardCtx`` of
+``sharding.data_parallel_ctx``, where the loss's sums over the batch and
+the gradients are summed over the ranks.  So every rank's loss and
+update are the whole batch's, the reference's global view, and every
+rank holds the same parameters bit for bit.  Rank 0 prints the
+``[train]`` lines and writes the checkpoints behind a barrier; every
+rank restores.  A simulated crash exits 42 from every rank and the run
+exits 42; a rank that fails gets its survivors SIGKILLed (``ranks.run``).
+A global batch that W does not divide is refused.
 
 Where the reference folds each step into ``jax.random.fold_in(key(seed +
 7), step)``, the port seeds a ``torch.Generator`` on the device from
@@ -32,13 +53,18 @@ deterministic CUDA version in torch.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import os
 import sys
+import tempfile
 import time
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ARCH_NAMES, get_smoke_config
@@ -46,11 +72,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import subspace_newton as subn
 from repro_torch.core.parallel_line_search import (LineSearchConfig,
                                                    randomized_line_search)
-from repro_torch.core.tree import map_tree
+from repro_torch.core.tree import leaves_with_paths, map_tree
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticMasked
-from repro_torch.models.transformer import (count_params, init_params,
-                                            make_loss_fn, make_train_step,
-                                            value_and_grad)
+from repro_torch.launch import ranks
+from repro_torch.models.sharding import data_parallel_ctx
+from repro_torch.models.transformer import (NULL_CTX, ShardCtx, count_params,
+                                            init_params, make_loss_fn,
+                                            make_train_step, value_and_grad)
 from repro_torch.optim.adamw import AdamW
 from repro_torch.optim.compression import compress_grads, init_error_state
 
@@ -77,6 +105,34 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (seed + 7) * 1_000_003 + step)
 
 
+def host_data(cfg: ModelConfig, seq: int, batch: int, seed: int,
+              n_hosts: int = 1, host_id: int = 0):
+    """Host ``host_id``'s slice of the synthetic stream over ``n_hosts``
+    data-parallel hosts (the reference's per-host pipeline): masked frames
+    for the audio stub, tokens otherwise.  A global batch that
+    ``n_hosts`` does not divide is refused."""
+    if batch % n_hosts:
+        raise ValueError(f"a global batch of {batch} does not divide over "
+                         f"{n_hosts} data-parallel hosts (--batch, --ranks)")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, seed=seed, n_hosts=n_hosts,
+                      host_id=host_id)
+    if cfg.frontend == "audio_stub":
+        return SyntheticMasked(dcfg, cfg.d_model)
+    return SyntheticLM(dcfg)
+
+
+def hosts_batch(sources: list, step: int) -> dict:
+    """Step ``step``'s batch of each host in ``sources``, concatenated
+    along the rows in host order (numpy): the global batch a run over
+    ranks cuts into the hosts' slices."""
+    parts = [src.batch(step) for src in sources]
+    if len(parts) == 1:
+        return parts[0]
+    return {name: np.concatenate([p[name] for p in parts])
+            for name in parts[0]}
+
+
 def batch_to(batch: dict, cfg: ModelConfig, device) -> dict:
     """A pipeline batch (numpy) as tensors on ``device``: token ids and
     labels as int64, frame embeddings in the model's type, the mask as
@@ -94,20 +150,24 @@ def batch_to(batch: dict, cfg: ModelConfig, device) -> dict:
 
 
 def make_full_step(cfg: ModelConfig, opt: AdamW, *, compress: bool = False,
-                   line_search: int = 0, device="cuda") -> Callable:
+                   line_search: int = 0, device="cuda",
+                   ctx: ShardCtx = NULL_CTX) -> Callable:
     """The launcher's AdamW step: step(params, opt_state, err_state, batch,
     generator) -> (params, opt_state, err_state, metrics).  With
     ``compress`` the gradients go through ``compress_grads`` (``err_state``
     carries the residual); with ``line_search`` p > 0 the AdamW update is
     scaled by the randomized parallel line search over p candidates drawn
-    from ``generator``."""
-    loss_fn = make_loss_fn(cfg)
-    base_step = make_train_step(cfg, opt)
+    from ``generator``.  Over ranks (``ctx.ranks``) every loss is the whole
+    batch's and the gradients are summed over the ranks before they are
+    compressed, so every rank compresses, searches and updates alike."""
+    loss_fn = make_loss_fn(cfg, ctx)
+    base_step = make_train_step(cfg, opt, ctx)
 
     def full_step(params, opt_state, err_state, batch, generator):
         if compress:
             grads, loss, metrics = value_and_grad(loss_fn, params, batch)
-            grads, err_state = compress_grads(grads, err_state)
+            grads, err_state = compress_grads(ctx.sum_grads(grads),
+                                              err_state)
             params_new, opt_state = opt.update(grads, opt_state, params)
             metrics = dict(metrics, loss=loss)
         else:
@@ -132,7 +192,28 @@ def _state_tree(params, opt_state, err_state) -> dict:
     return tree
 
 
-def main(argv=None):
+def state_digest(*trees) -> str:
+    """SHA-256 over the bits of every leaf of ``trees`` (None skipped),
+    path by path in leaf order: equal digests are equal states."""
+    h = hashlib.sha256()
+    for tree in trees:
+        if tree is None:
+            continue
+        for path, x in leaves_with_paths(tree):
+            h.update(path.encode())
+            h.update(x.detach().reshape(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+#: the rank body ``--ranks`` runs (``launch/ranks.py``)
+RANK_TARGET = "repro_torch.launch.train:train_rank"
+#: a run over ranks past this is killed (its process group has a timeout
+#: of its own for a rank waiting on a dead peer, ``ranks.PG_TIMEOUT_S``)
+RANKS_TIMEOUT_S = 24 * 3600.0
+
+
+def _parse(argv) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, choices=ARCH_NAMES)
     ap.add_argument("--preset", default=None, choices=list(PRESETS))
@@ -156,9 +237,20 @@ def main(argv=None):
     ap.add_argument("--log-file", default=None)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no fallback between them")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="W>0: the data axis over W ranks of a "
+                         "torch.distributed group, one process each")
+    ap.add_argument("--dist-backend", default="gloo", choices=ranks.BACKENDS,
+                    help="the ranks' backend: gloo (ranks may share a "
+                         "device) or nccl (a card a rank)")
+    return ap.parse_args(argv)
 
-    device = torch.device(args.device)
+
+@contextlib.contextmanager
+def _deterministic(device: torch.device):
+    """Deterministic algorithms while training on ``device``, the previous
+    setting restored after; on CUDA the cuBLAS workspace setting they
+    need, set before cuBLAS starts."""
     if device.type == "cuda":
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         if not torch.cuda.is_available():
@@ -167,30 +259,122 @@ def main(argv=None):
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
-        return _run(args, device)
+        yield
     finally:
         torch.use_deterministic_algorithms(was_deterministic)
 
 
-def _run(args, device: torch.device) -> int:
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parse(argv)
+    if args.ranks:
+        return _main_over_ranks(args, argv)
+    run(argv)
+    return 0
+
+
+def run(argv, *, hosts: int = 1, measure: bool = False) -> dict:
+    """The launcher's run of ``argv`` in this process; returns its doc
+    (``_run``).  ``hosts``: the global batch drawn as the concatenation of
+    that many hosts' slices, as a run over that many ranks draws it."""
+    args = _parse(argv)
+    if args.ranks:
+        raise ValueError("run() trains in this process; --ranks runs "
+                         "through main() or over_ranks()")
+    device = torch.device(args.device)
+    with _deterministic(device):
+        return _run(args, device, hosts=hosts, measure=measure)
+
+
+def train_rank(group, *, argv: list, measure: bool = False) -> dict:
+    """One rank of a run over ranks (``launch/ranks.py``'s target): the
+    launcher's ``argv`` on the group's device, its data block of the
+    (W, 1) mesh over the group; returns the rank's doc (``_run``)."""
+    args = _parse(argv)
+    if args.ranks != group.world:
+        raise ValueError(f"--ranks {args.ranks} in a group of {group.world}")
+    with _deterministic(group.device):
+        return _run(args, group.device, group=group, measure=measure)
+
+
+def over_ranks(argv: list, *, measure: bool = False):
+    """The launcher's ``argv`` (with ``--ranks W --dist-backend B``) over
+    W ranks of backend B on ``--device`` (gloo: every rank there; nccl:
+    rank r on ``cuda:r``), each rank ``train_rank``, in a temporary work
+    directory.  Returns (``ranks.RanksResult``, with the ranks' docs in
+    rank order; rank 0's standard output)."""
+    args = _parse(argv)
+    if args.ranks < 1:
+        raise ValueError("over_ranks needs --ranks W >= 1")
+    if args.batch % args.ranks:
+        raise ValueError(f"a global batch of {args.batch} does not divide "
+                         f"over {args.ranks} ranks (--batch, --ranks)")
+    if torch.device(args.device).type == "cuda":
+        devices = ranks.default_devices(args.dist_backend, args.ranks,
+                                        args.device)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    else:             # every rank on the CPU (nccl refuses it: run's check)
+        devices = [torch.device(args.device)] * args.ranks
+    with tempfile.TemporaryDirectory(prefix="train_ranks_") as workdir:
+        res = ranks.run(RANK_TARGET, {"argv": list(argv), "measure": measure},
+                        world=args.ranks, backend=args.dist_backend,
+                        devices=devices, workdir=workdir,
+                        timeout=RANKS_TIMEOUT_S)
+        with open(os.path.join(workdir, "rank_0.out")) as f:
+            return res, f.read()
+
+
+def _main_over_ranks(args, argv) -> int:
+    """``main`` with ``--ranks``: the run over the ranks, rank 0's lines
+    printed; exit 0, 42 where a rank crashed as asked, else 1."""
+    res, lead_output = over_ranks(argv)
+    sys.stdout.write(lead_output)
+    sys.stdout.flush()
+    if res.returncode == 0:
+        return 0
+    if args.crash_at and 42 in res.exitcodes:
+        return 42
+    print(f"[train] the run over {args.ranks} ranks failed: {res.failed}",
+          file=sys.stderr)
+    return 1
+
+
+def _run(args, device: torch.device, *, group=None, hosts: int = 1,
+         measure: bool = False) -> dict:
+    """Train as ``args`` say on ``device``: in one process (``group``
+    None; the batch the concatenation of ``hosts`` hosts' slices) or as
+    one rank of ``group`` over the (W, 1) mesh (its own host's slice).
+    Returns the doc: the device and rank, each step's loss, the
+    all-reduces' bytes and calls (over ranks), the device's peak memory
+    (CUDA), the walls of the set-up before the first step and of the
+    whole run; with ``measure`` also, step by step, the wall with the
+    device synchronized at the step's end, the seconds of its gradient
+    all-reduce, and the digest of the parameters and error state
+    (``state_digest``)."""
+    t_run = time.perf_counter()
     if not args.preset and not args.arch:
         args.preset = "tiny"
     cfg = build_config(args)
+    lead = group is None or group.rank == 0
+    say = print if lead else (lambda *_, **__: None)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         args.seed), device)
-    print(f"[train] config={cfg.name} params={count_params(params):,}")
+    say(f"[train] config={cfg.name} params={count_params(params):,}")
 
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                      global_batch=args.batch, seed=args.seed)
-    if cfg.frontend == "audio_stub":
-        data = SyntheticMasked(dcfg, cfg.d_model)
+    if group is None:
+        mesh, ctx = None, NULL_CTX
+        sources = [host_data(cfg, args.seq, args.batch, args.seed, hosts, h)
+                   for h in range(hosts)]
     else:
-        data = SyntheticLM(dcfg)
+        mesh = group.mesh((group.world, 1))
+        ctx = data_parallel_ctx(mesh)
+        sources = [host_data(cfg, args.seq, args.batch, args.seed,
+                             group.world, group.rank)]
 
     opt = AdamW(lr=args.lr, weight_decay=0.01)
     opt_state = opt.init(params)
     err_state = init_error_state(params) if args.compress_grads else None
-    loss_fn = make_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg, ctx)
     start_step = 0
 
     if args.resume and args.ckpt_dir:
@@ -198,19 +382,28 @@ def _run(args, device: torch.device) -> int:
             args.ckpt_dir, _state_tree(params, opt_state, err_state))
         params, opt_state = tree["params"], tree["opt"]
         err_state = tree.get("err", err_state)
-        print(f"[train] resumed from step {start_step}")
+        say(f"[train] resumed from step {start_step}")
 
     if args.optimizer == "subspace-newton":
         sn_cfg = subn.SubspaceNewtonConfig(k=6, sample_scale=0.02)
         sn_state = subn.init_state(params)
     full_step = make_full_step(cfg, opt, compress=args.compress_grads,
-                               line_search=args.line_search, device=device)
+                               line_search=args.line_search, device=device,
+                               ctx=ctx)
 
-    logf = open(args.log_file, "a") if args.log_file else None
+    doc = {"device": str(device),
+           "rank": 0 if group is None else group.rank}
+    if measure:
+        doc.update(step_s=[], all_reduce_s=[], digests=[])
+    losses = []
+    doc["setup_s"] = time.perf_counter() - t_run
+    logf = open(args.log_file, "a") if args.log_file and lead else None
     t0 = last_t = time.time()
     last_step = start_step
     for step in range(start_step, args.steps):
-        batch = batch_to(data.batch(step), cfg, device)
+        t_step = time.perf_counter()
+        ar0 = ctx.ranks.gradient_seconds if ctx.ranks is not None else 0.0
+        batch = batch_to(hosts_batch(sources, step), cfg, device)
         gen = step_generator(args.seed, step, device)
         if args.optimizer == "subspace-newton":
             params, sn_state, info = subn.subspace_newton_step(
@@ -220,15 +413,27 @@ def _run(args, device: torch.device) -> int:
         else:
             params, opt_state, err_state, metrics = full_step(
                 params, opt_state, err_state, batch, gen)
+        losses.append(metrics["loss"])
+        if measure:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            doc["step_s"].append(time.perf_counter() - t_step)
+            doc["all_reduce_s"].append(
+                ctx.ranks.gradient_seconds - ar0 if ctx.ranks is not None
+                else 0.0)
+            doc["digests"].append(state_digest(params, err_state))
         if args.crash_at and step + 1 == args.crash_at:
             # checkpoint written for every completed multiple of ckpt_every
-            print(f"[train] simulated crash at step {step + 1}", flush=True)
+            say(f"[train] simulated crash at step {step + 1}", flush=True)
+            if group is not None:
+                dist.barrier()        # rank 0's line is out first
             sys.exit(42)
         if (step + 1) % args.ckpt_every == 0 and args.ckpt_dir:
             ckpt.save(args.ckpt_dir, step + 1,
                       _state_tree(params, opt_state, err_state),
-                      extras={"config": cfg.name})
-        if (step + 1) % args.log_every == 0 or step == args.steps - 1:
+                      extras={"config": cfg.name}, mesh=mesh)
+        if lead and ((step + 1) % args.log_every == 0
+                     or step == args.steps - 1):
             loss = float(metrics["loss"])
             now = time.time()
             line = {"step": step + 1, "loss": round(loss, 5),
@@ -247,9 +452,19 @@ def _run(args, device: torch.device) -> int:
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps,
                   _state_tree(params, opt_state, err_state),
-                  extras={"config": cfg.name})
-    print(f"[train] done in {time.time() - t0:.1f}s")
-    return 0
+                  extras={"config": cfg.name}, mesh=mesh)
+    say(f"[train] done in {time.time() - t0:.1f}s")
+    doc["losses"] = [float(x) for x in losses]
+    if ctx.ranks is not None:
+        r = ctx.ranks
+        doc.update(gradient_bytes=r.gradient_bytes,
+                   gradient_all_reduces=r.gradient_all_reduces,
+                   loss_bytes=r.loss_bytes,
+                   loss_all_reduces=r.loss_all_reduces)
+    doc["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                         if device.type == "cuda" else None)
+    doc["run_s"] = time.perf_counter() - t_run
+    return doc
 
 
 if __name__ == "__main__":

@@ -445,8 +445,17 @@ def moe_capacity(m, tokens_per_group: int) -> int:
 
 def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
               ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block of ``cfg.moe.dispatch``.  Over ranks (``ctx.ranks``)
+    grouped dispatch decides each row's drops within the row, so a rank
+    dispatches its own rows; the global dispatch, which decides drops
+    over the whole batch's B·S tokens, is refused there."""
     if cfg.moe.dispatch == "grouped":
         return moe_block_grouped(x, p, cfg, ctx)
+    if ctx is not None and ctx.ranks is not None:
+        raise NotImplementedError(
+            "the global MoE dispatch decides drops over the whole batch's "
+            "B·S tokens, which no rank holds: over ranks it is refused "
+            "(ROADMAP A.8 (iii)); take dispatch='grouped'")
     return moe_block_global(x, p, cfg)
 
 
@@ -498,15 +507,24 @@ def _moe(x: torch.Tensor, p: Params, cfg: ModelConfig, cap: int,
       dropped entries go to one spare row past the buffer;
     * combine gathers each token's k contributions, weighted (0 where
       dropped), and sums them over k in a fixed order: the same bits on
-      every run, where an atomic scatter-add would not be."""
+      every run, where an atomic scatter-add would not be.
+
+    Over ranks (``ctx.ranks``) the load-balance statistics p̄ and f are
+    the whole batch's means, summed over the ranks in one all-reduce."""
     m = cfg.moe
     g, n, d = x.shape
     e, k = m.n_experts, m.experts_per_token
     probs, gate_vals, gate_idx = _route(x, p["router"], k)
     experts = torch.arange(e, device=x.device)
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean((gate_idx[..., :1] == experts).to(torch.float32),
-                    dim=(0, 1))
+    first = (gate_idx[..., :1] == experts).to(torch.float32)
+    if ctx is not None and ctx.ranks is not None:
+        # the whole batch's means: every rank holds as many groups
+        sums = ctx.data_sum(torch.stack([torch.sum(probs, dim=(0, 1)),
+                                         torch.sum(first, dim=(0, 1))]))
+        me, ce = (sums / (g * n * ctx.ranks.world)).unbind()
+    else:
+        me = torch.mean(probs, dim=(0, 1))
+        ce = torch.mean(first, dim=(0, 1))
     aux = e * torch.sum(me * ce)
 
     ids = gate_idx.reshape(g, n * k)     # entry i: token i // k, choice i % k

@@ -13,15 +13,24 @@ The reference hands its specs to JAX (``NamedSharding``, ``device_put``);
 the port's ``to_named`` cuts each tensor of a tree into its per-shard
 pieces along its spec (``Sharded``), and ``gather`` puts a tree's pieces
 back together, as the reference's tiled all-gather does.
+
+Training's data axis over the ranks of a process group (``Mesh.over_ranks``)
+takes the collectives GSPMD inserts in the reference's step:
+``RankSum`` sums the loss's reductions over the batch and the gradients
+over the ranks, and counts the bytes it hands to each all-reduce;
+``data_parallel_ctx`` puts it in the step's ``ShardCtx``.
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.tree import leaves_with_paths, map_with_paths
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import TensorShape
 
@@ -387,6 +396,98 @@ def held_whole(tree: Any) -> Optional[Any]:
     if any(p is None for _, p in spec_leaves(pieces)):
         return None
     return pieces
+
+
+# ---------------------------------------------------------------------------
+# The data axis over ranks: sums that a training step hands to all-reduces
+# ---------------------------------------------------------------------------
+
+class _SumOverRanks(torch.autograd.Function):
+    """x summed over the ranks of the default process group; the
+    backward is the identity.  Every rank computes the same global value
+    from the sum and the ranks' gradients are summed afterwards
+    (``RankSum.sum_grads``), so each rank passes the upstream gradient to
+    its own term unchanged and the ranks' gradients add up to the global
+    one.  (``torch.distributed.nn.functional.all_reduce`` sums the
+    upstream gradients over the ranks in its backward, which counts every
+    global term once a rank.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+class RankSum:
+    """Sums over the ranks of a mesh's data axis (``Mesh.over_ranks``, the
+    default process group), where the reference's GSPMD inserts them in a
+    step over a batch cut over ``data``: ``sum`` for a reduction of the
+    loss over the batch (the cross-entropy's sums, MoE's load-balance
+    statistics), ``sum_grads`` for the data-parallel gradient all-reduce.
+
+    Counts what it hands to the all-reduces: ``gradient_bytes`` and
+    ``gradient_all_reduces`` for the gradients, ``loss_bytes`` and
+    ``loss_all_reduces`` for the loss's sums (which the dry-run leaves
+    out, ``roofline/analysis.py``), and ``gradient_seconds``, the host
+    wall of the gradient all-reduces with the device synchronized on
+    either side, so that it is the collective's own time."""
+
+    def __init__(self, mesh):
+        if not mesh.spans_ranks:
+            raise ValueError(f"{mesh} is a one-process mesh: its data axis "
+                             f"spans no ranks to sum over")
+        self.world = mesh.world
+        self.gradient_bytes = self.gradient_all_reduces = 0
+        self.loss_bytes = self.loss_all_reduces = 0
+        self.gradient_seconds = 0.0
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks, the same on every rank; autograd
+        passes through it (the identity backward, ``_SumOverRanks``)."""
+        self.loss_bytes += x.numel() * x.element_size()
+        self.loss_all_reduces += 1
+        return _SumOverRanks.apply(x)
+
+    def sum_grads(self, grads: Any) -> Any:
+        """A gradient tree summed over the ranks: one flat buffer a type,
+        in the parameters' own types (the dry-run's "local piece of every
+        parameter in the parameter's type"), all-reduced; the returned
+        leaves are views of it, in leaf order.  Every rank gets the same
+        bits."""
+        leaves = leaves_with_paths(grads)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for path, g in leaves:
+            by_dtype.setdefault(g.dtype, []).append((path, g))
+        summed = {}
+        for items in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for _, g in items])
+            self.gradient_bytes += flat.numel() * flat.element_size()
+            self.gradient_all_reduces += 1
+            cuda = flat.device.type == "cuda"
+            if cuda:
+                torch.cuda.synchronize(flat.device)
+            t0 = time.perf_counter()
+            dist.all_reduce(flat)
+            if cuda:
+                torch.cuda.synchronize(flat.device)
+            self.gradient_seconds += time.perf_counter() - t0
+            for (path, g), piece in zip(items, torch.split(
+                    flat, [g.numel() for _, g in items])):
+                summed[path] = piece.view(g.shape)
+        return map_with_paths(lambda path, _: summed[path], grads)
+
+
+def data_parallel_ctx(mesh) -> T.ShardCtx:
+    """The ``ShardCtx`` of a step over ``mesh`` whose data axis spans
+    ranks: every reduction over the batch and the gradients summed over
+    them (``RankSum``)."""
+    dp, tp = mesh_axes(mesh)
+    return T.ShardCtx(mesh=mesh, dp=dp, tp=tp, ranks=RankSum(mesh))
 
 
 def sharded_numel(cfg: ModelConfig, specs: Any,

@@ -247,16 +247,35 @@ class ShardCtx:
     sharding constraints.  The port's forward runs in one process on one
     device, so ``cons`` / ``cons_spec`` place nothing and return their
     input; the context is kept so that ``forward`` and the step factories
-    keep the reference's signatures."""
+    keep the reference's signatures.
+
+    Where the mesh's data axis spans the ranks of a process group,
+    ``ranks`` is a ``sharding.RankSum`` (``sharding.data_parallel_ctx``):
+    the rank holds its rows of the batch, and the step's reductions over
+    the batch (``data_sum``) and its gradients (``sum_grads``) are summed
+    over the ranks, so every rank's loss and update are the whole batch's,
+    as in the reference's global view.  Without it both return their
+    input."""
     mesh: Any = None
     dp: Tuple[str, ...] = ("data",)
     tp: str = "model"
+    ranks: Any = None
 
     def cons(self, x, *tail):
         return x
 
     def cons_spec(self, x, spec_entries):
         return x
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data axis's ranks (autograd passes
+        through it unchanged); ``x`` itself in one process."""
+        return x if self.ranks is None else self.ranks.sum(x)
+
+    def sum_grads(self, grads):
+        """A gradient tree summed over the data axis's ranks; ``grads``
+        itself in one process."""
+        return grads if self.ranks is None else self.ranks.sum_grads(grads)
 
 
 NULL_CTX = ShardCtx()
@@ -479,12 +498,17 @@ def _chunk_loss(h_c: torch.Tensor, w_head: torch.Tensor, l_c: torch.Tensor,
 def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
                           labels: torch.Tensor,
                           weights: Optional[torch.Tensor] = None,
-                          chunk: int = 512) -> torch.Tensor:
+                          chunk: int = 512,
+                          ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """Mean cross-entropy with the logits made one sequence chunk at a time
     (live logits (B, chunk, V), not (B, S, V)).  As the reference, the
     logits are made in the parameters' type and then widened to f32, and
     where autograd records the loss each chunk's logits are recomputed in
-    the backward (the reference's ``@jax.checkpoint`` chunk)."""
+    the backward (the reference's ``@jax.checkpoint`` chunk).  Over ranks
+    (``ctx.ranks``) the weighted sum and the weights' sum are each the
+    whole batch's (``ctx.data_sum``) before the one divides the other: a
+    mean of the ranks' means is another number wherever their masks
+    differ."""
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     if weights is None:
@@ -504,6 +528,8 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
             lsum, wsum = _chunk_loss(*args)
         tot = tot + lsum
         cnt = cnt + wsum
+    if ctx.ranks is not None:
+        tot, cnt = ctx.data_sum(torch.stack([tot, cnt])).unbind()
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -513,14 +539,15 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
     aux}).  ``batch`` holds ``tokens`` (or the audio stub's ``embeds``)
     and ``labels`` (B, S) and optionally a ``mask``; ``aux`` is the MoE
     layers' load-balance loss, 0 without MoE (so loss == ce bit for
-    bit)."""
+    bit).  With ``ctx.ranks`` the batch is this rank's rows and the loss
+    is the whole batch's, the same on every rank."""
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
         hidden, _, aux = forward(params, cfg, batch, ctx, unroll=unroll)
         weights = batch.get("mask")
         if weights is not None:
             weights = weights.to(torch.float32)
         ce = chunked_cross_entropy(hidden, head_weight(params, cfg),
-                                   batch["labels"], weights)
+                                   batch["labels"], weights, ctx=ctx)
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
     return loss_fn
 
@@ -535,11 +562,15 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = NULL_CTX,
     ``optim/adamw.py`` object), which returns new parameters and may
     consume the state in place.  ``params`` is left as it is; the metrics
     are 0-d tensors on the device (no host read).  The forward runs with
-    no cache: autograd never meets the in-place decode path."""
+    no cache: autograd never meets the in-place decode path.  With
+    ``ctx.ranks`` the gradients are summed over the ranks
+    (``ctx.sum_grads``) before the update, so every rank takes the whole
+    batch's step."""
     loss_fn = make_loss_fn(cfg, ctx, aux_weight, unroll=unroll)
 
     def train_step(params: Params, opt_state, batch: Dict[str, torch.Tensor]):
         grads, loss, metrics = value_and_grad(loss_fn, params, batch)
+        grads = ctx.sum_grads(grads)
         params, opt_state = optimizer.update(grads, opt_state, params)
         return params, opt_state, dict(metrics, loss=loss)
 

@@ -7,11 +7,18 @@ quantization residual into the next step, so the bias is corrected over
 steps (Seide et al. / EF-SGD style).  Composes with any optimizer: wrap
 its gradients before ``update``.
 
-In the reference the quantize/dequantize pair sits around the
-data-parallel all-reduce, which then moves int8.  The port trains on one
-card: there is no all-reduce to shrink, so ``compress_grads`` only puts
-the gradients through the int8 round trip and carries the residual, and
-what the optimizer sees is what the reference's optimizer sees.
+Where the data axis reaches training (``launch/train.py --ranks``, a
+step over ``models/sharding.py::RankSum``), the gradient is first summed
+over the ranks in its own type (``ShardCtx.sum_grads``); each rank then
+compresses the sum in the same way, so the error state is the same on
+every rank.  That is what the reference's code computes: its step is
+written in JAX's global view, where the quantizer reads the summed
+gradient's max.  The reference's docstring says instead that the
+quantize/dequantize pair sits around the all-reduce, which then moves
+int8 (ROADMAP C notes the difference); no all-reduce of either package
+moves int8.  In one process ``compress_grads`` puts the gradients
+through the int8 round trip and carries the residual, and what the
+optimizer sees is what the reference's optimizer sees.
 """
 from __future__ import annotations
 

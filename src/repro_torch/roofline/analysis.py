@@ -73,10 +73,22 @@ class CollectiveStats:
     top_ops: List[Tuple[str, int]]
     #: the same bytes by the link they cross ("nvlink" / "network")
     bytes_by_link: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: every entry's bytes by its name (``top_ops`` is the largest few)
+    ops: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def total_bytes(self) -> int:
         return sum(self.bytes_by_kind.values())
+
+    @property
+    def gradient_all_reduce_bytes(self) -> int:
+        """The bytes of the data-parallel gradient all-reduces, the
+        entries ``all-reduce over ...: <path> gradient`` (2 × the bytes a
+        device hands to them, the ring's count), which a step over ranks
+        measures (``sharding.RankSum.gradient_bytes``)."""
+        return sum(b for name, b in self.ops.items()
+                   if name.startswith("all-reduce ")
+                   and name.endswith(" gradient"))
 
 
 def roofline_terms(flops_per_device: float, bytes_per_device: float,
@@ -182,7 +194,8 @@ class _Tally:
 
     def stats(self, top_k: int) -> CollectiveStats:
         top = sorted(self.ops.items(), key=lambda t: -t[1])[:top_k]
-        return CollectiveStats(self.bytes, self.count, top, self.links)
+        return CollectiveStats(self.bytes, self.count, top, self.links,
+                               dict(self.ops))
 
 
 def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,

@@ -118,14 +118,17 @@ def test_server_modules_import_without_jax_or_the_reference():
 
 
 #: the pod-mesh slice's modules: the walk above must import each, and
-#: only two reach for a process group: the launcher of ranks, and the pod
-#: backend, which issues the one collective of a mesh over ranks
+#: only three reach for a process group: the launcher of ranks, the pod
+#: backend, which issues the one collective of a mesh over ranks, and the
+#: sharding rules, whose ``RankSum`` sums a training step's loss and
+#: gradients over the ranks
 POD_MODULES = ("repro_torch.launch.mesh", "repro_torch.models.sharding",
                "repro_torch.core.substrates.pod_mesh",
                "repro_torch.core.substrates.lm_loss",
                "repro_torch.launch.ranks")
 PROCESS_GROUP_MODULES = ("repro_torch.core.substrates.pod_mesh",
-                         "repro_torch.launch.ranks")
+                         "repro_torch.launch.ranks",
+                         "repro_torch.models.sharding")
 
 
 def test_pod_modules_import_without_jax_or_the_reference():
