@@ -285,7 +285,24 @@ so the script exits non-zero and prints no result line:
            data-parallel gradient entries on the (2, 1) mesh, each rank's
            peak within 15 % of the reckoned per-device peak, ms a step
            and the all-reduce's share printed; (t8) the tiny preset over
-           a one-rank NCCL group == this process's run bit for bit;
+           a one-rank NCCL group == this process's run bit for bit; (t9)
+           the parameters cut over the ranks too (launch/train.py --ranks
+           2 --fsdp): h2o-danube-3-4b at published widths cut to 4 layers
+           (remat as published), over 2 gloo ranks sharing the card, 3
+           AdamW steps at 8 x 128 and lr 1e-4: each loss within 2e-2 of
+           the one-process step, the whole leaves the same bits on both
+           ranks after every step, the ranks' blocks, put together, within
+           2e-2 normwise a leaf of the one-process parameters, the bytes a
+           rank hands its all-gathers and reduce-scatters a step equal to
+           the dry-run's "(fsdp)" entries on the (2, 1) mesh and its
+           whole leaves' all-reduce bytes x 2 to the other gradient
+           entries, each rank's peak within 15 % of the reckoned
+           per-device peak with fsdp; ms a step, the gathers' and
+           reduce-scatters' shares, each rank's peak beside the peak
+           reckoned without fsdp, and 24-layer danube's reckoned peak on
+           (2, 1) with and without fsdp printed.  ``python3 chip_smoke.py
+           --fsdp-probe`` runs only this leg, at danube's published 24
+           layers for 2 steps, without the one-process run;
 15e. dryrun  launch/dryrun.py's reckoning held against real steps, no
            kernel launched: (d1) (t3)'s danube step and (d2) (a)'s
            qwen2-72b decode step at t = 300, each reckoned on meta tensors
@@ -360,7 +377,7 @@ from repro_torch.launch import (anm_lm, baselines, child,  # noqa: E402,F401
                                 volunteer_grid)
 from repro_torch.launch.mesh import (Mesh, make_production_mesh,  # noqa: E402
                                      virtual_devices)
-from repro_torch.models import layers, transformer  # noqa: E402
+from repro_torch.models import layers, sharding, transformer  # noqa: E402
 from repro_torch.obs import obs_store_path  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.optim.compression import (compress_grads,  # noqa: E402
@@ -3092,6 +3109,16 @@ TRAIN_RANKS_LOSS_TOL = 2e-2
 #: (t8): the tiny preset over a one-rank NCCL group and in this process
 TRAIN_NCCL_ARGV = ["--preset", "tiny", "--batch", "2", "--seq", "32",
                    "--steps", "4", "--log-every", "100"]
+#: (t9): h2o-danube-3-4b at published widths cut to this many layers, its
+#: parameters cut over TRAIN_RANKS gloo ranks (--fsdp), at TRAIN_DANUBE's
+#: batch, sequence, steps and lr; ``--fsdp-probe`` runs the published
+#: depth for TRAIN_FSDP_PROBE_STEPS steps
+TRAIN_FSDP_LAYERS = 4
+TRAIN_FSDP_PROBE_STEPS = 2
+#: (t9): the ranks' final blocks, put together, against the one-process
+#: parameters, normwise a leaf, relative (bf16's tolerance on losses and
+#: logits, ROADMAP C)
+TRAIN_FSDP_PARAM_TOL = 2e-2
 
 
 def _launch_train(argv, env, timeout=600):
@@ -3413,7 +3440,7 @@ def phase_train(dev: torch.device) -> dict:
         cfg, dev)
     refused = _refuses(lambda: transformer.make_train_step(cfg, opt)(
         params, opt.init(params), batch), RuntimeError)
-    print(f"[train] launches across (t1)-(t8): {counts}; a train step of "
+    print(f"[train] launches across (t1)-(t9): {counts}; a train step of "
           f"{cfg.name} with use_kernels=True on the card refused: {refused}")
     check(not any(counts.values()), "a kernel launched on the training path")
     check(refused and not any(_counts().values()),
@@ -3515,6 +3542,163 @@ def _train_over_ranks(dev: torch.device) -> None:
           f"{time.perf_counter() - t1:.1f} s; "
           f"{time.perf_counter() - t0:.1f}s")
     check(same, "(t8) the one-rank NCCL run differs from one process")
+
+    _train_fsdp(dev, TRAIN_FSDP_LAYERS)
+
+
+def _reckon_fsdp(cfg, w: int, fsdp: bool) -> dict:
+    """``dryrun.reckon`` of (t9)'s step of ``cfg`` on meta over the (w, 1)
+    mesh, with the launcher's AdamW."""
+    return dryrun.reckon(
+        cfg, ShapeConfig("t9", TRAIN_DANUBE["seq"], TRAIN_DANUBE["batch"],
+                         "train"),
+        Mesh((w, 1), ("data", "model"), virtual_devices(w, dryrun.META)),
+        optimizer=AdamW(lr=TRAIN_DANUBE["lr"], weight_decay=0.01),
+        fsdp=fsdp)
+
+
+def _blocks_against_one(paths: list, cuts: dict, one: dict) -> tuple:
+    """The worst normwise relative gap, over the leaves, between the ranks'
+    final blocks (``paths``: each rank's ``torch.save`` file), put together
+    along each cut dimension (``cuts``), and ``one`` (the one-process
+    parameters, by path), on the card; and the leaves compared."""
+    ranked = [torch.load(p) for p in paths]
+    worst = 0.0
+    for path, want in one.items():
+        parts = [r[path] for r in ranked]
+        got = (torch.cat(parts, cuts[path]) if path in cuts else parts[0])
+        want = want.cuda().float()
+        got = got.cuda().float()
+        gap = float(torch.linalg.norm(got - want)
+                    / torch.linalg.norm(want).clamp(min=1e-30))
+        worst = max(worst, gap)
+    return worst, len(one)
+
+
+def _train_fsdp(dev: torch.device, n_layers: int, probe: bool = False
+                ) -> None:
+    """(t9): ``launch/train.py --ranks 2 --fsdp`` on h2o-danube-3-4b at
+    published widths cut to ``n_layers`` layers over 2 gloo ranks sharing
+    the card (the phase docstring's gates).  With ``probe`` (the
+    published depth, ``--fsdp-probe``) the one-process run and the
+    blocks' comparison are left out: one process would hold the whole
+    model and its moments beside the ranks' files."""
+    t0 = time.perf_counter()
+    _free()
+    w = TRAIN_RANKS
+    steps = TRAIN_FSDP_PROBE_STEPS if probe else TRAIN_DANUBE["steps"]
+    published = get_config("h2o-danube-3-4b")
+    cfg = cut_depth(published, n_layers)
+    fields = dataclasses.asdict(cfg)
+    argv = ["--batch", str(TRAIN_DANUBE["batch"]), "--seq",
+            str(TRAIN_DANUBE["seq"]), "--steps", str(steps), "--lr",
+            str(TRAIN_DANUBE["lr"]), "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fsdp_") as tmp:
+        blocks = os.path.join(tmp, "rank{rank}.pt")
+        forked = time.time()
+        res, _ = train.over_ranks(
+            argv + ["--ranks", str(w), "--dist-backend", "gloo", "--fsdp"],
+            measure=True, cfg=fields, params_out=None if probe else blocks)
+        check(res.returncode == 0, f"(t9) the run over ranks failed: "
+              f"{res.failed}")
+        t1, exited = time.perf_counter(), time.time()
+        docs = res.docs
+        if not probe:
+            with contextlib.redirect_stdout(io.StringIO()):
+                one = train.run(argv, hosts=w, cfg=fields,
+                                params_out=os.path.join(tmp, "one.pt"))
+            t2 = time.perf_counter()
+            shards = sharding.RankShards(Mesh.over_ranks(
+                (w, 1), ("data", "model"), rank=0,
+                rank_devices=[dev] * w), cfg)
+            gap, n_leaves = _blocks_against_one(
+                [blocks.format(rank=r) for r in range(w)], shards.cuts,
+                torch.load(os.path.join(tmp, "one.pt")))
+            t3 = time.perf_counter()
+    t4 = time.perf_counter()
+    reports = {(n, fsdp): _reckon_fsdp(c, w, fsdp)
+               for n, c in ((n_layers, cfg), (published.n_layers, published))
+               for fsdp in (True, False)}
+    t5 = time.perf_counter()
+    report = reports[(n_layers, True)]
+    gathered = report["fsdp_all_gather_bytes"]
+    scattered = report["fsdp_reduce_scatter_bytes"]
+    reduced = report["gradient_all_reduce_bytes"]
+    bytes_ok = all(
+        d["gather_bytes"] == steps * gathered
+        and d["scatter_bytes"] == steps * scattered
+        and 2 * d["gradient_bytes"] == steps * reduced for d in docs)
+    same = all(d["digests"] == docs[0]["digests"] for d in docs) \
+        and len(docs[0]["digests"]) == steps
+    same_gnorm = all(d["gnorms"] == docs[0]["gnorms"] for d in docs)
+    peak = report["memory_analysis"]["peak_size_bytes"]
+    whole_peak = reports[(n_layers, False)]["memory_analysis"][
+        "peak_size_bytes"]
+    mem_errs = [abs(d["peak_bytes"] - peak) / peak for d in docs]
+    d0 = docs[0]
+    step_ms = [round(1e3 * x, 1) for x in d0["step_s"]]
+    gather_share = [round(a / s, 3) for a, s in zip(d0["gather_s"],
+                                                     d0["step_s"])]
+    scatter_share = [round(a / s, 3) for a, s in zip(d0["scatter_s"],
+                                                      d0["step_s"])]
+    big = {fsdp: reports[(published.n_layers, fsdp)]["memory_analysis"][
+        "peak_size_bytes"] / 2**30 for fsdp in (True, False)}
+    n = sum(math.prod(x.shape) for _, x in
+            leaves_with_paths(dryrun.meta_params(cfg)))
+    line = (f"[train] (t9) {cfg.name} at published widths, {n_layers} "
+            f"layers ({n:,} params {cfg.dtype}, remat {cfg.remat}), over "
+            f"{w} gloo ranks sharing {dev} with its parameters cut over them "
+            f"(launch/train.py --ranks {w} --fsdp), global batch "
+            f"{TRAIN_DANUBE['batch']} x {TRAIN_DANUBE['seq']}, {steps} "
+            f"steps at lr {TRAIN_DANUBE['lr']}: losses "
+            f"{[round(x, 5) for x in d0['losses']]}")
+    if not probe:
+        errs = [abs(a - b) / abs(b) for a, b in zip(d0["losses"],
+                                                     one["losses"])]
+        line += (f" against one process on the hosts' concatenated "
+                 f"batches {[round(x, 5) for x in one['losses']]} (worst "
+                 f"{max(errs):.2e} rel, gate {TRAIN_RANKS_LOSS_TOL}); the "
+                 f"ranks' blocks put together against the one-process "
+                 f"parameters, worst leaf {gap:.2e} normwise over "
+                 f"{n_leaves} leaves (gate {TRAIN_FSDP_PARAM_TOL})")
+    print(line + f"; the whole leaves the same bits on every rank after "
+          f"every step: {same}; clip norms "
+          f"{[round(g, 4) for g in d0['gnorms']]}, the same on every rank: {same_gnorm}; a step a rank: "
+          f"all-gather results {d0['gather_bytes'] // steps} B in "
+          f"{d0['gathers'] // steps} gathers, reduce-scatter results "
+          f"{d0['scatter_bytes'] // steps} B in {d0['scatters'] // steps}, "
+          f"the whole leaves' all-reduce {d0['gradient_bytes'] // steps} B "
+          f"x 2, against the dry-run's (fsdp) entries on the ({w}, 1) mesh "
+          f"{gathered} / {scattered} and gradient entries {reduced}: equal "
+          f"{bytes_ok}; ms a step (synchronized) {step_ms}, the gathers' "
+          f"share {gather_share}, the reduce-scatters' {scatter_share}; "
+          f"peak {[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a "
+          f"rank against the reckoned per-device peak {peak / 2**30:.3f} "
+          f"GiB with fsdp ({', '.join(f'{100 * e:.2f} %' for e in mem_errs)}"
+          f") and {whole_peak / 2**30:.3f} GiB without; reckoned on meta, "
+          f"{published.n_layers}-layer danube's per-device peak on ({w}, 1) "
+          f"{big[True]:.3f} GiB with fsdp, {big[False]:.3f} GiB without; "
+          f"ranks {res.wall_s:.1f} s with their starts (each rank's run "
+          f"{[round(d['run_s'], 1) for d in docs]} s, its set-up "
+          f"{[round(d['setup_s'], 1) for d in docs]} s; from the forks to "
+          f"each run's start "
+          f"{[round(d['clock'][0] - forked, 1) for d in docs]} s, from its end to the last exit "
+          f"{[round(exited - d['clock'][1], 1) for d in docs]} s)"
+          + ("" if probe else f", the one-process run {t2 - t1:.1f} s, the "
+             f"blocks' comparison {t3 - t2:.1f} s")
+          + f", the four reckonings {t5 - t4:.1f} s; "
+          f"{time.perf_counter() - t0:.1f}s")
+    if not probe:
+        check(max(errs) <= TRAIN_RANKS_LOSS_TOL, f"(t9) a loss over ranks "
+              f"is {max(errs):.2e} from the one-process step's")
+        check(gap <= TRAIN_FSDP_PARAM_TOL, f"(t9) the ranks' blocks lie "
+              f"{gap:.2e} from the one-process parameters")
+    check(same and same_gnorm, "(t9) the ranks' whole leaves or clip norms "
+          "differ")
+    check(bytes_ok, "(t9) the gathered or reduce-scattered bytes differ "
+          "from the dry-run's")
+    check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t9) a rank's peak is "
+          f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
 
 
 def _counted_step(dev: torch.device, fn) -> dict:
@@ -3618,6 +3802,13 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--fsdp-probe"]:
+        phase_card(dev)
+        child.warm()
+        _train_fsdp(dev, get_config("h2o-danube-3-4b").n_layers, probe=True)
+        child.stop()
+        print(f"[done] {time.perf_counter() - t0:.1f}s")
+        return
 
     def timed(name, fn, *args):
         t = time.perf_counter()

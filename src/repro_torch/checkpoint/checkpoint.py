@@ -27,7 +27,11 @@ multi-GPU mesh (ROADMAP A.8).
 Over the ranks of a process group (training's data axis,
 ``launch/train.py --ranks``) every rank holds the same state: ``save``
 with the mesh writes once, from rank 0, behind a barrier, and every rank
-restores from the same files.
+restores from the same files.  Where the ranks hold pieces of the leaves
+(``--fsdp``: ``shardings`` cut leaves over ``data``), ``save`` gathers
+each cut leaf in turn and rank 0 writes the whole tree in the same
+format, and ``restore`` with ``shardings`` / ``mesh`` keeps each rank's
+block.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.tree import leaves_with_paths
-from repro_torch.models.sharding import Sharded, spec_leaves
+from repro_torch.models.sharding import (Sharded, data_dim, gather_blocks,
+                                         spec_leaves)
 
 #: types npz cannot hold, stored as their bits: (the stored numpy type,
 #: the torch integer type of the same width that views them)
@@ -85,27 +90,54 @@ def _decode(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
     return t.to(device)
 
 
+def _host_over_ranks(tree, shardings, mesh) -> Optional[Dict]:
+    """Rank 0's host arrays of ``tree`` over the ranks of ``mesh``: each
+    leaf that ``shardings`` cuts over ``data`` all-gathered in turn (every
+    rank takes part), so no more than one whole leaf stands on a device
+    at a time; None on the other ranks."""
+    specs = dict(spec_leaves(shardings)) if shardings is not None else {}
+    host = {}
+    for key, x in leaves_with_paths(tree):
+        dim = data_dim(specs[key]) if key in specs else None
+        if dim is not None:
+            x = gather_blocks(x, dim, mesh.world)
+        if mesh.rank == 0:
+            host[key] = _encode(x)
+    return host if mesh.rank == 0 else None
+
+
 def save(ckpt_dir: str, step: int, tree, extras: Optional[Dict] = None,
-         keep: int = 3, async_save: bool = False, mesh=None):
+         keep: int = 3, async_save: bool = False, mesh=None,
+         shardings=None):
     """Write a checkpoint bundle.  Atomic via tmp-dir + rename.  With
     ``async_save`` the leaves are copied to the host first and a thread
     writes them (returned; join it before the next save reads the
     directory): the next step may update the moments in place, so the
     thread never reads device memory.  On a ``mesh`` whose data axis
-    spans ranks (``Mesh.over_ranks``; every rank holds the same tree)
-    rank 0 writes and every rank waits for it at a barrier of the
-    default process group, so the save is synchronous there."""
+    spans ranks (``Mesh.over_ranks``) rank 0 writes the whole tree and
+    every rank waits for it at a barrier of the default process group,
+    so the save is synchronous there; the leaves that ``shardings`` (a
+    tree of ``PartitionSpec`` shaped like ``tree``) cuts over ``data``
+    are each rank's block, gathered leaf by leaf (every rank calls
+    ``save``), the others the same on every rank."""
     if mesh is not None and mesh.spans_ranks:
         if async_save:
             raise ValueError("a save over ranks ends at a barrier: it "
                              "cannot be asynchronous")
+        host = _host_over_ranks(tree, shardings, mesh)
         if mesh.rank == 0:
-            save(ckpt_dir, step, tree, extras, keep)
+            _write(ckpt_dir, step, host, extras, keep)
         dist.barrier()
         return None
     host = {k: _encode(v) for k, v in leaves_with_paths(tree)}
+    return _write(ckpt_dir, step, host, extras, keep, async_save)
 
-    def _write():
+
+def _write(ckpt_dir: str, step: int, host: Dict, extras: Optional[Dict],
+           keep: int, async_save: bool = False):
+    """Write host arrays as the bundle of ``step`` (``save``)."""
+
+    def bundle():
         name = f"step_{step:08d}"
         tmp = os.path.join(ckpt_dir, f".tmp_{name}_{os.getpid()}")
         os.makedirs(tmp, exist_ok=True)
@@ -131,10 +163,10 @@ def save(ckpt_dir: str, step: int, tree, extras: Optional[Dict] = None,
 
     os.makedirs(ckpt_dir, exist_ok=True)
     if async_save:
-        th = threading.Thread(target=_write, daemon=True)
+        th = threading.Thread(target=bundle, daemon=True)
         th.start()
         return th
-    _write()
+    bundle()
     return None
 
 
@@ -171,8 +203,9 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
     lands on the template tensor's device (``device`` for a
     ``TensorShape``).  ``shardings``: optional tree of ``PartitionSpec``
     shaped like the template, with ``mesh``: each leaf is placed onto the
-    mesh along its spec (a ``sharding.Sharded``).  Returns (tree, step,
-    extras)."""
+    mesh along its spec (a ``sharding.Sharded``); on a mesh over ranks
+    each leaf is this rank's block, a tensor, and the template holds the
+    blocks (``launch/train.py --fsdp``).  Returns (tree, step, extras)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -199,12 +232,16 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
     for key, leaf in flat_template:
         where = leaf.device if torch.is_tensor(leaf) else device
         val = _decode(arrays[key], leaf.dtype, where)
+        spec = specs.get(key)
+        if spec is not None and mesh.spans_ranks:       # the rank's block
+            block = Sharded(val, spec, mesh).local(mesh.local_positions()[0])
+            val = block.clone() if block.numel() < val.numel() else block
         if tuple(val.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint leaf {key}: shape "
                              f"{tuple(val.shape)}, template "
                              f"{tuple(leaf.shape)}")
-        if specs.get(key) is not None:
-            val = Sharded(val, specs[key], mesh)
+        if spec is not None and not mesh.spans_ranks:
+            val = Sharded(val, spec, mesh)
         values[key] = val
     return (_unflatten(template, values), manifest["step"],
             manifest.get("extras", {}))

@@ -46,3 +46,12 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke()
+
+
+def runnable_cells():
+    """Yield (arch_name, shape_name, runnable, reason) for all 40 cells."""
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch)
+        for shape_name, shape in SHAPES.items():
+            ok, reason = cell_is_runnable(cfg, shape)
+            yield arch, shape_name, ok, reason

@@ -162,6 +162,15 @@ COUNTED_BY = {
                                  "its type (the ring); a step over ranks "
                                  "hands half of it to its all-reduces "
                                  "(sharding.RankSum.gradient_bytes)",
+    "fsdp_all_gather_bytes": "its all-gather entries of the leaves cut "
+                             "over data: each leaf's piece x |data|, "
+                             "twice a training step (once for a table "
+                             "only the lookup reads), which a step over "
+                             "ranks with --fsdp hands its all-gathers "
+                             "(sharding.RankShards.gather_bytes)",
+    "fsdp_reduce_scatter_bytes": "its reduce-scatter entries of the cut "
+                                 "leaves' gradients: each piece once "
+                                 "(sharding.RankShards.scatter_bytes)",
     "compile_s": "wall of the meta trace",
     "lower_s": "wall of building the stand-ins and specs",
 }
@@ -703,6 +712,8 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         "collective_bytes_by_link": coll.bytes_by_link,
         "top_collectives": coll.top_ops,
         "gradient_all_reduce_bytes": coll.gradient_all_reduce_bytes,
+        "fsdp_all_gather_bytes": coll.fsdp_all_gather_bytes,
+        "fsdp_reduce_scatter_bytes": coll.fsdp_reduce_scatter_bytes,
         "model_flops": mf,
         "useful_flops_ratio": (mf / (flops * n_chips)) if flops else None,
         "peaks": {"flops": H100.flops, "hbm_bw": H100.hbm_bw,

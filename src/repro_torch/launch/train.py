@@ -17,6 +17,8 @@ Newton as training options.
         --steps 50 --ckpt-dir /tmp/ck --resume   # fault-tolerant restart
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --ranks 2 --dist-backend gloo --device cpu   # the data axis over ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --preset lm-100m \\
+        --ranks 2 --fsdp        # the parameters cut over the ranks as well
 
 The data axis (``--ranks W``, ``--dist-backend gloo|nccl``).  The
 reference trains data-parallel on its production mesh with the batch
@@ -36,6 +38,21 @@ rank holds the same parameters bit for bit.  Rank 0 prints the
 rank restores.  A simulated crash exits 42 from every rank and the run
 exits 42; a rank that fails gets its survivors SIGKILLed (``ranks.run``).
 A global batch that W does not divide is refused.
+
+``--fsdp`` (with ``--ranks``) also cuts the parameters over the data
+axis, as the reference's ``--fsdp`` dry-run cell does
+(``param_specs(cfg, mesh, fsdp=True)``): each rank draws the whole
+parameters from the seed as one process does, keeps its block of every
+leaf the specs cut over ``data`` and frees the rest, so it holds only
+those blocks and its blocks of their AdamW moments.  The step runs in
+``sharding.fsdp_ctx``: a cut leaf is all-gathered where it is used and
+its gradient reduce-scattered, the whole leaves' gradients all-reduced,
+and the clip's norm summed over the ranks.  The reference runs fsdp only
+in its AdamW train step, so ``--compress-grads``, ``--line-search`` and
+``--optimizer subspace-newton`` (per-leaf scales, dot products and norms
+that would need reductions of their own) are refused with it.  Rank 0's
+checkpoint holds the whole tree, gathered leaf by leaf, and each rank
+restores its blocks.
 
 Where the reference folds each step into ``jax.random.fold_in(key(seed +
 7), step)``, the port seeds a ``torch.Generator`` on the device from
@@ -60,7 +77,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -68,18 +85,18 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ARCH_NAMES, get_smoke_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, config_from_dict
 from repro_torch.core import subspace_newton as subn
 from repro_torch.core.parallel_line_search import (LineSearchConfig,
                                                    randomized_line_search)
 from repro_torch.core.tree import leaves_with_paths, map_tree
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticMasked
 from repro_torch.launch import ranks
-from repro_torch.models.sharding import data_parallel_ctx
+from repro_torch.models.sharding import data_parallel_ctx, fsdp_ctx
 from repro_torch.models.transformer import (NULL_CTX, ShardCtx, count_params,
                                             init_params, make_loss_fn,
                                             make_train_step, value_and_grad)
-from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.adamw import AdamW, opt_state_specs
 from repro_torch.optim.compression import compress_grads, init_error_state
 
 PRESETS = {
@@ -243,7 +260,33 @@ def _parse(argv) -> argparse.Namespace:
     ap.add_argument("--dist-backend", default="gloo", choices=ranks.BACKENDS,
                     help="the ranks' backend: gloo (ranks may share a "
                          "device) or nccl (a card a rank)")
-    return ap.parse_args(argv)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --ranks: every parameter of 2^20 elements or "
+                         "more cut over the ranks too (the reference's "
+                         "--fsdp), gathered where it is used")
+    args = ap.parse_args(argv)
+    _check_fsdp(args)
+    return args
+
+
+def _check_fsdp(args) -> None:
+    """``--fsdp`` needs ``--ranks``, and runs only the AdamW step, as the
+    reference's."""
+    if not args.fsdp:
+        return
+    if not args.ranks:
+        raise ValueError("--fsdp cuts the parameters over the ranks of "
+                         "--ranks W: pass --ranks")
+    for flag, given in (("--compress-grads", args.compress_grads),
+                        ("--line-search", args.line_search > 0),
+                        ("--optimizer subspace-newton",
+                         args.optimizer == "subspace-newton")):
+        if given:
+            raise ValueError(
+                f"--fsdp with {flag} is not supported: its per-leaf scales, "
+                f"dot products or norms would need reductions of their own "
+                f"over the cut leaves, and the reference runs fsdp only in "
+                f"its AdamW train step")
 
 
 @contextlib.contextmanager
@@ -273,36 +316,50 @@ def main(argv=None):
     return 0
 
 
-def run(argv, *, hosts: int = 1, measure: bool = False) -> dict:
+def run(argv, *, hosts: int = 1, measure: bool = False,
+        cfg: Optional[dict] = None, params_out: Optional[str] = None
+        ) -> dict:
     """The launcher's run of ``argv`` in this process; returns its doc
     (``_run``).  ``hosts``: the global batch drawn as the concatenation of
-    that many hosts' slices, as a run over that many ranks draws it."""
+    that many hosts' slices, as a run over that many ranks draws it.
+    ``cfg``: a configuration (``dataclasses.asdict``) in place of
+    ``--preset`` / ``--arch``'s, as the reference's ``lower_cell(
+    cfg_override=)``; ``params_out``: a path the final parameters are
+    saved to (``torch.save``)."""
     args = _parse(argv)
     if args.ranks:
         raise ValueError("run() trains in this process; --ranks runs "
                          "through main() or over_ranks()")
     device = torch.device(args.device)
     with _deterministic(device):
-        return _run(args, device, hosts=hosts, measure=measure)
+        return _run(args, device, hosts=hosts, measure=measure, cfg=cfg,
+                    params_out=params_out)
 
 
-def train_rank(group, *, argv: list, measure: bool = False) -> dict:
+def train_rank(group, *, argv: list, measure: bool = False,
+               cfg: Optional[dict] = None,
+               params_out: Optional[str] = None) -> dict:
     """One rank of a run over ranks (``launch/ranks.py``'s target): the
     launcher's ``argv`` on the group's device, its data block of the
-    (W, 1) mesh over the group; returns the rank's doc (``_run``)."""
+    (W, 1) mesh over the group; returns the rank's doc (``_run``).
+    ``cfg`` and ``params_out`` as ``run``'s, ``{rank}`` in the path
+    replaced by the rank (its blocks under ``--fsdp``)."""
     args = _parse(argv)
     if args.ranks != group.world:
         raise ValueError(f"--ranks {args.ranks} in a group of {group.world}")
     with _deterministic(group.device):
-        return _run(args, group.device, group=group, measure=measure)
+        return _run(args, group.device, group=group, measure=measure,
+                    cfg=cfg, params_out=params_out)
 
 
-def over_ranks(argv: list, *, measure: bool = False):
+def over_ranks(argv: list, *, measure: bool = False,
+               cfg: Optional[dict] = None, params_out: Optional[str] = None):
     """The launcher's ``argv`` (with ``--ranks W --dist-backend B``) over
     W ranks of backend B on ``--device`` (gloo: every rank there; nccl:
-    rank r on ``cuda:r``), each rank ``train_rank``, in a temporary work
-    directory.  Returns (``ranks.RanksResult``, with the ranks' docs in
-    rank order; rank 0's standard output)."""
+    rank r on ``cuda:r``), each rank ``train_rank`` (``cfg`` and
+    ``params_out`` handed on), in a temporary work directory.  Returns
+    (``ranks.RanksResult``, with the ranks' docs in rank order; rank 0's
+    standard output)."""
     args = _parse(argv)
     if args.ranks < 1:
         raise ValueError("over_ranks needs --ranks W >= 1")
@@ -316,7 +373,8 @@ def over_ranks(argv: list, *, measure: bool = False):
     else:             # every rank on the CPU (nccl refuses it: run's check)
         devices = [torch.device(args.device)] * args.ranks
     with tempfile.TemporaryDirectory(prefix="train_ranks_") as workdir:
-        res = ranks.run(RANK_TARGET, {"argv": list(argv), "measure": measure},
+        res = ranks.run(RANK_TARGET, {"argv": list(argv), "measure": measure,
+                                      "cfg": cfg, "params_out": params_out},
                         world=args.ranks, backend=args.dist_backend,
                         devices=devices, workdir=workdir,
                         timeout=RANKS_TIMEOUT_S)
@@ -340,21 +398,28 @@ def _main_over_ranks(args, argv) -> int:
 
 
 def _run(args, device: torch.device, *, group=None, hosts: int = 1,
-         measure: bool = False) -> dict:
-    """Train as ``args`` say on ``device``: in one process (``group``
-    None; the batch the concatenation of ``hosts`` hosts' slices) or as
-    one rank of ``group`` over the (W, 1) mesh (its own host's slice).
-    Returns the doc: the device and rank, each step's loss, the
-    all-reduces' bytes and calls (over ranks), the device's peak memory
-    (CUDA), the walls of the set-up before the first step and of the
-    whole run; with ``measure`` also, step by step, the wall with the
-    device synchronized at the step's end, the seconds of its gradient
-    all-reduce, and the digest of the parameters and error state
-    (``state_digest``)."""
-    t_run = time.perf_counter()
+         measure: bool = False, cfg: Optional[dict] = None,
+         params_out: Optional[str] = None) -> dict:
+    """Train as ``args`` say (or on the configuration ``cfg``) on
+    ``device``: in one process (``group`` None; the batch the
+    concatenation of ``hosts`` hosts' slices) or as one rank of ``group``
+    over the (W, 1) mesh (its own host's slice; under ``--fsdp`` its
+    blocks of the cut leaves).  Returns the doc: the device and rank,
+    each step's loss, the all-reduces' bytes and calls (over ranks), under
+    ``--fsdp`` the gathers' and reduce-scatters' bytes and calls and each
+    step's clip norm, the device's peak memory (CUDA), the walls of the
+    set-up before the first step and of the whole run; with ``measure``
+    also the wall clock at the run's start and end (``clock``, to hold
+    against a caller's own) and, step by step, the wall with the device
+    synchronized at the step's end, the seconds of its gradient
+    all-reduce (and of its gathers and reduce-scatters), and the digest
+    of the parameters and error state (``state_digest``; under
+    ``--fsdp`` of the leaves held whole).  With ``params_out`` the final parameters this process holds
+    are saved there (``torch.save``, ``{rank}`` replaced by the rank)."""
+    t_run, clock = time.perf_counter(), time.time()
     if not args.preset and not args.arch:
         args.preset = "tiny"
-    cfg = build_config(args)
+    cfg = build_config(args) if cfg is None else config_from_dict(cfg)
     lead = group is None or group.rank == 0
     say = print if lead else (lambda *_, **__: None)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
@@ -367,9 +432,14 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
                    for h in range(hosts)]
     else:
         mesh = group.mesh((group.world, 1))
-        ctx = data_parallel_ctx(mesh)
+        ctx = fsdp_ctx(mesh, cfg) if args.fsdp else data_parallel_ctx(mesh)
         sources = [host_data(cfg, args.seq, args.batch, args.seed,
                              group.world, group.rank)]
+    shards = ctx.ranks if args.fsdp else None
+    specs = None
+    if shards is not None:        # the rank's blocks; the wholes freed
+        params = shards.shard(params)
+        specs = {"params": shards.specs, "opt": opt_state_specs(shards.specs)}
 
     opt = AdamW(lr=args.lr, weight_decay=0.01)
     opt_state = opt.init(params)
@@ -379,7 +449,8 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
 
     if args.resume and args.ckpt_dir:
         tree, start_step, _ = ckpt.restore(
-            args.ckpt_dir, _state_tree(params, opt_state, err_state))
+            args.ckpt_dir, _state_tree(params, opt_state, err_state),
+            shardings=specs, mesh=mesh)
         params, opt_state = tree["params"], tree["opt"]
         err_state = tree.get("err", err_state)
         say(f"[train] resumed from step {start_step}")
@@ -395,6 +466,8 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
            "rank": 0 if group is None else group.rank}
     if measure:
         doc.update(step_s=[], all_reduce_s=[], digests=[])
+        if shards is not None:
+            doc.update(gather_s=[], scatter_s=[])
     losses = []
     doc["setup_s"] = time.perf_counter() - t_run
     logf = open(args.log_file, "a") if args.log_file and lead else None
@@ -403,6 +476,8 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
     for step in range(start_step, args.steps):
         t_step = time.perf_counter()
         ar0 = ctx.ranks.gradient_seconds if ctx.ranks is not None else 0.0
+        if shards is not None:
+            ga0, sc0 = shards.gather_seconds, shards.scatter_seconds
         batch = batch_to(hosts_batch(sources, step), cfg, device)
         gen = step_generator(args.seed, step, device)
         if args.optimizer == "subspace-newton":
@@ -421,7 +496,13 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
             doc["all_reduce_s"].append(
                 ctx.ranks.gradient_seconds - ar0 if ctx.ranks is not None
                 else 0.0)
-            doc["digests"].append(state_digest(params, err_state))
+            if shards is not None:
+                doc["gather_s"].append(shards.gather_seconds - ga0)
+                doc["scatter_s"].append(shards.scatter_seconds - sc0)
+                doc["digests"].append(state_digest(
+                    shards.whole_leaves(params)))
+            else:
+                doc["digests"].append(state_digest(params, err_state))
         if args.crash_at and step + 1 == args.crash_at:
             # checkpoint written for every completed multiple of ckpt_every
             say(f"[train] simulated crash at step {step + 1}", flush=True)
@@ -431,7 +512,8 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
         if (step + 1) % args.ckpt_every == 0 and args.ckpt_dir:
             ckpt.save(args.ckpt_dir, step + 1,
                       _state_tree(params, opt_state, err_state),
-                      extras={"config": cfg.name}, mesh=mesh)
+                      extras={"config": cfg.name}, mesh=mesh,
+                      shardings=specs)
         if lead and ((step + 1) % args.log_every == 0
                      or step == args.steps - 1):
             loss = float(metrics["loss"])
@@ -452,7 +534,7 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps,
                   _state_tree(params, opt_state, err_state),
-                  extras={"config": cfg.name}, mesh=mesh)
+                  extras={"config": cfg.name}, mesh=mesh, shardings=specs)
     say(f"[train] done in {time.time() - t0:.1f}s")
     doc["losses"] = [float(x) for x in losses]
     if ctx.ranks is not None:
@@ -461,9 +543,20 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
                    gradient_all_reduces=r.gradient_all_reduces,
                    loss_bytes=r.loss_bytes,
                    loss_all_reduces=r.loss_all_reduces)
+    if shards is not None:
+        doc.update(gather_bytes=shards.gather_bytes, gathers=shards.gathers,
+                   scatter_bytes=shards.scatter_bytes,
+                   scatters=shards.scatters,
+                   gnorms=[float(g) for g in shards.gnorms])
+    if params_out:
+        torch.save({path: x.detach().cpu()
+                    for path, x in leaves_with_paths(params)},
+                   params_out.format(rank=doc["rank"]))
     doc["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                          if device.type == "cuda" else None)
     doc["run_s"] = time.perf_counter() - t_run
+    if measure:
+        doc["clock"] = [clock, time.time()]
     return doc
 
 

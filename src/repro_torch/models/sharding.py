@@ -18,12 +18,18 @@ Training's data axis over the ranks of a process group (``Mesh.over_ranks``)
 takes the collectives GSPMD inserts in the reference's step:
 ``RankSum`` sums the loss's reductions over the batch and the gradients
 over the ranks, and counts the bytes it hands to each all-reduce;
-``data_parallel_ctx`` puts it in the step's ``ShardCtx``.
+``data_parallel_ctx`` puts it in the step's ``ShardCtx``.  With the
+parameters cut over ``data`` as well (the reference's ``--fsdp``,
+``param_specs(fsdp=True)``), ``RankShards`` holds rank r's block of each
+cut leaf, all-gathers a leaf where the step uses it and reduce-scatters
+its gradient; ``fsdp_ctx`` puts it in the step's ``ShardCtx``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -402,6 +408,19 @@ def held_whole(tree: Any) -> Optional[Any]:
 # The data axis over ranks: sums that a training step hands to all-reduces
 # ---------------------------------------------------------------------------
 
+def _timed(fn: Callable, x: torch.Tensor):
+    """(``fn()``, its host wall in seconds with ``x``'s device synchronized
+    on either side, so that a collective's own time is read)."""
+    cuda = x.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    return out, time.perf_counter() - t0
+
+
 class _SumOverRanks(torch.autograd.Function):
     """x summed over the ranks of the default process group; the
     backward is the identity.  Every rank computes the same global value
@@ -468,18 +487,26 @@ class RankSum:
             flat = torch.cat([g.reshape(-1) for _, g in items])
             self.gradient_bytes += flat.numel() * flat.element_size()
             self.gradient_all_reduces += 1
-            cuda = flat.device.type == "cuda"
-            if cuda:
-                torch.cuda.synchronize(flat.device)
-            t0 = time.perf_counter()
-            dist.all_reduce(flat)
-            if cuda:
-                torch.cuda.synchronize(flat.device)
-            self.gradient_seconds += time.perf_counter() - t0
+            _, s = _timed(lambda: dist.all_reduce(flat), flat)
+            self.gradient_seconds += s
             for (path, g), piece in zip(items, torch.split(
                     flat, [g.numel() for _, g in items])):
                 summed[path] = piece.view(g.shape)
         return map_with_paths(lambda path, _: summed[path], grads)
+
+
+    #: the clip's norm over the ranks (``RankShards.combine_norm``); a
+    #: rank that holds every leaf whole has the global gradient already
+    combine_norm = None
+
+    def use(self, tree: Any, path: str) -> Any:
+        """``tree`` (the subtree at ``path``) as a step uses it: every
+        leaf is held whole here."""
+        return tree
+
+    def packing(self):
+        """The context a forward runs in (``RankShards.packing``)."""
+        return contextlib.nullcontext()
 
 
 def data_parallel_ctx(mesh) -> T.ShardCtx:
@@ -488,6 +515,265 @@ def data_parallel_ctx(mesh) -> T.ShardCtx:
     them (``RankSum``)."""
     dp, tp = mesh_axes(mesh)
     return T.ShardCtx(mesh=mesh, dp=dp, tp=tp, ranks=RankSum(mesh))
+
+
+# ---------------------------------------------------------------------------
+# Parameters cut over the data axis across ranks (the reference's --fsdp)
+# ---------------------------------------------------------------------------
+
+#: the tensor forms of the two collectives (torch renamed them; gloo takes
+#: the blocks concatenated along the leading dimension, not stacked)
+_ALL_GATHER = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def data_dim(spec) -> Optional[int]:
+    """The dimension ``spec`` cuts over ``data``, or None."""
+    for dim, e in enumerate(spec):
+        if e == "data" or (isinstance(e, tuple) and "data" in e):
+            return dim
+    return None
+
+
+def gather_blocks(piece: torch.Tensor, dim: int, world: int) -> torch.Tensor:
+    """The whole tensor of which rank r holds block r along ``dim``
+    (``piece`` here): one all-gather of the blocks concatenated along the
+    leading dimension, then, for another ``dim``, the blocks moved into
+    place (one copy)."""
+    piece = piece.contiguous()
+    out = torch.empty((world * piece.shape[0],) + tuple(piece.shape[1:]),
+                      dtype=piece.dtype, device=piece.device)
+    _ALL_GATHER(out, piece)
+    if dim == 0:
+        return out
+    shape = list(piece.shape)
+    shape[dim] *= world
+    return out.view((world,) + tuple(piece.shape)).movedim(0, dim).reshape(
+        shape)
+
+
+def scatter_blocks(whole: torch.Tensor, dim: int, world: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``whole`` summed over the ranks:
+    one reduce-scatter of the blocks laid along the leading dimension."""
+    n = whole.shape[dim] // world
+    if dim == 0:
+        src = whole.contiguous()
+    else:
+        src = whole.unflatten(dim, (world, n)).movedim(dim, 0).contiguous() \
+            .flatten(0, 1)
+    shape = list(whole.shape)
+    shape[dim] = n
+    out = torch.empty(shape, dtype=whole.dtype, device=whole.device)
+    _REDUCE_SCATTER(out, src)
+    return out
+
+
+class _Gathered:
+    """One gather of a piece for use: where the step's autograd saves the
+    whole (a view of it) for the backward, the forward's ``packing`` keeps
+    this record instead, and the backward gathers the piece again at its
+    first read (``whole``), once, until the gradient is reduce-scattered
+    (``release``)."""
+
+    def __init__(self, shards: "RankShards", piece: torch.Tensor, dim: int):
+        self.shards, self.piece, self.dim = shards, piece.detach(), dim
+        self.root: Optional[weakref.ref] = None
+        self.again: Optional[torch.Tensor] = None
+
+    def whole(self) -> torch.Tensor:
+        if self.again is None:
+            self.again = self.shards.gather(self.piece, self.dim)
+        return self.again
+
+    def release(self) -> None:
+        self.again = None
+
+
+class _GatherForUse(torch.autograd.Function):
+    """A piece all-gathered for use; the backward reduce-scatters the whole
+    leaf's gradient into the piece's, summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, piece, record):
+        ctx.record = record
+        return record.shards.gather(piece, record.dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        record = ctx.record
+        record.release()
+        return record.shards.scatter(grad, record.dim), None
+
+
+def _root(x: torch.Tensor) -> torch.Tensor:
+    return x if x._base is None else x._base
+
+
+class RankShards(RankSum):
+    """A ``RankSum`` whose rank holds, of every leaf that ``param_specs(cfg,
+    mesh, fsdp=True)`` cuts over ``data``, only its block along that
+    dimension (``Sharded.block_of`` on the (W, 1) mesh), and every other
+    leaf whole: the reference's rule copied, so a dimension with a
+    ``model`` entry is never cut (even at ``model`` = 1), nor a stacked
+    leaf's layer axis, and a leaf of 2²⁰ elements or more with no
+    dimension that W divides stays whole.
+
+    ``use`` gathers the cut leaves of a subtree where the step uses them
+    (a layer's views inside its unit, the embedding, the LM head); the
+    backward reduce-scatters their gradients (``_GatherForUse``), and
+    ``sum_grads`` all-reduces the whole leaves' alone.  A training step
+    gathers each cut leaf twice a layer, as the dry-run counts it
+    (``roofline.analysis``): inside a unit under ``cfg.remat`` the
+    recompute gathers again, and without remat ``packing`` keeps the
+    saved whole as its record and the backward gathers it again.  The
+    embedding's table, read only by the lookup (whose backward needs no
+    values), is gathered once; with tied embeddings the lookup and the
+    head share one gather (``transformer.make_loss_fn``).  A weight-shared
+    block (``shared_attn``) is gathered at each of its applications.
+
+    Counts ``gather_bytes`` / ``gathers`` (the whole's bytes, the
+    all-gather's result) and ``scatter_bytes`` / ``scatters`` (the
+    piece's), each collective's seconds with the device synchronized on
+    either side (``gather_seconds``, ``scatter_seconds``), and the clip's
+    norm each step (``gnorms``, ``combine_norm``)."""
+
+    def __init__(self, mesh, cfg: ModelConfig):
+        super().__init__(mesh)
+        self.mesh = mesh
+        self.coords = mesh.local_positions()[0]
+        segs = T.find_segments(T.layer_sigs(cfg))
+        self.specs = param_specs(cfg, mesh, fsdp=True)
+        #: path -> the cut dimension of the leaf as held
+        self.cuts: Dict[str, int] = {}
+        #: path -> (the cut dimension of what ``use`` meets: one layer's
+        #: slice of a stacked leaf, else the leaf; its whole size)
+        self.use_dims: Dict[str, Tuple[int, int]] = {}
+        shapes = dict(spec_leaves(T.param_specs(cfg)))
+        for path, spec in spec_leaves(self.specs):
+            dim = data_dim(spec)
+            if dim is None:
+                continue
+            parts = path.split("/")
+            stacked = parts[0] == "segments" and segs[int(parts[1])][1] > 1
+            self.cuts[path] = dim
+            self.use_dims[path] = (dim - 1 if stacked else dim,
+                                   shapes[path].shape[dim])
+        self.gather_bytes = self.gathers = 0
+        self.scatter_bytes = self.scatters = 0
+        self.gather_seconds = self.scatter_seconds = 0.0
+        self.gnorms: List[torch.Tensor] = []
+        self._records: Optional[Dict[int, _Gathered]] = None
+
+    def gather(self, piece: torch.Tensor, dim: int) -> torch.Tensor:
+        """``piece`` all-gathered along ``dim``, counted."""
+        whole, s = _timed(
+            lambda: gather_blocks(piece, dim, self.world), piece)
+        self.gather_bytes += whole.numel() * whole.element_size()
+        self.gathers += 1
+        self.gather_seconds += s
+        return whole
+
+    def scatter(self, grad: torch.Tensor, dim: int) -> torch.Tensor:
+        """``grad`` reduce-scattered along ``dim``, counted."""
+        piece, s = _timed(
+            lambda: scatter_blocks(grad, dim, self.world), grad)
+        self.scatter_bytes += piece.numel() * piece.element_size()
+        self.scatters += 1
+        self.scatter_seconds += s
+        return piece
+
+    def shard(self, params: Any) -> Any:
+        """``params`` (whole, the same on every rank) with each cut leaf
+        replaced by a copy of this rank's block: the wholes can be
+        freed."""
+        specs = dict(spec_leaves(self.specs))
+
+        def keep(path, x):
+            if path not in self.cuts:
+                return x
+            return Sharded(x, specs[path], self.mesh).local(
+                self.coords).clone()
+        return map_with_paths(keep, params)
+
+    def whole_leaves(self, tree: Any) -> Dict[str, torch.Tensor]:
+        """The leaves of a parameter-shaped ``tree`` held whole, by path."""
+        return {path: x for path, x in leaves_with_paths(tree)
+                if path not in self.cuts}
+
+    def use(self, tree: Any, path: str) -> Any:
+        """``tree``, the subtree at ``path`` (one layer's views of a stacked
+        segment, or the unstacked leaves), with every cut leaf gathered
+        (``_GatherForUse``); a leaf already whole is returned as it is."""
+        def one(leaf_path, x):
+            dim, size = self.use_dims.get(leaf_path, (None, None))
+            if dim is None or x.shape[dim] == size:
+                return x
+            record = _Gathered(self, x, dim)
+            out = _GatherForUse.apply(x, record)
+            if self._records is not None and torch.is_grad_enabled():
+                root = _root(out)
+                record.root = weakref.ref(root)
+                self._records[id(root)] = record
+            return out
+        return map_with_paths(one, tree, f"{path}/")
+
+    @contextlib.contextmanager
+    def packing(self):
+        """The forward's context: a whole that autograd saves for the
+        backward (a view of a gather's result) is kept as its ``_Gathered``
+        record, and gathered again where the backward reads it."""
+        records: Dict[int, _Gathered] = {}
+
+        def pack(t):
+            record = records.get(id(_root(t)))
+            if record is None or record.root() is not _root(t):
+                return t
+            return record, t.size(), t.stride(), t.storage_offset()
+
+        def unpack(saved):
+            if isinstance(saved, torch.Tensor):
+                return saved
+            record, size, stride, offset = saved
+            return record.whole().as_strided(size, stride, offset)
+
+        self._records = records
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+                yield
+        finally:
+            self._records = None
+
+    def sum_grads(self, grads: Any) -> Any:
+        """The gradient tree with its whole leaves summed over the ranks
+        (``RankSum.sum_grads``); a cut leaf's was reduce-scattered in the
+        backward."""
+        summed = super().sum_grads(self.whole_leaves(grads))
+        return map_with_paths(lambda path, g: summed.get(path, g), grads)
+
+    def combine_norm(self, sums: List[Tuple[str, torch.Tensor]]
+                     ) -> torch.Tensor:
+        """The clip's global norm from the leaves' squared sums, slice by
+        slice (``adamw.global_norm``): the cut pieces' summed over the
+        ranks, the whole leaves' (every rank holds their summed gradient)
+        added once.  Every rank gets the same value (kept in
+        ``gnorms``)."""
+        zero = torch.zeros((), dtype=torch.float32, device=sums[0][1].device)
+        cut = sum((s for path, s in sums if path in self.cuts), zero)
+        dist.all_reduce(cut)
+        whole = sum((s for path, s in sums if path not in self.cuts), zero)
+        gnorm = torch.sqrt(cut + whole)
+        self.gnorms.append(gnorm)
+        return gnorm
+
+
+def fsdp_ctx(mesh, cfg: ModelConfig) -> T.ShardCtx:
+    """The ``ShardCtx`` of a step over ``mesh`` (the (W, 1) mesh of
+    ``Mesh.over_ranks``) whose parameters are cut over its data axis as
+    ``param_specs(cfg, mesh, fsdp=True)`` says (``RankShards``)."""
+    dp, tp = mesh_axes(mesh)
+    return T.ShardCtx(mesh=mesh, dp=dp, tp=tp, ranks=RankShards(mesh, cfg))
 
 
 def sharded_numel(cfg: ModelConfig, specs: Any,

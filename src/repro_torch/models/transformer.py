@@ -36,6 +36,7 @@ order, so a flat (k, P) basis maps onto them leaf for leaf.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -255,7 +256,13 @@ class ShardCtx:
     the batch (``data_sum``) and its gradients (``sum_grads``) are summed
     over the ranks, so every rank's loss and update are the whole batch's,
     as in the reference's global view.  Without it both return their
-    input."""
+    input.
+
+    Where the parameters are cut over the ranks as well
+    (``sharding.fsdp_ctx``), ``ranks`` is a ``sharding.RankShards``: the
+    step gathers a cut leaf where it uses it (``use``), its forward runs
+    in ``packing`` and the clip's norm is summed over the ranks
+    (``norm_combine``).  Elsewhere ``use`` returns its input."""
     mesh: Any = None
     dp: Tuple[str, ...] = ("data",)
     tp: str = "model"
@@ -277,6 +284,23 @@ class ShardCtx:
         itself in one process."""
         return grads if self.ranks is None else self.ranks.sum_grads(grads)
 
+    def use(self, tree, path: str):
+        """The parameter subtree at ``path`` as the step uses it: its cut
+        leaves gathered over the ranks; ``tree`` itself where every leaf
+        is held whole."""
+        return tree if self.ranks is None else self.ranks.use(tree, path)
+
+    def packing(self):
+        """The context a training forward runs in (where the parameters
+        are cut: the saved wholes kept as pieces)."""
+        return (contextlib.nullcontext() if self.ranks is None
+                else self.ranks.packing())
+
+    def norm_combine(self):
+        """The clip's norm from the leaves' squared sums where they are
+        cut over the ranks (``optim.adamw.global_norm``), else None."""
+        return None if self.ranks is None else self.ranks.combine_norm
+
 
 NULL_CTX = ShardCtx()
 
@@ -295,7 +319,7 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
     kind, is_moe = sig
     aux = None
     if kind == "shared_attn":
-        bp = shared_p
+        bp = ctx.use(shared_p, "shared_attn")
     if kind in ("attn", "shared_attn"):
         h = L.apply_norm(x, bp["norm1"], cfg)
         if cfg.mla is not None and kind == "attn":
@@ -350,25 +374,28 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
     return ctx.cons(x, None, None), new_cache, aux
 
 
-def head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
+def head_weight(params: Params, cfg: ModelConfig,
+                ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """The LM head (d, V): with tied embeddings the embedding's transposed
-    view (no copy)."""
+    view (no copy); gathered where it is cut over ranks (``ctx.use``)."""
     if cfg.tie_embeddings:
-        return params["embed"]["tok"].T
-    return params["head"]["w"]
+        return ctx.use(params["embed"], "embed")["tok"].T
+    return ctx.use(params["head"], "head")["w"]
 
 
 def embed_inputs(params: Params, cfg: ModelConfig,
-                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                 batch: Dict[str, torch.Tensor],
+                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """Token embeddings, or for the audio front-end stub the given frame
     embeddings with masked frames replaced by ``mask_emb``."""
+    embed = ctx.use(params["embed"], "embed")
     if cfg.frontend == "audio_stub":
         x = batch["embeds"]
         if "mask" in batch:
-            me = params["embed"]["mask_emb"].to(x.dtype)
+            me = embed["mask_emb"].to(x.dtype)
             x = torch.where(batch["mask"][..., None], me, x)
         return x
-    return params["embed"]["tok"][batch["tokens"]]
+    return embed["tok"][batch["tokens"]]
 
 
 def _layer(tree, ri: int, repeat: int):
@@ -439,7 +466,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         raise RuntimeError("a decode step writes its cache in place: run it "
                            "under torch.no_grad() (make_serve_step does)")
     remat = cfg.remat and training
-    x = embed_inputs(params, cfg, batch)
+    x = embed_inputs(params, cfg, batch, ctx)
     x = ctx.cons(x, None, None)
     b = x.shape[0]
     if cache is not None:
@@ -462,6 +489,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         layers = _unstack(params["segments"][si], repeat)
 
         def unit_apply(x, unit_params, ri, unit=unit, si=si, repeat=repeat):
+            # the layer's cut leaves gathered inside the unit: under remat
+            # the recompute gathers them again
+            unit_params = ctx.use(unit_params, f"segments/{si}")
             auxes = []
             for ui, sig in enumerate(unit):
                 uc = (None if cache is None
@@ -542,12 +572,15 @@ def make_loss_fn(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
     bit).  With ``ctx.ranks`` the batch is this rank's rows and the loss
     is the whole batch's, the same on every rank."""
     def loss_fn(params: Params, batch: Dict[str, torch.Tensor]):
-        hidden, _, aux = forward(params, cfg, batch, ctx, unroll=unroll)
-        weights = batch.get("mask")
-        if weights is not None:
-            weights = weights.to(torch.float32)
-        ce = chunked_cross_entropy(hidden, head_weight(params, cfg),
-                                   batch["labels"], weights, ctx=ctx)
+        with ctx.packing():
+            if cfg.tie_embeddings:   # one gather for the lookup and the head
+                params = dict(params, embed=ctx.use(params["embed"], "embed"))
+            hidden, _, aux = forward(params, cfg, batch, ctx, unroll=unroll)
+            weights = batch.get("mask")
+            if weights is not None:
+                weights = weights.to(torch.float32)
+            ce = chunked_cross_entropy(hidden, head_weight(params, cfg, ctx),
+                                       batch["labels"], weights, ctx=ctx)
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
     return loss_fn
 
@@ -565,13 +598,18 @@ def make_train_step(cfg: ModelConfig, optimizer, ctx: ShardCtx = NULL_CTX,
     no cache: autograd never meets the in-place decode path.  With
     ``ctx.ranks`` the gradients are summed over the ranks
     (``ctx.sum_grads``) before the update, so every rank takes the whole
-    batch's step."""
+    batch's step; where the parameters are cut over the ranks
+    (``sharding.fsdp_ctx``) ``params`` and ``opt_state`` hold this rank's
+    pieces, the update runs on them, and the clip's norm is the whole
+    tree's (``ctx.norm_combine``)."""
     loss_fn = make_loss_fn(cfg, ctx, aux_weight, unroll=unroll)
+    combine = ctx.norm_combine()
+    kw = {} if combine is None else {"combine": combine}
 
     def train_step(params: Params, opt_state, batch: Dict[str, torch.Tensor]):
         grads, loss, metrics = value_and_grad(loss_fn, params, batch)
         grads = ctx.sum_grads(grads)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        params, opt_state = optimizer.update(grads, opt_state, params, **kw)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step

@@ -50,18 +50,24 @@ def _slices(*tensors: torch.Tensor) -> Iterator[tuple]:
         yield tuple(t[r0:r0 + rows] for t in tensors)
 
 
-def global_norm(grads: Any) -> torch.Tensor:
+def global_norm(grads: Any, combine: Optional[Callable] = None
+                ) -> torch.Tensor:
     """sqrt(Σ over leaves of Σ g²) in f32, a 0-d tensor on the gradients'
     device, with no f32 copy of a whole leaf (the reference sums leaf by
     leaf in a Python ``sum``; torch reduces each leaf in its own order, so
-    the last bits may differ)."""
-    total = None
-    for _, g in leaves_with_paths(grads):
+    the last bits may differ).  ``combine``: the norm from the squared
+    sums ``[(path, Σ g² over a slice of that leaf), ...]`` instead, where
+    the leaves are cut over ranks (``sharding.RankShards.combine_norm``)."""
+    total, sums = None, []
+    for path, g in leaves_with_paths(grads):
         for (part,) in _slices(g):
             x = part.to(torch.float32)
             s = torch.sum(x * x)
-            total = s if total is None else total + s
-    return torch.sqrt(total)
+            if combine is None:
+                total = s if total is None else total + s
+            else:
+                sums.append((path, s))
+    return torch.sqrt(total) if combine is None else combine(sums)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,17 +90,20 @@ class AdamW:
         return {"mu": map_tree(zeros, params), "nu": map_tree(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params,
+               combine: Optional[Callable] = None):
         """Returns (new_params, new_state).  ``grads`` (scaled for the clip)
         and the state's moments are updated in place; ``params`` is left
-        as it is."""
+        as it is.  ``combine``: the clip's norm over ranks that hold
+        pieces of the leaves (``global_norm``); the update itself is
+        elementwise, so it runs on the pieces as they are."""
         with torch.no_grad():
-            return self._update(grads, state, params)
+            return self._update(grads, state, params, combine)
 
-    def _update(self, grads, state, params):
+    def _update(self, grads, state, params, combine):
         step = state["step"] + 1
         if self.grad_clip > 0:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, combine)
             scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-9),
                                 max=1.0)
             for _, g in leaves_with_paths(grads):

@@ -81,6 +81,25 @@ class CollectiveStats:
         return sum(self.bytes_by_kind.values())
 
     @property
+    def fsdp_all_gather_bytes(self) -> int:
+        """The bytes of the parameters' all-gathers over ``data``, the
+        entries ``all-gather over data ...: <path> (fsdp)``, which a step
+        over ranks with its parameters cut measures
+        (``sharding.RankShards.gather_bytes``)."""
+        return sum(b for name, b in self.ops.items()
+                   if name.startswith("all-gather ")
+                   and name.endswith(" (fsdp)"))
+
+    @property
+    def fsdp_reduce_scatter_bytes(self) -> int:
+        """The bytes of the cut gradients' reduce-scatters, the entries
+        ``reduce-scatter over data ...: <path> gradient (fsdp)``
+        (``sharding.RankShards.scatter_bytes``)."""
+        return sum(b for name, b in self.ops.items()
+                   if name.startswith("reduce-scatter ")
+                   and name.endswith(" gradient (fsdp)"))
+
+    @property
     def gradient_all_reduce_bytes(self) -> int:
         """The bytes of the data-parallel gradient all-reduces, the
         entries ``all-reduce over ...: <path> gradient`` (2 × the bytes a
@@ -227,10 +246,11 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
     * ``fsdp`` (a parameter cut over ``data``): the parameter is
       all-gathered over ``data`` (result: its piece times |data|) once a
       pass of inference and twice in training (forward and backward; the
-      recompute reuses the backward's), and its gradient is
-      reduce-scattered over ``data`` (result: the piece) and all-reduced
-      over ``pod`` where the mesh has one, in place of the data-parallel
-      all-reduce;
+      recompute reuses the backward's), but once for an embedding table
+      that only the lookup reads (untied), whose backward needs no
+      values; its gradient is reduce-scattered over ``data`` (result:
+      the piece) and all-reduced over ``pod`` where the mesh has one, in
+      place of the data-parallel all-reduce;
     * MoE: where the experts' leading axis is cut over an axis, each pass
       moves a device's share of the dispatch buffer, (experts × groups ×
       capacity × d_model) in the activations' type over the data-parallel
@@ -323,8 +343,9 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
         local = local_numel(leaf.shape, pspec, mesh) * itemsize
         cut_data = any("data" in _axes(e) for e in pspec)
         if cut_data:
+            lookup_only = path == "embed/tok" and not cfg.tie_embeddings
             tally.add("all-gather", ("data",), local * mesh.shape["data"],
-                      f"{path} (fsdp)", 2 if train else 1)
+                      f"{path} (fsdp)", 1 if lookup_only or not train else 2)
         if not train:
             continue
         if cut_data:

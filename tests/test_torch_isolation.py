@@ -209,7 +209,7 @@ TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.compression",
                  "repro_torch.data.pipeline", "repro_torch.checkpoint",
                  "repro_torch.checkpoint.checkpoint",
                  "repro_torch.launch.train", "repro_torch.models.transformer",
-                 "repro_torch.convert")
+                 "repro_torch.models.sharding", "repro_torch.convert")
 
 
 def test_train_modules_import_without_jax_or_the_reference():
@@ -534,3 +534,43 @@ def test_the_server_runners_and_their_children_import_no_jax_or_reference(
     argvs = [(marks / name).read_text() for name in os.listdir(marks)]
     assert any("multiprocessing.forkserver" in a for a in argvs), argvs
     assert any(a.endswith(script) for a in argvs), argvs
+
+
+def test_fsdp_ranks_run_without_jax_or_the_reference(tmp_path):
+    """``launch/train.py --ranks 2 --fsdp`` (the cut, its gathers and
+    reduce-scatters, the clip's norm over the ranks, the checkpoint
+    gathered leaf by leaf and restored as blocks) runs where jax and repro
+    cannot load: the parent and both ranks, forked from a forkserver under
+    the same blocker."""
+    site, marks = tmp_path / "site", tmp_path / "marks"
+    site.mkdir()
+    marks.mkdir()
+    (site / "sitecustomize.py").write_text(_SITE_BLOCK)
+    ck = str(tmp_path / "ck")
+    script = textwrap.dedent(f"""
+        import dataclasses, sys
+        from repro_torch.launch import train
+        cfg = dataclasses.asdict(dataclasses.replace(
+            train.PRESETS["tiny"], vocab_size=16384))
+        argv = ["--device", "cpu", "--batch", "4", "--seq", "16",
+                "--ranks", "2", "--fsdp", "--ckpt-dir", {ck!r}]
+        res, _ = train.over_ranks(argv + ["--steps", "2"], cfg=cfg)
+        assert res.returncode == 0, res.failed
+        res, out = train.over_ranks(argv + ["--steps", "3", "--resume"],
+                                    cfg=cfg)
+        assert res.returncode == 0, res.failed
+        assert "resumed from step 2" in out
+        assert all(d["gathers"] > 0 and d["scatters"] > 0
+                   for d in res.docs)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, OMP_NUM_THREADS="1", BLOCK_MARKS=str(marks),
+               PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),
+                                           str(site)]))
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    argvs = [(marks / name).read_text() for name in os.listdir(marks)]
+    assert any("multiprocessing.forkserver" in a for a in argvs), argvs

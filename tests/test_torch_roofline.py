@@ -172,13 +172,17 @@ def test_dense_variants_by_hand():
 
 def test_dense_fsdp_by_hand():
     # vocab 32768 x d 32 = 2^20 elements: the embedding and the head are
-    # cut over data too (their other dimension), nothing else is
+    # cut over data too (their other dimension), nothing else is; in
+    # training the head is gathered twice and the table once (only the
+    # lookup reads it, and its backward needs no values)
     cfg = _dense(vocab_size=32768)
     big = 16384 * 16 * 2                          # each one's piece
     rest = DENSE_LOCAL - 4096 - 4096              # the other 10 leaves
     st = _stats(cfg, TRAIN, MESH_2x2, fsdp=True)
-    assert st.bytes_by_kind["all-gather"] == 2 * 2 * big * 2
-    assert st.count_by_kind["all-gather"] == 4
+    assert st.bytes_by_kind["all-gather"] == (1 + 2) * big * 2
+    assert st.count_by_kind["all-gather"] == 3
+    assert st.fsdp_all_gather_bytes == st.bytes_by_kind["all-gather"]
+    assert st.fsdp_reduce_scatter_bytes == 2 * big
     assert st.bytes_by_kind["reduce-scatter"] == 2 * big
     assert st.bytes_by_kind["all-reduce"] == 12 * UNIT_AR + 2 * rest
     assert st.count_by_kind["all-reduce"] == 12 + 10

@@ -1,5 +1,6 @@
 """Rank bodies for the tests of training's data axis over ranks
-(``launch/ranks.py``, ``launch/train.py --ranks``).
+(``launch/ranks.py``, ``launch/train.py --ranks``, with ``--fsdp`` the
+parameters cut over the ranks too).
 
 ``steps`` runs in a rank, a child process forked from the port's
 forkserver, as ``target(group, **kwargs)``, and in the test's own process
@@ -36,9 +37,9 @@ class Recording:
     def init(self, params):
         return self.opt.init(params)
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, **kw):
         self.grads = map_tree(torch.clone, grads)
-        return self.opt.update(grads, state, params)
+        return self.opt.update(grads, state, params, **kw)
 
 
 def _npz(path: str) -> dict:
@@ -48,18 +49,19 @@ def _npz(path: str) -> dict:
 
 def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
           n_steps: int, hosts: int, out: str, seed: int = 0,
-          compress: bool = False) -> dict:
+          compress: bool = False, fsdp: bool = False) -> dict:
     """``n_steps`` of the launcher's AdamW step (``train.make_full_step``)
     from the parameters in ``leaves``, over ``hosts`` hosts' batches of
     the synthetic stream: as rank r of ``group`` (its host's slice, the
-    step in ``sharding.data_parallel_ctx``), or in this process on the
-    hosts' concatenated batches (``group`` None).  Writes the new
-    parameters (``p/<path>``), each step's gradients as the optimizer got
-    them (``g<i>/<path>``: summed over the ranks, and compressed with
-    ``compress``) and the error state (``e/<path>``) to
-    ``<out>_<rank>.npz`` (``<out>_one.npz`` in one process);
-    returns each step's loss, ce and aux, the state's digest and the
-    all-reduces' counts."""
+    step in ``sharding.data_parallel_ctx``, or with ``fsdp`` in
+    ``sharding.fsdp_ctx`` from its blocks of the cut leaves), or in this
+    process on the hosts' concatenated batches (``group`` None).  Writes
+    the new parameters (``p/<path>``), each step's gradients as the
+    optimizer got them (``g<i>/<path>``: summed over the ranks, and
+    compressed with ``compress``; a cut leaf's block) and the error state
+    (``e/<path>``) to ``<out>_<rank>.npz`` (``<out>_one.npz`` in one
+    process); returns each step's loss, ce and aux, the state's digest
+    (with ``fsdp`` of the whole leaves) and the collectives' counts."""
     pcfg = config_from_dict(cfg)
     params = T.params_from_leaves(pcfg, _npz(leaves), device="cpu")
     if group is None:
@@ -68,9 +70,13 @@ def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
                    for h in range(hosts)]
     else:
         assert group.world == hosts
-        ctx = S.data_parallel_ctx(group.mesh((group.world, 1)))
+        mesh = group.mesh((group.world, 1))
+        ctx = (S.fsdp_ctx(mesh, pcfg) if fsdp
+               else S.data_parallel_ctx(mesh))
         sources = [train.host_data(pcfg, seq, batch, seed, hosts,
                                    group.rank)]
+        if fsdp:
+            params = ctx.ranks.shard(params)
     opt = Recording(AdamW(lr=LR, weight_decay=WD))
     state = opt.init(params)
     err = init_error_state(params) if compress else None
@@ -92,11 +98,19 @@ def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
             arrays[f"e/{path}"] = e.numpy()
     np.savez(f"{out}_{'one' if group is None else group.rank}.npz",
              **arrays)
-    doc["digest"] = train.state_digest(params, err)
-    if ctx.ranks is not None:
-        doc.update(gradient_bytes=ctx.ranks.gradient_bytes,
-                   gradient_all_reduces=ctx.ranks.gradient_all_reduces,
-                   loss_bytes=ctx.ranks.loss_bytes)
+    r = ctx.ranks
+    doc["digest"] = train.state_digest(r.whole_leaves(params) if fsdp
+                                       else params, err)
+    if r is not None:
+        doc.update(gradient_bytes=r.gradient_bytes,
+                   gradient_all_reduces=r.gradient_all_reduces,
+                   loss_bytes=r.loss_bytes)
+    if fsdp:
+        doc.update(gather_bytes=r.gather_bytes, gathers=r.gathers,
+                   scatter_bytes=r.scatter_bytes, scatters=r.scatters,
+                   gnorms=[float(g) for g in r.gnorms], cuts=r.cuts,
+                   moment_shapes={path: list(m.shape) for path, m in
+                                  leaves_with_paths(state["mu"])})
     return doc
 
 
