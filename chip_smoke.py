@@ -302,7 +302,22 @@ so the script exits non-zero and prints no result line:
            reckoned without fsdp, and 24-layer danube's reckoned peak on
            (2, 1) with and without fsdp printed.  ``python3 chip_smoke.py
            --fsdp-probe`` runs only this leg, at danube's published 24
-           layers for 2 steps, without the one-process run;
+           layers for 2 steps, without the one-process run; (t10) the
+           parameters cut over the model axis across the ranks instead
+           (launch/train.py --ranks 2 --model-ranks 2, Megatron tensor
+           parallelism): (t9)'s danube, batch, steps and lr over 2 gloo
+           ranks sharing the card on the (1, 2) mesh (kv heads 8 -> 4 a
+           rank; its one data rank draws one host's batch), held
+           against the launcher's one-process run: each loss within
+           2e-2, the ranks' blocks, put together, within 2e-2 normwise a
+           leaf, the whole leaves and the clip norms the same bits on both
+           ranks, the bytes a rank hands its block all-reduces a step x 2
+           and their number equal to the dry-run's "over model" entries on
+           (1, 2), each rank's peak within 15 % of the reckoned
+           per-device peak on (1, 2), no kernel launched in a rank; ms a
+           step, the block all-reduces' seconds and share and the
+           vocabulary cut's collectives apart (which the dry-run does not
+           count) printed;
 15e. dryrun  launch/dryrun.py's reckoning held against real steps, no
            kernel launched: (d1) (t3)'s danube step and (d2) (a)'s
            qwen2-72b decode step at t = 300, each reckoned on meta tensors
@@ -3119,6 +3134,11 @@ TRAIN_FSDP_PROBE_STEPS = 2
 #: parameters, normwise a leaf, relative (bf16's tolerance on losses and
 #: logits, ROADMAP C)
 TRAIN_FSDP_PARAM_TOL = 2e-2
+#: (t10): (t9)'s danube, depth, batch, steps and lr over TRAIN_TP_RANKS
+#: gloo ranks on the (1, TRAIN_TP_RANKS) mesh, the parameters cut over
+#: the model axis (--model-ranks), held to (t9)'s gates against the
+#: launcher's one-process run
+TRAIN_TP_RANKS = TRAIN_RANKS
 
 
 def _launch_train(argv, env, timeout=600):
@@ -3145,15 +3165,16 @@ def _sync_ms(dev, fn, iters: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def phase_train(dev: torch.device) -> dict:
+def phase_train(dev: torch.device) -> tuple:
     """Training on the card through src/repro_torch/launch/train.py: (t1)
     lm-100m, (t2) crash and restart, (t3) danube at published width and
     depth, (t4) card == CPU in f32, (t5) throughput of the step, its line
-    search and subspace Newton, (t6) int8 gradient compression, (t7) and
-    (t8) the data axis over ranks (``_train_over_ranks``).  No kernel
+    search and subspace Newton, (t6) int8 gradient compression, (t7)-(t10)
+    over ranks (``_train_over_ranks``).  No kernel
     runs (training is ``use_kernels=False``, as the reference's launcher);
     a backward through a kernel route is refused.  Returns (t3)'s counted
-    step for ``phase_dryrun``."""
+    step for ``phase_dryrun`` and the kernels' launches in (t10)'s
+    ranks."""
     _zero_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3427,7 +3448,7 @@ def phase_train(dev: torch.device) -> dict:
     del params, state, err, grads
     _free()
 
-    _train_over_ranks(dev)
+    tp_launches = _train_over_ranks(dev)
 
     # no kernel ran; a backward through a kernel route is refused
     counts = _counts()
@@ -3440,15 +3461,15 @@ def phase_train(dev: torch.device) -> dict:
         cfg, dev)
     refused = _refuses(lambda: transformer.make_train_step(cfg, opt)(
         params, opt.init(params), batch), RuntimeError)
-    print(f"[train] launches across (t1)-(t9): {counts}; a train step of "
+    print(f"[train] launches across (t1)-(t10): {counts}; a train step of "
           f"{cfg.name} with use_kernels=True on the card refused: {refused}")
     check(not any(counts.values()), "a kernel launched on the training path")
     check(refused and not any(_counts().values()),
           "a backward through the kernel route was not refused")
-    return d1
+    return d1, tp_launches
 
 
-def _train_over_ranks(dev: torch.device) -> None:
+def _train_over_ranks(dev: torch.device) -> dict:
     """Training's data axis over ranks through ``launch/train.py``
     (``over_ranks``, ``launch/ranks.py``): (t7) lm-100m over 2 gloo ranks
     sharing the card against the one-process step on the hosts'
@@ -3457,7 +3478,9 @@ def _train_over_ranks(dev: torch.device) -> None:
     to the dry-run's data-parallel gradient entries on the (2, 1) mesh,
     each rank's peak memory against the reckoned per-device peak, ms a
     step and the all-reduce's share; (t8) the tiny preset over a one-rank
-    NCCL group == this process's run bit for bit."""
+    NCCL group == this process's run bit for bit; (t9) and (t10)
+    (``_train_fsdp``, ``_train_tp``).  Returns the kernels' launches in
+    (t10)'s ranks."""
     t0 = time.perf_counter()
     _free()
     w = TRAIN_RANKS
@@ -3544,15 +3567,18 @@ def _train_over_ranks(dev: torch.device) -> None:
     check(same, "(t8) the one-rank NCCL run differs from one process")
 
     _train_fsdp(dev, TRAIN_FSDP_LAYERS)
+    return _train_tp(dev, TRAIN_FSDP_LAYERS)
 
 
-def _reckon_fsdp(cfg, w: int, fsdp: bool) -> dict:
+def _reckon_fsdp(cfg, w: int, fsdp: bool, model: int = 1) -> dict:
     """``dryrun.reckon`` of (t9)'s step of ``cfg`` on meta over the (w, 1)
-    mesh, with the launcher's AdamW."""
+    mesh, or the (1, ``model``) mesh, with the launcher's AdamW."""
+    shape = (1, model) if model > 1 else (w, 1)
     return dryrun.reckon(
         cfg, ShapeConfig("t9", TRAIN_DANUBE["seq"], TRAIN_DANUBE["batch"],
                          "train"),
-        Mesh((w, 1), ("data", "model"), virtual_devices(w, dryrun.META)),
+        Mesh(shape, ("data", "model"),
+             virtual_devices(math.prod(shape), dryrun.META)),
         optimizer=AdamW(lr=TRAIN_DANUBE["lr"], weight_decay=0.01),
         fsdp=fsdp)
 
@@ -3561,7 +3587,8 @@ def _blocks_against_one(paths: list, cuts: dict, one: dict) -> tuple:
     """The worst normwise relative gap, over the leaves, between the ranks'
     final blocks (``paths``: each rank's ``torch.save`` file), put together
     along each cut dimension (``cuts``), and ``one`` (the one-process
-    parameters, by path), on the card; and the leaves compared."""
+    parameters, by path, on the host), on the card; and the leaves
+    compared."""
     ranked = [torch.load(p) for p in paths]
     worst = 0.0
     for path, want in one.items():
@@ -3699,6 +3726,114 @@ def _train_fsdp(dev: torch.device, n_layers: int, probe: bool = False
           "from the dry-run's")
     check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t9) a rank's peak is "
           f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
+
+
+def _train_tp(dev: torch.device, n_layers: int) -> dict:
+    """(t10): ``launch/train.py --ranks 2 --model-ranks 2`` on (t9)'s
+    danube over 2 gloo ranks sharing the card, the (1, 2) mesh, against
+    the launcher's one-process run of the same steps (the phase
+    docstring's gates).  Its one data rank draws one host's batch, not
+    (t9)'s two hosts' slices, so it takes a one-process run of its own.
+    Returns the kernels' launches in the ranks, by counter."""
+    t0 = time.perf_counter()
+    _free()
+    m = TRAIN_TP_RANKS
+    steps = TRAIN_DANUBE["steps"]
+    cfg = cut_depth(get_config("h2o-danube-3-4b"), n_layers)
+    argv = ["--batch", str(TRAIN_DANUBE["batch"]), "--seq",
+            str(TRAIN_DANUBE["seq"]), "--steps", str(steps), "--lr",
+            str(TRAIN_DANUBE["lr"]), "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        blocks = os.path.join(tmp, "rank{rank}.pt")
+        res, _ = train.over_ranks(
+            argv + ["--ranks", str(m), "--model-ranks", str(m),
+                    "--dist-backend", "gloo"],
+            measure=True, cfg=dataclasses.asdict(cfg), params_out=blocks)
+        check(res.returncode == 0, f"(t10) the run over ranks failed: "
+              f"{res.failed}")
+        t1 = time.perf_counter()
+        docs = res.docs
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = train.run(argv, cfg=dataclasses.asdict(cfg),
+                            params_out=os.path.join(tmp, "one.pt"))
+        t11 = time.perf_counter()
+        gap, n_leaves = _blocks_against_one(
+            [blocks.format(rank=r) for r in range(m)], docs[0]["cuts"],
+            torch.load(os.path.join(tmp, "one.pt")))
+    t2 = time.perf_counter()
+    report = _reckon_fsdp(cfg, 1, False, model=m)
+    whole_peak = _reckon_fsdp(cfg, 1, False)["memory_analysis"][
+        "peak_size_bytes"]
+    t3 = time.perf_counter()
+    errs = [abs(a - b) / abs(b) for a, b in zip(docs[0]["losses"],
+                                                 one["losses"])]
+    reckoned = report["model_all_reduce_bytes"]
+    calls = report["model_all_reduces"]
+    bytes_ok = all(2 * d["model_bytes"]["block"] == steps * reckoned
+                   and d["model_calls"]["block"] == steps * calls
+                   and reckoned > 0 for d in docs)
+    same = all(d["digests"] == docs[0]["digests"] for d in docs) \
+        and len(docs[0]["digests"]) == steps
+    same_gnorm = all(d["gnorms"] == docs[0]["gnorms"] for d in docs)
+    peak = report["memory_analysis"]["peak_size_bytes"]
+    mem_errs = [abs(d["peak_bytes"] - peak) / peak for d in docs]
+    launches = {name: sum(d["kernel_launches"][name] for d in docs)
+                for name in LAUNCH_COUNTERS}
+    d0 = docs[0]
+    step_ms = [round(1e3 * x, 1) for x in d0["step_s"]]
+    block_s = [round(x["block"], 3) for x in d0["model_s"]]
+    block_share = [round(x["block"] / s, 3)
+                   for x, s in zip(d0["model_s"], d0["step_s"])]
+    vocab_s = [round(x["vocab"], 3) for x in d0["model_s"]]
+    print(f"[train] (t10) {cfg.name} at published widths, {n_layers} "
+          f"layers, over {m} gloo ranks sharing {dev} with its parameters "
+          f"cut over the model axis across them (launch/train.py --ranks "
+          f"{m} --model-ranks {m}, the (1, {m}) mesh; heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} -> {cfg.n_heads // m}/"
+          f"{cfg.n_kv_heads // m} a rank), global batch "
+          f"{TRAIN_DANUBE['batch']} x {TRAIN_DANUBE['seq']}, {steps} steps "
+          f"at lr {TRAIN_DANUBE['lr']}: losses "
+          f"{[round(x, 5) for x in d0['losses']]} against one process "
+          f"{[round(x, 5) for x in one['losses']]} (worst "
+          f"{max(errs):.2e} rel, gate {TRAIN_RANKS_LOSS_TOL}); the ranks' "
+          f"blocks put together against its parameters, worst leaf "
+          f"{gap:.2e} normwise over {n_leaves} leaves (gate "
+          f"{TRAIN_FSDP_PARAM_TOL}); the whole leaves the same bits on "
+          f"every rank after every step: {same}; clip norms "
+          f"{[round(g, 4) for g in d0['gnorms']]}, the same on every rank: "
+          f"{same_gnorm}; a step a rank: block all-reduces "
+          f"{d0['model_bytes']['block'] // steps} B in "
+          f"{d0['model_calls']['block'] // steps} calls, x 2 against the "
+          f"dry-run's over-model entries on (1, {m}) {reckoned} B in "
+          f"{calls}: equal {bytes_ok}; the vocabulary cut's collectives "
+          f"(lookup, the head's input, each chunk's max and sums; not in "
+          f"the dry-run) {d0['model_bytes']['vocab'] // steps} B in "
+          f"{d0['model_calls']['vocab'] // steps} calls; ms a step "
+          f"(synchronized) {step_ms}, the block all-reduces' s {block_s} "
+          f"(share {block_share}), the vocabulary cut's s {vocab_s}; peak "
+          f"{[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a rank "
+          f"against the reckoned per-device peak on (1, {m}) "
+          f"{peak / 2**30:.3f} GiB "
+          f"({', '.join(f'{100 * e:.2f} %' for e in mem_errs)}) and "
+          f"{whole_peak / 2**30:.3f} GiB on (1, 1); kernel launches in the "
+          f"ranks {launches}; ranks {res.wall_s:.1f} s with their starts "
+          f"(each rank's run {[round(d['run_s'], 1) for d in docs]} s, its "
+          f"set-up {[round(d['setup_s'], 1) for d in docs]} s), the "
+          f"one-process run {t11 - t1:.1f} s, the blocks' comparison "
+          f"{t2 - t11:.1f} s, the two reckonings {t3 - t2:.1f} s; "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(max(errs) <= TRAIN_RANKS_LOSS_TOL, f"(t10) a loss over ranks is "
+          f"{max(errs):.2e} from the one-process step's")
+    check(gap <= TRAIN_FSDP_PARAM_TOL, f"(t10) the ranks' blocks lie "
+          f"{gap:.2e} from the one-process parameters")
+    check(same and same_gnorm, "(t10) the ranks' whole leaves or clip "
+          "norms differ")
+    check(bytes_ok, "(t10) the block all-reduce bytes differ from the "
+          "dry-run's over-model entries")
+    check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t10) a rank's peak is "
+          f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
+    check(not any(launches.values()), "(t10) a kernel launched in a rank")
+    return launches
 
 
 def _counted_step(dev: torch.device, fn) -> dict:
@@ -3850,7 +3985,7 @@ def main() -> None:
     serve_launches, d2 = timed("serve", phase_serve, dev)
     serve_moe_launches = timed("serve moe", phase_serve_moe, dev)
     serve_hybrid_launches = timed("serve hybrid", phase_serve_hybrid, dev)
-    d1 = timed("train", phase_train, dev)
+    d1, train_tp = timed("train", phase_train, dev)
     timed("dryrun", phase_dryrun, dev, d1, d2)
     child.stop()                    # no process left behind
     print(f"[done] {time.perf_counter() - t0:.1f}s")
@@ -3860,7 +3995,8 @@ def main() -> None:
          "source": "src/repro_torch/kernels/csrc/gram.cu",
          "replaces": "src/repro/kernels/gram.py:44",
          "launches": launches,
-         "ranks_launches": pod_ranks.get("gram_launches", 0), **gram},
+         "ranks_launches": pod_ranks.get("gram_launches", 0),
+         "train_tp_launches": train_tp["gram_launches"], **gram},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:81",
@@ -3868,13 +4004,16 @@ def main() -> None:
          "serve_launches": serve_launches["flash_attention"],
          "serve_moe_launches": serve_moe_launches,
          "serve_hybrid_launches": serve_hybrid_launches,
-         "subspace_launches": flash_subspace, **flash},
+         "subspace_launches": flash_subspace,
+         "train_tp_launches": train_tp["flash_attention_launches"],
+         **flash},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/wkv6.py:50",
          "launches": wkv6_launches, "ranks_launches": wkv6_ranks,
          "serve_launches": serve_launches["wkv6"],
-         "subspace_launches": wkv6_subspace, **wkv6},
+         "subspace_launches": wkv6_subspace,
+         "train_tp_launches": train_tp["wkv6_launches"], **wkv6},
         {"name": "row_mean", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/row_mean.cu",
          "replaces": "src/repro/data/sdss.py:79 (jnp.mean, :79, :80, :85; "
@@ -3883,7 +4022,9 @@ def main() -> None:
          "ranks_launches": pod_ranks.get("row_mean_launches", 0),
          "baselines_launches": baselines_launches,
          "server_children_launches": children,
-         "examples_launches": examples_launches, **row_mean}]}))
+         "examples_launches": examples_launches,
+         "train_tp_launches": train_tp["row_mean_launches"],
+         **row_mean}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,15 +21,16 @@ Restoring onto a mesh: ``shardings`` (a tree of the port's
 (a ``sharding.Sharded``, as ``sharding.to_named`` makes), where the
 reference ``device_put``s it onto a ``NamedSharding``.  The
 reference restarts a 256-chip checkpoint on 512 chips that way; the port's
-meshes lie on one device, and placement over distinct GPUs waits for the
-multi-GPU mesh (ROADMAP A.8).
+one-process meshes lie on one device, and across devices a mesh spans
+ranks, each restoring its own blocks (below).
 
 Over the ranks of a process group (training's data axis,
 ``launch/train.py --ranks``) every rank holds the same state: ``save``
 with the mesh writes once, from rank 0, behind a barrier, and every rank
 restores from the same files.  Where the ranks hold pieces of the leaves
-(``--fsdp``: ``shardings`` cut leaves over ``data``), ``save`` gathers
-each cut leaf in turn and rank 0 writes the whole tree in the same
+(``--fsdp``: ``shardings`` cut leaves over ``data``; ``--model-ranks``:
+over ``model``), ``save`` gathers each cut leaf in turn over the ranks
+that hold its blocks and rank 0 writes the whole tree in the same
 format, and ``restore`` with ``shardings`` / ``mesh`` keeps each rank's
 block.
 """
@@ -47,7 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.tree import leaves_with_paths
-from repro_torch.models.sharding import (Sharded, data_dim, gather_blocks,
+from repro_torch.models.sharding import (Sharded, gather_blocks, rank_cut,
                                          spec_leaves)
 
 #: types npz cannot hold, stored as their bits: (the stored numpy type,
@@ -92,15 +93,17 @@ def _decode(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 def _host_over_ranks(tree, shardings, mesh) -> Optional[Dict]:
     """Rank 0's host arrays of ``tree`` over the ranks of ``mesh``: each
-    leaf that ``shardings`` cuts over ``data`` all-gathered in turn (every
-    rank takes part), so no more than one whole leaf stands on a device
-    at a time; None on the other ranks."""
+    leaf that ``shardings`` cuts over ranks all-gathered in turn over the
+    ranks that hold its blocks (``sharding.rank_cut``; every group of them
+    takes part), so no more than one whole leaf stands on a device at a
+    time; None on the other ranks."""
     specs = dict(spec_leaves(shardings)) if shardings is not None else {}
     host = {}
     for key, x in leaves_with_paths(tree):
-        dim = data_dim(specs[key]) if key in specs else None
-        if dim is not None:
-            x = gather_blocks(x, dim, mesh.world)
+        cut = rank_cut(specs[key], mesh) if key in specs else None
+        if cut is not None:
+            dim, group, n = cut
+            x = gather_blocks(x, dim, n, group)
         if mesh.rank == 0:
             host[key] = _encode(x)
     return host if mesh.rank == 0 else None
@@ -117,9 +120,10 @@ def save(ckpt_dir: str, step: int, tree, extras: Optional[Dict] = None,
     spans ranks (``Mesh.over_ranks``) rank 0 writes the whole tree and
     every rank waits for it at a barrier of the default process group,
     so the save is synchronous there; the leaves that ``shardings`` (a
-    tree of ``PartitionSpec`` shaped like ``tree``) cuts over ``data``
-    are each rank's block, gathered leaf by leaf (every rank calls
-    ``save``), the others the same on every rank."""
+    tree of ``PartitionSpec`` shaped like ``tree``) cuts over ranks
+    (``data``, or ``model`` where the model axis spans them) are each
+    rank's block, gathered leaf by leaf (every rank calls ``save``), the
+    others the same on every rank."""
     if mesh is not None and mesh.spans_ranks:
         if async_save:
             raise ValueError("a save over ranks ends at a barrier: it "
@@ -205,7 +209,8 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
     shaped like the template, with ``mesh``: each leaf is placed onto the
     mesh along its spec (a ``sharding.Sharded``); on a mesh over ranks
     each leaf is this rank's block, a tensor, and the template holds the
-    blocks (``launch/train.py --fsdp``).  Returns (tree, step, extras)."""
+    blocks (``launch/train.py --fsdp`` / ``--model-ranks``).  Returns
+    (tree, step, extras)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:

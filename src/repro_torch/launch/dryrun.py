@@ -171,6 +171,14 @@ COUNTED_BY = {
     "fsdp_reduce_scatter_bytes": "its reduce-scatter entries of the cut "
                                  "leaves' gradients: each piece once "
                                  "(sharding.RankShards.scatter_bytes)",
+    "model_all_reduce_bytes": "its all-reduce entries over model of the "
+                              "cut units' outputs: 2 x the device's "
+                              "tokens x d_model in f32 (the parameters' "
+                              "type pinned) a pass; a step over the model "
+                              "axis's ranks hands half of it to its f and "
+                              "g all-reduces (sharding.ModelShards."
+                              "model_bytes['block'])",
+    "model_all_reduces": "the number of those all-reduces a step",
     "compile_s": "wall of the meta trace",
     "lower_s": "wall of building the stand-ins and specs",
 }
@@ -714,6 +722,8 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         "gradient_all_reduce_bytes": coll.gradient_all_reduce_bytes,
         "fsdp_all_gather_bytes": coll.fsdp_all_gather_bytes,
         "fsdp_reduce_scatter_bytes": coll.fsdp_reduce_scatter_bytes,
+        "model_all_reduce_bytes": coll.model_all_reduce_bytes,
+        "model_all_reduces": coll.model_all_reduces,
         "model_flops": mf,
         "useful_flops_ratio": (mf / (flops * n_chips)) if flops else None,
         "peaks": {"flops": H100.flops, "hbm_bw": H100.hbm_bw,

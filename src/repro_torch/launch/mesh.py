@@ -17,7 +17,11 @@ arrays on all of them.  A port ``Mesh`` is named axes over an array of
   rank's positions and gathers the rest, and training on a (W, 1) such
   mesh (``launch/train.py --ranks W``) takes its host's rows of the
   batch and sums the loss's reductions and the gradients over the ranks
-  (``models/sharding.py::RankSum``, in the step's ``ShardCtx``).
+  (``models/sharding.py::RankSum``, in the step's ``ShardCtx``).  With
+  ``model_ranks`` M the ``model`` axis is cut over the ranks as well:
+  the W ranks form a (W/M, M) grid, rank r holding data block r // M and
+  model block r % M, so that a model group is M adjacent ranks
+  (``launch/train.py --ranks W --model-ranks M``).
 
 Single pod: (data=16, model=16) = 256 devices.  Multi-pod: (pod=2,
 data=16, model=16) = 512, the "pod" axis an outer data-parallel axis.
@@ -35,15 +39,20 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 #: the axis a mesh over ranks cuts over them
 DATA_AXIS = "data"
-#: where the model axis across distinct devices waits for its port
-MULTI_DEVICE_ITEM = "ROADMAP A.8 (iii), the model axis over distinct cards"
+#: the axis a mesh over ranks cuts over them too where ``model_ranks`` > 1
+MODEL_AXIS = "model"
+#: what still waits where an evaluation backend meets a mesh over
+#: distinct devices (``Mesh.require_one_device``): training cuts the model
+#: axis over ranks (``over_ranks(model_ranks=)``), the backends do not yet
+MULTI_DEVICE_ITEM = ("ROADMAP A.8 (ix), the evaluation backends' model "
+                     "axis over ranks")
 
 
 def canonical_device(device) -> torch.device:
@@ -64,11 +73,18 @@ class Mesh:
     over ranks (``over_ranks``, the ranks of the default process group)
     ``rank_devices`` is each rank's device in rank order, ``rank`` this
     process's and ``devices`` at every position its owner's device; on a
-    one-process mesh ``rank_devices`` is None.
+    one-process mesh ``rank_devices`` is None.  ``model_ranks`` is the
+    number of ranks the model axis is cut over (1: none);
+    ``data_group`` / ``model_group`` are this rank's subgroups along the
+    two axes (``launch/ranks.py::RankGroup.mesh`` makes them where
+    ``model_ranks`` > 1; None: the default process group).
     """
 
     rank_devices: Optional[Tuple[torch.device, ...]] = None
     rank = 0
+    model_ranks = 1
+    data_group: Any = None
+    model_group: Any = None
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
                  devices: Sequence):
@@ -86,28 +102,49 @@ class Mesh:
 
     @classmethod
     def over_ranks(cls, shape: Sequence[int], axis_names: Sequence[str], *,
-                   rank: int, rank_devices: Sequence) -> "Mesh":
-        """The mesh ``shape`` whose ``data`` axis is cut into
-        ``len(rank_devices)`` contiguous blocks, block r held by rank r of
-        the default process group on ``rank_devices[r]``; this process is
-        ``rank``."""
+                   rank: int, rank_devices: Sequence,
+                   model_ranks: int = 1) -> "Mesh":
+        """The mesh ``shape`` over the ranks of the default process group,
+        rank r on ``rank_devices[r]``; this process is ``rank``.  The
+        ``len(rank_devices)`` = W ranks form a (W / ``model_ranks``,
+        ``model_ranks``) grid: the ``data`` axis is cut into W /
+        ``model_ranks`` contiguous blocks and the ``model`` axis into
+        ``model_ranks``, and rank r holds data block r // ``model_ranks``
+        and model block r % ``model_ranks`` (the whole model axis where
+        ``model_ranks`` is 1)."""
         shape = tuple(int(s) for s in shape)
         world = len(rank_devices)
         if DATA_AXIS not in axis_names:
             raise ValueError(f"mesh axes {tuple(axis_names)} have no "
                              f"{DATA_AXIS!r} axis to spread over ranks")
+        if model_ranks < 1 or world % model_ranks:
+            raise ValueError(f"{world} ranks do not divide into model "
+                             f"groups of {model_ranks}")
+        if model_ranks > 1 and MODEL_AXIS not in axis_names:
+            raise ValueError(f"mesh axes {tuple(axis_names)} have no "
+                             f"{MODEL_AXIS!r} axis to cut over "
+                             f"{model_ranks} ranks")
+        data_ranks = world // model_ranks
         axis = list(axis_names).index(DATA_AXIS)
         d = shape[axis]
-        if world < 1 or d % world:
+        if d % data_ranks:
             raise ValueError(f"a data axis of {d} does not divide over "
-                             f"{world} ranks")
+                             f"{data_ranks} ranks")
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} of a group of {world}")
-        owners = np.indices(shape)[axis] // (d // world)
+        owners = np.indices(shape)[axis] // (d // data_ranks) * model_ranks
+        if model_ranks > 1:
+            m_axis = list(axis_names).index(MODEL_AXIS)
+            m = shape[m_axis]
+            if m % model_ranks:
+                raise ValueError(f"a model axis of {m} does not divide over "
+                                 f"{model_ranks} ranks")
+            owners = owners + np.indices(shape)[m_axis] // (m // model_ranks)
         devices = [canonical_device(rank_devices[r]) for r in owners.flat]
         mesh = cls(shape, axis_names, devices)
         mesh.rank_devices = tuple(canonical_device(x) for x in rank_devices)
         mesh.rank = int(rank)
+        mesh.model_ranks = int(model_ranks)
         return mesh
 
     @property
@@ -124,17 +161,30 @@ class Mesh:
         """The ranks the mesh spans (1 for a one-process mesh)."""
         return 1 if self.rank_devices is None else len(self.rank_devices)
 
+    @property
+    def data_ranks(self) -> int:
+        """The ranks the data axis is cut over: a model group's size
+        divides them out of ``world``."""
+        return self.world // self.model_ranks
+
     def local_positions(self) -> list:
         """The mesh coordinates this process holds, in row-major order:
-        every position of a one-process mesh; this rank's block of the
-        data axis, and the whole of every other axis, over ranks."""
+        every position of a one-process mesh; over ranks, this rank's
+        block of the data axis and of the model axis (all of it where
+        ``model_ranks`` is 1), and the whole of every other axis."""
         coords = list(np.ndindex(self.devices.shape))
         if self.rank_devices is None:
             return coords
-        block = self.shape[DATA_AXIS] // self.world
-        axis = self.axis_names.index(DATA_AXIS)
-        lo = self.rank * block
-        return [c for c in coords if lo <= c[axis] < lo + block]
+        held = [(DATA_AXIS, self.rank // self.model_ranks, self.data_ranks)]
+        if self.model_ranks > 1:
+            held.append((MODEL_AXIS, self.rank % self.model_ranks,
+                         self.model_ranks))
+        for name, index, parts in held:
+            block = self.shape[name] // parts
+            axis = self.axis_names.index(name)
+            lo = index * block
+            coords = [c for c in coords if lo <= c[axis] < lo + block]
+        return coords
 
     def distinct_devices(self) -> list:
         """The devices of the mesh, each once, in mesh order."""
@@ -147,8 +197,14 @@ class Mesh:
     def require_one_device(self, device) -> torch.device:
         """The one device every position this process holds is, which must
         be ``device``.  A one-process mesh over distinct devices is
-        refused: its data axis reaches them as a mesh over ranks."""
+        refused: its data axis reaches them as a mesh over ranks.  So is a
+        mesh whose model axis spans ranks (training's alone)."""
         device = canonical_device(device)
+        if self.model_ranks > 1:
+            raise NotImplementedError(
+                f"{self} cuts its model axis over ranks: an evaluation "
+                f"backend keeps the model axis in one process, and its cut "
+                f"over ranks waits for {MULTI_DEVICE_ITEM}")
         if self.rank_devices is None:
             distinct = self.distinct_devices()
         else:
@@ -171,7 +227,9 @@ class Mesh:
         devices = ", ".join(map(str, self.distinct_devices()))
         if self.rank_devices is None:
             return f"Mesh({axes}; {devices})"
-        return (f"Mesh({axes}; rank {self.rank} of {self.world}; "
+        over = ("" if self.model_ranks == 1
+                else f", model over {self.model_ranks}")
+        return (f"Mesh({axes}; rank {self.rank} of {self.world}{over}; "
                 f"{', '.join(map(str, self.rank_devices))})")
 
 

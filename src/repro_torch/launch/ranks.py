@@ -113,12 +113,37 @@ class RankGroup:
     world: int
     device: torch.device
     rank_devices: List[torch.device]
+    #: model_ranks -> (this rank's model group, its data group)
+    _grids: dict = dataclasses.field(default_factory=dict, repr=False)
 
-    def mesh(self, shape, axis_names=("data", "model")) -> Mesh:
+    def mesh(self, shape, axis_names=("data", "model"),
+             model_ranks: int = 1) -> Mesh:
         """The mesh ``shape`` with its data axis over this group's ranks
-        (the default process group)."""
-        return Mesh.over_ranks(shape, axis_names, rank=self.rank,
-                               rank_devices=self.rank_devices)
+        (the default process group), and with ``model_ranks`` > 1 its
+        model axis too, over the (world / model_ranks, model_ranks) grid
+        of ``Mesh.over_ranks``, with this rank's subgroups along the two
+        axes (``subgroups``)."""
+        mesh = Mesh.over_ranks(shape, axis_names, rank=self.rank,
+                               rank_devices=self.rank_devices,
+                               model_ranks=model_ranks)
+        if model_ranks > 1:
+            mesh.model_group, mesh.data_group = self.subgroups(model_ranks)
+        return mesh
+
+    def subgroups(self, model_ranks: int) -> tuple:
+        """(this rank's model group, its data group) on the (world /
+        ``model_ranks``, ``model_ranks``) grid: a model group for each
+        data row, ranks [i·M, (i+1)·M), and a data group for each model
+        column, ranks j, j + M, ....  Every rank creates every group, in
+        the same order (``dist.new_group``'s contract), once a grid."""
+        if model_ranks not in self._grids:
+            m = model_ranks
+            rows = [dist.new_group(list(range(i * m, (i + 1) * m)))
+                    for i in range(self.world // m)]
+            cols = [dist.new_group(list(range(j, self.world, m)))
+                    for j in range(m)]
+            self._grids[m] = (rows[self.rank // m], cols[self.rank % m])
+        return self._grids[model_ranks]
 
 
 def join() -> RankGroup:

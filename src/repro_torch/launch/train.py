@@ -19,6 +19,8 @@ Newton as training options.
         --ranks 2 --dist-backend gloo --device cpu   # the data axis over ranks
     PYTHONPATH=src python -m repro_torch.launch.train --preset lm-100m \\
         --ranks 2 --fsdp        # the parameters cut over the ranks as well
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+        --ranks 4 --model-ranks 2 --device cpu   # (data 2, model 2)
 
 The data axis (``--ranks W``, ``--dist-backend gloo|nccl``).  The
 reference trains data-parallel on its production mesh with the batch
@@ -53,6 +55,28 @@ in its AdamW train step, so ``--compress-grads``, ``--line-search`` and
 that would need reductions of their own) are refused with it.  Rank 0's
 checkpoint holds the whole tree, gathered leaf by leaf, and each rank
 restores its blocks.
+
+``--model-ranks M`` (with ``--ranks W``, M dividing W) cuts the
+parameters over the model axis across the ranks instead, Megatron's
+tensor parallelism as the reference's ``param_specs`` rules cut them over
+``model``: the W ranks form a (W/M, M) mesh over (``data``, ``model``),
+rank r holding data block r // M (host r // M's rows) and model block
+r % M, so a model group is M adjacent ranks.  Each rank draws the whole
+parameters from the seed and keeps its ``model`` block of every leaf
+(``enforce_divisible(param_specs(cfg, mesh))``; a leaf the rules leave
+whole, or whose cut dimension M does not divide, stays whole), and its
+blocks of the AdamW moments.  The step runs in ``sharding.tp_ctx``: each
+dense unit (GQA attention, the SwiGLU MLP) takes an all-reduce of its
+input's gradient over the model group in the backward and of its
+row-cut product in the forward, the embedding's lookup and the loss run
+over the rank's block of the vocabulary, the gradients are summed over
+the data group, and the clip's norm sums the cut leaves' over the model
+group.  It cuts the dense units only: a configuration with MoE, MLA,
+RWKV6, Mamba2 or the audio stub is refused, and so are
+``--compress-grads``, ``--line-search``, ``--optimizer subspace-newton``
+and ``--fsdp`` with it, each naming the ROADMAP item it waits for
+(``_check_model_ranks``).  Checkpoints are written and restored as under
+``--fsdp``, the cut leaves gathered over the model group.
 
 Where the reference folds each step into ``jax.random.fold_in(key(seed +
 7), step)``, the port seeds a ``torch.Generator`` on the device from
@@ -91,8 +115,10 @@ from repro_torch.core.parallel_line_search import (LineSearchConfig,
                                                    randomized_line_search)
 from repro_torch.core.tree import leaves_with_paths, map_tree
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticMasked
+from repro_torch.kernels import ops
 from repro_torch.launch import ranks
-from repro_torch.models.sharding import data_parallel_ctx, fsdp_ctx
+from repro_torch.models.sharding import (check_model_axis,
+                                         data_parallel_ctx, fsdp_ctx, tp_ctx)
 from repro_torch.models.transformer import (NULL_CTX, ShardCtx, count_params,
                                             init_params, make_loss_fn,
                                             make_train_step, value_and_grad)
@@ -264,9 +290,45 @@ def _parse(argv) -> argparse.Namespace:
                     help="with --ranks: every parameter of 2^20 elements or "
                          "more cut over the ranks too (the reference's "
                          "--fsdp), gathered where it is used")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="M>1 with --ranks W: the parameters cut over the "
+                         "model axis across M ranks of a (W/M, M) mesh "
+                         "(Megatron tensor parallelism)")
     args = ap.parse_args(argv)
     _check_fsdp(args)
+    _check_model_ranks(args)
     return args
+
+
+#: where ``--model-ranks`` with the options it refuses waits
+MODEL_RANKS_ITEM = "ROADMAP A.8 (vii)"
+
+
+def _check_model_ranks(args) -> None:
+    """``--model-ranks M`` needs ``--ranks W`` with M dividing W, and runs
+    only the AdamW step without ``--fsdp``."""
+    m = args.model_ranks
+    if m == 1:
+        return
+    if m < 1 or not args.ranks or args.ranks % m:
+        raise ValueError(f"--model-ranks {m} cuts the model axis over "
+                         f"groups of the ranks of --ranks W: pass --ranks "
+                         f"with a W that {m} divides")
+    for flag, given, why in (
+            ("--compress-grads", args.compress_grads,
+             "its per-leaf int8 scales would be a cut leaf's block's"),
+            ("--line-search", args.line_search > 0,
+             "its trial losses and dot products would need reductions of "
+             "their own over the model group"),
+            ("--optimizer subspace-newton",
+             args.optimizer == "subspace-newton",
+             "its basis and dot products would need reductions of their "
+             "own over the model group"),
+            ("--fsdp", args.fsdp,
+             "both axes at once cut a leaf over data and model")):
+        if given:
+            raise ValueError(f"--model-ranks with {flag} is not supported: "
+                             f"{why}; it waits for {MODEL_RANKS_ITEM}")
 
 
 def _check_fsdp(args) -> None:
@@ -363,9 +425,16 @@ def over_ranks(argv: list, *, measure: bool = False,
     args = _parse(argv)
     if args.ranks < 1:
         raise ValueError("over_ranks needs --ranks W >= 1")
-    if args.batch % args.ranks:
+    hosts = args.ranks // args.model_ranks
+    if args.batch % hosts:
+        over = (f"{hosts} ranks (--batch, --ranks)" if args.model_ranks == 1
+                else f"{hosts} data-parallel ranks (--batch, --ranks / "
+                     f"--model-ranks)")
         raise ValueError(f"a global batch of {args.batch} does not divide "
-                         f"over {args.ranks} ranks (--batch, --ranks)")
+                         f"over {over}")
+    if args.model_ranks > 1:          # refused before any rank starts
+        check_model_axis(config_from_dict(cfg) if cfg is not None
+                         else build_config(args))
     if torch.device(args.device).type == "cuda":
         devices = ranks.default_devices(args.dist_backend, args.ranks,
                                         args.device)
@@ -404,18 +473,24 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
     ``device``: in one process (``group`` None; the batch the
     concatenation of ``hosts`` hosts' slices) or as one rank of ``group``
     over the (W, 1) mesh (its own host's slice; under ``--fsdp`` its
-    blocks of the cut leaves).  Returns the doc: the device and rank,
-    each step's loss, the all-reduces' bytes and calls (over ranks), under
-    ``--fsdp`` the gathers' and reduce-scatters' bytes and calls and each
-    step's clip norm, the device's peak memory (CUDA), the walls of the
-    set-up before the first step and of the whole run; with ``measure``
-    also the wall clock at the run's start and end (``clock``, to hold
-    against a caller's own) and, step by step, the wall with the device
-    synchronized at the step's end, the seconds of its gradient
-    all-reduce (and of its gathers and reduce-scatters), and the digest
-    of the parameters and error state (``state_digest``; under
-    ``--fsdp`` of the leaves held whole).  With ``params_out`` the final parameters this process holds
-    are saved there (``torch.save``, ``{rank}`` replaced by the rank)."""
+    blocks of the cut leaves), or with ``--model-ranks M`` over the
+    (W/M, M) mesh (host r // M's slice, its ``model`` blocks).  Returns
+    the doc: the device and rank, each step's loss, the all-reduces'
+    bytes and calls (over ranks), under ``--fsdp`` the gathers' and
+    reduce-scatters' bytes and calls, under ``--model-ranks`` the model
+    group's collectives' bytes and calls by kind (``ModelShards``), under
+    either each step's clip norm, the device's peak memory (CUDA), the
+    kernels' launches in this process (``ops.launch_counts``), the
+    walls of the set-up before the first step and of the whole run; with
+    ``measure`` also the wall clock at the run's start and end
+    (``clock``, to hold against a caller's own) and, step by step, the
+    wall with the device synchronized at the step's end, the seconds of
+    its gradient all-reduce (and of its gathers and reduce-scatters, or
+    of its model group's collectives by kind), and the digest of the
+    parameters and error state (``state_digest``; with cut leaves of the
+    leaves held whole).  With ``params_out`` the final parameters this
+    process holds are saved there (``torch.save``, ``{rank}`` replaced by
+    the rank)."""
     t_run, clock = time.perf_counter(), time.time()
     if not args.preset and not args.arch:
         args.preset = "tiny"
@@ -431,11 +506,14 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
         sources = [host_data(cfg, args.seq, args.batch, args.seed, hosts, h)
                    for h in range(hosts)]
     else:
-        mesh = group.mesh((group.world, 1))
-        ctx = fsdp_ctx(mesh, cfg) if args.fsdp else data_parallel_ctx(mesh)
+        m = args.model_ranks
+        mesh = group.mesh((group.world // m, m), model_ranks=m)
+        ctx = (tp_ctx(mesh, cfg) if m > 1 else fsdp_ctx(mesh, cfg)
+               if args.fsdp else data_parallel_ctx(mesh))
         sources = [host_data(cfg, args.seq, args.batch, args.seed,
-                             group.world, group.rank)]
-    shards = ctx.ranks if args.fsdp else None
+                             group.world // m, group.rank // m)]
+    shards = ctx.ranks if args.fsdp or args.model_ranks > 1 else None
+    tp = ctx.ranks if args.model_ranks > 1 else None
     specs = None
     if shards is not None:        # the rank's blocks; the wholes freed
         params = shards.shard(params)
@@ -466,8 +544,10 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
            "rank": 0 if group is None else group.rank}
     if measure:
         doc.update(step_s=[], all_reduce_s=[], digests=[])
-        if shards is not None:
+        if args.fsdp:
             doc.update(gather_s=[], scatter_s=[])
+        if tp is not None:
+            doc.update(model_s=[])
     losses = []
     doc["setup_s"] = time.perf_counter() - t_run
     logf = open(args.log_file, "a") if args.log_file and lead else None
@@ -476,8 +556,10 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
     for step in range(start_step, args.steps):
         t_step = time.perf_counter()
         ar0 = ctx.ranks.gradient_seconds if ctx.ranks is not None else 0.0
-        if shards is not None:
+        if args.fsdp:
             ga0, sc0 = shards.gather_seconds, shards.scatter_seconds
+        if tp is not None:
+            tp0 = dict(tp.model_seconds)
         batch = batch_to(hosts_batch(sources, step), cfg, device)
         gen = step_generator(args.seed, step, device)
         if args.optimizer == "subspace-newton":
@@ -496,9 +578,13 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
             doc["all_reduce_s"].append(
                 ctx.ranks.gradient_seconds - ar0 if ctx.ranks is not None
                 else 0.0)
-            if shards is not None:
+            if args.fsdp:
                 doc["gather_s"].append(shards.gather_seconds - ga0)
                 doc["scatter_s"].append(shards.scatter_seconds - sc0)
+            if tp is not None:
+                doc["model_s"].append({k: v - tp0[k] for k, v in
+                                       tp.model_seconds.items()})
+            if shards is not None:
                 doc["digests"].append(state_digest(
                     shards.whole_leaves(params)))
             else:
@@ -543,17 +629,22 @@ def _run(args, device: torch.device, *, group=None, hosts: int = 1,
                    gradient_all_reduces=r.gradient_all_reduces,
                    loss_bytes=r.loss_bytes,
                    loss_all_reduces=r.loss_all_reduces)
-    if shards is not None:
+    if args.fsdp:
         doc.update(gather_bytes=shards.gather_bytes, gathers=shards.gathers,
                    scatter_bytes=shards.scatter_bytes,
-                   scatters=shards.scatters,
-                   gnorms=[float(g) for g in shards.gnorms])
+                   scatters=shards.scatters)
+    if tp is not None:
+        doc.update(model_bytes=tp.model_bytes, model_calls=tp.model_calls,
+                   cuts=tp.cuts)
+    if shards is not None:
+        doc["gnorms"] = [float(g) for g in shards.gnorms]
     if params_out:
         torch.save({path: x.detach().cpu()
                     for path, x in leaves_with_paths(params)},
                    params_out.format(rank=doc["rank"]))
     doc["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                          if device.type == "cuda" else None)
+    doc["kernel_launches"] = ops.launch_counts()
     doc["run_s"] = time.perf_counter() - t_run
     if measure:
         doc["clock"] = [clock, time.time()]

@@ -196,7 +196,9 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The reference's dense attention: query head h reads kv head h // g;
     scores made in the inputs' type, widened to f32 and scaled by D^-0.5;
     masked with -1e30 (not -inf, so a fully masked row stays finite);
-    probabilities cast to v's type before the product with v."""
+    probabilities cast to v's type before the product with v.  (A block
+    of the query heads over whole k/v reads them through
+    ``_kv_for_heads``.)"""
     b, s, h, dd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -207,6 +209,22 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bngst,btnd->bsngd", probs, v)
     return out.reshape(b, s, h, v.shape[-1])
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                  head0: int, heads: int):
+    """k/v (B,T,KV,D) for the block of ``heads`` query heads from global
+    head ``head0`` (a rank's, the heads cut over the model axis's ranks):
+    as they are where the rank holds the block of kv heads its query
+    heads read (``heads`` / g of them), else, where it holds every kv
+    head (a count M does not divide, the reference's rule), each query
+    head's own kv head (global index) // g picked out, one a query head:
+    a block need not start on a group's first head."""
+    if heads == cfg.padded_heads or k.shape[2] != cfg.n_kv_heads:
+        return k, v
+    g = cfg.padded_heads // cfg.n_kv_heads
+    idx = torch.arange(head0, head0 + heads, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _prefill_mask(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
@@ -239,14 +257,18 @@ def _cache_index(cfg: ModelConfig, t, window: int):
 
 def attention_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
                     positions: torch.Tensor, cache: Optional[Params] = None,
-                    t=None) -> Tuple[torch.Tensor, Optional[Params]]:
+                    t=None, head0: int = 0
+                    ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Dense GQA attention.  Without ``cache``, over the whole sequence:
     the attention kernel when ``use_kernels`` and ``causal`` (positions are
     ``arange`` per row, which the kernel takes as implicit), else the dense
     ``_attend`` under ``_prefill_mask``.  With ``cache``, one decode step:
     x is (B, 1, d) and ``t`` the current position (a Python int or a 0-d
     tensor); the step's k/v are written into the cache in place (at
-    ``t % window`` in a sliding window's ring) and the cache is returned."""
+    ``t % window`` in a sliding window's ring) and the cache is returned.
+    ``p`` may hold a block of the query heads from global head ``head0``
+    (the model axis over ranks, training only): its output is then that
+    block's partial product with ``wo``."""
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
@@ -259,6 +281,7 @@ def attention_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is None:
+        k, v = _kv_for_heads(k, v, cfg, head0, q.shape[2])
         if cfg.use_kernels and cfg.causal:
             out = ops.routed_attention(q, k, v, causal=True,
                                        window=cfg.sliding_window)
@@ -280,6 +303,7 @@ def attention_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
         out = _attend(q, ck, cv, valid[None, None, None, None, :])
     hm = head_mask(cfg, x.device)
     if hm is not None:
+        hm = hm[head0:head0 + out.shape[2]]
         out = out * hm[None, None, :, None].to(out.dtype)
     b, s = x.shape[:2]
     wo = p["wo"]
@@ -455,7 +479,7 @@ def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
         raise NotImplementedError(
             "the global MoE dispatch decides drops over the whole batch's "
             "B·S tokens, which no rank holds: over ranks it is refused "
-            "(ROADMAP A.8 (iii)); take dispatch='grouped'")
+            "(ROADMAP A.8 (v)); take dispatch='grouped'")
     return moe_block_global(x, p, cfg)
 
 

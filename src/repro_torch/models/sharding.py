@@ -22,7 +22,13 @@ over the ranks, and counts the bytes it hands to each all-reduce;
 parameters cut over ``data`` as well (the reference's ``--fsdp``,
 ``param_specs(fsdp=True)``), ``RankShards`` holds rank r's block of each
 cut leaf, all-gathers a leaf where the step uses it and reduce-scatters
-its gradient; ``fsdp_ctx`` puts it in the step's ``ShardCtx``.
+its gradient; ``fsdp_ctx`` puts it in the step's ``ShardCtx``.  With the
+parameters cut over ``model`` across the ranks (Megatron's tensor
+parallelism, ``Mesh.over_ranks(model_ranks=)``), ``ModelShards`` holds
+rank r's ``model`` block of every leaf, and the step takes the
+collectives GSPMD inserts around a cut unit as explicit autograd
+functions (``_EnterModel``, ``_ReduceModel``); ``tp_ctx`` puts it in the
+step's ``ShardCtx``.
 """
 from __future__ import annotations
 
@@ -422,32 +428,55 @@ def _timed(fn: Callable, x: torch.Tensor):
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """x summed over the ranks of the default process group; the
-    backward is the identity.  Every rank computes the same global value
-    from the sum and the ranks' gradients are summed afterwards
-    (``RankSum.sum_grads``), so each rank passes the upstream gradient to
-    its own term unchanged and the ranks' gradients add up to the global
-    one.  (``torch.distributed.nn.functional.all_reduce`` sums the
-    upstream gradients over the ranks in its backward, which counts every
-    global term once a rank.)"""
+    """x summed over the ranks of ``group`` (None: the default process
+    group); the backward is the identity.  Every rank computes the same
+    global value from the sum and the ranks' gradients are summed
+    afterwards (``RankSum.sum_grads``), so each rank passes the upstream
+    gradient to its own term unchanged and the ranks' gradients add up to
+    the global one.  (``torch.distributed.nn.functional.all_reduce`` sums
+    the upstream gradients over the ranks in its backward, which counts
+    every global term once a rank.)"""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        return grad
+        return grad, None
+
+
+def _sum_flat(leaves: List[Tuple[str, torch.Tensor]], group
+              ) -> Tuple[Dict[str, torch.Tensor], int, int, float]:
+    """``leaves`` summed over the ranks of ``group``: one flat buffer a
+    type, in the leaves' own types, all-reduced.  Returns ({path: the
+    sum, a view of its buffer}, the bytes handed to the all-reduces,
+    their number, their seconds with the device synchronized on either
+    side)."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for path, g in leaves:
+        by_dtype.setdefault(g.dtype, []).append((path, g))
+    summed, nbytes, seconds = {}, 0, 0.0
+    for items in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for _, g in items])
+        nbytes += flat.numel() * flat.element_size()
+        _, s = _timed(lambda: dist.all_reduce(flat, group=group), flat)
+        seconds += s
+        for (path, g), piece in zip(items, torch.split(
+                flat, [g.numel() for _, g in items])):
+            summed[path] = piece.view(g.shape)
+    return summed, nbytes, len(by_dtype), seconds
 
 
 class RankSum:
-    """Sums over the ranks of a mesh's data axis (``Mesh.over_ranks``, the
-    default process group), where the reference's GSPMD inserts them in a
-    step over a batch cut over ``data``: ``sum`` for a reduction of the
-    loss over the batch (the cross-entropy's sums, MoE's load-balance
-    statistics), ``sum_grads`` for the data-parallel gradient all-reduce.
+    """Sums over the ranks of a mesh's data axis (``Mesh.over_ranks``, its
+    ``data_group``: the default process group where the model axis spans
+    no ranks), where the reference's GSPMD inserts them in a step over a
+    batch cut over ``data``: ``sum`` for a reduction of the loss over the
+    batch (the cross-entropy's sums, MoE's load-balance statistics),
+    ``sum_grads`` for the data-parallel gradient all-reduce.
 
     Counts what it hands to the all-reduces: ``gradient_bytes`` and
     ``gradient_all_reduces`` for the gradients, ``loss_bytes`` and
@@ -460,7 +489,8 @@ class RankSum:
         if not mesh.spans_ranks:
             raise ValueError(f"{mesh} is a one-process mesh: its data axis "
                              f"spans no ranks to sum over")
-        self.world = mesh.world
+        #: the ranks of the data axis, and their group
+        self.world, self.group = mesh.data_ranks, mesh.data_group
         self.gradient_bytes = self.gradient_all_reduces = 0
         self.loss_bytes = self.loss_all_reduces = 0
         self.gradient_seconds = 0.0
@@ -470,7 +500,7 @@ class RankSum:
         passes through it (the identity backward, ``_SumOverRanks``)."""
         self.loss_bytes += x.numel() * x.element_size()
         self.loss_all_reduces += 1
-        return _SumOverRanks.apply(x)
+        return _SumOverRanks.apply(x, self.group)
 
     def sum_grads(self, grads: Any) -> Any:
         """A gradient tree summed over the ranks: one flat buffer a type,
@@ -478,26 +508,20 @@ class RankSum:
         parameter in the parameter's type"), all-reduced; the returned
         leaves are views of it, in leaf order.  Every rank gets the same
         bits."""
-        leaves = leaves_with_paths(grads)
-        by_dtype: Dict[torch.dtype, list] = {}
-        for path, g in leaves:
-            by_dtype.setdefault(g.dtype, []).append((path, g))
-        summed = {}
-        for items in by_dtype.values():
-            flat = torch.cat([g.reshape(-1) for _, g in items])
-            self.gradient_bytes += flat.numel() * flat.element_size()
-            self.gradient_all_reduces += 1
-            _, s = _timed(lambda: dist.all_reduce(flat), flat)
-            self.gradient_seconds += s
-            for (path, g), piece in zip(items, torch.split(
-                    flat, [g.numel() for _, g in items])):
-                summed[path] = piece.view(g.shape)
+        summed, nbytes, calls, seconds = _sum_flat(
+            leaves_with_paths(grads), self.group)
+        self.gradient_bytes += nbytes
+        self.gradient_all_reduces += calls
+        self.gradient_seconds += seconds
         return map_with_paths(lambda path, _: summed[path], grads)
-
 
     #: the clip's norm over the ranks (``RankShards.combine_norm``); a
     #: rank that holds every leaf whole has the global gradient already
     combine_norm = None
+    #: the model axis's hooks (``ModelShards``): a rank that holds every
+    #: leaf whole is model block 0 of 1, and its units are not cut
+    model_ranks, model_block = 1, 0
+    vocab_cut = False
 
     def use(self, tree: Any, path: str) -> Any:
         """``tree`` (the subtree at ``path``) as a step uses it: every
@@ -537,15 +561,37 @@ def data_dim(spec) -> Optional[int]:
     return None
 
 
-def gather_blocks(piece: torch.Tensor, dim: int, world: int) -> torch.Tensor:
-    """The whole tensor of which rank r holds block r along ``dim``
-    (``piece`` here): one all-gather of the blocks concatenated along the
-    leading dimension, then, for another ``dim``, the blocks moved into
-    place (one copy)."""
+def model_dim(spec) -> Optional[int]:
+    """The dimension ``spec`` cuts over ``model``, or None."""
+    for dim, e in enumerate(spec):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return dim
+    return None
+
+
+def rank_cut(spec, mesh) -> Optional[Tuple[int, Any, int]]:
+    """Where ``spec`` cuts a leaf over ranks of ``mesh`` (``Mesh.over_ranks``):
+    (the dimension, the group of ranks that hold its blocks, their
+    number), or None where every rank holds it whole: a ``model`` entry
+    where the model axis spans ranks, else a ``data`` entry where the data
+    axis does."""
+    if mesh.model_ranks > 1 and model_dim(spec) is not None:
+        return model_dim(spec), mesh.model_group, mesh.model_ranks
+    if mesh.data_ranks > 1 and data_dim(spec) is not None:
+        return data_dim(spec), mesh.data_group, mesh.data_ranks
+    return None
+
+
+def gather_blocks(piece: torch.Tensor, dim: int, world: int,
+                  group=None) -> torch.Tensor:
+    """The whole tensor of which rank r of ``group`` (None: the default
+    process group) holds block r along ``dim`` (``piece`` here): one
+    all-gather of the blocks concatenated along the leading dimension,
+    then, for another ``dim``, the blocks moved into place (one copy)."""
     piece = piece.contiguous()
     out = torch.empty((world * piece.shape[0],) + tuple(piece.shape[1:]),
                       dtype=piece.dtype, device=piece.device)
-    _ALL_GATHER(out, piece)
+    _ALL_GATHER(out, piece, group=group)
     if dim == 0:
         return out
     shape = list(piece.shape)
@@ -554,7 +600,8 @@ def gather_blocks(piece: torch.Tensor, dim: int, world: int) -> torch.Tensor:
         shape)
 
 
-def scatter_blocks(whole: torch.Tensor, dim: int, world: int) -> torch.Tensor:
+def scatter_blocks(whole: torch.Tensor, dim: int, world: int,
+                   group=None) -> torch.Tensor:
     """This rank's block along ``dim`` of ``whole`` summed over the ranks:
     one reduce-scatter of the blocks laid along the leading dimension."""
     n = whole.shape[dim] // world
@@ -566,7 +613,7 @@ def scatter_blocks(whole: torch.Tensor, dim: int, world: int) -> torch.Tensor:
     shape = list(whole.shape)
     shape[dim] = n
     out = torch.empty(shape, dtype=whole.dtype, device=whole.device)
-    _REDUCE_SCATTER(out, src)
+    _REDUCE_SCATTER(out, src, group=group)
     return out
 
 
@@ -611,7 +658,48 @@ def _root(x: torch.Tensor) -> torch.Tensor:
     return x if x._base is None else x._base
 
 
-class RankShards(RankSum):
+class _Blocks(RankSum):
+    """A ``RankSum`` whose rank holds only its block of the leaves it
+    cuts: ``specs`` (the tree's specs), ``cuts`` (path -> the cut
+    dimension of the leaf as held) and ``cut_group`` (the ranks that hold
+    a cut leaf's blocks) are set by the subclass, ``coords`` is the
+    rank's mesh position."""
+
+    def shard(self, params: Any) -> Any:
+        """``params`` (whole, the same on every rank) with each cut leaf
+        replaced by a copy of this rank's block: the wholes can be
+        freed."""
+        specs = dict(spec_leaves(self.specs))
+
+        def keep(path, x):
+            if path not in self.cuts:
+                return x
+            return Sharded(x, specs[path], self.mesh).local(
+                self.coords).clone()
+        return map_with_paths(keep, params)
+
+    def whole_leaves(self, tree: Any) -> Dict[str, torch.Tensor]:
+        """The leaves of a parameter-shaped ``tree`` held whole, by path."""
+        return {path: x for path, x in leaves_with_paths(tree)
+                if path not in self.cuts}
+
+    def combine_norm(self, sums: List[Tuple[str, torch.Tensor]]
+                     ) -> torch.Tensor:
+        """The clip's global norm from the leaves' squared sums, slice by
+        slice (``adamw.global_norm``): the cut pieces' summed over
+        ``cut_group``, the whole leaves' (every rank holds their summed
+        gradient) added once.  Every rank gets the same value (kept in
+        ``gnorms``)."""
+        zero = torch.zeros((), dtype=torch.float32, device=sums[0][1].device)
+        cut = sum((s for path, s in sums if path in self.cuts), zero)
+        dist.all_reduce(cut, group=self.cut_group)
+        whole = sum((s for path, s in sums if path not in self.cuts), zero)
+        gnorm = torch.sqrt(cut + whole)
+        self.gnorms.append(gnorm)
+        return gnorm
+
+
+class RankShards(_Blocks):
     """A ``RankSum`` whose rank holds, of every leaf that ``param_specs(cfg,
     mesh, fsdp=True)`` cuts over ``data``, only its block along that
     dimension (``Sharded.block_of`` on the (W, 1) mesh), and every other
@@ -641,7 +729,7 @@ class RankShards(RankSum):
 
     def __init__(self, mesh, cfg: ModelConfig):
         super().__init__(mesh)
-        self.mesh = mesh
+        self.mesh, self.cut_group = mesh, self.group
         self.coords = mesh.local_positions()[0]
         segs = T.find_segments(T.layer_sigs(cfg))
         self.specs = param_specs(cfg, mesh, fsdp=True)
@@ -669,7 +757,8 @@ class RankShards(RankSum):
     def gather(self, piece: torch.Tensor, dim: int) -> torch.Tensor:
         """``piece`` all-gathered along ``dim``, counted."""
         whole, s = _timed(
-            lambda: gather_blocks(piece, dim, self.world), piece)
+            lambda: gather_blocks(piece, dim, self.world, self.group),
+            piece)
         self.gather_bytes += whole.numel() * whole.element_size()
         self.gathers += 1
         self.gather_seconds += s
@@ -678,29 +767,12 @@ class RankShards(RankSum):
     def scatter(self, grad: torch.Tensor, dim: int) -> torch.Tensor:
         """``grad`` reduce-scattered along ``dim``, counted."""
         piece, s = _timed(
-            lambda: scatter_blocks(grad, dim, self.world), grad)
+            lambda: scatter_blocks(grad, dim, self.world, self.group),
+            grad)
         self.scatter_bytes += piece.numel() * piece.element_size()
         self.scatters += 1
         self.scatter_seconds += s
         return piece
-
-    def shard(self, params: Any) -> Any:
-        """``params`` (whole, the same on every rank) with each cut leaf
-        replaced by a copy of this rank's block: the wholes can be
-        freed."""
-        specs = dict(spec_leaves(self.specs))
-
-        def keep(path, x):
-            if path not in self.cuts:
-                return x
-            return Sharded(x, specs[path], self.mesh).local(
-                self.coords).clone()
-        return map_with_paths(keep, params)
-
-    def whole_leaves(self, tree: Any) -> Dict[str, torch.Tensor]:
-        """The leaves of a parameter-shaped ``tree`` held whole, by path."""
-        return {path: x for path, x in leaves_with_paths(tree)
-                if path not in self.cuts}
 
     def use(self, tree: Any, path: str) -> Any:
         """``tree``, the subtree at ``path`` (one layer's views of a stacked
@@ -752,28 +824,244 @@ class RankShards(RankSum):
         summed = super().sum_grads(self.whole_leaves(grads))
         return map_with_paths(lambda path, g: summed.get(path, g), grads)
 
-    def combine_norm(self, sums: List[Tuple[str, torch.Tensor]]
-                     ) -> torch.Tensor:
-        """The clip's global norm from the leaves' squared sums, slice by
-        slice (``adamw.global_norm``): the cut pieces' summed over the
-        ranks, the whole leaves' (every rank holds their summed gradient)
-        added once.  Every rank gets the same value (kept in
-        ``gnorms``)."""
-        zero = torch.zeros((), dtype=torch.float32, device=sums[0][1].device)
-        cut = sum((s for path, s in sums if path in self.cuts), zero)
-        dist.all_reduce(cut)
-        whole = sum((s for path, s in sums if path not in self.cuts), zero)
-        gnorm = torch.sqrt(cut + whole)
-        self.gnorms.append(gnorm)
-        return gnorm
-
-
 def fsdp_ctx(mesh, cfg: ModelConfig) -> T.ShardCtx:
     """The ``ShardCtx`` of a step over ``mesh`` (the (W, 1) mesh of
     ``Mesh.over_ranks``) whose parameters are cut over its data axis as
     ``param_specs(cfg, mesh, fsdp=True)`` says (``RankShards``)."""
     dp, tp = mesh_axes(mesh)
     return T.ShardCtx(mesh=mesh, dp=dp, tp=tp, ranks=RankShards(mesh, cfg))
+
+
+# ---------------------------------------------------------------------------
+# Parameters cut over the model axis across ranks (Megatron's tensor
+# parallelism, the reference's ``param_specs`` over ``model``)
+# ---------------------------------------------------------------------------
+
+#: where the model axis over ranks waits for the units it does not cut
+MODEL_UNITS_ITEM = "ROADMAP A.8 (vi)"
+
+
+def check_model_axis(cfg: ModelConfig) -> None:
+    """Refuse a configuration with a unit the model axis over ranks does
+    not cut yet: it cuts GQA attention and the SwiGLU MLP."""
+    kinds = set(cfg.blocks())
+    what = [name for name, hit in (
+        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
+        ("RWKV6", "rwkv6" in kinds), ("Mamba2", "mamba2" in kinds),
+        ("the weight-shared attention block", "shared_attn" in kinds),
+        ("the audio front-end stub", cfg.frontend == "audio_stub"))
+        if hit]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: the model axis over ranks cuts the dense units "
+            f"(GQA attention, the SwiGLU MLP); {', '.join(what)} "
+            f"wait{'s' if len(what) == 1 else ''} for {MODEL_UNITS_ITEM}")
+
+
+class _EnterModel(torch.autograd.Function):
+    """Megatron's f at the input of a column-cut product: the identity
+    forward; the backward sums the input's gradient (each rank's, from
+    its block of the unit) over the model group, in ``dtype``, and rounds
+    it once to the gradient's type."""
+
+    @staticmethod
+    def forward(ctx, x, shards, dtype, kind):
+        ctx.shards, ctx.dtype, ctx.kind = shards, dtype, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.to(ctx.dtype, copy=True).contiguous()
+        ctx.shards.all_reduce(total, ctx.kind)
+        return total.to(grad.dtype), None, None, None
+
+
+class _ReduceModel(torch.autograd.Function):
+    """Megatron's g after a row-cut product: the forward sums the ranks'
+    partial products over the model group, in ``dtype``, and rounds the
+    sum once to the product's type; the backward is the identity (every
+    rank holds the whole sum's gradient, as after ``_SumOverRanks``)."""
+
+    @staticmethod
+    def forward(ctx, x, shards, dtype, kind):
+        total = x.to(dtype, copy=True).contiguous()
+        shards.all_reduce(total, kind)
+        return total.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None, None
+
+
+def _unit_output(path: str) -> Optional[str]:
+    """The output projection's path of the dense unit a leaf at ``path``
+    belongs to (``segments/<s>/<b>/attn/wo``, ``.../mlp/w_out``), else
+    None."""
+    parts = path.split("/")
+    if parts[0] == "segments" and len(parts) > 4:
+        out = {"attn": "wo", "mlp": "w_out"}.get(parts[3])
+        if out is not None:
+            return "/".join(parts[:4] + [out])
+    return None
+
+
+class ModelShards(_Blocks):
+    """The step's collectives where rank r holds, of every leaf, its block
+    of the ``model`` cut that ``enforce_divisible(param_specs(cfg,
+    mesh))`` gives it (the reference's rules, on the (W/M, M) mesh of
+    ``Mesh.over_ranks(model_ranks=M)``: rank r is model block r % M), and
+    every leaf the specs leave whole; ``fallbacks`` are the cuts a
+    dimension M does not divide forced back to whole.
+
+    The collectives are the ones GSPMD inserts around a cut unit (a dense
+    attention or MLP block whose output projection is cut), Megatron's
+    pair, written as autograd functions because
+    ``torch.distributed.nn``'s all-reduce counts each term M times in its
+    backward:
+
+    * ``enter`` (f) at the unit's input: identity forward, the input
+      gradient all-reduced over the model group in the backward;
+    * ``reduce`` (g) after the row-cut product (``wo``, ``w_out``): the
+      partial products all-reduced in the forward, identity backward.
+
+    Both sum in f32 and round once to the activations' type, or in the
+    parameters' type under ``pin_proj_outputs`` (the reference pins the
+    outputs before the reduction): what the dry-run's ``tp_reduce``
+    counts, once a pass, three passes a step under remat.  A unit's
+    recompute then runs whole (``transformer.forward``): each g runs in
+    it again, as the dry-run counts it.  Where the vocabulary divides M the
+    table and the head are cut over it: ``lookup`` looks up the rank's
+    rows, zeroes the others and all-reduces, and ``chunk_loss`` makes the
+    loss from the cut logits with each chunk's max, sum of exponentials
+    and gold logit all-reduced (the logits are never gathered), its
+    input through an f.
+
+    Gradients: a cut leaf's is its block's, local to the rank; a leaf
+    held whole outside a cut unit gets the same gradient on every rank of
+    a model group.  A whole leaf read inside a cut unit (``q_norm``,
+    ``k_norm``, and ``wk`` / ``wv`` / ``bk`` / ``bv`` where the kv heads
+    do not divide M) gets only the rank's heads' share, so ``sum_grads``
+    sums those over the model group (``partial``) before every gradient
+    is summed over the data group (``RankSum.sum_grads``).
+
+    Counts, by kind ("block": the units' f and g, which the dry-run's
+    ``over model`` entries count; "vocab": the vocabulary cut's, which it
+    does not; "gradient": the partial leaves' sums): ``model_bytes`` (the
+    buffer handed to the collective), ``model_calls`` and
+    ``model_seconds`` (each with the device synchronized on either
+    side), and the clip's norm each step (``gnorms``)."""
+
+    def __init__(self, mesh, cfg: ModelConfig):
+        check_model_axis(cfg)
+        super().__init__(mesh)
+        m = mesh.model_ranks
+        if m < 2 or mesh.shape["model"] != m:
+            raise ValueError(f"{mesh}: the model axis must be cut over its "
+                             f"ranks, one position a rank")
+        self.mesh, self.model_ranks = mesh, m
+        self.cut_group = self.model_group = mesh.model_group
+        self.coords = mesh.local_positions()[0]
+        self.model_block = mesh.rank % m
+        self.specs, self.fallbacks = enforce_divisible(cfg, mesh)
+        self.cuts: Dict[str, int] = {}
+        for path, spec in spec_leaves(self.specs):
+            dim = model_dim(spec)
+            if dim is not None:
+                self.cuts[path] = dim
+        self.partial = {
+            path for path, _ in spec_leaves(self.specs)
+            if path not in self.cuts and _unit_output(path) in self.cuts}
+        self.vocab_cut = "embed/tok" in self.cuts
+        self.vocab0 = self.model_block * (cfg.vocab_size // m)
+        kinds = ("block", "vocab", "gradient")
+        self.model_bytes = dict.fromkeys(kinds, 0)
+        self.model_calls = dict.fromkeys(kinds, 0)
+        self.model_seconds = dict.fromkeys(kinds, 0.0)
+        self.gnorms: List[torch.Tensor] = []
+
+    def all_reduce(self, x: torch.Tensor, kind: str,
+                   op=dist.ReduceOp.SUM) -> None:
+        """``x`` reduced over the model group in place, counted under
+        ``kind``."""
+        _, s = _timed(lambda: dist.all_reduce(x, op=op,
+                                              group=self.model_group), x)
+        self.model_bytes[kind] += x.numel() * x.element_size()
+        self.model_calls[kind] += 1
+        self.model_seconds[kind] += s
+
+    @staticmethod
+    def _dtype(x: torch.Tensor, pinned: bool) -> torch.dtype:
+        return x.dtype if pinned else torch.float32
+
+    def enter(self, x: torch.Tensor, pinned: bool = False,
+              kind: str = "block") -> torch.Tensor:
+        """f: ``x`` as it is; its gradient summed over the model group."""
+        return _EnterModel.apply(x, self, self._dtype(x, pinned), kind)
+
+    def reduce(self, x: torch.Tensor, pinned: bool = False,
+               kind: str = "block") -> torch.Tensor:
+        """g: the ranks' partial products ``x`` summed over the model
+        group."""
+        return _ReduceModel.apply(x, self, self._dtype(x, pinned), kind)
+
+    def lookup(self, tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` from the rank's block of the
+        table (the vocabulary cut): its own rows looked up, the others
+        zero, summed over the model group (a g, in the table's type: one
+        term of each sum is not zero, so the sum is exact)."""
+        n = tok.shape[0]
+        local = tokens - self.vocab0
+        hit = (local >= 0) & (local < n)
+        x = tok[local.clamp(0, n - 1)] * hit[..., None].to(tok.dtype)
+        return self.reduce(x, pinned=True, kind="vocab")
+
+    def chunk_loss(self, h_c: torch.Tensor, w_head: torch.Tensor,
+                   l_c: torch.Tensor, w_c: torch.Tensor):
+        """``transformer._chunk_loss`` over the rank's block of the
+        vocabulary (``w_head`` (d, V/M)): the logits' max over the model
+        group, then the sum of exponentials and the gold logit (on the
+        rank that holds the label's column, zero elsewhere) summed over
+        it, in one all-reduce; the max is a constant of the backward."""
+        logits = torch.matmul(h_c, w_head).to(torch.float32)
+        top = logits.detach().amax(dim=-1)
+        self.all_reduce(top, "vocab", dist.ReduceOp.MAX)
+        n = logits.shape[-1]
+        local = l_c.long() - self.vocab0
+        hit = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])
+        parts = torch.stack([torch.exp(logits - top[..., None]).sum(-1),
+                             torch.where(hit, gold[..., 0], 0.0)])
+        total, gold = self.reduce(parts, kind="vocab").unbind()
+        lse = top + torch.log(total)
+        return torch.sum((lse - gold) * w_c), torch.sum(w_c)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``RankSum.sum`` over the data group; ``x`` itself where the
+        data axis spans one rank."""
+        return x if self.world == 1 else super().sum(x)
+
+    def sum_grads(self, grads: Any) -> Any:
+        """The partial leaves' gradients summed over the model group, then
+        every gradient over the data group where it spans ranks
+        (``RankSum.sum_grads``: a cut leaf's block, a whole leaf's
+        whole)."""
+        if self.partial:
+            summed, nbytes, calls, seconds = _sum_flat(
+                [(path, g) for path, g in leaves_with_paths(grads)
+                 if path in self.partial], self.model_group)
+            self.model_bytes["gradient"] += nbytes
+            self.model_calls["gradient"] += calls
+            self.model_seconds["gradient"] += seconds
+            grads = map_with_paths(lambda path, g: summed.get(path, g), grads)
+        return grads if self.world == 1 else super().sum_grads(grads)
+
+
+def tp_ctx(mesh, cfg: ModelConfig) -> T.ShardCtx:
+    """The ``ShardCtx`` of a step over ``mesh`` (the (W/M, M) mesh of
+    ``Mesh.over_ranks(model_ranks=M)``) whose parameters are cut over its
+    model axis across the ranks (``ModelShards``)."""
+    dp, tp = mesh_axes(mesh)
+    return T.ShardCtx(mesh=mesh, dp=dp, tp=tp, ranks=ModelShards(mesh, cfg))
 
 
 def sharded_numel(cfg: ModelConfig, specs: Any,

@@ -262,7 +262,18 @@ class ShardCtx:
     (``sharding.fsdp_ctx``), ``ranks`` is a ``sharding.RankShards``: the
     step gathers a cut leaf where it uses it (``use``), its forward runs
     in ``packing`` and the clip's norm is summed over the ranks
-    (``norm_combine``).  Elsewhere ``use`` returns its input."""
+    (``norm_combine``).  Elsewhere ``use`` returns its input.
+
+    Where they are cut over the model axis across ranks
+    (``sharding.tp_ctx``, ``launch/train.py --model-ranks``), ``ranks`` is
+    a ``sharding.ModelShards``: a dense unit whose output projection the
+    rank holds a block of takes Megatron's f at its input
+    (``model_in``) and g after its row-cut product (``model_out``),
+    where the reference constrains its outputs (``cons``); attention
+    reads its block of the heads from head ``model_block`` × the block's
+    heads; the embedding's lookup and the loss run over the rank's block
+    of the vocabulary where it is cut (``vocab_cut``).  Elsewhere
+    ``model_in`` / ``model_out`` return their input."""
     mesh: Any = None
     dp: Tuple[str, ...] = ("data",)
     tp: str = "model"
@@ -301,6 +312,33 @@ class ShardCtx:
         cut over the ranks (``optim.adamw.global_norm``), else None."""
         return None if self.ranks is None else self.ranks.combine_norm
 
+    @property
+    def model_ranks(self) -> int:
+        """The ranks the model axis is cut over (1: none)."""
+        return 1 if self.ranks is None else self.ranks.model_ranks
+
+    @property
+    def model_block(self) -> int:
+        """This rank's block of the model axis (0 where it is not cut)."""
+        return 0 if self.ranks is None else self.ranks.model_block
+
+    @property
+    def vocab_cut(self) -> bool:
+        """Whether the rank holds a block of the vocabulary."""
+        return self.ranks is not None and self.ranks.vocab_cut
+
+    def model_in(self, x: torch.Tensor, cut: bool) -> torch.Tensor:
+        """The input of a unit, ``cut`` where the rank holds a block of
+        it: its gradient summed over the model group (f)."""
+        return self.ranks.enter(x) if cut else x
+
+    def model_out(self, x: torch.Tensor, cut: bool,
+                  pinned: bool) -> torch.Tensor:
+        """A unit's output, ``cut`` where the rank made a partial product:
+        summed over the model group (g), in the parameters' type where
+        ``pinned``."""
+        return self.ranks.reduce(x, pinned) if cut else x
+
 
 NULL_CTX = ShardCtx()
 
@@ -318,6 +356,7 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
     (``params["shared_attn"]``) over its own ``cache``."""
     kind, is_moe = sig
     aux = None
+    pin = cfg.pin_proj_outputs
     if kind == "shared_attn":
         bp = ctx.use(shared_p, "shared_attn")
     if kind in ("attn", "shared_attn"):
@@ -325,14 +364,22 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
         if cfg.mla is not None and kind == "attn":
             att, new_cache = L.mla_block(h, bp["attn"], cfg, positions,
                                          cache, t, absorb=absorb)
+        elif bp["attn"]["wo"].shape[0] != cfg.padded_heads:
+            # a rank's block of the heads (the model axis over ranks),
+            # from head model_block × its count: Megatron's f before the
+            # projections, g after wo
+            att, new_cache = L.attention_block(
+                ctx.model_in(h, True), bp["attn"], cfg, positions, cache, t,
+                head0=ctx.model_block * bp["attn"]["wq"].shape[1])
+            att = ctx.model_out(att, True, pin)
         else:
             att, new_cache = L.attention_block(h, bp["attn"], cfg,
                                                positions, cache, t)
-        if cfg.pin_proj_outputs:
+        if pin:
             att = ctx.cons(att, None, None)
         if cfg.parallel_block:
-            f = L.mlp_block(h, bp["mlp"])
-            if cfg.pin_proj_outputs:
+            f = _mlp(h, bp["mlp"], cfg, ctx)
+            if pin:
                 f = ctx.cons(f, None, None)
             x = x + att + f
         else:
@@ -341,8 +388,8 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
             if is_moe:
                 f, aux = L.moe_block(h2, bp["moe"], cfg, ctx)
             else:
-                f = L.mlp_block(h2, bp["mlp"])
-            if cfg.pin_proj_outputs:
+                f = _mlp(h2, bp["mlp"], cfg, ctx)
+            if pin:
                 f = ctx.cons(f, None, None)
             x = x + f
     elif kind == "rwkv6":
@@ -374,10 +421,21 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
     return ctx.cons(x, None, None), new_cache, aux
 
 
+def _mlp(h: torch.Tensor, p: Params, cfg: ModelConfig,
+         ctx: ShardCtx) -> torch.Tensor:
+    """The SwiGLU MLP; where the rank holds a block of its hidden units
+    (the model axis over ranks), between Megatron's f and g."""
+    cut = p["w_out"].shape[0] != cfg.d_ff
+    f = L.mlp_block(ctx.model_in(h, cut), p)
+    return ctx.model_out(f, cut, cfg.pin_proj_outputs)
+
+
 def head_weight(params: Params, cfg: ModelConfig,
                 ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """The LM head (d, V): with tied embeddings the embedding's transposed
-    view (no copy); gathered where it is cut over ranks (``ctx.use``)."""
+    view (no copy); gathered where it is cut over ranks' data axis
+    (``ctx.use``); the rank's block (d, V/M) where the vocabulary is cut
+    over the model axis (``ctx.vocab_cut``)."""
     if cfg.tie_embeddings:
         return ctx.use(params["embed"], "embed")["tok"].T
     return ctx.use(params["head"], "head")["w"]
@@ -387,7 +445,9 @@ def embed_inputs(params: Params, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor],
                  ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """Token embeddings, or for the audio front-end stub the given frame
-    embeddings with masked frames replaced by ``mask_emb``."""
+    embeddings with masked frames replaced by ``mask_emb``.  Where the
+    vocabulary is cut over the model axis's ranks, each looks up its rows
+    and the rows are summed over them (``ModelShards.lookup``)."""
     embed = ctx.use(params["embed"], "embed")
     if cfg.frontend == "audio_stub":
         x = batch["embeds"]
@@ -395,6 +455,8 @@ def embed_inputs(params: Params, cfg: ModelConfig,
             me = embed["mask_emb"].to(x.dtype)
             x = torch.where(batch["mask"][..., None], me, x)
         return x
+    if ctx.vocab_cut:
+        return ctx.ranks.lookup(embed["tok"], batch["tokens"])
     return embed["tok"][batch["tokens"]]
 
 
@@ -430,16 +492,18 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(cfg: ModelConfig, fn: Callable, *args):
+def _remat(cfg: ModelConfig, fn: Callable, *args, whole: bool = False):
     """``fn(*args)`` with its activations recomputed in the backward
     (``cfg.remat_policy``: "full" recomputes everything, "dots" keeps the
-    unbatched products' outputs)."""
-    if cfg.remat_policy == "dots":
-        return ckpt.checkpoint(fn, *args, use_reentrant=False,
-                               context_fn=functools.partial(
-                                   ckpt.create_selective_checkpoint_contexts,
-                                   _dots_policy))
-    return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    unbatched products' outputs).  The recompute stops once the backward
+    has what it saves, unless ``whole``: then it runs all of ``fn``."""
+    with ckpt.set_checkpoint_early_stop(not whole):
+        if cfg.remat_policy == "dots":
+            return ckpt.checkpoint(
+                fn, *args, use_reentrant=False,
+                context_fn=functools.partial(
+                    ckpt.create_selective_checkpoint_contexts, _dots_policy))
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
 
 
 def _requires_grad(tree) -> bool:
@@ -465,6 +529,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if cache is not None and training:
         raise RuntimeError("a decode step writes its cache in place: run it "
                            "under torch.no_grad() (make_serve_step does)")
+    _check_not_model_cut(ctx, "a decode step" if cache is not None else None)
     remat = cfg.remat and training
     x = embed_inputs(params, cfg, batch, ctx)
     x = ctx.cons(x, None, None)
@@ -484,6 +549,9 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         # dry-run's context lays the masks made from them out as the rows)
         positions = ctx.cons(positions, None)
     shared_p = params.get("shared_attn")
+    # over the model axis's ranks a unit's recompute runs each g again,
+    # three passes a step as the dry-run counts them
+    recompute_whole = ctx.model_ranks > 1
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (unit, repeat) in enumerate(find_segments(layer_sigs(cfg))):
         layers = _unstack(params["segments"][si], repeat)
@@ -504,7 +572,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
         for ri in range(repeat):
             if remat:
-                x, auxes = _remat(cfg, unit_apply, x, layers[ri], ri)
+                x, auxes = _remat(cfg, unit_apply, x, layers[ri], ri,
+                                  whole=recompute_whole)
             else:
                 x, auxes = unit_apply(x, layers[ri], ri)
             for aux in auxes:
@@ -515,6 +584,19 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
+
+#: where serving over the model axis's ranks waits
+MODEL_SERVE_ITEM = "ROADMAP A.8 (viii)"
+
+
+def _check_not_model_cut(ctx: ShardCtx, what: Optional[str]) -> None:
+    """Refuse ``what`` (a serving step) in a ctx whose parameters are cut
+    over the model axis's ranks: their caches are not cut yet."""
+    if what is not None and ctx.model_ranks > 1:
+        raise NotImplementedError(
+            f"{what} over the model axis's ranks (its caches cut per "
+            f"cache_specs) waits for {MODEL_SERVE_ITEM}")
+
 
 def _chunk_loss(h_c: torch.Tensor, w_head: torch.Tensor, l_c: torch.Tensor,
                 w_c: torch.Tensor):
@@ -538,12 +620,19 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
     (``ctx.ranks``) the weighted sum and the weights' sum are each the
     whole batch's (``ctx.data_sum``) before the one divides the other: a
     mean of the ranks' means is another number wherever their masks
-    differ."""
+    differ.  Where ``w_head`` is the rank's block of a vocabulary cut over
+    the model axis (``ctx.vocab_cut``), each chunk's loss is made over
+    the cut logits (``ModelShards.chunk_loss``), the hidden states
+    through Megatron's f."""
     b, s, _ = hidden.shape
     chunk = min(chunk, s)
     if weights is None:
         weights = torch.ones((b, s), dtype=torch.float32,
                              device=hidden.device)
+    chunk_loss = _chunk_loss
+    if ctx.vocab_cut:
+        hidden = ctx.ranks.enter(hidden, kind="vocab")
+        chunk_loss = ctx.ranks.chunk_loss
     recompute = torch.is_grad_enabled() and (hidden.requires_grad
                                              or w_head.requires_grad)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -552,10 +641,10 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
         args = (hidden[:, c0:c0 + chunk], w_head, labels[:, c0:c0 + chunk],
                 weights[:, c0:c0 + chunk])
         if recompute:
-            lsum, wsum = ckpt.checkpoint(_chunk_loss, *args,
+            lsum, wsum = ckpt.checkpoint(chunk_loss, *args,
                                          use_reentrant=False)
         else:
-            lsum, wsum = _chunk_loss(*args)
+            lsum, wsum = chunk_loss(*args)
         tot = tot + lsum
         cnt = cnt + wsum
     if ctx.ranks is not None:
@@ -640,6 +729,8 @@ def make_serve_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
     """One decode step: (params, cache, tokens (B, 1), t) -> (logits
     (B, 1, V) in the parameters' type, cache).  The cache is written in
     place; nothing in the step reads a device value on the host."""
+    _check_not_model_cut(ctx, "a decode step")
+
     def serve_step(params: Params, cache, tokens: torch.Tensor, t):
         with torch.no_grad():
             hidden, cache, _ = forward(params, cfg, {"tokens": tokens}, ctx,
@@ -653,6 +744,8 @@ def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
                       unroll: bool = False) -> Callable:
     """Forward pass producing logits (inference prefill / encoder
     forward): (params, batch) -> (B, S, V) in the parameters' type."""
+    _check_not_model_cut(ctx, "a prefill step")
+
     def prefill_step(params: Params, batch: Dict[str, torch.Tensor]):
         with torch.no_grad():
             hidden, _, _ = forward(params, cfg, batch, ctx, unroll=unroll)

@@ -75,6 +75,8 @@ class CollectiveStats:
     bytes_by_link: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: every entry's bytes by its name (``top_ops`` is the largest few)
     ops: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: every entry's number of collectives by its name
+    op_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def total_bytes(self) -> int:
@@ -98,6 +100,25 @@ class CollectiveStats:
         return sum(b for name, b in self.ops.items()
                    if name.startswith("reduce-scatter ")
                    and name.endswith(" gradient (fsdp)"))
+
+    def _model_entries(self) -> List[str]:
+        return [name for name in self.ops
+                if name.startswith("all-reduce over model ")
+                and not name.endswith(" gradient")]
+
+    @property
+    def model_all_reduce_bytes(self) -> int:
+        """The bytes of the cut units' all-reduces over ``model``, the
+        entries ``all-reduce over model ...: <unit>/<output projection>``
+        (2 × the bytes a device hands to them, the ring's count), which a
+        step over the model axis's ranks measures
+        (``sharding.ModelShards.model_bytes["block"]``)."""
+        return sum(self.ops[name] for name in self._model_entries())
+
+    @property
+    def model_all_reduces(self) -> int:
+        """The number of those all-reduces."""
+        return sum(self.op_counts[name] for name in self._model_entries())
 
     @property
     def gradient_all_reduce_bytes(self) -> int:
@@ -196,6 +217,7 @@ class _Tally:
         self.count = {k: 0 for k in _COLLECTIVES}
         self.links: Dict[str, int] = {}
         self.ops: Dict[str, int] = {}
+        self.op_counts: Dict[str, int] = {}
 
     def add(self, kind: str, axes, nbytes: int, what: str, n: int = 1):
         """``n`` collectives of ``kind`` over ``axes``, each of result
@@ -210,11 +232,12 @@ class _Tally:
         self.links[link] = self.links.get(link, 0) + b
         key = f"{kind} over {'x'.join(axes)} ({link}): {what}"
         self.ops[key] = self.ops.get(key, 0) + b
+        self.op_counts[key] = self.op_counts.get(key, 0) + n
 
     def stats(self, top_k: int) -> CollectiveStats:
         top = sorted(self.ops.items(), key=lambda t: -t[1])[:top_k]
         return CollectiveStats(self.bytes, self.count, top, self.links,
-                               dict(self.ops))
+                               dict(self.ops), dict(self.op_counts))
 
 
 def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,

@@ -1,6 +1,7 @@
 """Rank bodies for the tests of training's data axis over ranks
 (``launch/ranks.py``, ``launch/train.py --ranks``, with ``--fsdp`` the
-parameters cut over the ranks too).
+parameters cut over the ranks too, and with ``--model-ranks`` over the
+model axis across them).
 
 ``steps`` runs in a rank, a child process forked from the port's
 forkserver, as ``target(group, **kwargs)``, and in the test's own process
@@ -49,19 +50,23 @@ def _npz(path: str) -> dict:
 
 def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
           n_steps: int, hosts: int, out: str, seed: int = 0,
-          compress: bool = False, fsdp: bool = False) -> dict:
+          compress: bool = False, fsdp: bool = False,
+          model_ranks: int = 1) -> dict:
     """``n_steps`` of the launcher's AdamW step (``train.make_full_step``)
     from the parameters in ``leaves``, over ``hosts`` hosts' batches of
     the synthetic stream: as rank r of ``group`` (its host's slice, the
     step in ``sharding.data_parallel_ctx``, or with ``fsdp`` in
-    ``sharding.fsdp_ctx`` from its blocks of the cut leaves), or in this
-    process on the hosts' concatenated batches (``group`` None).  Writes
+    ``sharding.fsdp_ctx`` from its blocks of the cut leaves, or with
+    ``model_ranks`` M > 1 in ``sharding.tp_ctx`` on the (W/M, M) mesh,
+    host r // M's slice, from its ``model`` blocks), or in this process on
+    the hosts' concatenated batches (``group`` None).  Writes
     the new parameters (``p/<path>``), each step's gradients as the
     optimizer got them (``g<i>/<path>``: summed over the ranks, and
     compressed with ``compress``; a cut leaf's block) and the error state
     (``e/<path>``) to ``<out>_<rank>.npz`` (``<out>_one.npz`` in one
     process); returns each step's loss, ce and aux, the state's digest
-    (with ``fsdp`` of the whole leaves) and the collectives' counts."""
+    (with ``fsdp`` or ``model_ranks`` of the whole leaves) and the
+    collectives' counts."""
     pcfg = config_from_dict(cfg)
     params = T.params_from_leaves(pcfg, _npz(leaves), device="cpu")
     if group is None:
@@ -69,13 +74,15 @@ def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
         sources = [train.host_data(pcfg, seq, batch, seed, hosts, h)
                    for h in range(hosts)]
     else:
-        assert group.world == hosts
-        mesh = group.mesh((group.world, 1))
-        ctx = (S.fsdp_ctx(mesh, pcfg) if fsdp
+        m = model_ranks
+        assert group.world == hosts * m
+        mesh = group.mesh((hosts, m), model_ranks=m)
+        ctx = (S.tp_ctx(mesh, pcfg) if m > 1
+               else S.fsdp_ctx(mesh, pcfg) if fsdp
                else S.data_parallel_ctx(mesh))
         sources = [train.host_data(pcfg, seq, batch, seed, hosts,
-                                   group.rank)]
-        if fsdp:
+                                   group.rank // m)]
+        if fsdp or m > 1:
             params = ctx.ranks.shard(params)
     opt = Recording(AdamW(lr=LR, weight_decay=WD))
     state = opt.init(params)
@@ -99,7 +106,8 @@ def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
     np.savez(f"{out}_{'one' if group is None else group.rank}.npz",
              **arrays)
     r = ctx.ranks
-    doc["digest"] = train.state_digest(r.whole_leaves(params) if fsdp
+    blocks = fsdp or model_ranks > 1
+    doc["digest"] = train.state_digest(r.whole_leaves(params) if blocks
                                        else params, err)
     if r is not None:
         doc.update(gradient_bytes=r.gradient_bytes,
@@ -107,8 +115,14 @@ def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
                    loss_bytes=r.loss_bytes)
     if fsdp:
         doc.update(gather_bytes=r.gather_bytes, gathers=r.gathers,
-                   scatter_bytes=r.scatter_bytes, scatters=r.scatters,
-                   gnorms=[float(g) for g in r.gnorms], cuts=r.cuts,
+                   scatter_bytes=r.scatter_bytes, scatters=r.scatters)
+    if model_ranks > 1:
+        doc.update(model_bytes=r.model_bytes, model_calls=r.model_calls,
+                   loss_all_reduces=r.loss_all_reduces,
+                   partial=sorted(r.partial),
+                   fallbacks=[list(f) for f in r.fallbacks])
+    if blocks:
+        doc.update(gnorms=[float(g) for g in r.gnorms], cuts=r.cuts,
                    moment_shapes={path: list(m.shape) for path, m in
                                   leaves_with_paths(state["mu"])})
     return doc
