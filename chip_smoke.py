@@ -287,7 +287,7 @@ so the script exits non-zero and prints no result line:
            and the all-reduce's share printed; (t8) the tiny preset over
            a one-rank NCCL group == this process's run bit for bit; (t9)
            the parameters cut over the ranks too (launch/train.py --ranks
-           2 --fsdp): h2o-danube-3-4b at published widths cut to 4 layers
+           2 --fsdp): h2o-danube-3-4b at published widths cut to 2 layers
            (remat as published), over 2 gloo ranks sharing the card, 3
            AdamW steps at 8 x 128 and lr 1e-4: each loss within 2e-2 of
            the one-process step, the whole leaves the same bits on both
@@ -317,7 +317,18 @@ so the script exits non-zero and prints no result line:
            per-device peak on (1, 2), no kernel launched in a rank; ms a
            step, the block all-reduces' seconds and share and the
            vocabulary cut's collectives apart (which the dry-run does not
-           count) printed;
+           count) printed; (t11) deepseek-v2-lite at published widths cut
+           to 3 layers (the dense first layer, 2 MoE layers; remat),
+           (t10)'s batch, steps, lr and mesh, MLA's heads, the experts
+           and the shared experts cut over the model axis across the 2
+           ranks, the experts' buffers exchanged by all-to-alls, held to
+           (t10)'s gates, the all-to-alls' bytes and count a step equal
+           to the dry-run's "moe dispatch" / "moe combine" entries too;
+           each collective kind's bytes, calls, seconds and share (the
+           rows' all-gathers and the statistics' sums, which the dry-run
+           does not count, among them) and the first step's near-tied
+           tokens printed.  ``python3 chip_smoke.py --tp-moe-probe`` runs
+           only (t11);
 15e. dryrun  launch/dryrun.py's reckoning held against real steps, no
            kernel launched: (d1) (t3)'s danube step and (d2) (a)'s
            qwen2-72b decode step at t = 300, each reckoned on meta tensors
@@ -3128,7 +3139,7 @@ TRAIN_NCCL_ARGV = ["--preset", "tiny", "--batch", "2", "--seq", "32",
 #: parameters cut over TRAIN_RANKS gloo ranks (--fsdp), at TRAIN_DANUBE's
 #: batch, sequence, steps and lr; ``--fsdp-probe`` runs the published
 #: depth for TRAIN_FSDP_PROBE_STEPS steps
-TRAIN_FSDP_LAYERS = 4
+TRAIN_FSDP_LAYERS = 2
 TRAIN_FSDP_PROBE_STEPS = 2
 #: (t9): the ranks' final blocks, put together, against the one-process
 #: parameters, normwise a leaf, relative (bf16's tolerance on losses and
@@ -3139,6 +3150,16 @@ TRAIN_FSDP_PARAM_TOL = 2e-2
 #: the model axis (--model-ranks), held to (t9)'s gates against the
 #: launcher's one-process run
 TRAIN_TP_RANKS = TRAIN_RANKS
+#: (t11): deepseek-v2-lite at published widths cut to this many layers
+#: (the dense first layer and a MoE segment stacked twice), at (t10)'s
+#: batch, steps, lr and mesh: MLA's heads, the experts (all-to-alls) and
+#: the shared experts cut over the model axis across the ranks
+TRAIN_TP_MOE_ARCH = "deepseek-v2-lite-16b"
+TRAIN_TP_MOE_LAYERS = 3
+#: (t11): a token whose router probabilities at its k-th and (k+1)-th
+#: choices lie closer than this is near-tied (ROADMAP C: bf16 MoE tests
+#: leave such tokens out where they compare tokens' outputs)
+TRAIN_TP_MOE_TIE = 1e-3
 
 
 def _launch_train(argv, env, timeout=600):
@@ -3169,12 +3190,12 @@ def phase_train(dev: torch.device) -> tuple:
     """Training on the card through src/repro_torch/launch/train.py: (t1)
     lm-100m, (t2) crash and restart, (t3) danube at published width and
     depth, (t4) card == CPU in f32, (t5) throughput of the step, its line
-    search and subspace Newton, (t6) int8 gradient compression, (t7)-(t10)
+    search and subspace Newton, (t6) int8 gradient compression, (t7)-(t11)
     over ranks (``_train_over_ranks``).  No kernel
     runs (training is ``use_kernels=False``, as the reference's launcher);
     a backward through a kernel route is refused.  Returns (t3)'s counted
-    step for ``phase_dryrun`` and the kernels' launches in (t10)'s
-    ranks."""
+    step for ``phase_dryrun`` and the kernels' launches in (t10)'s and
+    (t11)'s ranks."""
     _zero_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3461,7 +3482,7 @@ def phase_train(dev: torch.device) -> tuple:
         cfg, dev)
     refused = _refuses(lambda: transformer.make_train_step(cfg, opt)(
         params, opt.init(params), batch), RuntimeError)
-    print(f"[train] launches across (t1)-(t10): {counts}; a train step of "
+    print(f"[train] launches across (t1)-(t11): {counts}; a train step of "
           f"{cfg.name} with use_kernels=True on the card refused: {refused}")
     check(not any(counts.values()), "a kernel launched on the training path")
     check(refused and not any(_counts().values()),
@@ -3478,9 +3499,9 @@ def _train_over_ranks(dev: torch.device) -> dict:
     to the dry-run's data-parallel gradient entries on the (2, 1) mesh,
     each rank's peak memory against the reckoned per-device peak, ms a
     step and the all-reduce's share; (t8) the tiny preset over a one-rank
-    NCCL group == this process's run bit for bit; (t9) and (t10)
-    (``_train_fsdp``, ``_train_tp``).  Returns the kernels' launches in
-    (t10)'s ranks."""
+    NCCL group == this process's run bit for bit; (t9), (t10) and (t11)
+    (``_train_fsdp``, ``_train_tp``, ``_train_tp_moe``).  Returns the
+    kernels' launches in (t10)'s and (t11)'s ranks."""
     t0 = time.perf_counter()
     _free()
     w = TRAIN_RANKS
@@ -3567,7 +3588,9 @@ def _train_over_ranks(dev: torch.device) -> dict:
     check(same, "(t8) the one-rank NCCL run differs from one process")
 
     _train_fsdp(dev, TRAIN_FSDP_LAYERS)
-    return _train_tp(dev, TRAIN_FSDP_LAYERS)
+    launches = _train_tp(dev, TRAIN_FSDP_LAYERS)
+    moe = _train_tp_moe(dev)
+    return {name: launches[name] + moe[name] for name in LAUNCH_COUNTERS}
 
 
 def _reckon_fsdp(cfg, w: int, fsdp: bool, model: int = 1) -> dict:
@@ -3589,7 +3612,7 @@ def _blocks_against_one(paths: list, cuts: dict, one: dict) -> tuple:
     along each cut dimension (``cuts``), and ``one`` (the one-process
     parameters, by path, on the host), on the card; and the leaves
     compared."""
-    ranked = [torch.load(p) for p in paths]
+    ranked = [torch.load(p, mmap=True) for p in paths]
     worst = 0.0
     for path, want in one.items():
         parts = [r[path] for r in ranked]
@@ -3640,7 +3663,7 @@ def _train_fsdp(dev: torch.device, n_layers: int, probe: bool = False
                 rank_devices=[dev] * w), cfg)
             gap, n_leaves = _blocks_against_one(
                 [blocks.format(rank=r) for r in range(w)], shards.cuts,
-                torch.load(os.path.join(tmp, "one.pt")))
+                torch.load(os.path.join(tmp, "one.pt"), mmap=True))
             t3 = time.perf_counter()
     t4 = time.perf_counter()
     reports = {(n, fsdp): _reckon_fsdp(c, w, fsdp)
@@ -3759,7 +3782,7 @@ def _train_tp(dev: torch.device, n_layers: int) -> dict:
         t11 = time.perf_counter()
         gap, n_leaves = _blocks_against_one(
             [blocks.format(rank=r) for r in range(m)], docs[0]["cuts"],
-            torch.load(os.path.join(tmp, "one.pt")))
+            torch.load(os.path.join(tmp, "one.pt"), mmap=True))
     t2 = time.perf_counter()
     report = _reckon_fsdp(cfg, 1, False, model=m)
     whole_peak = _reckon_fsdp(cfg, 1, False)["memory_analysis"][
@@ -3833,6 +3856,155 @@ def _train_tp(dev: torch.device, n_layers: int) -> dict:
     check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t10) a rank's peak is "
           f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
     check(not any(launches.values()), "(t10) a kernel launched in a rank")
+    return launches
+
+
+def _near_ties(cfg, argv: list, dev: torch.device) -> list:
+    """The tokens of the first step's batch whose routing is near-tied
+    (``TRAIN_TP_MOE_TIE``) in each MoE layer of the launcher's initial
+    parameters (its seed), one forward on the card."""
+    args = train._parse(argv)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    batch = train.batch_to(train.host_data(cfg, args.seq, args.batch,
+                                           args.seed).batch(0), cfg, dev)
+    k = cfg.moe.experts_per_token
+    ties = []
+    route = layers._route
+
+    def counted(x, router, k_):
+        probs, gates, idx = route(x, router, k_)
+        top = torch.topk(probs, k + 1, dim=-1).values
+        ties.append(int((top[..., k - 1] - top[..., k] < TRAIN_TP_MOE_TIE)
+                        .sum()))
+        return probs, gates, idx
+    layers._route = counted
+    try:
+        with torch.no_grad():
+            transformer.forward(params, cfg, batch)
+    finally:
+        layers._route = route
+    del params
+    _free()
+    return ties
+
+
+def _train_tp_moe(dev: torch.device) -> dict:
+    """(t11): ``launch/train.py --ranks 2 --model-ranks 2`` on
+    deepseek-v2-lite at published widths cut to TRAIN_TP_MOE_LAYERS
+    layers, over 2 gloo ranks sharing the card on the (1, 2) mesh, against
+    the launcher's one-process run (the phase docstring's gates): MLA cut
+    over its heads, the experts over the model group with the dispatch
+    buffer and the experts' outputs exchanged by all-to-alls.  Returns
+    the kernels' launches in the ranks, by counter."""
+    t0 = time.perf_counter()
+    _free()
+    m = TRAIN_TP_RANKS
+    steps = TRAIN_DANUBE["steps"]
+    cfg = cut_depth(get_config(TRAIN_TP_MOE_ARCH), TRAIN_TP_MOE_LAYERS)
+    argv = ["--batch", str(TRAIN_DANUBE["batch"]), "--seq",
+            str(TRAIN_DANUBE["seq"]), "--steps", str(steps), "--lr",
+            str(TRAIN_DANUBE["lr"]), "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_moe_") as tmp:
+        blocks = os.path.join(tmp, "rank{rank}.pt")
+        res, _ = train.over_ranks(
+            argv + ["--ranks", str(m), "--model-ranks", str(m),
+                    "--dist-backend", "gloo"],
+            measure=True, cfg=dataclasses.asdict(cfg), params_out=blocks)
+        check(res.returncode == 0, f"(t11) the run over ranks failed: "
+              f"{res.failed}")
+        t1 = time.perf_counter()
+        docs = res.docs
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = train.run(argv, cfg=dataclasses.asdict(cfg),
+                            params_out=os.path.join(tmp, "one.pt"))
+        t11 = time.perf_counter()
+        gap, n_leaves = _blocks_against_one(
+            [blocks.format(rank=r) for r in range(m)], docs[0]["cuts"],
+            torch.load(os.path.join(tmp, "one.pt"), mmap=True))
+    t2 = time.perf_counter()
+    ties = _near_ties(cfg, argv, dev)
+    t21 = time.perf_counter()
+    report = _reckon_fsdp(cfg, 1, False, model=m)
+    whole_peak = _reckon_fsdp(cfg, 1, False)["memory_analysis"][
+        "peak_size_bytes"]
+    t3 = time.perf_counter()
+    errs = [abs(a - b) / abs(b) for a, b in zip(docs[0]["losses"],
+                                                 one["losses"])]
+    reckoned = report["model_all_reduce_bytes"]
+    calls = report["model_all_reduces"]
+    a2a, a2a_calls = report["moe_all_to_all_bytes"], report["moe_all_to_alls"]
+    bytes_ok = all(2 * d["model_bytes"]["block"] == steps * reckoned
+                   and d["model_calls"]["block"] == steps * calls
+                   and d["model_bytes"]["exchange"] == steps * a2a
+                   and d["model_calls"]["exchange"] == steps * a2a_calls
+                   and reckoned > 0 and a2a > 0 for d in docs)
+    same = all(d["digests"] == docs[0]["digests"] for d in docs) \
+        and len(docs[0]["digests"]) == steps
+    same_gnorm = all(d["gnorms"] == docs[0]["gnorms"] for d in docs)
+    peak = report["memory_analysis"]["peak_size_bytes"]
+    mem_errs = [abs(d["peak_bytes"] - peak) / peak for d in docs]
+    launches = {name: sum(d["kernel_launches"][name] for d in docs)
+                for name in LAUNCH_COUNTERS}
+    d0 = docs[0]
+    step_ms = [round(1e3 * x, 1) for x in d0["step_s"]]
+    kinds = [k for k in d0["model_bytes"] if d0["model_calls"][k]]
+    per_kind = "; ".join(
+        f"{k} {d0['model_bytes'][k] // steps} B in "
+        f"{d0['model_calls'][k] // steps} calls, s "
+        f"{[round(x[k], 3) for x in d0['model_s']]} (share "
+        f"{[round(x[k] / s, 3) for x, s in zip(d0['model_s'], d0['step_s'])]})"
+        for k in kinds)
+    n_tokens = TRAIN_DANUBE["batch"] * TRAIN_DANUBE["seq"]
+    print(f"[train] (t11) {cfg.name} at published widths, "
+          f"{TRAIN_TP_MOE_LAYERS} layers ({cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.experts_per_token}, {cfg.moe.n_shared_experts} shared,"
+          f" MLA {cfg.n_heads} heads; remat {cfg.remat}), over {m} gloo "
+          f"ranks sharing {dev} with MLA's heads, the experts and the "
+          f"shared experts cut over the model axis across them "
+          f"(launch/train.py --ranks {m} --model-ranks {m}, the (1, {m}) "
+          f"mesh; experts {cfg.moe.n_experts} -> "
+          f"{cfg.moe.n_experts // m} a rank, heads {cfg.n_heads} -> "
+          f"{cfg.n_heads // m}), global batch {TRAIN_DANUBE['batch']} x "
+          f"{TRAIN_DANUBE['seq']}, {steps} steps at lr "
+          f"{TRAIN_DANUBE['lr']}: losses "
+          f"{[round(x, 5) for x in d0['losses']]} against one process "
+          f"{[round(x, 5) for x in one['losses']]} (worst "
+          f"{max(errs):.2e} rel, gate {TRAIN_RANKS_LOSS_TOL}); the ranks' "
+          f"blocks put together against its parameters, worst leaf "
+          f"{gap:.2e} normwise over {n_leaves} leaves (gate "
+          f"{TRAIN_FSDP_PARAM_TOL}; no token left out: near-tied routing "
+          f"(margin < {TRAIN_TP_MOE_TIE}) at the first step, by MoE layer, "
+          f"{ties} of {n_tokens} tokens); the whole leaves the same bits "
+          f"on every rank after every step: {same}; clip norms "
+          f"{[round(g, 4) for g in d0['gnorms']]}, the same on every rank: "
+          f"{same_gnorm}; a step a rank: block all-reduces x 2 against the "
+          f"dry-run's over-model entries on (1, {m}) {reckoned} B in "
+          f"{calls}, all-to-alls against its moe dispatch / combine "
+          f"entries {a2a} B in {a2a_calls}: equal {bytes_ok}; {per_kind}; "
+          f"ms a step (synchronized) {step_ms}; peak "
+          f"{[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a rank "
+          f"against the reckoned per-device peak on (1, {m}) "
+          f"{peak / 2**30:.3f} GiB "
+          f"({', '.join(f'{100 * e:.2f} %' for e in mem_errs)}) and "
+          f"{whole_peak / 2**30:.3f} GiB on (1, 1); kernel launches in the "
+          f"ranks {launches}; ranks {res.wall_s:.1f} s with their starts "
+          f"(each rank's run {[round(d['run_s'], 1) for d in docs]} s, its "
+          f"set-up {[round(d['setup_s'], 1) for d in docs]} s), the "
+          f"one-process run {t11 - t1:.1f} s, the blocks' comparison "
+          f"{t2 - t11:.1f} s, the near ties {t21 - t2:.1f} s, the two "
+          f"reckonings {t3 - t21:.1f} s; {time.perf_counter() - t0:.1f}s")
+    check(max(errs) <= TRAIN_RANKS_LOSS_TOL, f"(t11) a loss over ranks is "
+          f"{max(errs):.2e} from the one-process step's")
+    check(gap <= TRAIN_FSDP_PARAM_TOL, f"(t11) the ranks' blocks lie "
+          f"{gap:.2e} from the one-process parameters")
+    check(same and same_gnorm, "(t11) the ranks' whole leaves or clip "
+          "norms differ")
+    check(bytes_ok, "(t11) the block all-reduce or all-to-all bytes differ "
+          "from the dry-run's")
+    check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t11) a rank's peak is "
+          f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
+    check(not any(launches.values()), "(t11) a kernel launched in a rank")
     return launches
 
 
@@ -3941,6 +4113,13 @@ def main() -> None:
         phase_card(dev)
         child.warm()
         _train_fsdp(dev, get_config("h2o-danube-3-4b").n_layers, probe=True)
+        child.stop()
+        print(f"[done] {time.perf_counter() - t0:.1f}s")
+        return
+    if sys.argv[1:] == ["--tp-moe-probe"]:
+        phase_card(dev)
+        child.warm()
+        _train_tp_moe(dev)
         child.stop()
         print(f"[done] {time.perf_counter() - t0:.1f}s")
         return

@@ -179,6 +179,14 @@ COUNTED_BY = {
                               "g all-reduces (sharding.ModelShards."
                               "model_bytes['block'])",
     "model_all_reduces": "the number of those all-reduces a step",
+    "moe_all_to_all_bytes": "its all-to-all entries of the MoE's dispatch "
+                            "and combine: a device's share of the "
+                            "(experts x groups x capacity x d_model) "
+                            "buffer each, twice a pass, which a step over "
+                            "the model axis's ranks hands its exchanges "
+                            "(sharding.ModelShards.model_bytes"
+                            "['exchange'])",
+    "moe_all_to_alls": "the number of those all-to-alls a step",
     "compile_s": "wall of the meta trace",
     "lower_s": "wall of building the stand-ins and specs",
 }
@@ -724,6 +732,8 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         "fsdp_reduce_scatter_bytes": coll.fsdp_reduce_scatter_bytes,
         "model_all_reduce_bytes": coll.model_all_reduce_bytes,
         "model_all_reduces": coll.model_all_reduces,
+        "moe_all_to_all_bytes": coll.moe_all_to_all_bytes,
+        "moe_all_to_alls": coll.moe_all_to_alls,
         "model_flops": mf,
         "useful_flops_ratio": (mf / (flops * n_chips)) if flops else None,
         "peaks": {"flops": H100.flops, "hbm_bw": H100.hbm_bw,

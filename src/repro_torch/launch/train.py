@@ -21,6 +21,8 @@ Newton as training options.
         --ranks 2 --fsdp        # the parameters cut over the ranks as well
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --ranks 4 --model-ranks 2 --device cpu   # (data 2, model 2)
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --ranks 2 --model-ranks 2   # MLA, MoE
 
 The data axis (``--ranks W``, ``--dist-backend gloo|nccl``).  The
 reference trains data-parallel on its production mesh with the batch
@@ -66,17 +68,25 @@ parameters from the seed and keeps its ``model`` block of every leaf
 (``enforce_divisible(param_specs(cfg, mesh))``; a leaf the rules leave
 whole, or whose cut dimension M does not divide, stays whole), and its
 blocks of the AdamW moments.  The step runs in ``sharding.tp_ctx``: each
-dense unit (GQA attention, the SwiGLU MLP) takes an all-reduce of its
+cut unit (GQA attention and MLA over their heads, the SwiGLU MLP and the
+shared experts over their hidden units) takes an all-reduce of its
 input's gradient over the model group in the backward and of its
-row-cut product in the forward, the embedding's lookup and the loss run
+row-cut product in the forward; a MoE block whose experts are cut
+exchanges its dispatch buffer and the experts' outputs over the model
+group by all-to-alls, each rank dispatching its block of the batch rows
+(GShard's expert parallelism); the embedding's lookup and the loss run
 over the rank's block of the vocabulary, the gradients are summed over
 the data group, and the clip's norm sums the cut leaves' over the model
-group.  It cuts the dense units only: a configuration with MoE, MLA,
-RWKV6, Mamba2 or the audio stub is refused, and so are
-``--compress-grads``, ``--line-search``, ``--optimizer subspace-newton``
-and ``--fsdp`` with it, each naming the ROADMAP item it waits for
-(``_check_model_ranks``).  Checkpoints are written and restored as under
-``--fsdp``, the cut leaves gathered over the model group.
+group.  A configuration with RWKV6, Mamba2, the weight-shared block or
+the audio stub is refused, and so is a MoE configuration whose data
+rank's batch rows M does not divide, and ``--compress-grads``,
+``--line-search``, ``--optimizer subspace-newton`` and ``--fsdp`` with
+it, each naming the ROADMAP item it waits for where there is one
+(``_check_model_ranks``).  The per-rank document counts the model
+group's collectives by kind (``ModelShards.model_bytes``: the units'
+all-reduces, the MoE's all-to-alls and rows' all-gathers, ...).
+Checkpoints are written and restored as under ``--fsdp``, the cut leaves
+gathered over the model group.
 
 Where the reference folds each step into ``jax.random.fold_in(key(seed +
 7), step)``, the port seeds a ``torch.Generator`` on the device from
@@ -117,7 +127,7 @@ from repro_torch.core.tree import leaves_with_paths, map_tree
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticMasked
 from repro_torch.kernels import ops
 from repro_torch.launch import ranks
-from repro_torch.models.sharding import (check_model_axis,
+from repro_torch.models.sharding import (check_model_axis, check_moe_groups,
                                          data_parallel_ctx, fsdp_ctx, tp_ctx)
 from repro_torch.models.transformer import (NULL_CTX, ShardCtx, count_params,
                                             init_params, make_loss_fn,
@@ -304,9 +314,12 @@ def _parse(argv) -> argparse.Namespace:
 MODEL_RANKS_ITEM = "ROADMAP A.8 (vii)"
 
 
-def _check_model_ranks(args) -> None:
+def _check_model_ranks(args, cfg: Optional[ModelConfig] = None) -> None:
     """``--model-ranks M`` needs ``--ranks W`` with M dividing W, and runs
-    only the AdamW step without ``--fsdp``."""
+    only the AdamW step without ``--fsdp``; given the configuration
+    ``cfg``, only units the model axis cuts (``check_model_axis``) and,
+    with MoE, a data rank's batch rows that M divides
+    (``check_moe_groups``)."""
     m = args.model_ranks
     if m == 1:
         return
@@ -329,6 +342,9 @@ def _check_model_ranks(args) -> None:
         if given:
             raise ValueError(f"--model-ranks with {flag} is not supported: "
                              f"{why}; it waits for {MODEL_RANKS_ITEM}")
+    if cfg is not None:
+        check_model_axis(cfg)
+        check_moe_groups(cfg, args.batch // (args.ranks // m), m)
 
 
 def _check_fsdp(args) -> None:
@@ -433,8 +449,8 @@ def over_ranks(argv: list, *, measure: bool = False,
         raise ValueError(f"a global batch of {args.batch} does not divide "
                          f"over {over}")
     if args.model_ranks > 1:          # refused before any rank starts
-        check_model_axis(config_from_dict(cfg) if cfg is not None
-                         else build_config(args))
+        _check_model_ranks(args, config_from_dict(cfg) if cfg is not None
+                           else build_config(args))
     if torch.device(args.device).type == "cuda":
         devices = ranks.default_devices(args.dist_backend, args.ranks,
                                         args.device)

@@ -444,6 +444,17 @@ def mlp_block(x: torch.Tensor, p: Params) -> torch.Tensor:
     return torch.matmul(g * h, p["w_out"])
 
 
+def cut_mlp_block(x: torch.Tensor, p: Params, width: int, ctx,
+                  pinned: bool) -> torch.Tensor:
+    """``mlp_block`` of whole hidden width ``width``; where the rank holds
+    a block of its hidden units (the model axis over ranks), between
+    Megatron's f and g (``ctx.model_in`` / ``model_out``, in the
+    parameters' type where ``pinned``)."""
+    if p["w_out"].shape[0] == width:
+        return mlp_block(x, p)
+    return ctx.model_out(mlp_block(ctx.model_in(x, True), p), True, pinned)
+
+
 def moe_specs(cfg: ModelConfig) -> Params:
     """The router (kept in f32 whatever the model's type, as the
     reference's), the experts' (E, d, ff) / (E, ff, d) weights and the
@@ -471,8 +482,9 @@ def moe_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
               ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE block of ``cfg.moe.dispatch``.  Over ranks (``ctx.ranks``)
     grouped dispatch decides each row's drops within the row, so a rank
-    dispatches its own rows; the global dispatch, which decides drops
-    over the whole batch's B·S tokens, is refused there."""
+    dispatches its own rows (over the model axis, its block of them); the
+    global dispatch, which decides drops over the whole batch's B·S
+    tokens, is refused there."""
     if cfg.moe.dispatch == "grouped":
         return moe_block_grouped(x, p, cfg, ctx)
     if ctx is not None and ctx.ranks is not None:
@@ -534,18 +546,33 @@ def _moe(x: torch.Tensor, p: Params, cfg: ModelConfig, cap: int,
       every run, where an atomic scatter-add would not be.
 
     Over ranks (``ctx.ranks``) the load-balance statistics p̄ and f are
-    the whole batch's means, summed over the ranks in one all-reduce."""
+    the whole batch's means, summed over the ranks in one all-reduce.
+    Where the rank holds a block of the experts (the model axis over
+    ranks, ``sharding.ModelShards``), it routes and dispatches its block
+    of the groups alone, exchanges the buffer so that each rank runs its
+    experts on every rank's slots, exchanges the outputs back, combines
+    its groups and puts the groups' outputs together; the shared experts
+    are a cut MLP."""
     m = cfg.moe
-    g, n, d = x.shape
     e, k = m.n_experts, m.experts_per_token
-    probs, gate_vals, gate_idx = _route(x, p["router"], k)
+    shards = None if ctx is None else ctx.ranks
+    cut = p["w_out"].shape[0] != e            # the rank's block of experts
+    xg = shards.own_groups(x) if cut else x
+    g, n, d = xg.shape
+    probs, gate_vals, gate_idx = _route(xg, p["router"], k)
     experts = torch.arange(e, device=x.device)
     first = (gate_idx[..., :1] == experts).to(torch.float32)
-    if ctx is not None and ctx.ranks is not None:
-        # the whole batch's means: every rank holds as many groups
-        sums = ctx.data_sum(torch.stack([torch.sum(probs, dim=(0, 1)),
-                                         torch.sum(first, dim=(0, 1))]))
-        me, ce = (sums / (g * n * ctx.ranks.world)).unbind()
+    if shards is not None:
+        # the whole batch's means: every rank that holds groups holds as
+        # many (over the model axis each rank a block of its data rank's)
+        stats = torch.stack([torch.sum(probs, dim=(0, 1)),
+                             torch.sum(first, dim=(0, 1))])
+        if cut:
+            sums = shards.sum_all(stats)
+            holders = shards.world * shards.model_ranks
+        else:
+            sums, holders = ctx.data_sum(stats), shards.world
+        me, ce = (sums / (g * n * holders)).unbind()
     else:
         me = torch.mean(probs, dim=(0, 1))
         ce = torch.mean(first, dim=(0, 1))
@@ -558,19 +585,33 @@ def _moe(x: torch.Tensor, p: Params, cfg: ModelConfig, cap: int,
     group = torch.arange(g, device=x.device)[:, None]
     slot = (ids * g + group) * cap + torch.where(keep, pos, 0)  # (e, g, pos)
     spare = e * g * cap
-    buf = x.new_zeros((spare + 1, d))
-    src = x[:, :, None, :].expand(g, n, k, d).reshape(g * n * k, d)
+    buf = xg.new_zeros((spare + 1, d))
+    src = xg[:, :, None, :].expand(g, n, k, d).reshape(g * n * k, d)
     buf.index_copy_(0, torch.where(keep, slot, spare).reshape(-1), src)
     xb = buf[:spare].view(e, g * cap, d)
     if ctx is not None:
         # experts over model, groups over the data axes: the reference's
         # constraint on its (G, E, cap, d) buffer (a no-op off a dry-run)
         xb = ctx.cons_spec(xb, (ctx.tp, "dp", None))
+    if cut:
+        # block j of the experts to rank j; this rank's experts' slots
+        # from every rank, laid in the groups' order as one process's
+        mr = shards.model_ranks
+        xb = shards.exchange(xb).view(mr, e // mr, g * cap, d) \
+            .transpose(0, 1).reshape(e // mr, mr * g * cap, d)
     hmid = F.silu(torch.bmm(xb, p["w_gate"])) * torch.bmm(xb, p["w_in"])
-    out = torch.bmm(hmid, p["w_out"]).view(spare, d)
+    out = torch.bmm(hmid, p["w_out"])
+    if cut:
+        out = shards.exchange(out.view(e // mr, mr, g * cap, d)
+                              .transpose(0, 1).reshape(e, g * cap, d))
+    out = out.view(spare, d)
 
     w = torch.where(keep, gate_vals.reshape(g, n * k), 0.0).to(x.dtype)
     y = (out[slot] * w[..., None]).view(g, n, k, d).sum(dim=2)
+    if cut:
+        y = shards.all_groups(y)
     if m.n_shared_experts:
-        y = y + mlp_block(x, p["shared"])
+        y = y + cut_mlp_block(x, p["shared"],
+                              m.expert_d_ff * m.n_shared_experts, ctx,
+                              cfg.pin_proj_outputs)
     return y, aux

@@ -843,19 +843,32 @@ MODEL_UNITS_ITEM = "ROADMAP A.8 (vi)"
 
 def check_model_axis(cfg: ModelConfig) -> None:
     """Refuse a configuration with a unit the model axis over ranks does
-    not cut yet: it cuts GQA attention and the SwiGLU MLP."""
+    not cut yet: it cuts GQA attention, MLA, the SwiGLU MLP and the MoE
+    block."""
     kinds = set(cfg.blocks())
     what = [name for name, hit in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
         ("RWKV6", "rwkv6" in kinds), ("Mamba2", "mamba2" in kinds),
         ("the weight-shared attention block", "shared_attn" in kinds),
         ("the audio front-end stub", cfg.frontend == "audio_stub"))
         if hit]
     if what:
         raise NotImplementedError(
-            f"{cfg.name}: the model axis over ranks cuts the dense units "
-            f"(GQA attention, the SwiGLU MLP); {', '.join(what)} "
+            f"{cfg.name}: the model axis over ranks cuts GQA attention, MLA, "
+            f"the SwiGLU MLP and the MoE block; {', '.join(what)} "
             f"wait{'s' if len(what) == 1 else ''} for {MODEL_UNITS_ITEM}")
+
+
+def check_moe_groups(cfg: ModelConfig, rows: int, model_ranks: int) -> None:
+    """Refuse a model group of ``model_ranks`` ranks that cannot split a
+    data rank's ``rows`` MoE groups (batch rows) evenly among its ranks
+    where it cuts the experts (``ModelShards.own_groups``)."""
+    if (cfg.moe is not None and cfg.moe.n_experts % model_ranks == 0
+            and rows % model_ranks):
+        raise ValueError(
+            f"{cfg.name}: a data rank's {rows} batch rows (--batch over the "
+            f"data ranks) do not divide among --model-ranks {model_ranks}: "
+            f"each rank of a model group dispatches its block of the MoE "
+            f"groups to the experts")
 
 
 class _EnterModel(torch.autograd.Function):
@@ -893,15 +906,69 @@ class _ReduceModel(torch.autograd.Function):
         return grad, None, None, None
 
 
+class _Exchange(torch.autograd.Function):
+    """GShard's all-to-all over the model group: ``x``'s M blocks along its
+    leading dimension, block j sent to rank j of the group; block i of the
+    result is rank i's block for this rank.  Its transpose is the same
+    exchange, so the backward exchanges the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shards):
+        ctx.shards = shards
+        return shards.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.shards.all_to_all(grad), None
+
+
+class _OwnGroups(torch.autograd.Function):
+    """The rank's block of ``x``'s leading dimension (the MoE groups a
+    rank of the model group dispatches); the backward all-gathers the
+    blocks' gradients over the model group, so every rank holds the whole
+    input's gradient, as after Megatron's f."""
+
+    @staticmethod
+    def forward(ctx, x, shards):
+        ctx.shards = shards
+        n = x.shape[0] // shards.model_ranks
+        return x.narrow(0, shards.model_block * n, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.shards.all_gather(grad), None
+
+
+class _AllGroups(torch.autograd.Function):
+    """The model group's blocks of the leading dimension all-gathered (the
+    MoE groups' outputs put together); every rank holds the whole
+    output's gradient, so the backward keeps the rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, shards):
+        ctx.shards = shards
+        return shards.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        shards = ctx.shards
+        n = grad.shape[0] // shards.model_ranks
+        return grad.narrow(0, shards.model_block * n, n), None
+
+
 def _unit_output(path: str) -> Optional[str]:
-    """The output projection's path of the dense unit a leaf at ``path``
-    belongs to (``segments/<s>/<b>/attn/wo``, ``.../mlp/w_out``), else
-    None."""
+    """The output projection's path of the cut unit a leaf at ``path``
+    belongs to (``segments/<s>/<b>/attn/wo``, ``.../mlp/w_out``, the
+    experts' ``.../moe/w_out`` for the router, ``.../moe/shared/w_out``
+    for the shared experts), else None."""
     parts = path.split("/")
     if parts[0] == "segments" and len(parts) > 4:
-        out = {"attn": "wo", "mlp": "w_out"}.get(parts[3])
+        unit = parts[:4]
+        if parts[3] == "moe" and parts[4] == "shared":
+            unit = parts[:5]
+        out = {"attn": "wo", "mlp": "w_out", "moe": "w_out"}.get(parts[3])
         if out is not None:
-            return "/".join(parts[:4] + [out])
+            return "/".join(unit + [out])
     return None
 
 
@@ -936,20 +1003,41 @@ class ModelShards(_Blocks):
     and gold logit all-reduced (the logits are never gathered), its
     input through an f.
 
+    MLA is cut over its heads as GQA attention is (``wq``, ``w_uk``,
+    ``w_uv`` and ``wo``), between the same f and g; every rank makes the
+    whole latent ``c_kv`` and the rope key.  Where the experts are cut
+    (GShard's expert parallelism, the rules' (E, d, ff) over ``model``),
+    the ranks of a model group hold the same rows and rank r dispatches
+    its block of the MoE groups (``own_groups``): it routes them, decides
+    their drops (each group's own, as one process does), exchanges the
+    (E, groups / M · capacity, d) dispatch buffer over the model group by
+    one all-to-all (``exchange``, what the dry-run's ``moe_exchange``
+    counts: a dispatch and a combine a pass), runs its block of the
+    experts, exchanges their outputs back, combines and all-gathers the
+    groups' outputs (``all_groups``).  The load-balance statistics are
+    summed over every rank (``sum_all``).  The shared experts are a cut
+    MLP between f and g.
+
     Gradients: a cut leaf's is its block's, local to the rank; a leaf
     held whole outside a cut unit gets the same gradient on every rank of
     a model group.  A whole leaf read inside a cut unit (``q_norm``,
     ``k_norm``, and ``wk`` / ``wv`` / ``bk`` / ``bv`` where the kv heads
-    do not divide M) gets only the rank's heads' share, so ``sum_grads``
-    sums those over the model group (``partial``) before every gradient
-    is summed over the data group (``RankSum.sum_grads``).
+    do not divide M; MLA's ``w_dkv``, ``w_krope`` and ``kv_norm``, read by
+    the rank's heads alone; the router, which routes the rank's groups
+    alone) gets only the rank's share, so ``sum_grads`` sums those over
+    the model group (``partial``) before every gradient is summed over
+    the data group (``RankSum.sum_grads``).
 
     Counts, by kind ("block": the units' f and g, which the dry-run's
     ``over model`` entries count; "vocab": the vocabulary cut's, which it
-    does not; "gradient": the partial leaves' sums): ``model_bytes`` (the
-    buffer handed to the collective), ``model_calls`` and
-    ``model_seconds`` (each with the device synchronized on either
-    side), and the clip's norm each step (``gnorms``)."""
+    does not; "gradient": the partial leaves' sums; "exchange": the MoE's
+    all-to-alls, the dry-run's ``moe dispatch`` / ``moe combine``
+    entries; "gather": the MoE groups' all-gathers, forward and backward;
+    "stats": the load-balance statistics' sums; the last two not in the
+    dry-run): ``model_bytes`` (the buffer handed to the collective),
+    ``model_calls`` and ``model_seconds`` (each with the device
+    synchronized on either side), and the clip's norm each step
+    (``gnorms``)."""
 
     def __init__(self, mesh, cfg: ModelConfig):
         check_model_axis(cfg)
@@ -973,11 +1061,17 @@ class ModelShards(_Blocks):
             if path not in self.cuts and _unit_output(path) in self.cuts}
         self.vocab_cut = "embed/tok" in self.cuts
         self.vocab0 = self.model_block * (cfg.vocab_size // m)
-        kinds = ("block", "vocab", "gradient")
+        kinds = ("block", "vocab", "gradient", "exchange", "gather",
+                 "stats")
         self.model_bytes = dict.fromkeys(kinds, 0)
         self.model_calls = dict.fromkeys(kinds, 0)
         self.model_seconds = dict.fromkeys(kinds, 0.0)
         self.gnorms: List[torch.Tensor] = []
+
+    def _count(self, kind: str, x: torch.Tensor, seconds: float) -> None:
+        self.model_bytes[kind] += x.numel() * x.element_size()
+        self.model_calls[kind] += 1
+        self.model_seconds[kind] += seconds
 
     def all_reduce(self, x: torch.Tensor, kind: str,
                    op=dist.ReduceOp.SUM) -> None:
@@ -985,9 +1079,53 @@ class ModelShards(_Blocks):
         ``kind``."""
         _, s = _timed(lambda: dist.all_reduce(x, op=op,
                                               group=self.model_group), x)
-        self.model_bytes[kind] += x.numel() * x.element_size()
-        self.model_calls[kind] += 1
-        self.model_seconds[kind] += s
+        self._count(kind, x, s)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s blocks along its leading dimension exchanged over the
+        model group (``dist.all_to_all_single``), counted under
+        "exchange"."""
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        _, s = _timed(lambda: dist.all_to_all_single(
+            out, x, group=self.model_group), x)
+        self._count("exchange", x, s)
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The model group's blocks of ``x`` put together along the leading
+        dimension, counted under "gather" (the block handed over)."""
+        out, s = _timed(lambda: gather_blocks(x, 0, self.model_ranks,
+                                              self.model_group), x)
+        self._count("gather", x, s)
+        return out
+
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        """The all-to-all of the MoE's buffers (``_Exchange``): ``x`` (M·n,
+        ...) in M blocks, block j to rank j; its gradient exchanged
+        back."""
+        return _Exchange.apply(x, self)
+
+    def own_groups(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's block of the MoE groups ``x`` (G, N, d), G / M
+        of them (``_OwnGroups``)."""
+        if x.shape[0] % self.model_ranks:
+            raise ValueError(f"{x.shape[0]} MoE groups do not divide among "
+                             f"the model group's {self.model_ranks} ranks")
+        return _OwnGroups.apply(x, self)
+
+    def all_groups(self, y: torch.Tensor) -> torch.Tensor:
+        """The model group's blocks of the groups' outputs ``y`` put
+        together (``_AllGroups``)."""
+        return _AllGroups.apply(y, self)
+
+    def sum_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over every rank (the default process group: each
+        holds its block of the batch's groups), identity backward
+        (``_SumOverRanks``), counted under "stats"."""
+        out, s = _timed(lambda: _SumOverRanks.apply(x, None), x)
+        self._count("stats", x, s)
+        return out
 
     @staticmethod
     def _dtype(x: torch.Tensor, pinned: bool) -> torch.dtype:

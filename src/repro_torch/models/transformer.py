@@ -272,8 +272,11 @@ class ShardCtx:
     where the reference constrains its outputs (``cons``); attention
     reads its block of the heads from head ``model_block`` × the block's
     heads; the embedding's lookup and the loss run over the rank's block
-    of the vocabulary where it is cut (``vocab_cut``).  Elsewhere
-    ``model_in`` / ``model_out`` return their input."""
+    of the vocabulary where it is cut (``vocab_cut``); MLA takes the same
+    f and g around its block of the heads, and the MoE block dispatches
+    the rank's block of the groups to the experts over the model group
+    (``layers._moe``).  Elsewhere ``model_in`` / ``model_out`` return
+    their input."""
     mesh: Any = None
     dp: Tuple[str, ...] = ("data",)
     tp: str = "model"
@@ -362,8 +365,12 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
     if kind in ("attn", "shared_attn"):
         h = L.apply_norm(x, bp["norm1"], cfg)
         if cfg.mla is not None and kind == "attn":
-            att, new_cache = L.mla_block(h, bp["attn"], cfg, positions,
-                                         cache, t, absorb=absorb)
+            # a rank's block of the heads: Megatron's f and g around it
+            cut = bp["attn"]["wo"].shape[0] != cfg.n_heads
+            att, new_cache = L.mla_block(ctx.model_in(h, cut), bp["attn"],
+                                         cfg, positions, cache, t,
+                                         absorb=absorb)
+            att = ctx.model_out(att, cut, pin)
         elif bp["attn"]["wo"].shape[0] != cfg.padded_heads:
             # a rank's block of the heads (the model axis over ranks),
             # from head model_block × its count: Megatron's f before the
@@ -423,11 +430,9 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
 
 def _mlp(h: torch.Tensor, p: Params, cfg: ModelConfig,
          ctx: ShardCtx) -> torch.Tensor:
-    """The SwiGLU MLP; where the rank holds a block of its hidden units
-    (the model axis over ranks), between Megatron's f and g."""
-    cut = p["w_out"].shape[0] != cfg.d_ff
-    f = L.mlp_block(ctx.model_in(h, cut), p)
-    return ctx.model_out(f, cut, cfg.pin_proj_outputs)
+    """The dense SwiGLU MLP; where the rank holds a block of its hidden
+    units (the model axis over ranks), between Megatron's f and g."""
+    return L.cut_mlp_block(h, p, cfg.d_ff, ctx, cfg.pin_proj_outputs)
 
 
 def head_weight(params: Params, cfg: ModelConfig,

@@ -120,6 +120,25 @@ class CollectiveStats:
         """The number of those all-reduces."""
         return sum(self.op_counts[name] for name in self._model_entries())
 
+    def _moe_entries(self) -> List[str]:
+        return [name for name in self.ops
+                if name.startswith("all-to-all ")
+                and name.endswith(("/moe dispatch", "/moe combine"))]
+
+    @property
+    def moe_all_to_all_bytes(self) -> int:
+        """The bytes of the MoE's all-to-alls, the entries ``all-to-all
+        over ...: <unit>/moe dispatch`` and ``... combine`` (a device's
+        share of the dispatch buffer each), which a step over the model
+        axis's ranks hands its exchanges
+        (``sharding.ModelShards.model_bytes["exchange"]``)."""
+        return sum(self.ops[name] for name in self._moe_entries())
+
+    @property
+    def moe_all_to_alls(self) -> int:
+        """The number of those all-to-alls."""
+        return sum(self.op_counts[name] for name in self._moe_entries())
+
     @property
     def gradient_all_reduce_bytes(self) -> int:
         """The bytes of the data-parallel gradient all-reduces, the
@@ -281,8 +300,15 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
       combine.
 
     Not counted: the embedding's and the LM head's collectives where the
-    vocabulary is cut, the loss's per-token reductions, and what XLA's
-    partitioner would add beyond the rules (resharding copies).
+    vocabulary is cut, the loss's per-token reductions, the gradient sums
+    over ``model`` of the whole leaves read inside a cut unit (q/k norms,
+    k/v where the kv heads do not divide ``model``, MLA's latent leaves
+    ``w_dkv`` / ``w_krope`` / ``kv_norm``, the MoE router), the MoE's
+    load-balance statistics' sums, the all-gather of the MoE groups'
+    outputs over ``model`` where a step over ranks splits the groups
+    among a model group (and of their input's gradient in the backward:
+    ``sharding.ModelShards``' "gather"), and what XLA's partitioner would
+    add beyond the rules (resharding copies).
     """
     dp, tp = mesh_axes(mesh)
     dp_size = _size(mesh, dp)

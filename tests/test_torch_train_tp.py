@@ -99,26 +99,33 @@ def _references(cfg, batch_sets: list) -> list:
 
 
 class _Runs:
-    """Each case once a module: the reference on the hosts' concatenated
-    batches (a configuration's cases in one ``_references``), and
-    ``TR.steps`` over its (data, model) grid of gloo ranks from the
-    reference's parameters."""
+    """Each case of ``cases`` (name: (configuration, data ranks, model
+    ranks[, the configuration the reference steps, where it differs only
+    in what changes no value, as remat])) once a module: the reference on
+    the hosts' concatenated batches (the cases of one reference
+    configuration in one ``_references``), and ``TR.steps`` over its
+    (data, model) grid of gloo ranks from the reference's parameters."""
 
-    def __init__(self, base):
+    def __init__(self, base, cases=None):
         self.base, self.cache, self.refs = base, {}, {}
+        self.cases = CASES if cases is None else cases
+
+    def _ref_cfg(self, name: str):
+        case = self.cases[name]
+        return case[3] if len(case) > 3 else case[0]
 
     def ref(self, name: str) -> dict:
         if name not in self.refs:
-            cfg = CASES[name][0]
-            names = [n for n, c in CASES.items() if c[0] is cfg]
-            outs = _references(cfg, [_batches(cfg, CASES[n][1], N_STEPS)
-                                     for n in names])
+            cfg = self._ref_cfg(name)
+            names = [n for n in self.cases if self._ref_cfg(n) is cfg]
+            outs = _references(cfg, [_batches(cfg, self.cases[n][1],
+                                              N_STEPS) for n in names])
             self.refs.update(zip(names, outs))
         return self.refs[name]
 
     def __call__(self, name: str):
         if name not in self.cache:
-            cfg, hosts, m = CASES[name]
+            cfg, hosts, m = self.cases[name][:3]
             ref = self.ref(name)
             where = self.base / name
             where.mkdir()
@@ -326,9 +333,8 @@ def test_the_reference_rules_decide_the_cuts():
     assert eight.partial == set()
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
-                                  "llama4-maverick-400b-a17b", "rwkv6-7b",
-                                  "zamba2-2.7b", "hubert-xlarge"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b",
+                                  "hubert-xlarge"])
 def test_units_the_model_axis_does_not_cut_are_refused(arch):
     argv = ["--device", "cpu", "--arch", arch, "--ranks", "2",
             "--model-ranks", "2"]

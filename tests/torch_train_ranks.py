@@ -1,7 +1,8 @@
 """Rank bodies for the tests of training's data axis over ranks
 (``launch/ranks.py``, ``launch/train.py --ranks``, with ``--fsdp`` the
 parameters cut over the ranks too, and with ``--model-ranks`` over the
-model axis across them).
+model axis across them; ``moe_forward``, a MoE block over the model
+axis's ranks alone).
 
 ``steps`` runs in a rank, a child process forked from the port's
 forkserver, as ``target(group, **kwargs)``, and in the test's own process
@@ -17,6 +18,7 @@ import torch
 from repro_torch.configs.base import config_from_dict
 from repro_torch.core.tree import leaves_with_paths, map_tree
 from repro_torch.launch import train
+from repro_torch.models import layers as L
 from repro_torch.models import sharding as S
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import NULL_CTX
@@ -144,3 +146,23 @@ def local_losses(group, *, cfg: dict, leaves: str, seq: int, batch: int,
         own, _ = T.make_loss_fn(pcfg)(params, b)
     return {"loss": float(whole), "own_loss": float(own),
             "mask_count": int(b["mask"].sum()) if "mask" in b else None}
+
+
+def moe_forward(group, *, cfg: dict, x: str, out: str,
+                model_ranks: int) -> dict:
+    """The first MoE layer's block (``layers.moe_block``, the parameters
+    drawn from seed 0) on the rows in ``x``, as rank r of ``group`` in
+    ``sharding.tp_ctx`` on the (W/M, M) mesh from its ``model`` blocks:
+    its output and load-balance loss to ``<out>_<rank>.npz``, and the
+    collectives' counts."""
+    pcfg = config_from_dict(cfg)
+    params = T.init_params(pcfg, torch.Generator().manual_seed(0), "cpu")
+    m = model_ranks
+    ctx = S.tp_ctx(group.mesh((group.world // m, m), model_ranks=m), pcfg)
+    held = ctx.ranks.shard(params)
+    moe = map_tree(lambda t: t[0], held["segments"][1][0]["moe"])
+    with torch.no_grad():
+        y, aux = L.moe_block(torch.from_numpy(_npz(x)["x"]), moe, pcfg, ctx)
+    np.savez(f"{out}_{group.rank}.npz", y=y.numpy(), aux=aux.numpy())
+    return {"model_bytes": ctx.ranks.model_bytes,
+            "model_calls": ctx.ranks.model_calls}
