@@ -328,7 +328,16 @@ so the script exits non-zero and prints no result line:
            rows' all-gathers and the statistics' sums, which the dry-run
            does not count, among them) and the first step's near-tied
            tokens printed.  ``python3 chip_smoke.py --tp-moe-probe`` runs
-           only (t11);
+           only (t11); (t12) rwkv6-7b at published widths cut to 2 layers
+           and (t13) zamba2-2.7b cut to 7 blocks (6 Mamba2 layers, one
+           application of the weight-shared block), each at (t10)'s
+           batch, steps, lr and mesh, RWKV6's heads and channel mix,
+           Mamba2's inner channels and the shared block cut over the
+           model axis across the 2 ranks, held to (t10)'s gates, the norm
+           statistics' all-reduces' bytes and count a step equal to the
+           dry-run's "mamba/norm" entries too; each collective kind's
+           bytes, calls, seconds and share printed.  ``python3
+           chip_smoke.py --tp-ssm-probe`` runs only (t12) and (t13);
 15e. dryrun  launch/dryrun.py's reckoning held against real steps, no
            kernel launched: (d1) (t3)'s danube step and (d2) (a)'s
            qwen2-72b decode step at t = 300, each reckoned on meta tensors
@@ -3160,6 +3169,20 @@ TRAIN_TP_MOE_LAYERS = 3
 #: choices lie closer than this is near-tied (ROADMAP C: bf16 MoE tests
 #: leave such tokens out where they compare tokens' outputs)
 TRAIN_TP_MOE_TIE = 1e-3
+#: (t12), (t13): RWKV6 and Zamba2 at published widths cut to this many
+#: blocks (rwkv6-7b's 2 layers, one stacked segment; zamba2-2.7b's 6
+#: Mamba2 layers and one application of its weight-shared block), at
+#: (t10)'s batch, steps, lr and mesh: RWKV6's heads and channel mix,
+#: Mamba2's inner channels (its norm's statistic all-reduced) and the
+#: shared block cut over the model axis across the ranks
+TRAIN_TP_SSM = (("t12", "rwkv6-7b", 2), ("t13", "zamba2-2.7b", 7))
+#: (t12), (t13): a leaf the initialisation sets to zero (Mamba2's conv
+#: biases and dt_bias) holds only its steps' updates, so its normwise gap
+#: is one relative to them, not to its initial values: in bf16 the two
+#: runs round some near-zero gradient elements to opposite signs, and
+#: AdamW's first steps move each such element by ±lr whatever its size.
+#: Such a leaf is held to this, each other leaf to TRAIN_FSDP_PARAM_TOL
+TRAIN_TP_UPDATE_TOL = 0.25
 
 
 def _launch_train(argv, env, timeout=600):
@@ -3190,12 +3213,12 @@ def phase_train(dev: torch.device) -> tuple:
     """Training on the card through src/repro_torch/launch/train.py: (t1)
     lm-100m, (t2) crash and restart, (t3) danube at published width and
     depth, (t4) card == CPU in f32, (t5) throughput of the step, its line
-    search and subspace Newton, (t6) int8 gradient compression, (t7)-(t11)
+    search and subspace Newton, (t6) int8 gradient compression, (t7)-(t13)
     over ranks (``_train_over_ranks``).  No kernel
     runs (training is ``use_kernels=False``, as the reference's launcher);
     a backward through a kernel route is refused.  Returns (t3)'s counted
-    step for ``phase_dryrun`` and the kernels' launches in (t10)'s and
-    (t11)'s ranks."""
+    step for ``phase_dryrun`` and the kernels' launches in (t10)-(t13)'s
+    ranks."""
     _zero_counts()
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3482,7 +3505,7 @@ def phase_train(dev: torch.device) -> tuple:
         cfg, dev)
     refused = _refuses(lambda: transformer.make_train_step(cfg, opt)(
         params, opt.init(params), batch), RuntimeError)
-    print(f"[train] launches across (t1)-(t11): {counts}; a train step of "
+    print(f"[train] launches across (t1)-(t13): {counts}; a train step of "
           f"{cfg.name} with use_kernels=True on the card refused: {refused}")
     check(not any(counts.values()), "a kernel launched on the training path")
     check(refused and not any(_counts().values()),
@@ -3499,9 +3522,10 @@ def _train_over_ranks(dev: torch.device) -> dict:
     to the dry-run's data-parallel gradient entries on the (2, 1) mesh,
     each rank's peak memory against the reckoned per-device peak, ms a
     step and the all-reduce's share; (t8) the tiny preset over a one-rank
-    NCCL group == this process's run bit for bit; (t9), (t10) and (t11)
-    (``_train_fsdp``, ``_train_tp``, ``_train_tp_moe``).  Returns the
-    kernels' launches in (t10)'s and (t11)'s ranks."""
+    NCCL group == this process's run bit for bit; (t9)-(t13)
+    (``_train_fsdp``, ``_train_tp``, ``_train_tp_moe``,
+    ``_train_tp_ssm``).  Returns the kernels' launches in (t10)-(t13)'s
+    ranks."""
     t0 = time.perf_counter()
     _free()
     w = TRAIN_RANKS
@@ -3588,9 +3612,10 @@ def _train_over_ranks(dev: torch.device) -> dict:
     check(same, "(t8) the one-rank NCCL run differs from one process")
 
     _train_fsdp(dev, TRAIN_FSDP_LAYERS)
-    launches = _train_tp(dev, TRAIN_FSDP_LAYERS)
-    moe = _train_tp_moe(dev)
-    return {name: launches[name] + moe[name] for name in LAUNCH_COUNTERS}
+    legs = [_train_tp(dev, TRAIN_FSDP_LAYERS), _train_tp_moe(dev)]
+    legs += [_train_tp_ssm(dev, *leg) for leg in TRAIN_TP_SSM]
+    return {name: sum(leg[name] for leg in legs)
+            for name in LAUNCH_COUNTERS}
 
 
 def _reckon_fsdp(cfg, w: int, fsdp: bool, model: int = 1) -> dict:
@@ -3606,14 +3631,16 @@ def _reckon_fsdp(cfg, w: int, fsdp: bool, model: int = 1) -> dict:
         fsdp=fsdp)
 
 
-def _blocks_against_one(paths: list, cuts: dict, one: dict) -> tuple:
+def _blocks_against_one(paths: list, cuts: dict, one: dict,
+                        apart=frozenset()) -> tuple:
     """The worst normwise relative gap, over the leaves, between the ranks'
     final blocks (``paths``: each rank's ``torch.save`` file), put together
     along each cut dimension (``cuts``), and ``one`` (the one-process
     parameters, by path, on the host), on the card; and the leaves
-    compared."""
+    compared; and the gaps of the leaves in ``apart``, by path, which
+    the worst leaves out."""
     ranked = [torch.load(p, mmap=True) for p in paths]
-    worst = 0.0
+    worst, gaps = 0.0, {}
     for path, want in one.items():
         parts = [r[path] for r in ranked]
         got = (torch.cat(parts, cuts[path]) if path in cuts else parts[0])
@@ -3621,8 +3648,11 @@ def _blocks_against_one(paths: list, cuts: dict, one: dict) -> tuple:
         got = got.cuda().float()
         gap = float(torch.linalg.norm(got - want)
                     / torch.linalg.norm(want).clamp(min=1e-30))
-        worst = max(worst, gap)
-    return worst, len(one)
+        if path in apart:
+            gaps[path] = gap
+        else:
+            worst = max(worst, gap)
+    return worst, len(one), gaps
 
 
 def _train_fsdp(dev: torch.device, n_layers: int, probe: bool = False
@@ -3661,7 +3691,7 @@ def _train_fsdp(dev: torch.device, n_layers: int, probe: bool = False
             shards = sharding.RankShards(Mesh.over_ranks(
                 (w, 1), ("data", "model"), rank=0,
                 rank_devices=[dev] * w), cfg)
-            gap, n_leaves = _blocks_against_one(
+            gap, n_leaves, _ = _blocks_against_one(
                 [blocks.format(rank=r) for r in range(w)], shards.cuts,
                 torch.load(os.path.join(tmp, "one.pt"), mmap=True))
             t3 = time.perf_counter()
@@ -3780,7 +3810,7 @@ def _train_tp(dev: torch.device, n_layers: int) -> dict:
             one = train.run(argv, cfg=dataclasses.asdict(cfg),
                             params_out=os.path.join(tmp, "one.pt"))
         t11 = time.perf_counter()
-        gap, n_leaves = _blocks_against_one(
+        gap, n_leaves, _ = _blocks_against_one(
             [blocks.format(rank=r) for r in range(m)], docs[0]["cuts"],
             torch.load(os.path.join(tmp, "one.pt"), mmap=True))
     t2 = time.perf_counter()
@@ -3919,7 +3949,7 @@ def _train_tp_moe(dev: torch.device) -> dict:
             one = train.run(argv, cfg=dataclasses.asdict(cfg),
                             params_out=os.path.join(tmp, "one.pt"))
         t11 = time.perf_counter()
-        gap, n_leaves = _blocks_against_one(
+        gap, n_leaves, _ = _blocks_against_one(
             [blocks.format(rank=r) for r in range(m)], docs[0]["cuts"],
             torch.load(os.path.join(tmp, "one.pt"), mmap=True))
     t2 = time.perf_counter()
@@ -4005,6 +4035,111 @@ def _train_tp_moe(dev: torch.device) -> dict:
     check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t11) a rank's peak is "
           f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
     check(not any(launches.values()), "(t11) a kernel launched in a rank")
+    return launches
+
+
+def _train_tp_ssm(dev: torch.device, tag: str, arch: str,
+                  n_blocks: int) -> dict:
+    """(t12) / (t13): ``launch/train.py --ranks 2 --model-ranks 2`` on
+    ``arch`` at published widths cut to ``n_blocks`` blocks, over 2 gloo
+    ranks sharing the card on the (1, 2) mesh, against the launcher's
+    one-process run, held to (t10)'s gates, Mamba2's norm statistics'
+    all-reduces against the dry-run's ``mamba/norm`` entries too.
+    Returns the kernels' launches in the ranks, by counter."""
+    t0 = time.perf_counter()
+    _free()
+    m = TRAIN_TP_RANKS
+    steps = TRAIN_DANUBE["steps"]
+    cfg = cut_depth(get_config(arch), n_blocks)
+    argv = ["--batch", str(TRAIN_DANUBE["batch"]), "--seq",
+            str(TRAIN_DANUBE["seq"]), "--steps", str(steps), "--lr",
+            str(TRAIN_DANUBE["lr"]), "--log-every", "1"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_ssm_") as tmp:
+        blocks = os.path.join(tmp, "rank{rank}.pt")
+        res, _ = train.over_ranks(
+            argv + ["--ranks", str(m), "--model-ranks", str(m),
+                    "--dist-backend", "gloo"],
+            measure=True, cfg=dataclasses.asdict(cfg), params_out=blocks)
+        check(res.returncode == 0, f"({tag}) the run over ranks failed: "
+              f"{res.failed}")
+        t1 = time.perf_counter()
+        docs = res.docs
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = train.run(argv, cfg=dataclasses.asdict(cfg),
+                            params_out=os.path.join(tmp, "one.pt"))
+        t11 = time.perf_counter()
+        zero = {path for path, leaf in leaves_with_paths(
+            transformer.param_specs(cfg)) if leaf.init == ("full", 0.0)}
+        gap, n_leaves, zero_gaps = _blocks_against_one(
+            [blocks.format(rank=r) for r in range(m)], docs[0]["cuts"],
+            torch.load(os.path.join(tmp, "one.pt"), mmap=True), zero)
+    t2 = time.perf_counter()
+    report = _reckon_fsdp(cfg, 1, False, model=m)
+    t3 = time.perf_counter()
+    zero_gap = max(zero_gaps.values(), default=0.0)
+    errs = [abs(a - b) / abs(b) for a, b in zip(docs[0]["losses"],
+                                                 one["losses"])]
+    want = {"block": (report["model_all_reduce_bytes"],
+                      report["model_all_reduces"]),
+            "norm": (report["norm_all_reduce_bytes"],
+                     report["norm_all_reduces"])}
+    mamba = "mamba2" in cfg.blocks()
+    bytes_ok = all(2 * d["model_bytes"][k] == steps * b
+                   and d["model_calls"][k] == steps * n
+                   for d in docs for k, (b, n) in want.items()) \
+        and want["block"][0] > 0 and (want["norm"][0] > 0) == mamba
+    same = all(d["digests"] == docs[0]["digests"] for d in docs) \
+        and len(docs[0]["digests"]) == steps
+    same_gnorm = all(d["gnorms"] == docs[0]["gnorms"] for d in docs)
+    peak = report["memory_analysis"]["peak_size_bytes"]
+    mem_errs = [abs(d["peak_bytes"] - peak) / peak for d in docs]
+    launches = {name: sum(d["kernel_launches"][name] for d in docs)
+                for name in LAUNCH_COUNTERS}
+    d0 = docs[0]
+    step_ms = [round(1e3 * x, 1) for x in d0["step_s"]]
+    kinds = [k for k in d0["model_bytes"] if d0["model_calls"][k]]
+    per_kind = "; ".join(
+        f"{k} {d0['model_bytes'][k] // steps} B in "
+        f"{d0['model_calls'][k] // steps} calls, s "
+        f"{[round(x[k], 3) for x in d0['model_s']]} (share "
+        f"{[round(x[k] / s, 3) for x, s in zip(d0['model_s'], d0['step_s'])]})"
+        for k in kinds)
+    print(f"[train] ({tag}) {cfg.name} at published widths, {n_blocks} "
+          f"blocks {cfg.block_pattern} (remat {cfg.remat}), over {m} gloo "
+          f"ranks sharing {dev}, the (1, {m}) mesh (launch/train.py --ranks "
+          f"{m} --model-ranks {m}), global batch {TRAIN_DANUBE['batch']} x "
+          f"{TRAIN_DANUBE['seq']}, {steps} steps at lr {TRAIN_DANUBE['lr']}"
+          f": losses {[round(x, 5) for x in d0['losses']]} against one "
+          f"process {[round(x, 5) for x in one['losses']]} (worst "
+          f"{max(errs):.2e} rel, gate {TRAIN_RANKS_LOSS_TOL}); blocks put "
+          f"together, worst leaf {gap:.2e} normwise over {n_leaves} leaves "
+          f"(gate {TRAIN_FSDP_PARAM_TOL}), the {len(zero_gaps)} set to zero "
+          f"at the start {zero_gap:.2e} (of their updates, gate "
+          f"{TRAIN_TP_UPDATE_TOL}); whole leaves the same bits: "
+          f"{same}; clip norms {[round(g, 4) for g in d0['gnorms']]}, the "
+          f"same on every rank: {same_gnorm}; a step a rank x 2 against the "
+          f"dry-run's over-model entries on (1, {m}): block {want['block']}"
+          f", norm {want['norm']} (B, calls): equal {bytes_ok}; "
+          f"{per_kind}; ms a step (synchronized) {step_ms}; peak "
+          f"{[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a rank "
+          f"against the reckoned {peak / 2**30:.3f} GiB "
+          f"({', '.join(f'{100 * e:.2f} %' for e in mem_errs)}); kernel "
+          f"launches in the ranks {launches}; ranks {res.wall_s:.1f} s "
+          f"(runs {[round(d['run_s'], 1) for d in docs]} s), one process "
+          f"{t11 - t1:.1f} s, comparison {t2 - t11:.1f} s, reckoning "
+          f"{t3 - t2:.1f} s; {time.perf_counter() - t0:.1f}s")
+    check(max(errs) <= TRAIN_RANKS_LOSS_TOL, f"({tag}) a loss over ranks is "
+          f"{max(errs):.2e} from the one-process step's")
+    check(gap <= TRAIN_FSDP_PARAM_TOL and zero_gap <= TRAIN_TP_UPDATE_TOL,
+          f"({tag}) the ranks' blocks lie {gap:.2e} ({zero_gap:.2e} where "
+          f"set to zero at the start) from the one-process parameters")
+    check(same and same_gnorm, f"({tag}) the ranks' whole leaves or clip "
+          "norms differ")
+    check(bytes_ok, f"({tag}) the block or norm all-reduce bytes differ "
+          "from the dry-run's over-model entries")
+    check(max(mem_errs) <= DRYRUN_MEM_TOL, f"({tag}) a rank's peak is "
+          f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
+    check(not any(launches.values()), f"({tag}) a kernel launched in a rank")
     return launches
 
 
@@ -4120,6 +4255,14 @@ def main() -> None:
         phase_card(dev)
         child.warm()
         _train_tp_moe(dev)
+        child.stop()
+        print(f"[done] {time.perf_counter() - t0:.1f}s")
+        return
+    if sys.argv[1:] == ["--tp-ssm-probe"]:
+        phase_card(dev)
+        child.warm()
+        for leg in TRAIN_TP_SSM:
+            _train_tp_ssm(dev, *leg)
         child.stop()
         print(f"[done] {time.perf_counter() - t0:.1f}s")
         return

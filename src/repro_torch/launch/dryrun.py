@@ -179,6 +179,14 @@ COUNTED_BY = {
                               "g all-reduces (sharding.ModelShards."
                               "model_bytes['block'])",
     "model_all_reduces": "the number of those all-reduces a step",
+    "norm_all_reduce_bytes": "its all-reduce entries over model of "
+                             "Mamba2's norm statistics: 2 x the device's "
+                             "tokens x 4 B (an f32 sum of squares a "
+                             "token) a pass, which a step over the model "
+                             "axis's ranks hands half of to its "
+                             "statistic's all-reduces (sharding."
+                             "ModelShards.model_bytes['norm'])",
+    "norm_all_reduces": "the number of those all-reduces a step",
     "moe_all_to_all_bytes": "its all-to-all entries of the MoE's dispatch "
                             "and combine: a device's share of the "
                             "(experts x groups x capacity x d_model) "
@@ -732,6 +740,8 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         "fsdp_reduce_scatter_bytes": coll.fsdp_reduce_scatter_bytes,
         "model_all_reduce_bytes": coll.model_all_reduce_bytes,
         "model_all_reduces": coll.model_all_reduces,
+        "norm_all_reduce_bytes": coll.norm_all_reduce_bytes,
+        "norm_all_reduces": coll.norm_all_reduces,
         "moe_all_to_all_bytes": coll.moe_all_to_all_bytes,
         "moe_all_to_alls": coll.moe_all_to_alls,
         "model_flops": mf,

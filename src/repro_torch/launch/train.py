@@ -23,6 +23,8 @@ Newton as training options.
         --ranks 4 --model-ranks 2 --device cpu   # (data 2, model 2)
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-lite-16b --ranks 2 --model-ranks 2   # MLA, MoE
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch zamba2-2.7b --ranks 2 --model-ranks 2   # Mamba2, shared block
 
 The data axis (``--ranks W``, ``--dist-backend gloo|nccl``).  The
 reference trains data-parallel on its production mesh with the batch
@@ -60,33 +62,37 @@ restores its blocks.
 
 ``--model-ranks M`` (with ``--ranks W``, M dividing W) cuts the
 parameters over the model axis across the ranks instead, Megatron's
-tensor parallelism as the reference's ``param_specs`` rules cut them over
-``model``: the W ranks form a (W/M, M) mesh over (``data``, ``model``),
-rank r holding data block r // M (host r // M's rows) and model block
-r % M, so a model group is M adjacent ranks.  Each rank draws the whole
-parameters from the seed and keeps its ``model`` block of every leaf
-(``enforce_divisible(param_specs(cfg, mesh))``; a leaf the rules leave
-whole, or whose cut dimension M does not divide, stays whole), and its
-blocks of the AdamW moments.  The step runs in ``sharding.tp_ctx``: each
-cut unit (GQA attention and MLA over their heads, the SwiGLU MLP and the
-shared experts over their hidden units) takes an all-reduce of its
-input's gradient over the model group in the backward and of its
-row-cut product in the forward; a MoE block whose experts are cut
-exchanges its dispatch buffer and the experts' outputs over the model
-group by all-to-alls, each rank dispatching its block of the batch rows
-(GShard's expert parallelism); the embedding's lookup and the loss run
-over the rank's block of the vocabulary, the gradients are summed over
-the data group, and the clip's norm sums the cut leaves' over the model
-group.  A configuration with RWKV6, Mamba2, the weight-shared block or
-the audio stub is refused, and so is a MoE configuration whose data
-rank's batch rows M does not divide, and ``--compress-grads``,
-``--line-search``, ``--optimizer subspace-newton`` and ``--fsdp`` with
-it, each naming the ROADMAP item it waits for where there is one
-(``_check_model_ranks``).  The per-rank document counts the model
-group's collectives by kind (``ModelShards.model_bytes``: the units'
-all-reduces, the MoE's all-to-alls and rows' all-gathers, ...).
-Checkpoints are written and restored as under ``--fsdp``, the cut leaves
-gathered over the model group.
+tensor parallelism as the reference's ``param_specs`` rules cut them
+over ``model``: the W ranks form a (W/M, M) mesh over (``data``,
+``model``), rank r holding data block r // M (host r // M's rows) and
+model block r % M, so a model group is M adjacent ranks.  Each rank
+draws the whole parameters from the seed and keeps its ``model`` block
+of every leaf (``enforce_divisible(param_specs(cfg, mesh))``; a leaf the
+rules leave whole, or whose cut dimension M does not divide, stays
+whole), and its blocks of the AdamW moments.  The step runs in
+``sharding.tp_ctx``: each cut unit (GQA attention, MLA and RWKV6's time
+mix over their heads, the SwiGLU MLP, the shared experts and RWKV6's
+channel mix over their hidden units, Mamba2 over its inner channels, the
+weight-shared block at each application) takes an all-reduce of its
+input's gradient over the model group in the backward and of its row-cut
+product in the forward, and Mamba2's RMS norm all-reduces its sum of
+squares in both; a MoE block whose experts are cut exchanges its
+dispatch buffer and the experts' outputs over the model group by
+all-to-alls, each rank dispatching its block of the batch rows (GShard's
+expert parallelism); the embedding's lookup and the loss run over the
+rank's block of the vocabulary (the audio stub's head alone), the
+gradients are summed over the data group, and the clip's norm sums the
+cut leaves' over the model group.  A MoE configuration whose data rank's
+batch rows M does not divide is refused, and so is a Mamba2
+configuration whose cut of the inner channels would split a head, and
+``--compress-grads``, ``--line-search``, ``--optimizer subspace-newton``
+and ``--fsdp`` with it, each naming the ROADMAP item it waits for where
+there is one (``_check_model_ranks``).  The per-rank document counts the
+model group's collectives by kind (``ModelShards.model_bytes``: the
+units' all-reduces under "block", Mamba2's norm statistics under "norm",
+the MoE's all-to-alls and rows' all-gathers, ...).  Checkpoints are
+written and restored as under ``--fsdp``, the cut leaves gathered over
+the model group.
 
 Where the reference folds each step into ``jax.random.fold_in(key(seed +
 7), step)``, the port seeds a ``torch.Generator`` on the device from
@@ -127,7 +133,7 @@ from repro_torch.core.tree import leaves_with_paths, map_tree
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, SyntheticMasked
 from repro_torch.kernels import ops
 from repro_torch.launch import ranks
-from repro_torch.models.sharding import (check_model_axis, check_moe_groups,
+from repro_torch.models.sharding import (check_mamba_heads, check_moe_groups,
                                          data_parallel_ctx, fsdp_ctx, tp_ctx)
 from repro_torch.models.transformer import (NULL_CTX, ShardCtx, count_params,
                                             init_params, make_loss_fn,
@@ -317,9 +323,9 @@ MODEL_RANKS_ITEM = "ROADMAP A.8 (vii)"
 def _check_model_ranks(args, cfg: Optional[ModelConfig] = None) -> None:
     """``--model-ranks M`` needs ``--ranks W`` with M dividing W, and runs
     only the AdamW step without ``--fsdp``; given the configuration
-    ``cfg``, only units the model axis cuts (``check_model_axis``) and,
-    with MoE, a data rank's batch rows that M divides
-    (``check_moe_groups``)."""
+    ``cfg``, with MoE, a data rank's batch rows that M divides
+    (``check_moe_groups``), and with Mamba2, a cut of its inner channels
+    that keeps its heads whole (``check_mamba_heads``)."""
     m = args.model_ranks
     if m == 1:
         return
@@ -343,8 +349,8 @@ def _check_model_ranks(args, cfg: Optional[ModelConfig] = None) -> None:
             raise ValueError(f"--model-ranks with {flag} is not supported: "
                              f"{why}; it waits for {MODEL_RANKS_ITEM}")
     if cfg is not None:
-        check_model_axis(cfg)
         check_moe_groups(cfg, args.batch // (args.ranks // m), m)
+        check_mamba_heads(cfg, m)
 
 
 def _check_fsdp(args) -> None:

@@ -521,7 +521,7 @@ class RankSum:
     #: the model axis's hooks (``ModelShards``): a rank that holds every
     #: leaf whole is model block 0 of 1, and its units are not cut
     model_ranks, model_block = 1, 0
-    vocab_cut = False
+    table_cut = head_cut = False
 
     def use(self, tree: Any, path: str) -> Any:
         """``tree`` (the subtree at ``path``) as a step uses it: every
@@ -837,27 +837,6 @@ def fsdp_ctx(mesh, cfg: ModelConfig) -> T.ShardCtx:
 # parallelism, the reference's ``param_specs`` over ``model``)
 # ---------------------------------------------------------------------------
 
-#: where the model axis over ranks waits for the units it does not cut
-MODEL_UNITS_ITEM = "ROADMAP A.8 (vi)"
-
-
-def check_model_axis(cfg: ModelConfig) -> None:
-    """Refuse a configuration with a unit the model axis over ranks does
-    not cut yet: it cuts GQA attention, MLA, the SwiGLU MLP and the MoE
-    block."""
-    kinds = set(cfg.blocks())
-    what = [name for name, hit in (
-        ("RWKV6", "rwkv6" in kinds), ("Mamba2", "mamba2" in kinds),
-        ("the weight-shared attention block", "shared_attn" in kinds),
-        ("the audio front-end stub", cfg.frontend == "audio_stub"))
-        if hit]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: the model axis over ranks cuts GQA attention, MLA, "
-            f"the SwiGLU MLP and the MoE block; {', '.join(what)} "
-            f"wait{'s' if len(what) == 1 else ''} for {MODEL_UNITS_ITEM}")
-
-
 def check_moe_groups(cfg: ModelConfig, rows: int, model_ranks: int) -> None:
     """Refuse a model group of ``model_ranks`` ranks that cannot split a
     data rank's ``rows`` MoE groups (batch rows) evenly among its ranks
@@ -869,6 +848,21 @@ def check_moe_groups(cfg: ModelConfig, rows: int, model_ranks: int) -> None:
             f"data ranks) do not divide among --model-ranks {model_ranks}: "
             f"each rank of a model group dispatches its block of the MoE "
             f"groups to the experts")
+
+
+def check_mamba_heads(cfg: ModelConfig, model_ranks: int) -> None:
+    """Refuse a model group of ``model_ranks`` ranks whose cut of Mamba2's
+    inner channels (``w_z`` / ``w_xs`` / ``out_proj`` over ``model``)
+    would split a head: each rank runs whole heads
+    (``ssm.mamba2_mixer``)."""
+    if "mamba2" not in cfg.blocks():
+        return
+    d_in, pdim = cfg.ssm.expand * cfg.d_model, cfg.ssm.head_dim
+    if d_in % model_ranks == 0 and (d_in // model_ranks) % pdim:
+        raise ValueError(
+            f"{cfg.name}: Mamba2's {d_in} inner channels over --model-ranks "
+            f"{model_ranks} are {d_in // model_ranks} a rank, which split "
+            f"its heads of {pdim}")
 
 
 class _EnterModel(torch.autograd.Function):
@@ -904,6 +898,28 @@ class _ReduceModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None, None, None
+
+
+class _StatOverModel(torch.autograd.Function):
+    """A statistic over a dimension the model group cuts (Mamba2's sum of
+    squares over its inner channels): the ranks' sums all-reduced in the
+    forward.  Every rank's channels read the whole sum, so each rank's
+    gradient of it is only a share: the backward all-reduces it too (not
+    ``_SumOverRanks``' identity, which holds where all downstream of the
+    sum is whole).  GSPMD's pair for a mean over a cut dimension."""
+
+    @staticmethod
+    def forward(ctx, x, shards):
+        ctx.shards = shards
+        total = x.to(torch.float32, copy=True).contiguous()
+        shards.all_reduce(total, "norm")
+        return total.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = grad.to(torch.float32, copy=True).contiguous()
+        ctx.shards.all_reduce(total, "norm")
+        return total.to(grad.dtype), None
 
 
 class _Exchange(torch.autograd.Function):
@@ -956,20 +972,37 @@ class _AllGroups(torch.autograd.Function):
         return grad.narrow(0, shards.model_block * n, n), None
 
 
+#: RWKV6's time-mix leaves, the unit that ends in ``w_o``; its channel
+#: mix's whole leaves are read outside the f and g of ``w_k_cm`` /
+#: ``w_v_cm`` (``ssm.rwkv6_channel_mix``), so they belong to no cut unit
+_TIME_MIX = frozenset(("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w_r", "w_k",
+                       "w_v", "w_g", "w_o", "w0", "w_lora_a", "w_lora_b", "u",
+                       "ln_out"))
+
+
 def _unit_output(path: str) -> Optional[str]:
     """The output projection's path of the cut unit a leaf at ``path``
     belongs to (``segments/<s>/<b>/attn/wo``, ``.../mlp/w_out``, the
     experts' ``.../moe/w_out`` for the router, ``.../moe/shared/w_out``
-    for the shared experts), else None."""
+    for the shared experts, ``.../rwkv/w_o`` for RWKV6's time mix,
+    ``.../mamba/out_proj``; the weight-shared block's
+    ``shared_attn/attn/wo`` and ``shared_attn/mlp/w_out``), else None."""
     parts = path.split("/")
-    if parts[0] == "segments" and len(parts) > 4:
+    if parts[0] == "shared_attn" and len(parts) > 2:
+        unit = parts[:2]
+    elif parts[0] == "segments" and len(parts) > 4:
         unit = parts[:4]
-        if parts[3] == "moe" and parts[4] == "shared":
-            unit = parts[:5]
-        out = {"attn": "wo", "mlp": "w_out", "moe": "w_out"}.get(parts[3])
-        if out is not None:
-            return "/".join(unit + [out])
-    return None
+    else:
+        return None
+    kind = unit[-1]
+    if kind == "moe" and parts[len(unit)] == "shared":
+        unit = unit + ["shared"]
+    if kind == "rwkv":
+        out = "w_o" if parts[-1] in _TIME_MIX else None
+    else:
+        out = {"attn": "wo", "mlp": "w_out", "moe": "w_out",
+               "mamba": "out_proj"}.get(kind)
+    return None if out is None else "/".join(unit + [out])
 
 
 class ModelShards(_Blocks):
@@ -1016,20 +1049,41 @@ class ModelShards(_Blocks):
     experts, exchanges their outputs back, combines and all-gathers the
     groups' outputs (``all_groups``).  The load-balance statistics are
     summed over every rank (``sum_all``).  The shared experts are a cut
-    MLP between f and g.
+    MLP between f and g, and so is the weight-shared block's MLP at each
+    of its applications, its attention as GQA's.
+
+    RWKV6's time mix is cut over its heads (``w_r`` / ``w_k`` / ``w_v`` /
+    ``w_g`` / ``w_lora_b``, ``w0``, ``u``, ``ln_out``, ``w_o``) between an
+    f at its input and a g after ``w_o``; the per-head WKV state and group
+    norm need no collective.  Its channel mix is cut over its hidden units
+    (``w_k_cm``, ``w_v_cm``) with the f on the k branch's input alone and
+    the g on the ``w_v_cm`` product, before the product with the whole r
+    branch.  Mamba2 is cut over its inner channels, whole heads a rank
+    (``w_z``, ``w_xs``, ``conv_w_xs``, ``conv_b_xs``, ``norm``,
+    ``out_proj``), between an f at its input and a g after ``out_proj``;
+    its RMS norm's sum of squares is the whole d_in's by ``stat``, an
+    all-reduce in the forward and in the backward.  Where the audio stub
+    has no table, only the head is cut over the vocabulary (``head_cut``
+    without ``table_cut``).
 
     Gradients: a cut leaf's is its block's, local to the rank; a leaf
     held whole outside a cut unit gets the same gradient on every rank of
     a model group.  A whole leaf read inside a cut unit (``q_norm``,
     ``k_norm``, and ``wk`` / ``wv`` / ``bk`` / ``bv`` where the kv heads
-    do not divide M; MLA's ``w_dkv``, ``w_krope`` and ``kv_norm``, read by
-    the rank's heads alone; the router, which routes the rank's groups
-    alone) gets only the rank's share, so ``sum_grads`` sums those over
-    the model group (``partial``) before every gradient is summed over
-    the data group (``RankSum.sum_grads``).
+    do not divide M, in the weight-shared block too; MLA's ``w_dkv``,
+    ``w_krope`` and ``kv_norm``, read by the rank's heads alone; the
+    router, which routes the rank's groups alone; RWKV6's time-mix
+    ``mu_r`` / ``mu_k`` / ``mu_v`` / ``mu_g`` / ``mu_w`` and ``w_lora_a``,
+    behind the time mix's f; Mamba2's ``w_bc``, ``w_dt``, ``conv_w_bc``,
+    ``conv_b_bc``, ``a_log``, ``dt_bias`` and ``dd``, read for the rank's
+    heads alone) gets only the rank's share, so ``sum_grads`` sums those
+    over the model group (``partial``) before every gradient is summed
+    over the data group (``RankSum.sum_grads``).  The channel mix's
+    ``mu_k_cm``, ``mu_r_cm`` and ``w_r_cm`` get whole gradients.
 
     Counts, by kind ("block": the units' f and g, which the dry-run's
-    ``over model`` entries count; "vocab": the vocabulary cut's, which it
+    ``over model`` entries count; "norm": Mamba2's norm statistics, its
+    ``.../mamba/norm`` entries; "vocab": the vocabulary cut's, which it
     does not; "gradient": the partial leaves' sums; "exchange": the MoE's
     all-to-alls, the dry-run's ``moe dispatch`` / ``moe combine``
     entries; "gather": the MoE groups' all-gathers, forward and backward;
@@ -1040,7 +1094,6 @@ class ModelShards(_Blocks):
     (``gnorms``)."""
 
     def __init__(self, mesh, cfg: ModelConfig):
-        check_model_axis(cfg)
         super().__init__(mesh)
         m = mesh.model_ranks
         if m < 2 or mesh.shape["model"] != m:
@@ -1059,9 +1112,11 @@ class ModelShards(_Blocks):
         self.partial = {
             path for path, _ in spec_leaves(self.specs)
             if path not in self.cuts and _unit_output(path) in self.cuts}
-        self.vocab_cut = "embed/tok" in self.cuts
+        self.table_cut = "embed/tok" in self.cuts
+        self.head_cut = ("embed/tok" if cfg.tie_embeddings
+                         else "head/w") in self.cuts
         self.vocab0 = self.model_block * (cfg.vocab_size // m)
-        kinds = ("block", "vocab", "gradient", "exchange", "gather",
+        kinds = ("block", "norm", "vocab", "gradient", "exchange", "gather",
                  "stats")
         self.model_bytes = dict.fromkeys(kinds, 0)
         self.model_calls = dict.fromkeys(kinds, 0)
@@ -1118,6 +1173,12 @@ class ModelShards(_Blocks):
         """The model group's blocks of the groups' outputs ``y`` put
         together (``_AllGroups``)."""
         return _AllGroups.apply(y, self)
+
+    def stat(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, the rank's share of a statistic over a cut dimension,
+        summed over the model group forward and backward
+        (``_StatOverModel``), in f32, counted under "norm"."""
+        return _StatOverModel.apply(x, self)
 
     def sum_all(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over every rank (the default process group: each

@@ -12,8 +12,15 @@ implements; a decode step is ``wkv6_step``.
 Mamba2 (``mamba2_mixer``) is plain torch on every route, as the
 reference's is plain ``jnp``: the SSD's chunked form (``_ssd_chunked``)
 over a whole sequence, one recurrent step in a decode step.
+
+Over the model axis's ranks (``sharding.ModelShards``) each mixer runs
+on the rank's block of its heads or channels, as its leaves' shapes say:
+the time mix and Mamba2 between the f and g that ``transformer`` puts
+around them, the channel mix with its own (``rwkv6_channel_mix``).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -136,7 +143,9 @@ def _token_shift(x: torch.Tensor, shift_state=None) -> torch.Tensor:
 def rwkv6_time_mix(x: torch.Tensor, p: Params, cfg: ModelConfig,
                    shift_state=None, wkv_state=None):
     """RWKV6 attention replacement.  x: (B, T, D); with states given, T is
-    1 (a decode step).  Returns (y (B, T, D), (new_shift, new_wkv)).
+    1 (a decode step).  Returns (y (B, T, D), (new_shift, new_wkv)).  The
+    heads are ``p["w_r"]``'s (the rank's block over the model axis's
+    ranks, whose ``y`` is its share of ``w_o``'s product).
 
     The WKV recurrence takes the reference's three routes: over a whole
     sequence with ``use_kernels``, ``ops.routed_wkv6`` (the kernel on the
@@ -146,7 +155,7 @@ def rwkv6_time_mix(x: torch.Tensor, p: Params, cfg: ModelConfig,
     from ``wkv_state``."""
     b, t, d = x.shape
     hd = cfg.ssm.head_dim
-    h = d // hd
+    h = p["w_r"].shape[1]
     delta = _token_shift(x, shift_state) - x
     x_r, x_k = x + delta * p["mu_r"], x + delta * p["mu_k"]
     x_v, x_g = x + delta * p["mu_v"], x + delta * p["mu_g"]
@@ -189,13 +198,24 @@ def rwkv6_time_mix(x: torch.Tensor, p: Params, cfg: ModelConfig,
     return y, (x[:, -1, :], s_fin)
 
 
-def rwkv6_channel_mix(x: torch.Tensor, p: Params, shift_state=None):
-    """RWKV6 FFN (relu² channel mix).  Returns (y, new_shift)."""
+def rwkv6_channel_mix(x: torch.Tensor, p: Params, shift_state=None,
+                      cfg: Optional[ModelConfig] = None, ctx=None):
+    """RWKV6 FFN (relu² channel mix).  Returns (y, new_shift).  Where
+    the rank holds a block of the hidden units (``w_v_cm``'s rows against
+    ``cfg.d_ff``; ``ctx`` a ``transformer.ShardCtx``), Megatron's f wraps
+    the k branch's input alone and g the ``w_v_cm`` product: the r branch
+    (``w_r_cm``) is whole, and an f on ``x`` would sum its input's
+    gradient M times."""
     delta = _token_shift(x, shift_state) - x
     x_k = x + delta * p["mu_k_cm"]
     x_r = x + delta * p["mu_r_cm"]
+    cut = ctx is not None and p["w_v_cm"].shape[0] != cfg.d_ff
+    if cut:
+        x_k = ctx.model_in(x_k, True)
     k = torch.square(F.relu(torch.matmul(x_k, p["w_k_cm"])))
     kv = torch.matmul(k, p["w_v_cm"])
+    if cut:
+        kv = ctx.model_out(kv, True, False)
     r = torch.sigmoid(torch.matmul(x_r, p["w_r_cm"]))
     return r * kv, x[:, -1, :]
 
@@ -272,24 +292,39 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b.to(f32)).to(xbc.dtype), xp[:, -(width - 1):]
 
 
-def mamba2_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, state=None):
+def mamba2_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, state=None,
+                 ctx=None):
     """Mamba2 block.  x: (B, T, D).  ``state`` ({"conv_xs", "conv_bc":
     (B, W - 1, C), "ssm": (B, H, P, N) f32}) given: a decode step, T = 1.
-    Returns (y (B, T, D), the new state: convs in x's type, ssm f32)."""
+    Returns (y (B, T, D), the new state: convs in x's type, ssm f32).
+
+    The inner channels are ``p["w_z"]``'s: where they are the rank's block
+    over the model axis's ranks (``ctx`` a ``transformer.ShardCtx``), its
+    heads from head ``model_block`` × their count read their columns of
+    ``w_dt`` and their entries of ``a_log`` / ``dt_bias`` / ``dd``, their
+    groups' B and C, the RMS norm's sum of squares is summed over the
+    model group (``ModelShards.stat``) and divided by the whole d_in, and
+    ``y`` is the rank's share of ``out_proj``'s product."""
     s = cfg.ssm
     b, t, d = x.shape
-    d_in = s.expand * d
+    whole = s.expand * d
+    d_in = p["w_z"].shape[1]
     g, n, pdim = s.n_groups, s.state_size, s.head_dim
-    h = d_in // pdim
+    h, h_all = d_in // pdim, whole // pdim
+    cut = d_in != whole
+    head0 = ctx.model_block * h if cut else 0
     f32 = torch.float32
+
+    def own(leaf, dim):                 # the rank's heads of a whole leaf
+        return leaf.narrow(dim, head0, h) if cut else leaf
 
     z = torch.matmul(x, p["w_z"])
     xs_raw = torch.matmul(x, p["w_xs"])
     bc_raw = torch.matmul(x, p["w_bc"])
-    dt_raw = torch.matmul(x, p["w_dt"])
+    dt_raw = torch.matmul(x, own(p["w_dt"], 1))
     # F.softplus returns x above 20, where log1p(exp(x)) and x are one f32
     # value: jax.nn.softplus, in f32
-    dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])          # (B,T,H)
+    dt = F.softplus(dt_raw.to(f32) + own(p["dt_bias"], 0))  # (B,T,H)
 
     st = state or {}
     xs_c, new_conv_xs = _causal_conv(xs_raw, p["conv_w_xs"], p["conv_b_xs"],
@@ -297,11 +332,14 @@ def mamba2_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, state=None):
     bc_c, new_conv_bc = _causal_conv(bc_raw, p["conv_w_bc"], p["conv_b_bc"],
                                      st.get("conv_bc"))
     xs = xs_c.reshape(b, t, h, pdim)
-    # the groups' B and C broadcast over their heads
-    bb = bc_c[..., :g * n].reshape(b, t, g, n).repeat_interleave(h // g, 2)
-    cc = bc_c[..., g * n:].reshape(b, t, g, n).repeat_interleave(h // g, 2)
+    # the groups' B and C broadcast over their heads (head j of the whole
+    # model in group j // (H / G))
+    bb = own(bc_c[..., :g * n].reshape(b, t, g, n).repeat_interleave(
+        h_all // g, 2), 2)
+    cc = own(bc_c[..., g * n:].reshape(b, t, g, n).repeat_interleave(
+        h_all // g, 2), 2)
 
-    a = -torch.exp(p["a_log"])                              # (H,) negative
+    a = -torch.exp(own(p["a_log"], 0))                      # (H,) negative
     la = dt * a                                             # (B,T,H) log decay
     xs32 = xs.to(f32) * dt[..., None]                       # dt folded into x
 
@@ -313,9 +351,16 @@ def mamba2_mixer(x: torch.Tensor, p: Params, cfg: ModelConfig, state=None):
                  + xs32[:, 0, :, :, None] * bb[:, 0, :, None, :].to(f32))
         y = torch.matmul(s_fin, cc[:, 0, :, :, None].to(f32))[:, None, ..., 0]
 
-    y = y + p["dd"].to(f32)[:, None] * xs.to(f32)
+    y = y + own(p["dd"], 0).to(f32)[:, None] * xs.to(f32)
     y = y.reshape(b, t, d_in).to(x.dtype) * F.silu(z)
-    y = rms_norm(y, p["norm"], 1e-5)              # before the out projection
+    if cut:                             # the whole d_in's mean of squares
+        y32 = y.to(f32)
+        ss = ctx.ranks.stat(torch.sum(torch.square(y32), dim=-1,
+                                      keepdim=True))
+        y = (y32 * torch.rsqrt(ss / whole + 1e-5)
+             * p["norm"].to(f32)).to(y.dtype)
+    else:
+        y = rms_norm(y, p["norm"], 1e-5)          # before the out projection
     out = torch.matmul(y, p["out_proj"])
     return out, {"conv_xs": new_conv_xs, "conv_bc": new_conv_bc,
                  "ssm": s_fin}

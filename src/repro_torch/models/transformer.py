@@ -267,16 +267,19 @@ class ShardCtx:
     Where they are cut over the model axis across ranks
     (``sharding.tp_ctx``, ``launch/train.py --model-ranks``), ``ranks`` is
     a ``sharding.ModelShards``: a dense unit whose output projection the
-    rank holds a block of takes Megatron's f at its input
-    (``model_in``) and g after its row-cut product (``model_out``),
-    where the reference constrains its outputs (``cons``); attention
-    reads its block of the heads from head ``model_block`` × the block's
-    heads; the embedding's lookup and the loss run over the rank's block
-    of the vocabulary where it is cut (``vocab_cut``); MLA takes the same
-    f and g around its block of the heads, and the MoE block dispatches
-    the rank's block of the groups to the experts over the model group
-    (``layers._moe``).  Elsewhere ``model_in`` / ``model_out`` return
-    their input."""
+    rank holds a block of takes Megatron's f at its input (``model_in``)
+    and g after its row-cut product (``model_out``), where the reference
+    constrains its outputs (``cons``); attention reads its block of the
+    heads from head ``model_block`` × the block's heads; the embedding's
+    lookup and the loss run over the rank's block of the vocabulary where
+    it is cut (``table_cut``, ``head_cut``); MLA takes the same f and g
+    around its block of the heads, RWKV6's time mix around its block of
+    the heads, its channel mix around its block of the hidden units,
+    Mamba2 around its block of the inner channels (its norm's statistic
+    summed over the model group, ``ModelShards.stat``), and the MoE block
+    dispatches the rank's block of the groups to the experts over the
+    model group (``layers._moe``).  Elsewhere ``model_in`` / ``model_out``
+    return their input."""
     mesh: Any = None
     dp: Tuple[str, ...] = ("data",)
     tp: str = "model"
@@ -326,9 +329,15 @@ class ShardCtx:
         return 0 if self.ranks is None else self.ranks.model_block
 
     @property
-    def vocab_cut(self) -> bool:
-        """Whether the rank holds a block of the vocabulary."""
-        return self.ranks is not None and self.ranks.vocab_cut
+    def table_cut(self) -> bool:
+        """Whether the rank holds a block of the embedding table's
+        vocabulary."""
+        return self.ranks is not None and self.ranks.table_cut
+
+    @property
+    def head_cut(self) -> bool:
+        """Whether the rank holds a block of the LM head's vocabulary."""
+        return self.ranks is not None and self.ranks.head_cut
 
     def model_in(self, x: torch.Tensor, cut: bool) -> torch.Tensor:
         """The input of a unit, ``cut`` where the rank holds a block of
@@ -402,11 +411,15 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
     elif kind == "rwkv6":
         st = cache or {}
         h = L.apply_norm(x, bp["norm1"], cfg)
+        # a rank's block of the heads: f before the time mix, g after w_o
+        cut = bp["rwkv"]["w_o"].shape[0] != cfg.d_model // cfg.ssm.head_dim
         y, (new_tm, new_wkv) = S.rwkv6_time_mix(
-            h, bp["rwkv"], cfg, st.get("shift_tm"), st.get("wkv"))
-        x = x + y
+            ctx.model_in(h, cut), bp["rwkv"], cfg, st.get("shift_tm"),
+            st.get("wkv"))
+        x = x + ctx.model_out(y, cut, False)
         h2 = L.apply_norm(x, bp["norm2"], cfg)
-        y2, new_cm = S.rwkv6_channel_mix(h2, bp["rwkv"], st.get("shift_cm"))
+        y2, new_cm = S.rwkv6_channel_mix(h2, bp["rwkv"], st.get("shift_cm"),
+                                         cfg, ctx)
         x = x + y2
         new_cache = None
         if cache is not None:           # the states, written in place
@@ -416,8 +429,11 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
             new_cache = cache
     elif kind == "mamba2":
         h = L.apply_norm(x, bp["norm1"], cfg)
-        y, new_state = S.mamba2_mixer(h, bp["mamba"], cfg, cache)
-        x = x + y
+        # a rank's block of the inner channels: f before, g after out_proj
+        cut = bp["mamba"]["out_proj"].shape[0] != cfg.ssm.expand * cfg.d_model
+        y, new_state = S.mamba2_mixer(ctx.model_in(h, cut), bp["mamba"], cfg,
+                                      cache, ctx)
+        x = x + ctx.model_out(y, cut, False)
         new_cache = None
         if cache is not None:           # the states, written in place
             for name, value in new_state.items():
@@ -440,7 +456,7 @@ def head_weight(params: Params, cfg: ModelConfig,
     """The LM head (d, V): with tied embeddings the embedding's transposed
     view (no copy); gathered where it is cut over ranks' data axis
     (``ctx.use``); the rank's block (d, V/M) where the vocabulary is cut
-    over the model axis (``ctx.vocab_cut``)."""
+    over the model axis (``ctx.head_cut``)."""
     if cfg.tie_embeddings:
         return ctx.use(params["embed"], "embed")["tok"].T
     return ctx.use(params["head"], "head")["w"]
@@ -460,7 +476,7 @@ def embed_inputs(params: Params, cfg: ModelConfig,
             me = embed["mask_emb"].to(x.dtype)
             x = torch.where(batch["mask"][..., None], me, x)
         return x
-    if ctx.vocab_cut:
+    if ctx.table_cut:
         return ctx.ranks.lookup(embed["tok"], batch["tokens"])
     return embed["tok"][batch["tokens"]]
 
@@ -626,7 +642,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
     whole batch's (``ctx.data_sum``) before the one divides the other: a
     mean of the ranks' means is another number wherever their masks
     differ.  Where ``w_head`` is the rank's block of a vocabulary cut over
-    the model axis (``ctx.vocab_cut``), each chunk's loss is made over
+    the model axis (``ctx.head_cut``), each chunk's loss is made over
     the cut logits (``ModelShards.chunk_loss``), the hidden states
     through Megatron's f."""
     b, s, _ = hidden.shape
@@ -635,7 +651,7 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
         weights = torch.ones((b, s), dtype=torch.float32,
                              device=hidden.device)
     chunk_loss = _chunk_loss
-    if ctx.vocab_cut:
+    if ctx.head_cut:
         hidden = ctx.ranks.enter(hidden, kind="vocab")
         chunk_loss = ctx.ranks.chunk_loss
     recompute = torch.is_grad_enabled() and (hidden.requires_grad

@@ -101,10 +101,11 @@ class CollectiveStats:
                    if name.startswith("reduce-scatter ")
                    and name.endswith(" gradient (fsdp)"))
 
-    def _model_entries(self) -> List[str]:
+    def _model_entries(self, norm: bool = False) -> List[str]:
         return [name for name in self.ops
                 if name.startswith("all-reduce over model ")
-                and not name.endswith(" gradient")]
+                and not name.endswith(" gradient")
+                and name.endswith("/mamba/norm") == norm]
 
     @property
     def model_all_reduce_bytes(self) -> int:
@@ -119,6 +120,21 @@ class CollectiveStats:
     def model_all_reduces(self) -> int:
         """The number of those all-reduces."""
         return sum(self.op_counts[name] for name in self._model_entries())
+
+    @property
+    def norm_all_reduce_bytes(self) -> int:
+        """The bytes of Mamba2's norm statistics' all-reduces over
+        ``model``, the entries ``all-reduce over model ...:
+        <unit>/mamba/norm`` (2 × the device's tokens × 4 B a pass), which a
+        step over the model axis's ranks measures
+        (``sharding.ModelShards.model_bytes["norm"]``)."""
+        return sum(self.ops[name] for name in self._model_entries(True))
+
+    @property
+    def norm_all_reduces(self) -> int:
+        """The number of those all-reduces."""
+        return sum(self.op_counts[name]
+                   for name in self._model_entries(True))
 
     def _moe_entries(self) -> List[str]:
         return [name for name in self.ops
@@ -282,6 +298,12 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
       type (the reference pins those outputs before the reduction).  Once
       a pass.  Without a pin the reduction moves the f32 that the next
       norm consumes, as the reference's comment on the pin says;
+    * Mamba2's RMS norm over its inner channels, where they are cut over
+      ``model`` (``out_proj``'s rows, ``mamba/norm`` with them at every
+      expand but 1): the mean of squares is the whole d_in's, so
+      GSPMD all-reduces each token's f32 sum of squares over ``model``
+      (the device's tokens × 4 B) in the forward and its gradient in the
+      backward, once a pass as ``tp_reduce`` counts;
     * data parallel (``train``): each device all-reduces its gradient, the
       local piece of every parameter in the parameter's type, over the
       data-parallel axes;
@@ -303,7 +325,10 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
     vocabulary is cut, the loss's per-token reductions, the gradient sums
     over ``model`` of the whole leaves read inside a cut unit (q/k norms,
     k/v where the kv heads do not divide ``model``, MLA's latent leaves
-    ``w_dkv`` / ``w_krope`` / ``kv_norm``, the MoE router), the MoE's
+    ``w_dkv`` / ``w_krope`` / ``kv_norm``, the MoE router, RWKV6's
+    time-mix ``mu_r`` / ``mu_k`` / ``mu_v`` / ``mu_g`` / ``mu_w`` and
+    ``w_lora_a``, Mamba2's ``w_bc``, ``w_dt``, ``conv_w_bc``,
+    ``conv_b_bc``, ``a_log``, ``dt_bias`` and ``dd``), the MoE's
     load-balance statistics' sums, the all-gather of the MoE groups'
     outputs over ``model`` where a step over ranks splits the groups
     among a model group (and of their input's gradient in the backward:
@@ -383,6 +408,9 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
                 elif kind == "mamba2":
                     tp_reduce(spec("mamba", "out_proj"),
                               f"{where}/mamba/out_proj", False)
+                    if tp in _axes(spec("mamba", "out_proj")[0]):
+                        tally.add("all-reduce", (tp,), tokens * 4,
+                                  f"{where}/mamba/norm", passes)
 
     # parameters: fsdp gathers, gradient reductions
     for (path, pspec), (_, leaf) in zip(spec_leaves(specs),

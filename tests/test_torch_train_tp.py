@@ -319,7 +319,8 @@ def test_the_reference_rules_decide_the_cuts():
                         unit + "mlp/w_gate": 2, unit + "mlp/w_in": 2,
                         unit + "mlp/w_out": 1}
     assert two.fallbacks == [] and two.partial == set()
-    assert two.vocab_cut and two.vocab0 == 256 and two.model_block == 1
+    assert two.table_cut and two.head_cut
+    assert two.vocab0 == 256 and two.model_block == 1
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     held = two.shard(params)
     assert torch.equal(held["embed"]["tok"], params["embed"]["tok"][256:])
@@ -331,15 +332,6 @@ def test_the_reference_rules_decide_the_cuts():
         unit + "attn/wo", unit + "attn/wq"]
     assert not any("/attn/" in p for p in eight.cuts)
     assert eight.partial == set()
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b",
-                                  "hubert-xlarge"])
-def test_units_the_model_axis_does_not_cut_are_refused(arch):
-    argv = ["--device", "cpu", "--arch", arch, "--ranks", "2",
-            "--model-ranks", "2"]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8 \(vi\)"):
-        train.main(argv)
 
 
 @pytest.mark.parametrize("extra,match", [
