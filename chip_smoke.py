@@ -69,9 +69,9 @@ so the script exits non-zero and prints no result line:
            the chunked kernel, the serial kernel on the same bf16 inputs
            and the plain version, timed in turns, beside the bound;
 8. lm      act 1 of examples/anm_lm.py over the LM loss at published
-           widths: h2o-danube-3-4b cut to 4 layers and rwkv6-7b cut to 1
-           (the k = 6 f32 basis must fit; rwkv6's 2 cut to 1 for the
-           smoke's time), 2 x 4096 tokens, one iteration
+           widths: h2o-danube-3-4b cut to 2 layers and rwkv6-7b cut to 1
+           (the k = 6 f32 basis must fit; danube's 4 cut to 2 and rwkv6's
+           2 to 1 for the smoke's time), 2 x 4096 tokens, one iteration
            (the example's 2 cut for the smoke's time); the θ0 loss
            against the same lane with the kernel swapped for its plain
            version (≤ 2e-2 relative), pipelined == sync bit-identical, a
@@ -101,11 +101,26 @@ so the script exits non-zero and prints no result line:
            rank scoring half of every bucket's lanes and all-gathering the
            rest): every rank == [lm]'s in-process sync run, iterates and
            engine stats, its chunked wkv6 launches == its lanes x layers;
+           (p1) [lm]'s rwkv6 workload at k = 2 on the (1, 2) mesh over 2
+           gloo ranks, the model axis cut over both (each rank keeps its
+           model blocks of θ0 and the basis and frees the whole chart;
+           before each bucket the cut leaves are all-gathered over the
+           model group): 13 given points in buckets of 8 and 5, no warm,
+           every rank's values == this process's in-process values bit
+           for bit, its stored bytes and each bucket's handed bytes and
+           all-gathers == lm_loss.reckon_model_ranks (3,861,196,800 B;
+           3,691,704,320 B in 26), chunked wkv6 launches == lanes x
+           layers; (p2) rwkv6's smoke configuration's act 1 on the 16 x
+           16 mesh over 4 gloo ranks in a (2, 2) grid: every rank == this
+           process's in-process sync run, iterates and engine stats, its
+           counts as reckoned, half of the one-process pod leg's lanes,
+           chunked wkv6 launches == lanes x layers
+           (``chip_smoke.py --pod-lm-probe`` runs only (p1) and (p2));
 8b. subspace lm  subspace Newton (src/repro/launch/train.py:110's k = 6,
            sample_scale 0.02) on [lm]'s two cut models, weights and batch:
            two steps on the kernel route from one generator, each never
            raising the loss and launching the arch's kernel (m + p + 1)
-           times a layer, 292 for danube and 73 for rwkv6; the first
+           times a layer, 146 for danube and 73 for rwkv6; the first
            step again on the plain route (use_kernels=False) from the
            same draws, its losses within 2e-2 of the kernel route's; the
            randomized line search (p = 8) along the first step's
@@ -354,7 +369,8 @@ so the script exits non-zero and prints no result line:
            the command line in a child process, exit 0 and its JSON;
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
            line (each kernel's ``ranks_launches``: its launches in the
-           ranks of [pod] (a2), (a3) and [pod lm], summed), then the
+           ranks of [pod] (a2), (a3) and [pod lm], (p1) and (p2) included,
+           summed), then the
            ``ok`` JSON line.
 """
 from __future__ import annotations
@@ -387,8 +403,8 @@ from repro_torch.core.subspace_newton import (  # noqa: E402
     SubspaceNewtonConfig, init_state, subspace_newton_step)
 from repro_torch.core.substrates.batched_grid import \
     BatchedVolunteerGrid  # noqa: E402
-from repro_torch.core.substrates.eval_backend import \
-    InProcessEvalBackend  # noqa: E402
+from repro_torch.core.substrates.eval_backend import (  # noqa: E402
+    InProcessEvalBackend, bucket_size)
 from repro_torch.core.substrates.lm_loss import (  # noqa: E402
     LmLossEvalBackend, lm_model)
 from repro_torch.core.substrates.pod_mesh import \
@@ -457,8 +473,9 @@ WKV6_CASES = [(2, 4096, 64, 64, torch.bfloat16, None, "chunked"),
 #: the LM phase: arch -> layers kept at published widths (a k = 6 f32
 #: basis over the parameters must fit on one 80 GB card); rwkv6's cut from
 #: 2 to 1 for the smoke's time (its lanes run [lm], [pod lm]'s runner and
-#: ranks, and [subspace lm])
-LM_DEPTH = {"h2o-danube-3-4b": 4, "rwkv6-7b": 1}
+#: ranks, and [subspace lm]), danube's from 4 to 2 to make room for [pod
+#: lm]'s legs over model ranks
+LM_DEPTH = {"h2o-danube-3-4b": 2, "rwkv6-7b": 1}
 LM_SEQ_LEN = 4096
 #: act 1's iterations (examples/anm_lm.py's 2), cut to one for the
 #: smoke's time; [pod lm] and the lm_subspace runner run [lm]'s search
@@ -472,6 +489,17 @@ LM_ACT2_ITERATIONS = 1
 #: leaf whole: two ranks' k = 6 f32 bases fit on one 80 GB card)
 LM_RANKS = 2
 LM_RANKS_MESH = [2, 1]
+#: [pod lm] (p1): [lm]'s rwkv6 workload at k = 2 on the (1, 2) mesh over 2
+#: gloo ranks, its model axis cut over both: a rank stores half of each
+#: cut leaf (a k = 2 f32 basis, so that each bucket's gathers through
+#: gloo's host staging take seconds, not minutes); given points in two
+#: buckets, 8 then 5 padded to the floor, no warm
+LM_P1 = dict(ranks=2, model_ranks=2, mesh=[1, 2], k=2, buckets=(8, 5))
+#: [lm]'s workload seed (``sim.lm_problem``'s ``workload_seed``)
+LM_WORKLOAD_SEED = 3
+#: [pod lm] (p2): act 1 on rwkv6's smoke configuration on the 16 x 16
+#: mesh over 4 gloo ranks, the (2, 2) grid (8 x 8 positions a rank)
+LM_P2 = dict(ranks=4, model_ranks=2, mesh=[16, 16])
 
 
 def lm_problem_kw(arch: str) -> dict:
@@ -2034,8 +2062,10 @@ def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> int:
     virtual 16 × 16 mesh, reusing ``[lm]``'s workload and engines.
     rwkv6: ``launch/dryrun.py``'s lm_subspace substrate smoke on ``[lm]``'s
     workload (acts 1 to 3 of the reference's runner), then, the workload
-    freed, act 1 over ranks (``_pod_lm_ranks``).  Frees the workload;
-    returns the kernel launches of the ranks (0 for danube)."""
+    freed, act 1 over ranks (``_pod_lm_ranks``), and the model axis over
+    ranks: (p1) ``_pod_lm_points`` and (p2) ``_pod_lm_grid``.  Frees the
+    workload; returns the kernel launches of the ranks (0 for
+    danube)."""
     if arch == "rwkv6-7b":
         _pod_lm_subspace(dev, lm)
     else:
@@ -2045,8 +2075,152 @@ def phase_pod_lm(dev: torch.device, arch: str, lm: dict) -> int:
     lm.clear()
     gc.collect()
     torch.cuda.empty_cache()
-    return _pod_lm_ranks(dev, arch, sync, n_layers) if arch == "rwkv6-7b" \
-        else 0
+    if arch != "rwkv6-7b":
+        return 0
+    return (_pod_lm_ranks(dev, arch, sync, n_layers)
+            + _pod_lm_points(dev, arch) + _pod_lm_grid(dev, arch))
+
+
+def _rank_line(tag: str, r: int, doc: dict) -> str:
+    return (f"[pod lm] {tag} rank {r} (data {doc['data_block']}, model "
+            f"{doc['model_block']} of {doc['model_ranks']}) on "
+            f"{doc['device']}: stores {doc['stored_bytes']:,} B")
+
+
+def _pod_lm_points(dev: torch.device, arch: str) -> int:
+    """(p1): ``[lm]``'s workload at published widths and k = 2 on the
+    (1, 2) mesh over 2 gloo ranks sharing this card, the model axis cut
+    over both (``dryrun.lm_points_rank``): each rank builds the whole
+    chart from its seeds, keeps its model blocks, frees the rest, and
+    scores given points in two buckets, all-gathering θ0's and the
+    basis's cut leaves over the model group before each.  This process
+    scores the same points in-process first.  Every rank's values equal
+    this process's bit for bit; its stored bytes and each bucket's
+    handed bytes and all-gathers equal ``lm_loss.reckon_model_ranks``;
+    its chunked wkv6 launches equal its lanes × layers.  Returns the
+    ranks' wkv6 launches, summed."""
+    from repro_torch.core.substrates.lm_loss import (make_lm_workload,
+                                                     reckon_model_ranks)
+    counter = LM_KERNEL[arch][0]
+    kw = dict(arch=arch, k=LM_P1["k"], seed=LM_WORKLOAD_SEED,
+              full_width=True, n_layers=LM_DEPTH[arch], seq_len=LM_SEQ_LEN)
+    n = sum(LM_P1["buckets"])
+    pts = np.random.default_rng(35).uniform(-0.3, 0.3, (n, LM_P1["k"]))
+    cut = np.cumsum((0,) + LM_P1["buckets"])
+    buckets = [pts[a:b] for a, b in zip(cut[:-1], cut[1:])]
+    t0 = time.perf_counter()
+    wl = make_lm_workload(device=dev, **kw)
+    cfg, n_layers = wl.cfg, wl.cfg.n_layers
+    one = LmLossEvalBackend(wl)
+    want = [one(b).tolist() for b in buckets]
+    del wl, one
+    _free()
+    t_one = time.perf_counter() - t0
+    grid = dryrun.rank_grid(LM_P1["ranks"], LM_P1["model_ranks"],
+                            Mesh(LM_P1["mesh"], ("data", "model"),
+                                 virtual_devices(2, dev)))
+    reckoned = reckon_model_ranks(cfg, grid, LM_P1["k"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p1_") as workdir:
+        res = ranks.run(
+            "repro_torch.launch.dryrun:lm_points_rank",
+            dict(kw, mesh_shape=LM_P1["mesh"], axis_names=["data", "model"],
+                 model_ranks=LM_P1["model_ranks"],
+                 buckets=[b.tolist() for b in buckets]),
+            world=LM_P1["ranks"], backend="gloo",
+            devices=[dev] * LM_P1["ranks"], workdir=workdir, timeout=400)
+    check(res.returncode == 0, f"[pod lm] (p1): {res.failed}")
+    print(f"[pod lm] (p1) {arch} at published widths, {n_layers} layer(s), "
+          f"k = {LM_P1['k']} ({cfg.vocab_size} vocab): in-process "
+          f"{n} points in {len(buckets)} buckets {t_one:.1f}s; reckoned a "
+          f"rank: stores {reckoned['stored_bytes']:,} B, hands "
+          f"{reckoned['gather_bytes']:,} B in {reckoned['gathers']} "
+          f"all-gathers a bucket")
+    total = 0
+    for r, doc in enumerate(res.docs):
+        check(doc["device"] == str(dev), f"(p1) rank {r} ran on "
+              f"{doc['device']}")
+        check(doc["chart_freed"] and doc["stored_bytes"]
+              == reckoned["stored_bytes"], f"(p1) rank {r}: stores "
+              f"{doc['stored_bytes']} B, chart freed {doc['chart_freed']}")
+        for i, b in enumerate(doc["buckets"]):
+            lanes = bucket_size(len(b["values"]))
+            got = b["launches"]
+            print(f"[pod lm] (p1) rank {r} bucket {i}: {b['gather_bytes']:,}"
+                  f" B in {b['gathers']} all-gathers, {b['gather_s']}s of "
+                  f"{b['wall_s']}s; {counter} {got.get(counter, 0)}")
+            check(b["values"] == want[i], f"(p1) rank {r} bucket {i}: "
+                  f"{b['values']} against in-process {want[i]}")
+            check(b["gather_bytes"] == reckoned["gather_bytes"]
+                  and b["gathers"] == reckoned["gathers"],
+                  f"(p1) rank {r} bucket {i}: {b['gather_bytes']} B in "
+                  f"{b['gathers']} all-gathers")
+            check(got.get(counter, 0) == got.get("wkv6_launches", 0)
+                  == lanes * n_layers, f"(p1) rank {r} bucket {i}: {got} "
+                  f"for {lanes} lanes x {n_layers} layers")
+            total += got.get("wkv6_launches", 0)
+        print(_rank_line("(p1)", r, doc) + f", == in-process bit for bit, "
+              f"chart freed; peak device memory {doc['peak_gib']:.2f} GiB")
+    print(f"[pod lm] (p1) over {LM_P1['ranks']} gloo ranks: wall "
+          f"{res.wall_s:.1f}s (forks, each rank's chart, 2 buckets)")
+    return total
+
+
+def _pod_lm_grid(dev: torch.device, arch: str) -> int:
+    """(p2): act 1 on ``arch``'s smoke configuration (``sim.lm_problem``'s
+    defaults) on the production 16 × 16 mesh over 4 gloo ranks sharing
+    this card, the (2, 2) grid (``dryrun.lm_grid_rank``): every rank ==
+    this process's in-process sync run, iterates and engine stats, its
+    chart counts as reckoned (``dryrun.chart_counts``), half of the
+    one-process 16 × 16 pod leg's lanes, its chunked wkv6 launches ==
+    its lanes × layers, no bucket shape first run after warm.  Returns
+    the ranks' wkv6 launches, summed."""
+    counter = LM_KERNEL[arch][0]
+    search, fleet, wl = sim.lm_problem(arch=arch, device=dev)
+    m = search.anm.m_regression
+    sync, _, _ = anm_lm.run(search, fleet, anm_lm.warmed_backend(wl, m),
+                            pipelined=False)
+    pod = anm_lm.warmed_backend(wl, m, mesh=_virtual_pod(dev))
+    lanes0 = pod.lanes_evaluated
+    on_pod, _, _ = anm_lm.run(search, fleet, pod)
+    lanes = pod.lanes_evaluated - lanes0
+    check(identical_trajectories(on_pod, sync) and on_pod.stats == sync.stats,
+          "(p2): the one-process pod leg differs from the sync run")
+    shape = LM_P2["mesh"]
+    grid = dryrun.rank_grid(LM_P2["ranks"], LM_P2["model_ranks"],
+                            _virtual_pod(dev))
+    counts = dryrun.chart_counts(wl.cfg, grid, wl.k)
+    n_layers = wl.cfg.n_layers
+    del wl, pod
+    _free()
+    rep = dryrun.over_ranks(
+        "repro_torch.launch.dryrun:lm_grid_rank",
+        dict(arch=arch, mesh_shape=shape, axis_names=["data", "model"],
+             model_ranks=LM_P2["model_ranks"]),
+        LM_P2["ranks"], "gloo", dev, sync, counts=counts)
+    check(rep["ranks_parity_ok"], f"(p2) {arch} over ranks: "
+          f"{rep['ranks_failed'] or 'a rank left the sync run or its counts'}")
+    total = 0
+    for r, doc in enumerate(rep["per_rank"]):
+        n = doc["launches"]
+        print(_rank_line("(p2)", r, doc) + f"; {doc['gathered_buckets']} "
+              f"buckets, {doc['model_gather_bytes']:,} B in "
+              f"{doc['model_gathers']} all-gathers ({doc['model_gather_s']}"
+              f"s), {doc['lanes']} lanes, {counter} {n.get(counter, 0)}")
+        check(doc["device"] == str(dev), f"(p2) rank {r} on {doc['device']}")
+        check(doc["lanes"] * 2 == lanes, f"(p2) rank {r}: {doc['lanes']} "
+              f"lanes, the one-process pod leg {lanes}")
+        check(n.get(counter, 0) == n.get("wkv6_launches", 0)
+              == doc["lanes"] * n_layers > 0,
+              f"(p2) rank {r}: {n} for {doc['lanes']} lanes x {n_layers}")
+        check(doc["new_shapes_after_warm"] == 0,
+              f"(p2) rank {r} first ran a bucket shape after warm")
+        total += n.get("wkv6_launches", 0)
+    print(f"[pod lm] (p2) {arch} smoke act 1 over {LM_P2['ranks']} gloo "
+          f"ranks, {shape[0]}x{shape[1]} in a (2, 2) grid: every rank == "
+          f"the sync run ({sync.iteration} iterations, best "
+          f"{sync.best_fitness:.6f}) and its reckoned counts, half of the "
+          f"pod leg's {lanes} lanes; wall {rep['ranks_wall_s']}s")
+    return total
 
 
 def _pod_lm_ranks(dev: torch.device, arch: str, sync, n_layers: int) -> int:
@@ -4255,6 +4429,15 @@ def main() -> None:
         phase_card(dev)
         child.warm()
         _train_tp_moe(dev)
+        child.stop()
+        print(f"[done] {time.perf_counter() - t0:.1f}s")
+        return
+    if sys.argv[1:] == ["--pod-lm-probe"]:
+        phase_card(dev)
+        phase_build()
+        child.warm()
+        _pod_lm_points(dev, "rwkv6-7b")
+        _pod_lm_grid(dev, "rwkv6-7b")
         child.stop()
         print(f"[done] {time.perf_counter() - t0:.1f}s")
         return

@@ -24,10 +24,18 @@ Two evaluation modes, one class, as in the reference:
     must lie on the workload's device (the (1, 1) mesh and virtual
     meshes), on which the stored pieces are views and cost no memory.
     Over ranks (``Mesh.over_ranks``), every rank builds θ0, the basis and
-    the batch from the workload's seed, stores and gathers the pieces of
-    its own positions (the model axis stays inside a rank), holds the
-    batch whole, scores its own lanes and all-gathers the lane losses
-    (``pod_mesh.OverRanks``).
+    the batch from the workload's seed (the whole chart, so that its
+    Gram–Schmidt sums over all P as one process's do), stores the pieces
+    of its own positions, holds the batch whole, scores its data block's
+    lanes and all-gathers the lane losses over the data group
+    (``pod_mesh.OverRanks``).  Where the model axis spans ranks too
+    (``Mesh.over_ranks(model_ranks=M)``, the (W/M, M) grid) a rank keeps
+    a contiguous copy of its model block of each cut leaf, 1/M of it, and
+    of each other leaf whole, and drops the workload's chart; before a
+    bucket each cut leaf of the basis and of θ0 is all-gathered over the
+    model group straight into its place (``Sharded.gather``), leaf by
+    leaf in JAX's flatten order, the same on every rank
+    (``reckon_model_ranks`` counts the bytes).
 
 Gather-at-use keeps pod == in-process bit for bit: the gathered basis is
 written into a (k, P) buffer at each leaf's offset, so every lane's lift
@@ -46,6 +54,7 @@ the base class's.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -151,6 +160,33 @@ def batch_tensors(batch: Dict[str, np.ndarray],
             for key, val in batch.items()}
 
 
+def reckon_model_ranks(cfg: ModelConfig, mesh: Mesh, k: int) -> Dict[str, int]:
+    """What a rank holds and hands on ``mesh`` whose model axis is cut over
+    M = ``mesh.model_ranks`` ranks, from the parameters' shapes and types
+    and ``enforce_divisible(param_specs(cfg, mesh))``: ``stored_bytes``,
+    θ0 and the k-row f32 basis kept between buckets, and
+    ``gather_bytes`` / ``gathers``, what its pieces hand the model
+    group's all-gathers a bucket.  A leaf cut over ``model`` is stored
+    and handed as numel / M × (itemsize + 4k) bytes a bucket, in two
+    all-gathers (θ0's piece, the basis's); every other leaf is stored
+    whole, numel × (itemsize + 4k) bytes, and hands nothing.  With M = 1
+    nothing is handed."""
+    specs, _ = sharding.enforce_divisible(cfg, mesh)
+    m, dtype = mesh.model_ranks, T.param_dtype(cfg)
+    out = dict(stored_bytes=0, gather_bytes=0, gathers=0)
+    for (_, spec), (_, leaf) in zip(sharding.spec_leaves(specs),
+                                    sharding.spec_leaves(T.param_specs(cfg))):
+        itemsize = (leaf.dtype or dtype).itemsize
+        size = math.prod(leaf.shape) * (itemsize + 4 * k)
+        if m > 1 and sharding.model_dim(spec) is not None:
+            out["stored_bytes"] += size // m
+            out["gather_bytes"] += size // m
+            out["gathers"] += 2
+        else:
+            out["stored_bytes"] += size
+    return out
+
+
 class LmLossEvalBackend(OverRanks, EvalBackend):
     """``EvalBackend`` whose ``_raw_eval`` lifts each lane's (k,) subspace
     coefficients to model parameters and returns the forward/CE loss on
@@ -161,7 +197,12 @@ class LmLossEvalBackend(OverRanks, EvalBackend):
     module docstring); ``spec_fallbacks`` lists the parameter-spec
     entries ``enforce_divisible`` downgraded to replicated, and
     ``sharded_params`` counts (parameters stored cut over ``model_axis``,
-    all parameters).
+    all parameters).  ``stored_bytes`` is what this process keeps of θ0
+    and the basis; over model ranks ``model_gather_bytes``,
+    ``model_gathers`` and ``model_gather_seconds`` count the model
+    group's all-gathers (the pieces handed, the calls, their seconds with
+    the device synchronized on either side) over ``gathered_buckets``
+    buckets, the warm's included.
     """
 
     def __init__(self, workload: LmWorkload, mesh: Optional[Mesh] = None, *,
@@ -172,9 +213,13 @@ class LmLossEvalBackend(OverRanks, EvalBackend):
         self.mesh = mesh
         self._loss_fn = T.make_loss_fn(workload.cfg)
         device = workload.proj.basis.device
+        self.n_params = workload.proj.n_params
         # the one set of parameters every lane's lift overwrites
         self._work = workload.proj.lift(
             torch.zeros(workload.k, device=device))
+        self.model_gather_bytes = self.model_gathers = 0
+        self.model_gather_seconds = 0.0
+        self.gathered_buckets = 0
         if mesh is None:
             self.n_shards = 1
             min_bucket = DEFAULT_MIN_BUCKET
@@ -202,6 +247,10 @@ class LmLossEvalBackend(OverRanks, EvalBackend):
             self._basis = sharding.to_named(workload.proj.basis_tree, bspecs,
                                             mesh)
             self._batch = sharding.to_named(workload.batch, in_specs, mesh)
+            if mesh.model_ranks > 1:
+                # the rank keeps its pieces alone: the chart's whole θ0
+                # and basis are the caller's to free
+                self.workload = dataclasses.replace(workload, proj=None)
             # lanes run one at a time, so any rows-per-shard count is
             # width-stable: the floor is just even division
             min_bucket = bucket_size(self.n_shards)
@@ -209,10 +258,22 @@ class LmLossEvalBackend(OverRanks, EvalBackend):
         if n_dims is not None and max_bucket is not None:
             self.warm(n_dims, max_bucket)
 
+    @property
+    def stored_bytes(self) -> int:
+        """The bytes of θ0 and the basis this process keeps between
+        buckets on its mesh: its pieces."""
+        return sum(sh.nbytes for tree in (self._theta, self._basis)
+                   for _, sh in sharding.spec_leaves(tree))
+
     def lane_loss(self, c: torch.Tensor) -> torch.Tensor:
         """The loss at θ0 + c·V, a 0-d f32 tensor (c: (k,) f32 on the
         workload's device)."""
         wl = self.workload
+        if wl.proj is None:
+            raise RuntimeError(
+                f"over {self.mesh} this rank keeps only its model blocks of "
+                f"θ0 and the basis: score lanes with submit / __call__, "
+                f"which gather them over the model group")
         return self._loss(wl.proj.theta0, wl.proj.basis_tree, wl.batch, c)
 
     def _loss(self, theta0, basis_tree, batch, c: torch.Tensor):
@@ -231,14 +292,20 @@ class LmLossEvalBackend(OverRanks, EvalBackend):
         # basis into a (k, P) buffer laid out as the workload's own.  The
         # batch too: every lane's loss is over the whole batch (the
         # reference gives each data shard its slice when the batch divides
-        # the data axes, ROADMAP C)
-        wl = self.workload
+        # the data axes, ROADMAP C).  Over model ranks the cut leaves are
+        # all-gathered over the model group, every rank in the same
+        # order; the previous bucket's lane all-gather over the data
+        # group may still be in flight, but it is another group's, so no
+        # two ranks wait on different collectives of one group
+        self.gathered_buckets += 1
         basis = sharding.held_whole(self._basis)
         if basis is None:
-            basis = basis_to_tree(torch.empty_like(wl.proj.basis),
-                                  wl.proj.theta0)
-            sharding.gather(self._basis, out=basis)
-        theta0 = sharding.gather(self._theta)
+            basis = basis_to_tree(
+                torch.empty((self.workload.k, self.n_params),
+                            dtype=torch.float32, device=pts.device),
+                self._work)
+            self._gather(self._basis, basis)
+        theta0 = self._gather(self._theta)
         batch = sharding.gather(self._batch)
         # data shard s's lanes are the s-th block of kp / n_shards rows,
         # each run in order: over this process's shards in order, every
@@ -246,3 +313,18 @@ class LmLossEvalBackend(OverRanks, EvalBackend):
         for i in range(pts.shape[0]):
             out[i] = self._loss(theta0, basis, batch, pts[i])
         return out
+
+    def _gather(self, tree, out=None):
+        """``sharding.gather`` of ``tree``, the model group's all-gathers
+        of its leaves cut over model ranks counted."""
+        over = [sh.held for _, sh in sharding.spec_leaves(tree)
+                if sh.over_model is not None]
+        if not over:
+            return sharding.gather(tree, out)
+        whole, seconds = sharding.timed(lambda: sharding.gather(tree, out),
+                                        over[0])
+        self.model_gather_bytes += sum(x.numel() * x.element_size()
+                                       for x in over)
+        self.model_gathers += len(over)
+        self.model_gather_seconds += seconds
+        return whole

@@ -18,10 +18,15 @@ controller.  The port runs them in one of two ways:
     production 16 × 16); a one-process mesh over distinct GPUs is refused;
   * over ranks (``Mesh.over_ranks``, ``launch/ranks.py``): every rank runs
     the same engine and grid from the same seeds (SPMD), evaluates only
-    its own shards' row blocks on its own device, and an all-gather of
-    the finalized lanes assembles the (kp,) result in rank order, so
-    every rank holds the bytes the one-process concatenation gives and
-    commits the same iterates.  ``submit`` issues the all-gather without
+    its own data block's row blocks on its own device, and an all-gather
+    of the finalized lanes over the data group assembles the (kp,)
+    result in data-block order, so every rank holds the bytes the
+    one-process concatenation gives and commits the same iterates.  The
+    W ranks form a (W/M, M) grid (``model_ranks`` M, 1 by default): the
+    M ranks of a model group hold one data block and score the same
+    lanes, as the reference's ``out_specs=P(data)`` keeps one replica
+    over ``model``, so the block is rank // M of W/M, and where M = W
+    nothing is gathered.  ``submit`` issues the all-gather without
     waiting and ``collect`` waits for it (``OverRanks``); every rank
     issues its collectives in the same order, the grid's.
 
@@ -111,34 +116,45 @@ class Gathered:
 
 class OverRanks:
     """Mixin for a backend with a ``mesh`` (None: in-process).  On a mesh
-    over ranks, a bucket's kp lanes are ``world`` contiguous blocks, this
-    rank evaluates block ``rank`` (its data positions' rows), and an
-    all-gather over the default process group assembles the finalized
-    lanes in rank order.  On the CPU the all-gather writes the slot's
-    host buffer itself; on CUDA it gathers on the device (NCCL, or gloo,
-    which stages through host memory itself) and ``Gathered`` copies the
-    result back."""
+    over ranks, a bucket's kp lanes are ``data_ranks`` contiguous blocks,
+    this rank evaluates block ``rank // model_ranks`` (its data
+    positions' rows; every rank of a model group the same), and an
+    all-gather over the data group (``mesh.data_group``; None: the
+    default process group) assembles the finalized lanes in block order.
+    On the CPU the all-gather writes the slot's host buffer itself; on
+    CUDA it gathers on the device (NCCL, or gloo, which stages through
+    host memory itself) and ``Gathered`` copies the result back.  On a
+    grid with one data rank (its model axis over every rank) the lanes
+    are all this rank's and nothing is gathered."""
 
     mesh: Optional[Mesh]
 
     def _over_ranks(self) -> bool:
-        return self.mesh is not None and self.mesh.spans_ranks
+        # a grid with one data rank and the model axis over its ranks
+        # holds every lane: nothing to split or gather (a group over the
+        # data axis alone gathers even with one rank, the collective a
+        # one-rank NCCL group runs)
+        mesh = self.mesh
+        return (mesh is not None and mesh.spans_ranks
+                and (mesh.data_ranks > 1 or mesh.model_ranks == 1))
 
     def _own_lanes(self, kp: int) -> tuple:
         if not self._over_ranks():
             return super()._own_lanes(kp)
-        n = kp // self.mesh.world
-        return self.mesh.rank * n, (self.mesh.rank + 1) * n
+        n = kp // self.mesh.data_ranks
+        block = self.mesh.rank // self.mesh.model_ranks
+        return block * n, (block + 1) * n
 
     def _deliver(self, ys: torch.Tensor, out: torch.Tensor, stream):
         if not self._over_ranks():
             return super()._deliver(ys, out, stream)
-        world = self.mesh.world
+        blocks, group = self.mesh.data_ranks, self.mesh.data_group
         if stream is None:
-            work = dist.all_gather(list(out.chunk(world)), ys, async_op=True)
+            work = dist.all_gather(list(out.chunk(blocks)), ys, group=group,
+                                   async_op=True)
             return Gathered(work)
         gathered = torch.empty(out.shape, dtype=ys.dtype, device=ys.device)
-        work = dist.all_gather(list(gathered.chunk(world)), ys,
+        work = dist.all_gather(list(gathered.chunk(blocks)), ys, group=group,
                                async_op=True)
         return Gathered(work, gathered, out, stream)
 
@@ -149,7 +165,7 @@ class PodMeshEvalBackend(OverRanks, EvalBackend):
     f_batch: (rows, n) -> (rows,) fitness on ``device``, row-independent
     (each shard calls it on its own rows).  ``mesh`` defaults to
     ``make_data_mesh(device)``; over ranks, this rank evaluates its
-    ``local_shards`` of the ``n_shards``.  Pass ``n_dims`` +
+    data block's ``local_shards`` of the ``n_shards``.  Pass ``n_dims`` +
     ``max_bucket`` to warm the bucket ladder at construction.
     """
 
@@ -160,7 +176,7 @@ class PodMeshEvalBackend(OverRanks, EvalBackend):
         self.mesh.require_one_device(device)
         self.data_axis = data_axis
         self.n_shards = data_shards(self.mesh, data_axis)
-        self.local_shards = self.n_shards // self.mesh.world
+        self.local_shards = self.n_shards // self.mesh.data_ranks
         self.f_batch = f_batch
         # the reference's floor of 4 rows a shard over the whole data
         # axis, kept so the bucket ladder (and with it every bucket shape

@@ -87,6 +87,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -109,7 +110,8 @@ from repro_torch.configs import (ARCH_NAMES, SHAPES, ModelConfig, ShapeConfig,
 from repro_torch.core.tree import map_tree
 from repro_torch.kernels import ops
 from repro_torch.launch import child
-from repro_torch.launch.mesh import make_production_mesh, virtual_devices
+from repro_torch.launch.mesh import (Mesh, make_production_mesh,
+                                     virtual_devices)
 from repro_torch.launch.substrates import SUBSTRATES, list_substrates
 from repro_torch.models import sharding as S
 from repro_torch.models import transformer as T
@@ -887,14 +889,16 @@ _ENGINE_KEYS = ("iteration", "best_fitness", "history", "engine_stats")
 
 
 def over_ranks(target: str, kwargs: dict, ranks: int, dist_backend: str,
-               device, expect) -> dict:
+               device, expect, counts: Optional[Callable] = None) -> dict:
     """Run ``target`` (a rank function of this module) over ``ranks``
     ranks of ``dist_backend`` (``launch/ranks.py``; gloo ranks all on
     ``device``, nccl rank r on ``cuda:r``) and hold every rank's engine
     against ``expect``, the one-process engine of the same leg.  Returns
     the report's ranks part: ``ranks_parity_ok`` is whether every rank
-    exited 0 and committed ``expect``'s iterates, fitness history and
-    engine stats (so each other's too)."""
+    exited 0, committed ``expect``'s iterates, fitness history and
+    engine stats (so each other's too) and, where ``counts`` is given,
+    has the counts it reckons (``counts(doc)``, also
+    ``ranks_counts_ok``)."""
     from repro_torch.launch import ranks as R
 
     devices = R.default_devices(dist_backend, ranks, device)
@@ -903,11 +907,15 @@ def over_ranks(target: str, kwargs: dict, ranks: int, dist_backend: str,
                     devices=devices, workdir=workdir)
     want = engine_doc(expect)
     docs = res.docs
-    parity = res.returncode == 0 and all(
+    counts_ok = res.returncode == 0 and (
+        counts is None or all(counts(d) for d in docs))
+    parity = counts_ok and all(
         all(d[k] == want[k] for k in _ENGINE_KEYS) for d in docs)
     return {
         "ranks": ranks, "dist_backend": dist_backend,
-        "ranks_parity_ok": parity, "ranks_returncode": res.returncode,
+        "model_ranks": kwargs.get("model_ranks", 1),
+        "ranks_parity_ok": parity, "ranks_counts_ok": counts_ok,
+        "ranks_returncode": res.returncode,
         "ranks_failed": res.failed, "ranks_wall_s": round(res.wall_s, 3),
         "per_rank": [None if d is None else
                      {k: v for k, v in d.items() if k not in _ENGINE_KEYS}
@@ -955,36 +963,101 @@ def _peak_gib(device) -> Optional[float]:
     return torch.cuda.max_memory_allocated(device) / 2**30
 
 
+def _blocks(mesh) -> dict:
+    """A rank's place on the (W/M, M) grid of ``mesh``."""
+    return dict(data_block=mesh.rank // mesh.model_ranks,
+                model_block=mesh.rank % mesh.model_ranks,
+                model_ranks=mesh.model_ranks)
+
+
+def rank_grid(ranks: int, model_ranks: int, mesh) -> Mesh:
+    """``mesh``'s shape over ``ranks`` ranks, its model axis over groups of
+    ``model_ranks`` of them, as rank 0 holds it (what the parent reckons a
+    rank's counts on), built before any rank starts: so a grid the shape
+    cannot take is refused there (``Mesh.over_ranks``: M not dividing N,
+    or the model or data axis not dividing over its ranks)."""
+    return Mesh.over_ranks(list(mesh.shape.values()), mesh.axis_names,
+                           rank=0, rank_devices=["meta"] * ranks,
+                           model_ranks=model_ranks)
+
+
 def pod_mesh_rank(group, *, m: int, iterations: int, n_stars: int,
-                  n_hosts: int, mesh_shape: list, axis_names: list) -> dict:
+                  n_hosts: int, mesh_shape: list, axis_names: list,
+                  model_ranks: int = 1) -> dict:
     """One rank of ``run_substrate_smoke``'s leg over ranks: the same
     stripe, engine and grid as every rank (SPMD), the pod backend on the
-    mesh ``mesh_shape`` with its data axis over the group, pipelined.
-    Returns the rank's doc: ``engine_doc``, and its device, data shards,
-    wall, launches (the warm's left out) and peak device memory."""
+    mesh ``mesh_shape`` with its data axis over the group (and its model
+    axis over groups of ``model_ranks``), pipelined.  Returns the rank's
+    doc: ``engine_doc``, and its device, data and model block, data
+    shards, wall, launches (the warm's left out) and peak device
+    memory."""
     from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
 
     device = group.device
     f_batch, max_bucket, run = _pod_problem(m, iterations, n_stars, n_hosts,
                                             device)
-    pod = PodMeshEvalBackend(f_batch, mesh=group.mesh(mesh_shape, axis_names),
-                             n_dims=8, max_bucket=max_bucket, device=device)
+    mesh = group.mesh(mesh_shape, axis_names, model_ranks=model_ranks)
+    pod = PodMeshEvalBackend(f_batch, mesh=mesh, n_dims=8,
+                             max_bucket=max_bucket, device=device)
     shapes = pod.compile_count
     engine, _, wall, launches = run(pod, True)
     return dict(engine_doc(engine), rank=group.rank, device=str(device),
-                data_shards=pod.local_shards, wall_s=round(wall, 3),
-                launches=launches, peak_gib=_peak_gib(device),
+                **_blocks(mesh), data_shards=pod.local_shards,
+                wall_s=round(wall, 3), launches=launches,
+                peak_gib=_peak_gib(device),
                 new_shapes_after_warm=pod.compile_count - shapes)
 
 
+def _chart_doc(backend, refs: list) -> dict:
+    """An LM backend's chart counts on a rank: what it stores, what its
+    pieces handed the model group's all-gathers over its buckets, and
+    whether the workload's whole θ0 and basis (``refs``: weak references
+    to them, the caller's own dropped) are freed."""
+    gc.collect()
+    return dict(stored_bytes=backend.stored_bytes,
+                model_gather_bytes=backend.model_gather_bytes,
+                model_gathers=backend.model_gathers,
+                model_gather_s=round(backend.model_gather_seconds, 3),
+                gathered_buckets=backend.gathered_buckets,
+                chart_freed=all(r() is None for r in refs))
+
+
+def _chart_refs(wl) -> list:
+    """Weak references to a workload's whole θ0 leaves and basis."""
+    return [weakref.ref(wl.proj.basis)] + [
+        weakref.ref(x) for _, x in S.spec_leaves(wl.proj.theta0)]
+
+
+def chart_counts(cfg: ModelConfig, mesh, k: int) -> Callable:
+    """``over_ranks``' ``counts`` for an LM leg on ``mesh`` (its shape and
+    ``model_ranks``): a rank stores the reckoned bytes
+    (``lm_loss.reckon_model_ranks``), its pieces handed the reckoned bytes
+    and all-gathers each bucket, and, cut over model ranks, it freed the
+    workload's whole chart."""
+    from repro_torch.core.substrates.lm_loss import reckon_model_ranks
+
+    want = reckon_model_ranks(cfg, mesh, k)
+
+    def ok(doc: dict) -> bool:
+        n = doc["gathered_buckets"]
+        return (doc["stored_bytes"] == want["stored_bytes"]
+                and doc["model_gather_bytes"] == n * want["gather_bytes"]
+                and doc["model_gathers"] == n * want["gathers"]
+                and (doc["chart_freed"] or mesh.model_ranks == 1))
+    return ok
+
+
 def lm_grid_rank(group, *, mesh_shape: list, axis_names: list,
-                 **problem_kw) -> dict:
+                 model_ranks: int = 1, **problem_kw) -> dict:
     """One rank of an LM grid leg over ranks: ``server.sim.lm_problem``
     (``problem_kw``) built on the rank's device from the workload's seed,
     the LM backend on the mesh ``mesh_shape`` with its data axis over the
-    group, warmed, act 1 pipelined.  Returns the rank's doc:
-    ``engine_doc``, and its device, data shards, lanes, layers, wall,
-    launches (the warm's left out) and peak device memory."""
+    group (and its model axis over groups of ``model_ranks``; the rank
+    drops the workload's whole chart once the backend holds its pieces),
+    warmed, act 1 pipelined.  Returns the rank's doc: ``engine_doc``, and
+    its device, data and model block, data shards, lanes, layers, wall,
+    launches (the warm's left out), peak device memory and chart counts
+    (``_chart_doc``)."""
     from repro_torch.core.substrates.batched_grid import BatchedVolunteerGrid
     from repro_torch.core.substrates.eval_backend import bucket_size
     from repro_torch.core.substrates.lm_loss import LmLossEvalBackend
@@ -992,27 +1065,69 @@ def lm_grid_rank(group, *, mesh_shape: list, axis_names: list,
 
     device = group.device
     spec, fleet, wl = lm_problem(device=device, **problem_kw)
-    m = spec.anm.m_regression
-    backend = LmLossEvalBackend(
-        wl, mesh=group.mesh(mesh_shape, axis_names), n_dims=wl.k,
-        max_bucket=bucket_size(BatchedVolunteerGrid.warm_max_bucket(m)))
+    m, k, refs = spec.anm.m_regression, wl.k, _chart_refs(wl)
+    mesh = group.mesh(mesh_shape, axis_names, model_ranks=model_ranks)
+    backend = LmLossEvalBackend(wl, mesh=mesh)
+    del wl
+    backend.warm(k, bucket_size(BatchedVolunteerGrid.warm_max_bucket(m)))
     engine = spec.build_engine()
     lanes0, shapes = backend.lanes_evaluated, backend.compile_count
     _, wall, launches = _timed(
         lambda: BatchedVolunteerGrid(None, fleet, backend=backend,
                                      pipelined=True).run(engine))
     return dict(engine_doc(engine), rank=group.rank, device=str(device),
-                data_shards=backend.n_shards // group.world,
+                **_blocks(mesh),
+                data_shards=backend.n_shards // mesh.data_ranks,
                 lanes=backend.lanes_evaluated - lanes0,
-                n_layers=wl.cfg.n_layers, wall_s=round(wall, 3),
+                n_layers=backend.workload.cfg.n_layers, wall_s=round(wall, 3),
                 launches=launches, peak_gib=_peak_gib(device),
-                new_shapes_after_warm=backend.compile_count - shapes)
+                new_shapes_after_warm=backend.compile_count - shapes,
+                **_chart_doc(backend, refs))
+
+
+def lm_points_rank(group, *, mesh_shape: list, axis_names: list,
+                   model_ranks: int, buckets: list, **workload_kw) -> dict:
+    """One rank scoring given points in given buckets, with no warm:
+    ``make_lm_workload`` (``workload_kw``) built on the rank's device from
+    its seed, the LM backend on the mesh ``mesh_shape`` over the group
+    (its model axis over groups of ``model_ranks``), the workload's whole
+    chart dropped, then each of ``buckets`` (a list of (k,) points)
+    submitted and collected in turn.  Returns the rank's doc: its device,
+    data and model block, chart counts (``_chart_doc``), and for each
+    bucket its values, the bytes and all-gathers its pieces handed, their
+    seconds, its wall and its launches; and the peak device memory."""
+    import numpy as np
+
+    from repro_torch.core.substrates.lm_loss import (LmLossEvalBackend,
+                                                     make_lm_workload)
+
+    device = group.device
+    wl = make_lm_workload(device=device, **workload_kw)
+    refs = _chart_refs(wl)
+    mesh = group.mesh(mesh_shape, axis_names, model_ranks=model_ranks)
+    backend = LmLossEvalBackend(wl, mesh=mesh)
+    del wl
+    out = []
+    for pts in buckets:
+        before = (backend.model_gather_bytes, backend.model_gathers,
+                  backend.model_gather_seconds)
+        values, wall, launches = _timed(
+            lambda: backend(np.asarray(pts, np.float64)).tolist())
+        out.append(dict(
+            values=values, wall_s=round(wall, 3), launches=launches,
+            gather_bytes=backend.model_gather_bytes - before[0],
+            gathers=backend.model_gathers - before[1],
+            gather_s=round(backend.model_gather_seconds - before[2], 3)))
+    return dict(rank=group.rank, device=str(device), **_blocks(mesh),
+                buckets=out, peak_gib=_peak_gib(device),
+                **_chart_doc(backend, refs))
 
 
 def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
                         n_stars: int = 500, n_hosts: int = 512, *,
                         device="cuda", mesh=None, ranks: int = 0,
-                        dist_backend: str = "gloo") -> bool:
+                        dist_backend: str = "gloo",
+                        model_ranks: int = 1) -> bool:
     """Pod-mesh + pipelined substrate smoke (``--substrate pod_mesh``).
 
     Runs the SAME batched-grid workload three ways on ``device`` — the
@@ -1032,9 +1147,10 @@ def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
     With ``ranks`` > 0, a fourth leg runs the pod backend over ``ranks``
     ranks of ``dist_backend`` (``over_ranks``: the data axis of
     ``mesh``'s shape cut over the ranks, each rank a child process on its
-    device), and every rank must commit the pod leg's iterates and engine
-    stats; the report gains ``over_ranks``' keys and the result its
-    ``ranks_parity_ok``."""
+    device; with ``model_ranks`` M its model axis too, over the (ranks/M,
+    M) grid), and every rank must commit the pod leg's iterates and
+    engine stats and evaluate its data block's shards; the report gains
+    ``over_ranks``' keys and the result its ``ranks_parity_ok``."""
     import numpy as np
 
     from repro_torch.core.engine import identical_trajectories
@@ -1042,6 +1158,7 @@ def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
     from repro_torch.core.substrates.pod_mesh import PodMeshEvalBackend
 
     mesh = _pod_mesh(device, mesh)
+    rank_mesh = rank_grid(ranks, model_ranks, mesh) if ranks else None
     f_batch, max_bucket, run_with = _pod_problem(m, iterations, n_stars,
                                                  n_hosts, device)
     in_backend = InProcessEvalBackend(f_batch, n_dims=8,
@@ -1094,12 +1211,14 @@ def run_substrate_smoke(out_dir: str, m: int = 32, iterations: int = 2,
                         "pod_mesh": e_pod.stats == e_in.stats},
     }
     if ranks:
+        shards = pod.n_shards // rank_mesh.data_ranks
         report.update(over_ranks(
             "repro_torch.launch.dryrun:pod_mesh_rank",
             dict(m=m, iterations=iterations, n_stars=n_stars,
                  n_hosts=n_hosts, mesh_shape=list(mesh.shape.values()),
-                 axis_names=list(mesh.axis_names)),
-            ranks, dist_backend, device, e_pod))
+                 axis_names=list(mesh.axis_names), model_ranks=model_ranks),
+            ranks, dist_backend, device, e_pod,
+            counts=lambda doc: doc["data_shards"] == shards))
         ok = ok and report["ranks_parity_ok"]
     path = _write(out_dir, "pod_mesh", report)
     print(f"[{'ok' if ok else 'FAIL'}] substrate pod_mesh: "
@@ -1327,8 +1446,8 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
                           n_hosts: int = 48, *, device="cuda", mesh=None,
                           problem=None,
                           portfolio_iterations: Optional[int] = None,
-                          ranks: int = 0, dist_backend: str = "gloo"
-                          ) -> bool:
+                          ranks: int = 0, dist_backend: str = "gloo",
+                          model_ranks: int = 1) -> bool:
     """LM-loss workload smoke (``--substrate lm_subspace``).
 
     The model stack IS the fitness function: an ``LmWorkload`` over
@@ -1361,9 +1480,12 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
 
     With ``ranks`` > 0, gate 1 gains a leg over ``ranks`` ranks of
     ``dist_backend`` (``over_ranks``, ``lm_grid_rank``: every rank builds
-    the workload from its seed, so ``problem`` must be None): every rank
-    must commit the pod leg's iterates and engine stats; the report gains
-    ``over_ranks``' keys and the result its ``ranks_parity_ok``."""
+    the workload from its seed, so ``problem`` must be None; with
+    ``model_ranks`` M the mesh's model axis is cut over groups of M of
+    them): every rank must commit the pod leg's iterates and engine
+    stats, and store and gather the chart's bytes ``chart_counts``
+    reckons; the report gains ``over_ranks``' keys and the result its
+    ``ranks_parity_ok``."""
     if ranks and problem is not None:
         raise ValueError("a leg over ranks builds the workload on every "
                          "rank from its seed: pass no problem")
@@ -1379,6 +1501,7 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
                                         lm_problem, result_doc)
 
     mesh = _pod_mesh(device, mesh)
+    rank_mesh = rank_grid(ranks, model_ranks, mesh) if ranks else None
     spec, fleet, wl = problem or lm_problem(
         arch=arch, k=k, n_hosts=n_hosts, m=m, iterations=iterations,
         device=device)
@@ -1480,8 +1603,9 @@ def run_lm_subspace_smoke(out_dir: str, arch: str = "rwkv6-7b",
             "repro_torch.launch.dryrun:lm_grid_rank",
             dict(arch=arch, k=k, n_hosts=n_hosts, m=m, iterations=iterations,
                  mesh_shape=list(mesh.shape.values()),
-                 axis_names=list(mesh.axis_names)),
-            ranks, dist_backend, device, e_pod)
+                 axis_names=list(mesh.axis_names), model_ranks=model_ranks),
+            ranks, dist_backend, device, e_pod,
+            counts=chart_counts(wl.cfg, rank_mesh, k))
         ok = ok and ranks_report["ranks_parity_ok"]
     report = {
         "arch": arch, "k": k, "m": m, "iterations": iterations,
@@ -2327,6 +2451,10 @@ def main(argv=None) -> int:
                          "the pod leg over N ranks of a torch.distributed "
                          "group, one child process a rank "
                          "(launch/ranks.py)")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="with --ranks N: cut the mesh's model axis over "
+                         "groups of M of the N ranks as well (the (N/M, M) "
+                         "grid of Mesh.over_ranks)")
     ap.add_argument("--dist-backend", default="gloo",
                     choices=["gloo", "nccl"],
                     help="the ranks' backend: gloo (CPU or CUDA, ranks may "
@@ -2343,11 +2471,19 @@ def main(argv=None) -> int:
     if args.substrate is not None:
         runner = SUBSTRATES[args.substrate].resolve()
         kw = {}
+        if args.model_ranks != 1 and not args.ranks:
+            ap.error("--model-ranks runs with --ranks")
         if args.ranks:
             if args.substrate not in RANKS_SUBSTRATES:
                 ap.error(f"--ranks runs with --substrate "
                          f"{' or '.join(RANKS_SUBSTRATES)}")
-            kw = dict(ranks=args.ranks, dist_backend=args.dist_backend)
+            try:
+                rank_grid(args.ranks, args.model_ranks, _pod_mesh("meta"))
+            except ValueError as e:
+                ap.error(f"--ranks {args.ranks} --model-ranks "
+                         f"{args.model_ranks}: {e}")
+            kw = dict(ranks=args.ranks, dist_backend=args.dist_backend,
+                      model_ranks=args.model_ranks)
         try:
             return 0 if runner(out_dir, device=args.device, **kw) else 1
         finally:

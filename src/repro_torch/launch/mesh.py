@@ -21,7 +21,9 @@ arrays on all of them.  A port ``Mesh`` is named axes over an array of
   ``model_ranks`` M the ``model`` axis is cut over the ranks as well:
   the W ranks form a (W/M, M) grid, rank r holding data block r // M and
   model block r % M, so that a model group is M adjacent ranks
-  (``launch/train.py --ranks W --model-ranks M``).
+  (``launch/train.py --ranks W --model-ranks M``; the evaluation
+  backends store their model blocks and gather them over the model
+  group, ``dryrun --ranks W --model-ranks M``).
 
 Single pod: (data=16, model=16) = 256 devices.  Multi-pod: (pod=2,
 data=16, model=16) = 512, the "pod" axis an outer data-parallel axis.
@@ -32,8 +34,7 @@ can be built on one GPU or on the CPU.  Over ranks, the positions a
 rank holds are virtual in the same way: 2 ranks × 8 virtual data shards
 are the production 16 × 16.  The backends accept a one-process mesh
 whose devices are all their own device; one over distinct GPUs is
-refused (``require_one_device``): the data axis reaches them through
-ranks.
+refused (``require_one_device``): its axes reach them through ranks.
 """
 from __future__ import annotations
 
@@ -48,11 +49,6 @@ import torch
 DATA_AXIS = "data"
 #: the axis a mesh over ranks cuts over them too where ``model_ranks`` > 1
 MODEL_AXIS = "model"
-#: what still waits where an evaluation backend meets a mesh over
-#: distinct devices (``Mesh.require_one_device``): training cuts the model
-#: axis over ranks (``over_ranks(model_ranks=)``), the backends do not yet
-MULTI_DEVICE_ITEM = ("ROADMAP A.8 (ix), the evaluation backends' model "
-                     "axis over ranks")
 
 
 def canonical_device(device) -> torch.device:
@@ -197,14 +193,16 @@ class Mesh:
     def require_one_device(self, device) -> torch.device:
         """The one device every position this process holds is, which must
         be ``device``.  A one-process mesh over distinct devices is
-        refused: its data axis reaches them as a mesh over ranks.  So is a
-        mesh whose model axis spans ranks (training's alone)."""
+        refused: its axes reach them as a mesh over ranks.  A mesh whose
+        model axis spans ranks must carry its subgroups
+        (``launch/ranks.py::RankGroup.mesh``)."""
         device = canonical_device(device)
-        if self.model_ranks > 1:
-            raise NotImplementedError(
-                f"{self} cuts its model axis over ranks: an evaluation "
-                f"backend keeps the model axis in one process, and its cut "
-                f"over ranks waits for {MULTI_DEVICE_ITEM}")
+        if self.model_ranks > 1 and (self.model_group is None
+                                     or self.data_group is None):
+            raise ValueError(
+                f"{self} cuts its model axis over ranks but has no model "
+                f"and data groups: build it with RankGroup.mesh("
+                f"model_ranks=) (launch/ranks.py)")
         if self.rank_devices is None:
             distinct = self.distinct_devices()
         else:
@@ -215,8 +213,8 @@ class Mesh:
                 f"a one-process mesh over distinct devices ({names}) is not "
                 f"supported: a process evaluates its shards on one device. "
                 f"Spread the data axis over ranks, one process a device "
-                f"(Mesh.over_ranks, launch/ranks.py); the model axis across "
-                f"cards waits for {MULTI_DEVICE_ITEM}")
+                f"(Mesh.over_ranks, launch/ranks.py), and the model axis "
+                f"too with Mesh.over_ranks(model_ranks=)")
         if distinct[0] != device:
             raise ValueError(f"the mesh lies on {distinct[0]}, the backend "
                              f"on {device}")

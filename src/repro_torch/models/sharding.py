@@ -317,6 +317,13 @@ class Sharded:
     already lies on is a view of the source, not a copy.  Only the
     positions this process holds (``mesh.local_positions()``) get their
     blocks: on a mesh over ranks a rank keeps its own.
+
+    Where the mesh's model axis spans ranks (``Mesh.over_ranks(
+    model_ranks=M)``) a view would keep the whole source alive on every
+    rank, so the rank keeps a contiguous copy instead (``held``): of its
+    model block, the contiguous 1/M of the dimension cut over ``model``
+    (``over_model`` is that dimension), or of the whole tensor where the
+    spec does not name ``model``; its pieces are views of the copy.
     """
 
     def __init__(self, x: torch.Tensor, spec: P, mesh):
@@ -333,11 +340,34 @@ class Sharded:
                                  f"divide into {n} blocks ({spec})")
         self._pos = {a: i for i, a in enumerate(mesh.axis_names)}
         self.pieces: Dict[tuple, torch.Tensor] = {}
+        self.held: Optional[torch.Tensor] = None
+        self.over_model: Optional[int] = None
+        self._origin = (0,) * x.dim()
+        if mesh.model_ranks > 1:
+            x = self._hold(x)
         for coords in mesh.local_positions():
             block = self.block_of(coords)
             if block not in self.pieces:
-                self.pieces[block] = self._narrow(x, block).to(
+                self.pieces[block] = self._narrow(x, block, self._origin).to(
                     mesh.devices[coords])
+
+    def _hold(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's contiguous copy of ``x``'s model block (or of ``x``),
+        kept as ``held``."""
+        dim = model_dim(self.spec)
+        if dim is not None:
+            if self.spec[dim] != "model":
+                raise NotImplementedError(
+                    f"{self.spec}: a dimension cut over 'model' with "
+                    f"another axis cannot span model ranks")
+            n = self.shape[dim] // self.mesh.model_ranks
+            x = x.narrow(dim, self.mesh.rank % self.mesh.model_ranks * n, n)
+            self.over_model = dim
+            self._origin = tuple(
+                self.mesh.rank % self.mesh.model_ranks * n if d == dim
+                else 0 for d in range(x.dim()))
+        self.held = x.clone(memory_format=torch.contiguous_format)
+        return self.held
 
     def block_of(self, coords: tuple) -> tuple:
         """The block index, per dimension, held at mesh ``coords``."""
@@ -350,11 +380,15 @@ class Sharded:
             out.append(idx)
         return tuple(out) + (0,) * (len(self.shape) - len(self.spec))
 
-    def _narrow(self, x: torch.Tensor, block: tuple) -> torch.Tensor:
+    def _narrow(self, x: torch.Tensor, block: tuple,
+                origin: Optional[tuple] = None) -> torch.Tensor:
+        """``block`` of ``x``, whose first element lies at ``origin`` of
+        the whole (the rank's copy's; None: ``x`` is the whole)."""
+        origin = origin or (0,) * x.dim()
         for dim, (i, n) in enumerate(zip(block, self.cuts)):
-            if n > 1:
-                step = self.shape[dim] // n
-                x = x.narrow(dim, i * step, step)
+            step = self.shape[dim] // n
+            if x.shape[dim] != step:
+                x = x.narrow(dim, i * step - origin[dim], step)
         return x
 
     def local(self, coords: tuple) -> torch.Tensor:
@@ -369,10 +403,14 @@ class Sharded:
         return None
 
     def gather(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The whole tensor, its pieces written in block order into
-        ``out`` (a new tensor on the first piece's device if None).  Every
-        block must be held here: across ranks a gather is a collective."""
-        if len(self.pieces) != math.prod(self.cuts):
+        """The whole tensor, written into ``out`` (a new tensor on the
+        first piece's device if None): its pieces in block order, or, cut
+        over model ranks (``over_model``), the model group's copies
+        all-gathered straight into ``out``'s slices along that dimension.
+        Every other block must be held here: a block held by a rank of
+        another data block is not gathered."""
+        world = 1 if self.over_model is None else self.mesh.model_ranks
+        if len(self.pieces) * world != math.prod(self.cuts):
             raise ValueError(
                 f"this process holds {len(self.pieces)} of the "
                 f"{math.prod(self.cuts)} blocks of {self.shape} ({self.spec} "
@@ -381,9 +419,21 @@ class Sharded:
         if out is None:
             out = torch.empty(self.shape, dtype=self.dtype,
                               device=first.device)
+        if self.over_model is not None:
+            n = self.held.shape[self.over_model]
+            dist.all_gather([out.narrow(self.over_model, j * n, n)
+                             for j in range(world)], self.held,
+                            group=self.mesh.model_group)
+            return out
         for block, piece in self.pieces.items():
             self._narrow(out, block).copy_(piece)
         return out
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes of the blocks this process holds."""
+        return sum(p.numel() * p.element_size()
+                   for p in self.pieces.values())
 
 
 def to_named(tree: Any, specs: Any, mesh) -> Any:
@@ -414,7 +464,7 @@ def held_whole(tree: Any) -> Optional[Any]:
 # The data axis over ranks: sums that a training step hands to all-reduces
 # ---------------------------------------------------------------------------
 
-def _timed(fn: Callable, x: torch.Tensor):
+def timed(fn: Callable, x: torch.Tensor):
     """(``fn()``, its host wall in seconds with ``x``'s device synchronized
     on either side, so that a collective's own time is read)."""
     cuda = x.device.type == "cuda"
@@ -462,7 +512,7 @@ def _sum_flat(leaves: List[Tuple[str, torch.Tensor]], group
     for items in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for _, g in items])
         nbytes += flat.numel() * flat.element_size()
-        _, s = _timed(lambda: dist.all_reduce(flat, group=group), flat)
+        _, s = timed(lambda: dist.all_reduce(flat, group=group), flat)
         seconds += s
         for (path, g), piece in zip(items, torch.split(
                 flat, [g.numel() for _, g in items])):
@@ -674,8 +724,9 @@ class _Blocks(RankSum):
         def keep(path, x):
             if path not in self.cuts:
                 return x
-            return Sharded(x, specs[path], self.mesh).local(
-                self.coords).clone()
+            sh = Sharded(x, specs[path], self.mesh)
+            piece = sh.local(self.coords)
+            return piece if piece is sh.held else piece.clone()
         return map_with_paths(keep, params)
 
     def whole_leaves(self, tree: Any) -> Dict[str, torch.Tensor]:
@@ -756,7 +807,7 @@ class RankShards(_Blocks):
 
     def gather(self, piece: torch.Tensor, dim: int) -> torch.Tensor:
         """``piece`` all-gathered along ``dim``, counted."""
-        whole, s = _timed(
+        whole, s = timed(
             lambda: gather_blocks(piece, dim, self.world, self.group),
             piece)
         self.gather_bytes += whole.numel() * whole.element_size()
@@ -766,7 +817,7 @@ class RankShards(_Blocks):
 
     def scatter(self, grad: torch.Tensor, dim: int) -> torch.Tensor:
         """``grad`` reduce-scattered along ``dim``, counted."""
-        piece, s = _timed(
+        piece, s = timed(
             lambda: scatter_blocks(grad, dim, self.world, self.group),
             grad)
         self.scatter_bytes += piece.numel() * piece.element_size()
@@ -1132,8 +1183,8 @@ class ModelShards(_Blocks):
                    op=dist.ReduceOp.SUM) -> None:
         """``x`` reduced over the model group in place, counted under
         ``kind``."""
-        _, s = _timed(lambda: dist.all_reduce(x, op=op,
-                                              group=self.model_group), x)
+        _, s = timed(lambda: dist.all_reduce(x, op=op,
+                                             group=self.model_group), x)
         self._count(kind, x, s)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -1142,7 +1193,7 @@ class ModelShards(_Blocks):
         "exchange"."""
         x = x.contiguous()
         out = torch.empty_like(x)
-        _, s = _timed(lambda: dist.all_to_all_single(
+        _, s = timed(lambda: dist.all_to_all_single(
             out, x, group=self.model_group), x)
         self._count("exchange", x, s)
         return out
@@ -1150,8 +1201,8 @@ class ModelShards(_Blocks):
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The model group's blocks of ``x`` put together along the leading
         dimension, counted under "gather" (the block handed over)."""
-        out, s = _timed(lambda: gather_blocks(x, 0, self.model_ranks,
-                                              self.model_group), x)
+        out, s = timed(lambda: gather_blocks(x, 0, self.model_ranks,
+                                             self.model_group), x)
         self._count("gather", x, s)
         return out
 
@@ -1184,7 +1235,7 @@ class ModelShards(_Blocks):
         """``x`` summed over every rank (the default process group: each
         holds its block of the batch's groups), identity backward
         (``_SumOverRanks``), counted under "stats"."""
-        out, s = _timed(lambda: _SumOverRanks.apply(x, None), x)
+        out, s = timed(lambda: _SumOverRanks.apply(x, None), x)
         self._count("stats", x, s)
         return out
 

@@ -133,7 +133,8 @@ def test_pod_over_distinct_devices_is_refused():
     _, _, wl = _problem("rwkv6-7b")
     mesh = Mesh((2, 1), ("data", "model"),
                 [torch.device("cuda", 0), torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    with pytest.raises(NotImplementedError,
+                       match=r"Mesh\.over_ranks\(model_ranks=\)"):
         LmLossEvalBackend(wl, mesh=mesh)
 
 

@@ -54,10 +54,11 @@ def _leaves(params) -> dict:
             for kp, x in jax.tree_util.tree_leaves_with_path(params)}
 
 
-def _ref_workload(arch: str, dtype: str):
+def _ref_workload(arch: str, dtype: str, base=None):
     """The reference's smoke workload, as ``test_torch_lm_backend.py``
-    builds it (f32: its configuration's dtype replaced, re-drawn)."""
-    wl = j_workload(arch, k=K, batch_size=1, seq_len=16, seed=1)
+    builds it (f32: its configuration's dtype replaced, re-drawn), from
+    ``base``, the bf16 one, where given."""
+    wl = base or j_workload(arch, k=K, batch_size=1, seq_len=16, seed=1)
     if dtype == "bfloat16":
         return wl
     cfg = dataclasses.replace(wl.cfg, dtype=dtype)

@@ -13,14 +13,15 @@ model block r % M, so a model group is M adjacent ranks
   refused;
 * with M = 1 every rank holds its data block and the whole model axis,
   as before;
-* an evaluation backend refuses a mesh whose model axis spans ranks,
-  naming the ROADMAP item it waits for.
+* an evaluation backend takes a mesh whose model axis spans ranks once
+  it carries its model and data groups (``RankGroup.mesh``), and refuses
+  one without them.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.launch.mesh import MULTI_DEVICE_ITEM, Mesh
+from repro_torch.launch.mesh import Mesh
 
 DEVICES = ["cpu"] * 4
 
@@ -96,9 +97,12 @@ def test_one_model_rank_keeps_every_result(world):
                               f"{world}; {', '.join(['cpu'] * world)})")
 
 
-def test_an_evaluation_backend_refuses_the_model_axis_over_ranks():
-    mesh = _grid((1, 2), 2, 2)
-    assert "model over 2" in repr(mesh)
-    with pytest.raises(NotImplementedError, match=r"A\.8 \(ix\)"):
+@pytest.mark.parametrize("world,model_ranks", [(2, 2), (4, 2)])
+def test_an_evaluation_backend_takes_the_model_axis_over_ranks_with_groups(
+        world, model_ranks):
+    mesh = _grid((world // model_ranks, model_ranks), world, model_ranks)
+    assert f"model over {model_ranks}" in repr(mesh)
+    with pytest.raises(ValueError, match=r"RankGroup\.mesh\(model_ranks=\)"):
         mesh.require_one_device("cpu")
-    assert "A.8 (ix)" in MULTI_DEVICE_ITEM
+    mesh.model_group, mesh.data_group = object(), object()
+    assert mesh.require_one_device("cpu") == torch.device("cpu")

@@ -117,12 +117,13 @@ def test_host_and_data_meshes_are_one_by_one_on_the_cpu():
 
 
 def test_mesh_over_distinct_devices_is_refused():
-    """One process, one device: a mesh over two GPUs waits for the
-    multi-GPU leg and says so, before touching either card."""
+    """One process, one device: a mesh over two GPUs is refused, naming
+    the route over ranks, before touching either card."""
     f_batch, _ = _quad_fitness()
     mesh = Mesh((2, 1), ("data", "model"),
                 [torch.device("cuda", 0), torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    with pytest.raises(NotImplementedError,
+                       match=r"Mesh\.over_ranks\(model_ranks=\)"):
         PodMeshEvalBackend(f_batch, mesh=mesh, device="cpu")
 
 

@@ -6,9 +6,11 @@ the port only (no jax, no reference), builds its inputs from seeds, and
 returns a JSON doc.  The tests compare the docs with the one-process
 backends and with the reference.
 """
+import gc
 import os
 import pickle
 import signal
+import weakref
 
 import numpy as np
 import torch
@@ -21,6 +23,7 @@ from repro_torch.core.substrates.eval_backend import InProcessEvalBackend
 from repro_torch.core.substrates.pod_mesh import (PodMeshEvalBackend,
                                                   make_data_mesh)
 from repro_torch.launch import dryrun
+from repro_torch.models import sharding
 
 #: the bucket widths the value tests evaluate
 KS = (1, 5, 8, 13, 64, 100)
@@ -65,14 +68,16 @@ def grid_doc(engine, stats) -> dict:
                 completed=stats.completed)
 
 
-def bucket_values(group, *, mesh_shape):
-    """The pod backend on the mesh ``mesh_shape`` over the group: each of
-    ``KS``' blocks submitted, and its bucket's width and values; and the
-    shape of ``make_data_mesh`` with the group up."""
+def bucket_values(group, *, mesh_shape, model_ranks=1):
+    """The pod backend on the mesh ``mesh_shape`` over the group (its
+    model axis over groups of ``model_ranks``): each of ``KS``' blocks
+    submitted, and its bucket's width and values; and the shape of
+    ``make_data_mesh`` with the group up."""
     data_mesh = make_data_mesh("cpu")
     f_batch, n = quad_fitness()
-    pod = PodMeshEvalBackend(f_batch, mesh=group.mesh(mesh_shape),
-                             device="cpu")
+    pod = PodMeshEvalBackend(
+        f_batch, mesh=group.mesh(mesh_shape, model_ranks=model_ranks),
+        device="cpu")
     out = {"min_bucket": pod.min_bucket, "local_shards": pod.local_shards,
            "positions": len(pod.mesh.local_positions()), "values": {},
            "kp": {}, "data_mesh": list(data_mesh.shape.values()),
@@ -84,12 +89,14 @@ def bucket_values(group, *, mesh_shape):
     return out
 
 
-def grid_run(group, *, mesh_shape):
+def grid_run(group, *, mesh_shape, model_ranks=1):
     """The pipelined grid over the pod backend on ``mesh_shape`` over the
-    group, warmed first."""
+    group (its model axis over groups of ``model_ranks``), warmed
+    first."""
     f_batch, n = quad_fitness()
-    pod = PodMeshEvalBackend(f_batch, mesh=group.mesh(mesh_shape),
-                             n_dims=n, max_bucket=128, device="cpu")
+    pod = PodMeshEvalBackend(
+        f_batch, mesh=group.mesh(mesh_shape, model_ranks=model_ranks),
+        n_dims=n, max_bucket=128, device="cpu")
     warmed = pod.compile_count
     doc = grid_doc(*run_grid(f_batch, n, pod))
     return dict(doc, new_shapes=pod.compile_count - warmed,
@@ -121,6 +128,64 @@ def lm_lanes(group, *, workload, mesh_shape, n_points=19):
                 p.untyped_storage().data_ptr()
                 == wl.proj.basis.untyped_storage().data_ptr()
                 for p in _pieces(pod._basis))}
+
+
+def lm_model_lanes(group, *, workloads, mesh_shape, model_ranks,
+                   n_points=19):
+    """The LM backend on each workload the test wrote (``workloads``: name
+    -> a pickle of ``convert.lm_workload_from_reference``'s arguments) on
+    the mesh over the group, its model axis over groups of
+    ``model_ranks``: each lane's loss over ``n_points`` seeded points,
+    whether a piece shares storage with the workload's whole tensors,
+    whether the whole chart is freed once the workload is dropped,
+    tensors as large as the basis still alive after the backend is built
+    and after its bucket, and the chart counts."""
+    from repro_torch.convert import lm_workload_from_reference
+    from repro_torch.core.substrates.lm_loss import LmLossEvalBackend
+
+    out = {}
+    for name, path in workloads.items():
+        with open(path, "rb") as f:
+            wl = lm_workload_from_reference(**pickle.load(f), device="cpu")
+        wholes = [wl.proj.basis] + [x for _, x in
+                                    sharding.spec_leaves(wl.proj.theta0)]
+        refs = [weakref.ref(x) for x in wholes]
+        ptrs = {x.untyped_storage().data_ptr() for x in wholes}
+        pod = LmLossEvalBackend(wl, mesh=group.mesh(mesh_shape,
+                                                    model_ranks=model_ranks))
+        shares = any(p.untyped_storage().data_ptr() in ptrs
+                     for p in _pieces({"t": pod._theta, "b": pod._basis}))
+        size = wl.k * wl.proj.n_params * 4
+        pts = np.random.default_rng(5).uniform(-0.3, 0.3, (n_points, wl.k))
+        del wl, wholes
+        gc.collect()
+        built = _as_large(size)
+        values = pod(pts).tolist()
+        gc.collect()
+        out[name] = dict(
+            values=values, lanes=pod.lanes_evaluated, shares_whole=shares,
+            chart_freed=all(r() is None for r in refs),
+            large_built=built, large_after=_as_large(size),
+            stored_bytes=pod.stored_bytes,
+            model_gather_bytes=pod.model_gather_bytes,
+            model_gathers=pod.model_gathers,
+            gathered_buckets=pod.gathered_buckets,
+            pieces=sum(len(sh.pieces) for _, sh in
+                       sharding.spec_leaves(pod._basis)))
+        try:
+            pod.lane_loss(torch.zeros(len(pts[0])))
+            out[name]["lane_loss"] = "scored"
+        except RuntimeError as e:
+            out[name]["lane_loss"] = str(e)
+    return out
+
+
+def _as_large(nbytes):
+    """The shapes of live tensors whose storage holds ``nbytes`` or
+    more."""
+    return [list(o.shape) for o in gc.get_objects()
+            if isinstance(o, torch.Tensor)
+            and o.untyped_storage().nbytes() >= nbytes]
 
 
 def _pieces(tree):
