@@ -326,31 +326,34 @@ so the script exits non-zero and prints no result line:
            against the launcher's one-process run: each loss within
            2e-2, the ranks' blocks, put together, within 2e-2 normwise a
            leaf, the whole leaves and the clip norms the same bits on both
-           ranks, the bytes a rank hands its block all-reduces a step x 2
-           and their number equal to the dry-run's "over model" entries on
-           (1, 2), each rank's peak within 15 % of the reckoned
-           per-device peak on (1, 2), no kernel launched in a rank; ms a
-           step, the block all-reduces' seconds and share and the
-           vocabulary cut's collectives apart (which the dry-run does not
-           count) printed; (t11) deepseek-v2-lite at published widths cut
+           ranks, every kind of collective a rank counts (the model
+           group's block, norm, vocab, gradient, exchange, gather and
+           stats, the loss's sums and the data-parallel gradient) equal a
+           step to the dry-run's entries of that kind on (1, 2) by the
+           kind's relation (bytes x 2 for an all-reduce, x M for an
+           all-gather, x 1 for an all-to-all; calls for all but the
+           gradients', which a rank sums in one buffer a type), each
+           rank's peak within 15 % of the reckoned per-device peak on
+           (1, 2), no kernel launched in a rank; ms a step, the block
+           all-reduces' seconds and share and the vocabulary cut's apart
+           printed; (t11) deepseek-v2-lite at published widths cut
            to 3 layers (the dense first layer, 2 MoE layers; remat),
            (t10)'s batch, steps, lr and mesh, MLA's heads, the experts
            and the shared experts cut over the model axis across the 2
            ranks, the experts' buffers exchanged by all-to-alls, held to
-           (t10)'s gates, the all-to-alls' bytes and count a step equal
-           to the dry-run's "moe dispatch" / "moe combine" entries too;
-           each collective kind's bytes, calls, seconds and share (the
-           rows' all-gathers and the statistics' sums, which the dry-run
-           does not count, among them) and the first step's near-tied
-           tokens printed.  ``python3 chip_smoke.py --tp-moe-probe`` runs
+           (t10)'s gates, the all-to-alls, the rows' all-gathers (the
+           dry-run's "moe gather (port)" entries), the statistics' sums
+           and the router's and MLA's latent leaves' gradient sums among
+           the kinds; each collective kind's bytes, calls, seconds and
+           share and the first step's near-tied tokens printed.  ``python3 chip_smoke.py --tp-moe-probe`` runs
            only (t11); (t12) rwkv6-7b at published widths cut to 2 layers
            and (t13) zamba2-2.7b cut to 7 blocks (6 Mamba2 layers, one
            application of the weight-shared block), each at (t10)'s
            batch, steps, lr and mesh, RWKV6's heads and channel mix,
            Mamba2's inner channels and the shared block cut over the
            model axis across the 2 ranks, held to (t10)'s gates, the norm
-           statistics' all-reduces' bytes and count a step equal to the
-           dry-run's "mamba/norm" entries too; each collective kind's
+           statistics' all-reduces and the time mix's and Mamba2's whole
+           leaves' gradient sums among the kinds; each collective kind's
            bytes, calls, seconds and share printed.  ``python3
            chip_smoke.py --tp-ssm-probe`` runs only (t12) and (t13);
 15e. dryrun  launch/dryrun.py's reckoning held against real steps, no
@@ -3955,6 +3958,45 @@ def _train_fsdp(dev: torch.device, n_layers: int, probe: bool = False
           f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
 
 
+def _kinds_held(report: dict, docs: list, steps: int, m: int) -> tuple:
+    """Every kind of collective a rank's document counts (the model
+    group's, ``sharding.ModelShards.model_bytes``; the loss's sums and the
+    data-parallel gradient over the data group) against the dry-run's
+    entries of that kind on the same mesh (``dryrun.handed``: an
+    all-reduce's entry is 2 x the buffer a rank hands, an all-gather's M x
+    it, an all-to-all's 1 x): bytes for every kind, and the number for
+    all but the gradients', which a rank sums in one flat buffer a type
+    (``sharding._sum_flat``) where the dry-run has an entry a leaf.
+    Returns (all equal on every rank, rank 0's bytes and calls a step
+    beside the dry-run's, kind by kind)."""
+    def counted(doc: dict, kind: str) -> tuple:
+        if kind == "loss":
+            return doc["loss_bytes"], doc["loss_all_reduces"]
+        if kind == "data gradient":
+            return doc["gradient_bytes"], doc["gradient_all_reduces"]
+        return doc["model_bytes"][kind], doc["model_calls"][kind]
+
+    def reckoned(kind: str) -> tuple:
+        if kind == "data gradient":
+            return report["gradient_all_reduce_bytes"] // 2, None
+        return dryrun.handed(report, kind, m)
+
+    parts, equal = [], []
+    for kind in (*sharding.MODEL_KINDS, "loss", "data gradient"):
+        want_b, want_n = reckoned(kind)
+        calls_held = kind not in ("gradient", "data gradient")
+        equal.append(all(
+            got_b == steps * want_b
+            and (not calls_held or got_n == steps * want_n)
+            for got_b, got_n in (counted(doc, kind) for doc in docs)))
+        got_b, got_n = counted(docs[0], kind)
+        parts.append(f"{kind} {got_b // steps} B in {got_n // steps} "
+                     f"(dry-run {want_b} B"
+                     + (f" in {want_n}" if calls_held else ", bytes only")
+                     + f"; equal {equal[-1]})")
+    return all(equal), "; ".join(parts)
+
+
 def _train_tp(dev: torch.device, n_layers: int) -> dict:
     """(t10): ``launch/train.py --ranks 2 --model-ranks 2`` on (t9)'s
     danube over 2 gloo ranks sharing the card, the (1, 2) mesh, against
@@ -3994,11 +4036,9 @@ def _train_tp(dev: torch.device, n_layers: int) -> dict:
     t3 = time.perf_counter()
     errs = [abs(a - b) / abs(b) for a, b in zip(docs[0]["losses"],
                                                  one["losses"])]
-    reckoned = report["model_all_reduce_bytes"]
-    calls = report["model_all_reduces"]
-    bytes_ok = all(2 * d["model_bytes"]["block"] == steps * reckoned
-                   and d["model_calls"]["block"] == steps * calls
-                   and reckoned > 0 for d in docs)
+    kinds_ok, held = _kinds_held(report, docs, steps, m)
+    bytes_ok = kinds_ok and report["model_all_reduce_bytes"] > 0 \
+        and report["vocab_all_reduce_bytes"] > 0
     same = all(d["digests"] == docs[0]["digests"] for d in docs) \
         and len(docs[0]["digests"]) == steps
     same_gnorm = all(d["gnorms"] == docs[0]["gnorms"] for d in docs)
@@ -4028,14 +4068,9 @@ def _train_tp(dev: torch.device, n_layers: int) -> dict:
           f"{TRAIN_FSDP_PARAM_TOL}); the whole leaves the same bits on "
           f"every rank after every step: {same}; clip norms "
           f"{[round(g, 4) for g in d0['gnorms']]}, the same on every rank: "
-          f"{same_gnorm}; a step a rank: block all-reduces "
-          f"{d0['model_bytes']['block'] // steps} B in "
-          f"{d0['model_calls']['block'] // steps} calls, x 2 against the "
-          f"dry-run's over-model entries on (1, {m}) {reckoned} B in "
-          f"{calls}: equal {bytes_ok}; the vocabulary cut's collectives "
-          f"(lookup, the head's input, each chunk's max and sums; not in "
-          f"the dry-run) {d0['model_bytes']['vocab'] // steps} B in "
-          f"{d0['model_calls']['vocab'] // steps} calls; ms a step "
+          f"{same_gnorm}; a step a rank, each kind against the dry-run's "
+          f"entries of that kind on (1, {m}) by its relation: {held}: "
+          f"equal {bytes_ok}; ms a step "
           f"(synchronized) {step_ms}, the block all-reduces' s {block_s} "
           f"(share {block_share}), the vocabulary cut's s {vocab_s}; peak "
           f"{[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a rank "
@@ -4055,8 +4090,8 @@ def _train_tp(dev: torch.device, n_layers: int) -> dict:
           f"{gap:.2e} from the one-process parameters")
     check(same and same_gnorm, "(t10) the ranks' whole leaves or clip "
           "norms differ")
-    check(bytes_ok, "(t10) the block all-reduce bytes differ from the "
-          "dry-run's over-model entries")
+    check(bytes_ok, "(t10) a collective kind's bytes or calls differ from "
+          "the dry-run's entries of that kind")
     check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t10) a rank's peak is "
           f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
     check(not any(launches.values()), "(t10) a kernel launched in a rank")
@@ -4135,14 +4170,12 @@ def _train_tp_moe(dev: torch.device) -> dict:
     t3 = time.perf_counter()
     errs = [abs(a - b) / abs(b) for a, b in zip(docs[0]["losses"],
                                                  one["losses"])]
-    reckoned = report["model_all_reduce_bytes"]
-    calls = report["model_all_reduces"]
-    a2a, a2a_calls = report["moe_all_to_all_bytes"], report["moe_all_to_alls"]
-    bytes_ok = all(2 * d["model_bytes"]["block"] == steps * reckoned
-                   and d["model_calls"]["block"] == steps * calls
-                   and d["model_bytes"]["exchange"] == steps * a2a
-                   and d["model_calls"]["exchange"] == steps * a2a_calls
-                   and reckoned > 0 and a2a > 0 for d in docs)
+    kinds_ok, held = _kinds_held(report, docs, steps, m)
+    bytes_ok = kinds_ok and all(
+        report[key] > 0 for key in (
+            "model_all_reduce_bytes", "moe_all_to_all_bytes",
+            "moe_all_gather_bytes", "moe_stats_all_reduce_bytes",
+            "partial_gradient_all_reduce_bytes"))
     same = all(d["digests"] == docs[0]["digests"] for d in docs) \
         and len(docs[0]["digests"]) == steps
     same_gnorm = all(d["gnorms"] == docs[0]["gnorms"] for d in docs)
@@ -4182,10 +4215,9 @@ def _train_tp_moe(dev: torch.device) -> dict:
           f"{ties} of {n_tokens} tokens); the whole leaves the same bits "
           f"on every rank after every step: {same}; clip norms "
           f"{[round(g, 4) for g in d0['gnorms']]}, the same on every rank: "
-          f"{same_gnorm}; a step a rank: block all-reduces x 2 against the "
-          f"dry-run's over-model entries on (1, {m}) {reckoned} B in "
-          f"{calls}, all-to-alls against its moe dispatch / combine "
-          f"entries {a2a} B in {a2a_calls}: equal {bytes_ok}; {per_kind}; "
+          f"{same_gnorm}; a step a rank, each kind against the dry-run's "
+          f"entries of that kind on (1, {m}) by its relation: {held}: "
+          f"equal {bytes_ok}; {per_kind}; "
           f"ms a step (synchronized) {step_ms}; peak "
           f"{[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a rank "
           f"against the reckoned per-device peak on (1, {m}) "
@@ -4204,8 +4236,8 @@ def _train_tp_moe(dev: torch.device) -> dict:
           f"{gap:.2e} from the one-process parameters")
     check(same and same_gnorm, "(t11) the ranks' whole leaves or clip "
           "norms differ")
-    check(bytes_ok, "(t11) the block all-reduce or all-to-all bytes differ "
-          "from the dry-run's")
+    check(bytes_ok, "(t11) a collective kind's bytes or calls differ from "
+          "the dry-run's entries of that kind")
     check(max(mem_errs) <= DRYRUN_MEM_TOL, f"(t11) a rank's peak is "
           f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
     check(not any(launches.values()), "(t11) a kernel launched in a rank")
@@ -4253,15 +4285,11 @@ def _train_tp_ssm(dev: torch.device, tag: str, arch: str,
     zero_gap = max(zero_gaps.values(), default=0.0)
     errs = [abs(a - b) / abs(b) for a, b in zip(docs[0]["losses"],
                                                  one["losses"])]
-    want = {"block": (report["model_all_reduce_bytes"],
-                      report["model_all_reduces"]),
-            "norm": (report["norm_all_reduce_bytes"],
-                     report["norm_all_reduces"])}
     mamba = "mamba2" in cfg.blocks()
-    bytes_ok = all(2 * d["model_bytes"][k] == steps * b
-                   and d["model_calls"][k] == steps * n
-                   for d in docs for k, (b, n) in want.items()) \
-        and want["block"][0] > 0 and (want["norm"][0] > 0) == mamba
+    kinds_ok, held = _kinds_held(report, docs, steps, m)
+    bytes_ok = kinds_ok and report["model_all_reduce_bytes"] > 0 \
+        and (report["norm_all_reduce_bytes"] > 0) == mamba \
+        and report["partial_gradient_all_reduce_bytes"] > 0
     same = all(d["digests"] == docs[0]["digests"] for d in docs) \
         and len(docs[0]["digests"]) == steps
     same_gnorm = all(d["gnorms"] == docs[0]["gnorms"] for d in docs)
@@ -4291,9 +4319,9 @@ def _train_tp_ssm(dev: torch.device, tag: str, arch: str,
           f"at the start {zero_gap:.2e} (of their updates, gate "
           f"{TRAIN_TP_UPDATE_TOL}); whole leaves the same bits: "
           f"{same}; clip norms {[round(g, 4) for g in d0['gnorms']]}, the "
-          f"same on every rank: {same_gnorm}; a step a rank x 2 against the "
-          f"dry-run's over-model entries on (1, {m}): block {want['block']}"
-          f", norm {want['norm']} (B, calls): equal {bytes_ok}; "
+          f"same on every rank: {same_gnorm}; a step a rank, each kind "
+          f"against the dry-run's entries of that kind on (1, {m}) by its "
+          f"relation: {held}: equal {bytes_ok}; "
           f"{per_kind}; ms a step (synchronized) {step_ms}; peak "
           f"{[round(d['peak_bytes'] / 2**30, 3) for d in docs]} GiB a rank "
           f"against the reckoned {peak / 2**30:.3f} GiB "
@@ -4309,8 +4337,8 @@ def _train_tp_ssm(dev: torch.device, tag: str, arch: str,
           f"set to zero at the start) from the one-process parameters")
     check(same and same_gnorm, f"({tag}) the ranks' whole leaves or clip "
           "norms differ")
-    check(bytes_ok, f"({tag}) the block or norm all-reduce bytes differ "
-          "from the dry-run's over-model entries")
+    check(bytes_ok, f"({tag}) a collective kind's bytes or calls differ "
+          "from the dry-run's entries of that kind")
     check(max(mem_errs) <= DRYRUN_MEM_TOL, f"({tag}) a rank's peak is "
           f"{100 * max(mem_errs):.1f} % from the reckoned per-device peak")
     check(not any(launches.values()), f"({tag}) a kernel launched in a rank")

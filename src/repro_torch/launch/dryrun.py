@@ -173,6 +173,16 @@ COUNTED_BY = {
     "fsdp_reduce_scatter_bytes": "its reduce-scatter entries of the cut "
                                  "leaves' gradients: each piece once "
                                  "(sharding.RankShards.scatter_bytes)",
+    "loss_all_reduce_bytes": "its \"loss\" entries: the loss's sums over "
+                             "the data axes, 2 x (the weighted CE's and the "
+                             "weights' f32 sums once a step, and where the "
+                             "experts are not cut over model each MoE "
+                             "layer's 2 x experts f32 statistics a "
+                             "forward); a step over ranks hands half of it "
+                             "to its loss sums (sharding.RankSum."
+                             "loss_bytes)",
+    "loss_all_reduces": "the number of those all-reduces a step "
+                        "(sharding.RankSum.loss_all_reduces)",
     "model_all_reduce_bytes": "its all-reduce entries over model of the "
                               "cut units' outputs: 2 x the device's "
                               "tokens x d_model in f32 (the parameters' "
@@ -197,9 +207,83 @@ COUNTED_BY = {
                             "(sharding.ModelShards.model_bytes"
                             "['exchange'])",
     "moe_all_to_alls": "the number of those all-to-alls a step",
+    "vocab_all_reduce_bytes": "its \"vocab\" entries over model where "
+                              "the vocabulary is cut: 2 x (the lookup's "
+                              "tokens x d_model in the table's type, and "
+                              "in training the head input's gradient, "
+                              "tokens x d_model f32, and each loss "
+                              "chunk's max and two sums, 3 x rows x chunk "
+                              "f32 in the forward and the recompute); a "
+                              "step over the model axis's ranks hands "
+                              "half of it (sharding.ModelShards."
+                              "model_bytes['vocab'])",
+    "vocab_all_reduces": "the number of those all-reduces a step "
+                         "(ModelShards.model_calls['vocab'])",
+    "partial_gradient_all_reduce_bytes": "its \"gradient\" entries over "
+                                         "model: 2 x the piece of each "
+                                         "whole leaf read inside a cut "
+                                         "unit (sharding.partial_leaves), "
+                                         "once a training step; a step "
+                                         "over the model axis's ranks "
+                                         "hands half of it, in one buffer "
+                                         "a type (sharding.ModelShards."
+                                         "model_bytes['gradient'])",
+    "partial_gradient_all_reduces": "the number of those entries' "
+                                    "all-reduces a step, one a leaf "
+                                    "(ModelShards.model_calls['gradient'] "
+                                    "counts one a type)",
+    "moe_stats_all_reduce_bytes": "its \"stats\" entries over the data "
+                                  "axes and model where the experts are "
+                                  "cut over model: 2 x each MoE layer's "
+                                  "2 x experts f32 load-balance "
+                                  "statistics a forward (the recompute's "
+                                  "too), in training; a step over the "
+                                  "model axis's ranks hands half of it "
+                                  "(sharding.ModelShards.model_bytes"
+                                  "['stats'])",
+    "moe_stats_all_reduces": "the number of those all-reduces a step "
+                             "(ModelShards.model_calls['stats'])",
+    "moe_all_gather_bytes": "its \"gather\" entries over model, the "
+                            "port's own (the grouped MoE's rows split "
+                            "among a model group): each MoE layer's "
+                            "result, the device's tokens x d_model in the "
+                            "activations' type, a pass; a step over the "
+                            "model axis's M ranks hands 1/M of it "
+                            "(sharding.ModelShards.model_bytes"
+                            "['gather'])",
+    "moe_all_gathers": "the number of those all-gathers a step "
+                       "(ModelShards.model_calls['gather'])",
     "compile_s": "wall of the meta trace",
     "lower_s": "wall of building the stand-ins and specs",
 }
+
+
+#: the report's keys of the bytes and the number a step of each kind of
+#: collective entry (``analysis.CollectiveStats.kinds``) that a step over
+#: ranks counts apart: ``sharding.MODEL_KINDS`` and the loss's sums
+KIND_KEYS = {
+    "block": ("model_all_reduce_bytes", "model_all_reduces"),
+    "norm": ("norm_all_reduce_bytes", "norm_all_reduces"),
+    "vocab": ("vocab_all_reduce_bytes", "vocab_all_reduces"),
+    "gradient": ("partial_gradient_all_reduce_bytes",
+                 "partial_gradient_all_reduces"),
+    "exchange": ("moe_all_to_all_bytes", "moe_all_to_alls"),
+    "gather": ("moe_all_gather_bytes", "moe_all_gathers"),
+    "stats": ("moe_stats_all_reduce_bytes", "moe_stats_all_reduces"),
+    "loss": ("loss_all_reduce_bytes", "loss_all_reduces"),
+}
+
+
+def handed(report: dict, kind: str, model_ranks: int) -> Tuple[int, int]:
+    """(the bytes a rank of a step over ranks hands the collectives of
+    ``kind`` a step, their number) as ``report`` reckons them: an
+    all-reduce's entry counts 2 x the buffer handed (the ring), an
+    all-gather's over the ``model_ranks`` of a model group its result,
+    ``model_ranks`` x the block handed, an all-to-all's what is
+    handed."""
+    nbytes, calls = (report[key] for key in KIND_KEYS[kind])
+    return nbytes // {"exchange": 1, "gather": model_ranks}.get(kind, 2), \
+        calls
 
 
 # ---------------------------------------------------------------------------
@@ -740,12 +824,8 @@ def reckon(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         "gradient_all_reduce_bytes": coll.gradient_all_reduce_bytes,
         "fsdp_all_gather_bytes": coll.fsdp_all_gather_bytes,
         "fsdp_reduce_scatter_bytes": coll.fsdp_reduce_scatter_bytes,
-        "model_all_reduce_bytes": coll.model_all_reduce_bytes,
-        "model_all_reduces": coll.model_all_reduces,
-        "norm_all_reduce_bytes": coll.norm_all_reduce_bytes,
-        "norm_all_reduces": coll.norm_all_reduces,
-        "moe_all_to_all_bytes": coll.moe_all_to_all_bytes,
-        "moe_all_to_alls": coll.moe_all_to_alls,
+        **{key: count(kind) for kind, keys in KIND_KEYS.items()
+           for key, count in zip(keys, (coll.kind_bytes, coll.kind_calls))},
         "model_flops": mf,
         "useful_flops_ratio": (mf / (flops * n_chips)) if flops else None,
         "peaks": {"flops": H100.flops, "hbm_bw": H100.hbm_bw,

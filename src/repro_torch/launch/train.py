@@ -90,7 +90,11 @@ and ``--fsdp`` with it, each naming the ROADMAP item it waits for where
 there is one (``_check_model_ranks``).  The per-rank document counts the
 model group's collectives by kind (``ModelShards.model_bytes``: the
 units' all-reduces under "block", Mamba2's norm statistics under "norm",
-the MoE's all-to-alls and rows' all-gathers, ...).  Checkpoints are
+the vocabulary cut's under "vocab", the partial leaves' gradient sums
+under "gradient", the MoE's all-to-alls, rows' all-gathers and
+statistics' sums under "exchange", "gather" and "stats") and the loss's
+sums over the data group; the dry-run has entries of each kind
+(``dryrun.KIND_KEYS``, ``dryrun.handed``).  Checkpoints are
 written and restored as under ``--fsdp``, the cut leaves gathered over
 the model group.
 

@@ -530,10 +530,11 @@ class RankSum:
 
     Counts what it hands to the all-reduces: ``gradient_bytes`` and
     ``gradient_all_reduces`` for the gradients, ``loss_bytes`` and
-    ``loss_all_reduces`` for the loss's sums (which the dry-run leaves
-    out, ``roofline/analysis.py``), and ``gradient_seconds``, the host
-    wall of the gradient all-reduces with the device synchronized on
-    either side, so that it is the collective's own time."""
+    ``loss_all_reduces`` for the loss's sums (the dry-run's "data
+    gradient" and "loss" entries, ``roofline/analysis.py``, count each
+    twice, the ring), and ``gradient_seconds``, the host wall of the
+    gradient all-reduces with the device synchronized on either side, so
+    that it is the collective's own time."""
 
     def __init__(self, mesh):
         if not mesh.spans_ranks:
@@ -1056,6 +1057,45 @@ def _unit_output(path: str) -> Optional[str]:
     return None if out is None else "/".join(unit + [out])
 
 
+def model_cuts(specs) -> Dict[str, int]:
+    """path -> the dimension ``specs`` cut over ``model``, for every leaf
+    they cut over it."""
+    cuts = {}
+    for path, spec in spec_leaves(specs):
+        dim = model_dim(spec)
+        if dim is not None:
+            cuts[path] = dim
+    return cuts
+
+
+def partial_leaves(specs) -> set:
+    """The whole leaves read inside a cut unit: the paths of the leaves
+    ``specs`` leave whole over ``model`` whose unit's output projection
+    (``_unit_output``) they cut.  Over the model axis's ranks each rank
+    gets only its share of such a leaf's gradient (``ModelShards``), and
+    the dry-run counts the sum over ``model``
+    (``roofline.analysis.collective_bytes_from_specs``)."""
+    cuts = model_cuts(specs)
+    return {path for path, _ in spec_leaves(specs)
+            if path not in cuts and _unit_output(path) in cuts}
+
+
+def vocab_cuts(cfg: ModelConfig, specs) -> Tuple[bool, bool]:
+    """(whether ``specs`` cut the embedding table's vocabulary over
+    ``model``, whether they cut the LM head's: the table's where the
+    embeddings are tied, else ``head/w``'s)."""
+    cuts = model_cuts(specs)
+    return ("embed/tok" in cuts,
+            ("embed/tok" if cfg.tie_embeddings else "head/w") in cuts)
+
+
+#: the kinds a step over the model axis's ranks counts its collectives by
+#: (``ModelShards.model_bytes``), each the name of the dry-run's entries
+#: of that kind (``roofline.analysis.CollectiveStats.kinds``)
+MODEL_KINDS = ("block", "norm", "vocab", "gradient", "exchange", "gather",
+               "stats")
+
+
 class ModelShards(_Blocks):
     """The step's collectives where rank r holds, of every leaf, its block
     of the ``model`` cut that ``enforce_divisible(param_specs(cfg,
@@ -1132,16 +1172,17 @@ class ModelShards(_Blocks):
     over the data group (``RankSum.sum_grads``).  The channel mix's
     ``mu_k_cm``, ``mu_r_cm`` and ``w_r_cm`` get whole gradients.
 
-    Counts, by kind ("block": the units' f and g, which the dry-run's
-    ``over model`` entries count; "norm": Mamba2's norm statistics, its
-    ``.../mamba/norm`` entries; "vocab": the vocabulary cut's, which it
-    does not; "gradient": the partial leaves' sums; "exchange": the MoE's
-    all-to-alls, the dry-run's ``moe dispatch`` / ``moe combine``
-    entries; "gather": the MoE groups' all-gathers, forward and backward;
-    "stats": the load-balance statistics' sums; the last two not in the
-    dry-run): ``model_bytes`` (the buffer handed to the collective),
-    ``model_calls`` and ``model_seconds`` (each with the device
-    synchronized on either side), and the clip's norm each step
+    Counts, by kind (``MODEL_KINDS``; "block": the units' f and g;
+    "norm": Mamba2's norm statistics; "vocab": the vocabulary cut's
+    lookup, head input and chunk sums; "gradient": the partial leaves'
+    sums; "exchange": the MoE's all-to-alls; "gather": the MoE groups'
+    all-gathers, forward and backward; "stats": the load-balance
+    statistics' sums), each held against the dry-run's entries of the
+    same kind (``roofline.analysis.CollectiveStats.kinds``; an
+    all-reduce's entry is 2 x the buffer handed, an all-gather's M x,
+    an all-to-all's 1 x): ``model_bytes`` (the buffer handed to the
+    collective), ``model_calls`` and ``model_seconds`` (each with the
+    device synchronized on either side), and the clip's norm each step
     (``gnorms``)."""
 
     def __init__(self, mesh, cfg: ModelConfig):
@@ -1155,23 +1196,13 @@ class ModelShards(_Blocks):
         self.coords = mesh.local_positions()[0]
         self.model_block = mesh.rank % m
         self.specs, self.fallbacks = enforce_divisible(cfg, mesh)
-        self.cuts: Dict[str, int] = {}
-        for path, spec in spec_leaves(self.specs):
-            dim = model_dim(spec)
-            if dim is not None:
-                self.cuts[path] = dim
-        self.partial = {
-            path for path, _ in spec_leaves(self.specs)
-            if path not in self.cuts and _unit_output(path) in self.cuts}
-        self.table_cut = "embed/tok" in self.cuts
-        self.head_cut = ("embed/tok" if cfg.tie_embeddings
-                         else "head/w") in self.cuts
+        self.cuts = model_cuts(self.specs)
+        self.partial = partial_leaves(self.specs)
+        self.table_cut, self.head_cut = vocab_cuts(cfg, self.specs)
         self.vocab0 = self.model_block * (cfg.vocab_size // m)
-        kinds = ("block", "norm", "vocab", "gradient", "exchange", "gather",
-                 "stats")
-        self.model_bytes = dict.fromkeys(kinds, 0)
-        self.model_calls = dict.fromkeys(kinds, 0)
-        self.model_seconds = dict.fromkeys(kinds, 0.0)
+        self.model_bytes = dict.fromkeys(MODEL_KINDS, 0)
+        self.model_calls = dict.fromkeys(MODEL_KINDS, 0)
+        self.model_seconds = dict.fromkeys(MODEL_KINDS, 0.0)
         self.gnorms: List[torch.Tensor] = []
 
     def _count(self, kind: str, x: torch.Tensor, seconds: float) -> None:

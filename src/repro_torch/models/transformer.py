@@ -619,6 +619,14 @@ def _check_not_model_cut(ctx: ShardCtx, what: Optional[str]) -> None:
             f"cache_specs) waits for {MODEL_SERVE_ITEM}")
 
 
+#: the loss's sequence chunk: live logits (B, LOSS_CHUNK, V), not (B, S, V)
+LOSS_CHUNK = 512
+#: where autograd records the loss, each chunk's logits are made again in
+#: the backward (the reference's ``@jax.checkpoint`` chunk), so a training
+#: step runs each chunk's forward twice
+LOSS_CHUNK_RECOMPUTE = True
+
+
 def _chunk_loss(h_c: torch.Tensor, w_head: torch.Tensor, l_c: torch.Tensor,
                 w_c: torch.Tensor):
     """(Σ weighted CE, Σ weights) of one sequence chunk."""
@@ -631,13 +639,13 @@ def _chunk_loss(h_c: torch.Tensor, w_head: torch.Tensor, l_c: torch.Tensor,
 def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
                           labels: torch.Tensor,
                           weights: Optional[torch.Tensor] = None,
-                          chunk: int = 512,
+                          chunk: int = LOSS_CHUNK,
                           ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
     """Mean cross-entropy with the logits made one sequence chunk at a time
     (live logits (B, chunk, V), not (B, S, V)).  As the reference, the
     logits are made in the parameters' type and then widened to f32, and
     where autograd records the loss each chunk's logits are recomputed in
-    the backward (the reference's ``@jax.checkpoint`` chunk).  Over ranks
+    the backward (``LOSS_CHUNK_RECOMPUTE``).  Over ranks
     (``ctx.ranks``) the weighted sum and the weights' sum are each the
     whole batch's (``ctx.data_sum``) before the one divides the other: a
     mean of the ranks' means is another number wherever their masks
@@ -654,8 +662,8 @@ def chunked_cross_entropy(hidden: torch.Tensor, w_head: torch.Tensor,
     if ctx.head_cut:
         hidden = ctx.ranks.enter(hidden, kind="vocab")
         chunk_loss = ctx.ranks.chunk_loss
-    recompute = torch.is_grad_enabled() and (hidden.requires_grad
-                                             or w_head.requires_grad)
+    recompute = LOSS_CHUNK_RECOMPUTE and torch.is_grad_enabled() and (
+        hidden.requires_grad or w_head.requires_grad)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):

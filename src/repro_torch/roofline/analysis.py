@@ -31,7 +31,8 @@ from typing import Dict, List, Mapping, Optional, Tuple
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import moe_capacity
-from repro_torch.models.sharding import mesh_axes, spec_leaves
+from repro_torch.models.sharding import (mesh_axes, partial_leaves,
+                                         spec_leaves, vocab_cuts)
 
 #: NVIDIA H100 Tensor Core GPU data sheet, H100 SXM column: BF16 Tensor
 #: Core 1,979 TFLOP/s "with sparsity", so 989 TFLOP/s dense
@@ -66,6 +67,14 @@ _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
 
 
+#: the kinds of the data axes' own entries: the data-parallel gradient
+#: all-reduce, ``fsdp``'s gathers and reduce-scatters, and the loss's sums
+#: over the batch (``sharding.RankSum``'s ``gradient_bytes``,
+#: ``RankShards``' ``gather_bytes`` / ``scatter_bytes``,
+#: ``RankSum.loss_bytes``); beside them, ``sharding.MODEL_KINDS``
+DATA_KINDS = ("data gradient", "fsdp gather", "fsdp scatter", "loss")
+
+
 @dataclasses.dataclass
 class CollectiveStats:
     bytes_by_kind: Dict[str, int]
@@ -77,10 +86,23 @@ class CollectiveStats:
     ops: Dict[str, int] = dataclasses.field(default_factory=dict)
     #: every entry's number of collectives by its name
     op_counts: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: every entry's kind by its name (``DATA_KINDS``,
+    #: ``sharding.MODEL_KINDS``): what a step over ranks counts it under
+    kinds: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     @property
     def total_bytes(self) -> int:
         return sum(self.bytes_by_kind.values())
+
+    def kind_bytes(self, kind: str) -> int:
+        """The bytes of the entries of ``kind``."""
+        return sum(self.ops[name] for name, k in self.kinds.items()
+                   if k == kind)
+
+    def kind_calls(self, kind: str) -> int:
+        """The number of collectives of the entries of ``kind``."""
+        return sum(self.op_counts[name] for name, k in self.kinds.items()
+                   if k == kind)
 
     @property
     def fsdp_all_gather_bytes(self) -> int:
@@ -88,24 +110,14 @@ class CollectiveStats:
         entries ``all-gather over data ...: <path> (fsdp)``, which a step
         over ranks with its parameters cut measures
         (``sharding.RankShards.gather_bytes``)."""
-        return sum(b for name, b in self.ops.items()
-                   if name.startswith("all-gather ")
-                   and name.endswith(" (fsdp)"))
+        return self.kind_bytes("fsdp gather")
 
     @property
     def fsdp_reduce_scatter_bytes(self) -> int:
         """The bytes of the cut gradients' reduce-scatters, the entries
         ``reduce-scatter over data ...: <path> gradient (fsdp)``
         (``sharding.RankShards.scatter_bytes``)."""
-        return sum(b for name, b in self.ops.items()
-                   if name.startswith("reduce-scatter ")
-                   and name.endswith(" gradient (fsdp)"))
-
-    def _model_entries(self, norm: bool = False) -> List[str]:
-        return [name for name in self.ops
-                if name.startswith("all-reduce over model ")
-                and not name.endswith(" gradient")
-                and name.endswith("/mamba/norm") == norm]
+        return self.kind_bytes("fsdp scatter")
 
     @property
     def model_all_reduce_bytes(self) -> int:
@@ -114,12 +126,12 @@ class CollectiveStats:
         (2 × the bytes a device hands to them, the ring's count), which a
         step over the model axis's ranks measures
         (``sharding.ModelShards.model_bytes["block"]``)."""
-        return sum(self.ops[name] for name in self._model_entries())
+        return self.kind_bytes("block")
 
     @property
     def model_all_reduces(self) -> int:
         """The number of those all-reduces."""
-        return sum(self.op_counts[name] for name in self._model_entries())
+        return self.kind_calls("block")
 
     @property
     def norm_all_reduce_bytes(self) -> int:
@@ -128,18 +140,12 @@ class CollectiveStats:
         <unit>/mamba/norm`` (2 × the device's tokens × 4 B a pass), which a
         step over the model axis's ranks measures
         (``sharding.ModelShards.model_bytes["norm"]``)."""
-        return sum(self.ops[name] for name in self._model_entries(True))
+        return self.kind_bytes("norm")
 
     @property
     def norm_all_reduces(self) -> int:
         """The number of those all-reduces."""
-        return sum(self.op_counts[name]
-                   for name in self._model_entries(True))
-
-    def _moe_entries(self) -> List[str]:
-        return [name for name in self.ops
-                if name.startswith("all-to-all ")
-                and name.endswith(("/moe dispatch", "/moe combine"))]
+        return self.kind_calls("norm")
 
     @property
     def moe_all_to_all_bytes(self) -> int:
@@ -148,22 +154,20 @@ class CollectiveStats:
         share of the dispatch buffer each), which a step over the model
         axis's ranks hands its exchanges
         (``sharding.ModelShards.model_bytes["exchange"]``)."""
-        return sum(self.ops[name] for name in self._moe_entries())
+        return self.kind_bytes("exchange")
 
     @property
     def moe_all_to_alls(self) -> int:
         """The number of those all-to-alls."""
-        return sum(self.op_counts[name] for name in self._moe_entries())
+        return self.kind_calls("exchange")
 
     @property
     def gradient_all_reduce_bytes(self) -> int:
         """The bytes of the data-parallel gradient all-reduces, the
-        entries ``all-reduce over ...: <path> gradient`` (2 × the bytes a
-        device hands to them, the ring's count), which a step over ranks
-        measures (``sharding.RankSum.gradient_bytes``)."""
-        return sum(b for name, b in self.ops.items()
-                   if name.startswith("all-reduce ")
-                   and name.endswith(" gradient"))
+        entries ``all-reduce over <the data axes> ...: <path> gradient``
+        (2 × the bytes a device hands to them, the ring's count), which a
+        step over ranks measures (``sharding.RankSum.gradient_bytes``)."""
+        return self.kind_bytes("data gradient")
 
 
 def roofline_terms(flops_per_device: float, bytes_per_device: float,
@@ -253,26 +257,31 @@ class _Tally:
         self.links: Dict[str, int] = {}
         self.ops: Dict[str, int] = {}
         self.op_counts: Dict[str, int] = {}
+        self.kinds: Dict[str, str] = {}
 
-    def add(self, kind: str, axes, nbytes: int, what: str, n: int = 1):
-        """``n`` collectives of ``kind`` over ``axes``, each of result
-        ``nbytes`` (an all-reduce counted twice, ring RS + AG)."""
+    def add(self, op: str, axes, nbytes: int, what: str, n: int = 1, *,
+            kind: str):
+        """``n`` collectives ``op`` over ``axes``, each of result
+        ``nbytes`` (an all-reduce counted twice, ring RS + AG), an entry
+        of ``kind`` (``CollectiveStats.kinds``)."""
         axes = tuple(a for a in axes if self.mesh.shape[a] > 1)
         if not axes or n == 0 or nbytes == 0:
             return
-        b = n * nbytes * (2 if kind == "all-reduce" else 1)
-        self.bytes[kind] += b
-        self.count[kind] += n
+        b = n * nbytes * (2 if op == "all-reduce" else 1)
+        self.bytes[op] += b
+        self.count[op] += n
         link = axis_link(self.mesh, axes)
         self.links[link] = self.links.get(link, 0) + b
-        key = f"{kind} over {'x'.join(axes)} ({link}): {what}"
+        key = f"{op} over {'x'.join(axes)} ({link}): {what}"
+        self.kinds[key] = kind
         self.ops[key] = self.ops.get(key, 0) + b
         self.op_counts[key] = self.op_counts.get(key, 0) + n
 
     def stats(self, top_k: int) -> CollectiveStats:
         top = sorted(self.ops.items(), key=lambda t: -t[1])[:top_k]
         return CollectiveStats(self.bytes, self.count, top, self.links,
-                               dict(self.ops), dict(self.op_counts))
+                               dict(self.ops), dict(self.op_counts),
+                               dict(self.kinds))
 
 
 def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -287,53 +296,85 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
     sequence (1 for decode).  A pass is one forward; a ``train`` step makes
     a forward, a backward and, with ``remat``, the forward again inside
     the backward, so its activation collectives run 3 times (2 without
-    remat).  The rules:
+    remat), and those of the forward alone 2 times (1 without remat).
+    Each entry has a kind (``CollectiveStats.kinds``), the counter a step
+    over ranks hands that collective to; a rank hands half an
+    all-reduce's bytes (the ring), 1/M of an all-gather's result over M
+    devices and all of an all-to-all's.  The rules:
 
-    * tensor parallel: each unit whose output projection (attention
-      ``wo``, RWKV6's ``w_o`` and ``w_v_cm``, Mamba2's ``out_proj``, a
-      dense or shared-expert MLP's ``w_out``) has a contracted dimension
-      cut over ``model`` ends in an all-reduce over ``model`` of its
-      output, the device's tokens × d_model, in f32; under
-      ``pin_proj_outputs`` an attention block's two in its parameters'
-      type (the reference pins those outputs before the reduction).  Once
-      a pass.  Without a pin the reduction moves the f32 that the next
-      norm consumes, as the reference's comment on the pin says;
-    * Mamba2's RMS norm over its inner channels, where they are cut over
-      ``model`` (``out_proj``'s rows, ``mamba/norm`` with them at every
-      expand but 1): the mean of squares is the whole d_in's, so
+    * tensor parallel ("block"): each unit whose output projection
+      (attention ``wo``, RWKV6's ``w_o`` and ``w_v_cm``, Mamba2's
+      ``out_proj``, a dense or shared-expert MLP's ``w_out``) has a
+      contracted dimension cut over ``model`` ends in an all-reduce over
+      ``model`` of its output, the device's tokens × d_model, in f32;
+      under ``pin_proj_outputs`` an attention block's two in its
+      parameters' type (the reference pins those outputs before the
+      reduction).  Once a pass.  Without a pin the reduction moves the
+      f32 that the next norm consumes, as the reference's comment on the
+      pin says;
+    * Mamba2's RMS norm over its inner channels ("norm"), where they are
+      cut over ``model`` (``out_proj``'s rows, ``mamba/norm`` with them at
+      every expand but 1): the mean of squares is the whole d_in's, so
       GSPMD all-reduces each token's f32 sum of squares over ``model``
       (the device's tokens × 4 B) in the forward and its gradient in the
       backward, once a pass as ``tp_reduce`` counts;
-    * data parallel (``train``): each device all-reduces its gradient, the
-      local piece of every parameter in the parameter's type, over the
-      data-parallel axes;
-    * ``fsdp`` (a parameter cut over ``data``): the parameter is
-      all-gathered over ``data`` (result: its piece times |data|) once a
-      pass of inference and twice in training (forward and backward; the
-      recompute reuses the backward's), but once for an embedding table
-      that only the lookup reads (untied), whose backward needs no
-      values; its gradient is reduce-scattered over ``data`` (result:
-      the piece) and all-reduced over ``pod`` where the mesh has one, in
-      place of the data-parallel all-reduce;
-    * MoE: where the experts' leading axis is cut over an axis, each pass
-      moves a device's share of the dispatch buffer, (experts × groups ×
-      capacity × d_model) in the activations' type over the data-parallel
-      and the experts' axes, by one all-to-all to dispatch and one to
-      combine.
+    * the vocabulary cut over ``model`` ("vocab", ``sharding.vocab_cuts``):
+      where the table is cut, the lookup's all-reduce of the device's
+      tokens × d_model in the table's type, once a step of every kind;
+      where the head is cut, in ``train``, the all-reduce of the head
+      input's gradient (tokens × d_model, f32) in the backward and, for
+      each sequence chunk of ``transformer.LOSS_CHUNK``, its logits' max
+      (rows × chunk × 4 B) and its sum of exponentials and gold logit
+      (2 × that) over ``model``, in the forward and, under
+      ``LOSS_CHUNK_RECOMPUTE``, again in the chunk's recompute;
+    * the whole leaves read inside a cut unit ("gradient",
+      ``sharding.partial_leaves``: q/k norms, k/v where the kv heads do
+      not divide ``model``, MLA's ``w_dkv`` / ``w_krope`` / ``kv_norm``,
+      the MoE router, RWKV6's ``mu_*`` and ``w_lora_a``, Mamba2's
+      ``w_bc``, ``w_dt``, ``conv_*_bc``, ``a_log``, ``dt_bias``, ``dd``):
+      in ``train`` each device's share of the leaf's gradient is
+      all-reduced over ``model``, the leaf's piece in its type, once;
+    * data parallel ("data gradient", ``train``): each device
+      all-reduces its gradient, the local piece of every parameter in the
+      parameter's type, over the data-parallel axes;
+    * the loss's sums over the batch ("loss", ``train``): the weighted
+      cross-entropy's and the weights' sums (2 × f32) all-reduced over
+      the data-parallel axes once a step;
+    * ``fsdp`` (a parameter cut over ``data``; "fsdp gather", "fsdp
+      scatter"): the parameter is all-gathered over ``data`` (result: its
+      piece times |data|) once a pass of inference and twice in training
+      (forward and backward; the recompute reuses the backward's), but
+      once for an embedding table that only the lookup reads (untied),
+      whose backward needs no values; its gradient is reduce-scattered
+      over ``data`` (result: the piece) and all-reduced over ``pod``
+      where the mesh has one ("data gradient"), in place of the
+      data-parallel all-reduce;
+    * MoE ("exchange"): where the experts' leading axis is cut over an
+      axis, each pass moves a device's share of the dispatch buffer,
+      (experts × groups × capacity × d_model) in the activations' type
+      over the data-parallel and the experts' axes, by one all-to-all to
+      dispatch and one to combine;
+    * the MoE's load-balance statistics (2 × experts f32 a layer, the
+      whole batch's means), in ``train``, all-reduced in each forward (the
+      recompute's too) over the data-parallel axes and, where the
+      experts are cut over ``model``, over it too ("stats": each device
+      routes its block of the rows); else a "loss" sum.  A serving step
+      does not output its load-balance loss, so XLA drops the sum;
+    * the port's MoE gathers ("gather", entries ``<unit>/moe gather
+      (port)``): where the experts are cut over ``model`` under the
+      grouped dispatch, a step over ranks splits a data rank's rows among
+      its model group (``sharding.ModelShards.own_groups``), so the
+      groups' outputs are all-gathered over ``model`` (result: the
+      device's tokens × d_model in the activations' type) in each pass,
+      and their input's gradient in the backward.  The reference's
+      exchange has every device hold its own rows and has no such
+      gather.
 
-    Not counted: the embedding's and the LM head's collectives where the
-    vocabulary is cut, the loss's per-token reductions, the gradient sums
-    over ``model`` of the whole leaves read inside a cut unit (q/k norms,
-    k/v where the kv heads do not divide ``model``, MLA's latent leaves
-    ``w_dkv`` / ``w_krope`` / ``kv_norm``, the MoE router, RWKV6's
-    time-mix ``mu_r`` / ``mu_k`` / ``mu_v`` / ``mu_g`` / ``mu_w`` and
-    ``w_lora_a``, Mamba2's ``w_bc``, ``w_dt``, ``conv_w_bc``,
-    ``conv_b_bc``, ``a_log``, ``dt_bias`` and ``dd``), the MoE's
-    load-balance statistics' sums, the all-gather of the MoE groups'
-    outputs over ``model`` where a step over ranks splits the groups
-    among a model group (and of their input's gradient in the backward:
-    ``sharding.ModelShards``' "gather"), and what XLA's partitioner would
-    add beyond the rules (resharding copies).
+    Not counted: the LM head's output collectives in ``prefill`` /
+    ``decode`` cells where the vocabulary is cut (no step of the port
+    over model ranks runs them: serving over model ranks is ROADMAP A.8
+    (viii)), and what XLA's partitioner would add beyond the rules
+    (resharding copies).
     """
     dp, tp = mesh_axes(mesh)
     dp_size = _size(mesh, dp)
@@ -343,9 +384,15 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
     tokens = rows * seq
     train = shape.kind == "train"
     passes = (3 if cfg.remat else 2) if train else 1
+    forwards = (2 if cfg.remat else 1) if train else 1
     pbytes = T.param_dtype(cfg).itemsize
     tally = _Tally(mesh)
     d = cfg.d_model
+    leaves = dict(spec_leaves(T.param_specs(cfg)))
+
+    def itemsize(path: str) -> int:
+        dtype = leaves[path].dtype
+        return dtype.itemsize if dtype is not None else pbytes
 
     def tp_reduce(spec, what: str, pinned: bool):
         """An all-reduce of the unit's output where ``spec`` (the output
@@ -353,15 +400,24 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
         dimension over ``model``."""
         if any(tp in _axes(e) for e in spec[:-1]):
             nbytes = tokens * d * (pbytes if pinned else 4)
-            tally.add("all-reduce", (tp,), nbytes, what, passes)
+            tally.add("all-reduce", (tp,), nbytes, what, passes, kind="block")
 
-    def moe_exchange(w_out_spec, what: str):
-        """Dispatch and combine where ``w_out_spec`` (the experts' (E,
-        ff, d) output weights) cuts the experts over an axis."""
+    def moe(w_out_spec, what: str):
+        """The MoE layer's statistics, its port's gathers and, where
+        ``w_out_spec`` (the experts' (E, ff, d) output weights) cuts the
+        experts over an axis, its dispatch and combine."""
+        m = cfg.moe
         experts = _axes(w_out_spec[0])
+        cut = tp in experts and mesh.shape[tp] > 1
+        if train:
+            tally.add("all-reduce", dp + ((tp,) if cut else ()),
+                      2 * m.n_experts * 4, what + " statistics", forwards,
+                      kind="stats" if cut else "loss")
+        if cut and m.dispatch == "grouped":
+            tally.add("all-gather", (tp,), tokens * d * pbytes,
+                      what + " gather (port)", passes, kind="gather")
         if not experts:
             return
-        m = cfg.moe
         if m.dispatch == "grouped":
             groups, cap = b, moe_capacity(m, seq)
         else:
@@ -369,8 +425,28 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
         share = dp_size if (b > 1 and b % dp_size == 0) else 1
         nbytes = (m.n_experts * groups * cap * d * pbytes
                   // (share * _size(mesh, experts)))
-        tally.add("all-to-all", experts, nbytes, what + " dispatch", passes)
-        tally.add("all-to-all", experts, nbytes, what + " combine", passes)
+        for step in ("dispatch", "combine"):
+            tally.add("all-to-all", experts, nbytes, f"{what} {step}",
+                      passes, kind="exchange")
+
+    table_cut, head_cut = vocab_cuts(cfg, specs)
+    if table_cut:
+        tally.add("all-reduce", (tp,), tokens * d * itemsize("embed/tok"),
+                  "embed/tok lookup", kind="vocab")
+    if head_cut and train:
+        head = "embed/tok" if cfg.tie_embeddings else "head/w"
+        tally.add("all-reduce", (tp,), tokens * d * 4,
+                  f"{head} input's gradient (f)", kind="vocab")
+        chunk = min(T.LOSS_CHUNK, seq)
+        again = 2 if T.LOSS_CHUNK_RECOMPUTE else 1
+        for c0 in range(0, seq, chunk):
+            c = min(chunk, seq - c0)
+            tally.add("all-reduce", (tp,), rows * c * 4,
+                      f"{head} loss chunks' max", again, kind="vocab")
+            tally.add("all-reduce", (tp,), 2 * rows * c * 4,
+                      f"{head} loss chunks' sums", again, kind="vocab")
+    if train:
+        tally.add("all-reduce", dp, 2 * 4, "loss sums", kind="loss")
 
     segs = T.find_segments(T.layer_sigs(cfg))
     for si, (unit, repeat) in enumerate(segs):
@@ -393,7 +469,7 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
                     pin = cfg.pin_proj_outputs
                     tp_reduce(spec("attn", "wo"), f"{where}/attn/wo", pin)
                     if is_moe and kind == "attn":
-                        moe_exchange(spec("moe", "w_out"), f"{where}/moe")
+                        moe(spec("moe", "w_out"), f"{where}/moe")
                         if "shared" in bs["moe"]:
                             tp_reduce(spec("moe", "shared", "w_out"),
                                       f"{where}/moe/shared/w_out", pin)
@@ -410,26 +486,29 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
                               f"{where}/mamba/out_proj", False)
                     if tp in _axes(spec("mamba", "out_proj")[0]):
                         tally.add("all-reduce", (tp,), tokens * 4,
-                                  f"{where}/mamba/norm", passes)
+                                  f"{where}/mamba/norm", passes, kind="norm")
 
     # parameters: fsdp gathers, gradient reductions
-    for (path, pspec), (_, leaf) in zip(spec_leaves(specs),
-                                        spec_leaves(T.param_specs(cfg))):
-        itemsize = (leaf.dtype.itemsize if leaf.dtype is not None
-                    else pbytes)
-        local = local_numel(leaf.shape, pspec, mesh) * itemsize
+    partial = partial_leaves(specs) if train else set()
+    for path, pspec in spec_leaves(specs):
+        local = local_numel(leaves[path].shape, pspec, mesh) * itemsize(path)
         cut_data = any("data" in _axes(e) for e in pspec)
         if cut_data:
             lookup_only = path == "embed/tok" and not cfg.tie_embeddings
             tally.add("all-gather", ("data",), local * mesh.shape["data"],
-                      f"{path} (fsdp)", 1 if lookup_only or not train else 2)
+                      f"{path} (fsdp)", 1 if lookup_only or not train else 2,
+                      kind="fsdp gather")
         if not train:
             continue
+        if path in partial:
+            tally.add("all-reduce", (tp,), local, f"{path} gradient",
+                      kind="gradient")
         if cut_data:
             tally.add("reduce-scatter", ("data",), local,
-                      f"{path} gradient (fsdp)")
+                      f"{path} gradient (fsdp)", kind="fsdp scatter")
             tally.add("all-reduce", tuple(a for a in dp if a != "data"),
-                      local, f"{path} gradient")
+                      local, f"{path} gradient", kind="data gradient")
         else:
-            tally.add("all-reduce", dp, local, f"{path} gradient")
+            tally.add("all-reduce", dp, local, f"{path} gradient",
+                      kind="data gradient")
     return tally.stats(top_k)

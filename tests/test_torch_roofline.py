@@ -9,7 +9,12 @@
 * ``collective_bytes_from_specs`` against counts made by hand, rule by
   rule, on a two-layer dense and a two-layer MoE configuration over
   stand-in meshes of 2 × 2, 2 × 2 × 2 and 16 × 16, with ``fsdp``,
-  ``pin_proj_outputs`` and without ``remat``.
+  ``pin_proj_outputs`` and without ``remat``; and kind by kind on
+  2 × 2: the vocabulary cut in train, prefill and decode, the whole
+  leaves read inside a cut unit (k/v where the kv heads do not divide
+  ``model``, RWKV6's and Mamba2's smoke configurations), the MoE's
+  statistics and the port's gathers, the loss's sums over the data axes,
+  and the accessors of the earlier kinds unchanged by the new entries.
 """
 import ast
 import dataclasses
@@ -22,8 +27,9 @@ from repro.configs import SHAPES as j_SHAPES
 from repro.configs import get_config as j_get_config
 from repro.roofline import analysis as JA
 from repro_torch.configs import (ARCH_NAMES, SHAPES, ModelConfig, MoEConfig,
-                                 ShapeConfig, get_config)
+                                 ShapeConfig, get_config, get_smoke_config)
 from repro_torch.models import sharding as S
+from repro_torch.models import transformer as T
 from repro_torch.roofline import analysis as A
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -136,13 +142,34 @@ DENSE_LEAVES = 3 + 9
 UNIT_AR = 2 * 16 * 32 * 4 * 2
 
 
+def _vocab_ar(rows: int, seq: int, d: int, table: int) -> int:
+    """A training step's all-reduces over ``model`` where the table and
+    the head are cut over it, ring twice: the lookup (rows x seq x d in
+    the table's ``table`` bytes), the head input's gradient (f32) and,
+    for the one chunk of ``seq`` <= 512 tokens, its max (rows x seq f32)
+    and its two sums, in the forward and again in the recompute."""
+    lookup = rows * seq * d * table
+    head_input = rows * seq * d * 4
+    chunk = 2 * (rows * seq * 4 + 2 * rows * seq * 4)
+    return 2 * (lookup + head_input + chunk)
+
+
+# the dense config on 2 x 2: 2 rows a device, the vocabulary 128 cut;
+# 6 all-reduces (lookup, head input, max and sums twice)
+DENSE_VOCAB_AR = _vocab_ar(2, 16, 32, 2)
+# the loss's two f32 sums (weighted CE, weights) over data, ring twice
+LOSS_AR = 2 * 8
+
+
 def test_dense_train_counts_by_hand():
     st = _stats(_dense(), TRAIN, MESH_2x2)
     # 2 layers x (attention, MLP) x 3 passes (forward, backward, remat)
     tp = 2 * 2 * 3 * UNIT_AR
     assert DENSE_LOCAL == 26944
-    assert st.bytes_by_kind["all-reduce"] == tp + 2 * DENSE_LOCAL
-    assert st.count_by_kind["all-reduce"] == 12 + DENSE_LEAVES
+    assert DENSE_VOCAB_AR == 2 * (2048 + 4096 + 2 * (128 + 256))
+    assert st.bytes_by_kind["all-reduce"] == (tp + 2 * DENSE_LOCAL
+                                              + DENSE_VOCAB_AR + LOSS_AR)
+    assert st.count_by_kind["all-reduce"] == 12 + DENSE_LEAVES + 6 + 1
     assert st.total_bytes == st.bytes_by_kind["all-reduce"]
     assert st.bytes_by_link == {"nvlink": st.total_bytes}
     assert st.top_ops[0][1] == 2 * 3 * UNIT_AR
@@ -155,16 +182,20 @@ def test_dense_variants_by_hand():
     # bf16 under the pin, 2 bytes an element
     st = _stats(_dense(pin_proj_outputs=True), TRAIN, MESH_2x2)
     assert st.bytes_by_kind["all-reduce"] == 12 * UNIT_AR // 2 \
-        + 2 * DENSE_LOCAL
-    # without remat, forward and backward only
+        + 2 * DENSE_LOCAL + DENSE_VOCAB_AR + LOSS_AR
+    # without remat, forward and backward only (the loss's chunks are
+    # recomputed all the same)
     st = _stats(_dense(remat=False), TRAIN, MESH_2x2)
-    assert st.bytes_by_kind["all-reduce"] == 8 * UNIT_AR + 2 * DENSE_LOCAL
-    # inference: one pass, no gradient
+    assert st.bytes_by_kind["all-reduce"] == (8 * UNIT_AR + 2 * DENSE_LOCAL
+                                              + DENSE_VOCAB_AR + LOSS_AR)
+    # inference: one pass, no gradient, no loss; the lookup (2 rows x 16
+    # tokens x d 32 in bf16, ring twice)
     st = _stats(_dense(), PREFILL, MESH_2x2)
-    assert st.bytes_by_kind["all-reduce"] == 4 * UNIT_AR
-    assert st.count_by_kind["all-reduce"] == 4
+    assert st.bytes_by_kind["all-reduce"] == 4 * UNIT_AR + 2 * 2048
+    assert st.count_by_kind["all-reduce"] == 4 + 1
     st = _stats(_dense(), DECODE, MESH_2x2)      # 2 rows x 1 token
-    assert st.bytes_by_kind["all-reduce"] == 4 * (2 * 1 * 32 * 4 * 2)
+    assert st.bytes_by_kind["all-reduce"] == 4 * (2 * 1 * 32 * 4 * 2) \
+        + 2 * (2 * 1 * 32 * 2)
     # a (1, 1) mesh has no collective
     st = _stats(_dense(), TRAIN, _FakeMesh({"data": 1, "model": 1}))
     assert st.total_bytes == 0 and st.top_ops == []
@@ -184,8 +215,9 @@ def test_dense_fsdp_by_hand():
     assert st.fsdp_all_gather_bytes == st.bytes_by_kind["all-gather"]
     assert st.fsdp_reduce_scatter_bytes == 2 * big
     assert st.bytes_by_kind["reduce-scatter"] == 2 * big
-    assert st.bytes_by_kind["all-reduce"] == 12 * UNIT_AR + 2 * rest
-    assert st.count_by_kind["all-reduce"] == 12 + 10
+    assert st.bytes_by_kind["all-reduce"] == (12 * UNIT_AR + 2 * rest
+                                              + DENSE_VOCAB_AR + LOSS_AR)
+    assert st.count_by_kind["all-reduce"] == 12 + 10 + 6 + 1
     st = _stats(cfg, PREFILL, MESH_2x2, fsdp=True)
     assert st.bytes_by_kind["all-gather"] == 2 * big * 2
     assert st.bytes_by_kind["reduce-scatter"] == 0
@@ -195,7 +227,9 @@ def test_dense_fsdp_by_hand():
     unit = 1 * 16 * 32 * 4 * 2                    # 1 row a device
     assert st.bytes_by_kind["reduce-scatter"] == 2 * big
     assert st.bytes_by_kind["all-reduce"] == (12 * unit + 2 * rest
-                                              + 2 * 2 * big)
+                                              + 2 * 2 * big
+                                              + _vocab_ar(1, 16, 32, 2)
+                                              + LOSS_AR)
     assert st.bytes_by_link == {"nvlink": st.total_bytes}
 
 
@@ -208,7 +242,11 @@ def test_dense_16x16_by_hand():
     local = 2 * (16 * 64 * 2) + 128 + 2 * 256 + 4 * 1024 + 3 * 4096
     st = _stats(cfg, shape, MESH_16x16)
     unit = 2 * 8 * 64 * 4 * 2
-    assert st.bytes_by_kind["all-reduce"] == 12 * unit + 2 * local
+    # the vocabulary 256 cut over 16 (2 rows x 8 tokens a device), the
+    # loss's sums over data
+    assert st.bytes_by_kind["all-reduce"] == (12 * unit + 2 * local
+                                              + _vocab_ar(2, 8, 64, 2)
+                                              + LOSS_AR)
     assert st.bytes_by_link == {"network": st.total_bytes}
     t = A.roofline_terms(0.0, 0.0, st.bytes_by_link, 256)
     assert t["collective_s"] == st.total_bytes / A.NETWORK_BW
@@ -230,8 +268,17 @@ def test_moe_by_hand():
     # 8192 each, the shared MLP (32, 32) 2048 each
     local = (4096 + 4096 + 64 + 2 * 128 + 2048 + 2 * 1024 + 2048 + 1024
              + 3 * 8192 + 3 * 2048)
-    assert st.bytes_by_kind["all-reduce"] == tp + 2 * local
-    assert st.count_by_kind["all-reduce"] == 12 + 3 + 13
+    # the router, read by the device's rows alone, summed over model too
+    # (1024); the statistics (2 x E 4 x f32) over data x model, 2 layers x
+    # 2 forwards (remat); the vocabulary cut and the loss's sums
+    router, stats = 2 * 1024, 2 * 2 * 2 * (2 * 4 * 4)
+    assert st.bytes_by_kind["all-reduce"] == (tp + 2 * local + router + stats
+                                              + DENSE_VOCAB_AR + LOSS_AR)
+    assert st.count_by_kind["all-reduce"] == 12 + 3 + 13 + 1 + 4 + 6 + 1
+    # the port's gathers over model: the device's 2 rows x 16 x d 32 in
+    # bf16, 2 layers x 3 passes
+    assert st.bytes_by_kind["all-gather"] == 2 * 3 * (2 * 16 * 32 * 2)
+    assert st.count_by_kind["all-gather"] == 6
     # decode: capacity max(int(1·2·1.25/4), 4) = 4 a group of one token,
     # 4 groups; global dispatch: one group of 4 tokens, capacity 4
     st = _stats(_moe(), DECODE, MESH_2x2)
@@ -239,6 +286,161 @@ def test_moe_by_hand():
     st = _stats(_moe(dispatch="global"), DECODE, MESH_2x2)
     assert st.bytes_by_kind["all-to-all"] == 2 * 2 * (4 * 1 * 4 * 32 * 2 // 4)
     # pinned: the attention and shared expert all-reduces in bf16
+    # (and the lookup, in the table's bf16)
     st = _stats(dataclasses.replace(_moe(), pin_proj_outputs=True), PREFILL,
                 MESH_2x2)
-    assert st.bytes_by_kind["all-reduce"] == 4 * UNIT_AR // 2
+    assert st.bytes_by_kind["all-reduce"] == 4 * UNIT_AR // 2 + 2 * 2048
+
+
+# -- the kinds a step over ranks counts, each by hand ------------------------
+
+def _entries(st, kind: str) -> dict:
+    """The entries of ``kind``: name after the axes -> (bytes, number)."""
+    return {name.split(": ")[1]: (st.ops[name], st.op_counts[name])
+            for name, k in st.kinds.items() if k == kind}
+
+
+def test_the_vocabulary_cut_by_hand():
+    """The dense config's vocabulary 128 over model 2: in train the lookup
+    (2 rows x 16 x d 32, bf16), the head input's gradient (f32), the
+    chunk's max (2 x 16 f32) and two sums, each in the forward and the
+    chunk's recompute; in prefill and decode the lookup alone (the head's
+    output collectives wait for serving over model ranks).  Tied, the
+    head is the table.  A 1100-token sequence makes 512 + 512 + 76-token
+    chunks.  A vocabulary 2 does not divide is whole: no entry."""
+    st = _stats(_dense(), TRAIN, MESH_2x2)
+    assert _entries(st, "vocab") == {
+        "embed/tok lookup": (2 * 2048, 1),
+        "head/w input's gradient (f)": (2 * 4096, 1),
+        "head/w loss chunks' max": (2 * 2 * 128, 2),
+        "head/w loss chunks' sums": (2 * 2 * 256, 2)}
+    assert st.kind_bytes("vocab") == DENSE_VOCAB_AR
+    assert st.kind_calls("vocab") == 6
+    assert _entries(_stats(_dense(), PREFILL, MESH_2x2), "vocab") == {
+        "embed/tok lookup": (2 * 2048, 1)}
+    assert _entries(_stats(_dense(), DECODE, MESH_2x2), "vocab") == {
+        "embed/tok lookup": (2 * (2 * 1 * 32 * 2), 1)}
+    tied = _entries(_stats(_dense(tie_embeddings=True), TRAIN, MESH_2x2),
+                    "vocab")
+    assert sorted(tied) == ["embed/tok input's gradient (f)",
+                            "embed/tok lookup", "embed/tok loss chunks' max",
+                            "embed/tok loss chunks' sums"]
+    long = _stats(_dense(), ShapeConfig("t", 1100, 4, "train"), MESH_2x2)
+    chunks = _entries(long, "vocab")
+    assert chunks["head/w loss chunks' max"] == (2 * 2 * (2 * 1100 * 4), 6)
+    assert chunks["head/w loss chunks' sums"] == (2 * 2 * (4 * 1100 * 4), 6)
+    assert _entries(_stats(_dense(vocab_size=129), TRAIN, MESH_2x2),
+                    "vocab") == {}
+
+
+def test_whole_leaves_read_in_a_cut_unit_by_hand():
+    """Leaves left whole inside a unit cut over model, their gradient's
+    share summed over model once a training step in their type: one kv
+    head over 2 keeps ``wk`` / ``wv`` (2 layers x 32 x 8, bf16) whole,
+    with the q/k norms (2 x 8); RWKV6's time-mix ``mu_r`` / ``mu_k`` /
+    ``mu_v`` / ``mu_g`` / ``mu_w`` (2 x 64) and ``w_lora_a`` (2 x 64 x
+    32); Mamba2's ``w_bc`` (2 x 64 x 32), ``w_dt`` (2 x 64 x 8),
+    ``conv_w_bc`` (2 x 4 x 32), ``conv_b_bc`` (2 x 32), ``dd`` (2 x 8)
+    in bf16 and ``a_log`` / ``dt_bias`` (2 x 8) in f32, each unit's.
+    None in inference, none where the kv heads divide."""
+    st = _stats(_dense(n_kv_heads=1, qk_norm=True), TRAIN, MESH_2x2)
+    unit = "segments/0/0/attn/"
+    assert _entries(st, "gradient") == {
+        unit + "wk gradient": (2 * 1024, 1),
+        unit + "wv gradient": (2 * 1024, 1),
+        unit + "q_norm gradient": (2 * 32, 1),
+        unit + "k_norm gradient": (2 * 32, 1)}
+    assert st.kind_bytes("gradient") == 2 * (2 * 1024 + 2 * 32)
+    assert _entries(_stats(_dense(n_kv_heads=1, qk_norm=True), PREFILL,
+                           MESH_2x2), "gradient") == {}
+    assert _entries(_stats(_dense(), TRAIN, MESH_2x2), "gradient") == {}
+    rwkv = _stats(get_smoke_config("rwkv6-7b"), TRAIN, MESH_2x2)
+    unit = "segments/0/0/rwkv/"
+    want = {unit + f"mu_{x} gradient": (2 * 256, 1) for x in "rkvgw"}
+    want[unit + "w_lora_a gradient"] = (2 * 8192, 1)
+    assert _entries(rwkv, "gradient") == want
+    zamba = _stats(get_smoke_config("zamba2-2.7b"), TRAIN, MESH_2x2)
+    each = {"w_bc": 8192, "w_dt": 2048, "conv_w_bc": 512, "conv_b_bc": 128,
+            "dd": 32, "a_log": 64, "dt_bias": 64}
+    assert _entries(zamba, "gradient") == {
+        f"segments/0/{u}/mamba/{leaf} gradient": (2 * n, 1)
+        for u in (0, 1) for leaf, n in each.items()}
+    assert zamba.kind_bytes("gradient") == 2 * 2 * 11040
+
+
+def test_the_moe_statistics_and_the_ports_gathers_by_hand():
+    """The MoE config on 2 x 2 (experts 4 over model, grouped): each
+    layer's statistics (2 x E 4 f32) summed over data x model in each
+    forward, 2 under remat; each layer's groups' outputs all-gathered
+    over model (the device's 2 rows x 16 x d 32 in bf16) in each pass,
+    3 under remat, and in inference once.  Without remat 1 and 2.  The
+    global dispatch has no gather.  On 2 x 1 the experts are whole on
+    every device: the statistics are a loss sum over data."""
+    st = _stats(_moe(), TRAIN, MESH_2x2)
+    stats = _entries(st, "stats")
+    assert stats == {"segments/0/0/moe statistics": (2 * 2 * 2 * 32, 4)}
+    assert [n for n, k in st.kinds.items() if k == "stats"] == [
+        "all-reduce over dataxmodel (nvlink): segments/0/0/moe statistics"]
+    assert _entries(st, "gather") == {
+        "segments/0/0/moe gather (port)": (2 * 3 * 2048, 6)}
+    st = _stats(_moe(), PREFILL, MESH_2x2)
+    assert _entries(st, "gather") == {
+        "segments/0/0/moe gather (port)": (2 * 2048, 2)}
+    assert _entries(st, "stats") == {}
+    st = _stats(dataclasses.replace(_moe(), remat=False), TRAIN, MESH_2x2)
+    assert st.kind_calls("stats") == 2 and st.kind_calls("gather") == 4
+    st = _stats(_moe(dispatch="global"), TRAIN, MESH_2x2)
+    assert st.kind_calls("gather") == 0 and st.kind_calls("stats") == 4
+    st = _stats(_moe(), TRAIN, _FakeMesh({"data": 2, "model": 1}))
+    assert st.kind_calls("stats") == st.kind_calls("gather") == 0
+    assert _entries(st, "loss")["segments/0/0/moe statistics"] == (
+        2 * 2 * 2 * 32, 4)
+
+
+def test_the_loss_sums_over_the_data_axes_by_hand():
+    """The weighted cross-entropy's and the weights' f32 sums, once a
+    training step over the data axes (pod x data with a pod axis); none
+    in inference or where the data axes are one device."""
+    for mesh, axes in ((MESH_2x2, "data"), (MESH_2x2x2, "podxdata")):
+        st = _stats(_dense(), TRAIN, mesh)
+        assert [n for n, k in st.kinds.items() if k == "loss"] == [
+            f"all-reduce over {axes} (nvlink): loss sums"]
+        assert st.kind_bytes("loss") == LOSS_AR
+        assert st.kind_calls("loss") == 1
+    assert _stats(_dense(), PREFILL, MESH_2x2).kind_calls("loss") == 0
+    st = _stats(_dense(), TRAIN, _FakeMesh({"data": 1, "model": 2}))
+    assert st.kind_calls("loss") == 0
+
+
+@pytest.mark.parametrize("cfg, blocks", [
+    # 2 layers x (attention, MLP) x 3 passes
+    (_dense(n_kv_heads=1, qk_norm=True), (12, 12 * UNIT_AR)),
+    # 2 layers x (attention, shared experts) x 3 passes
+    (_moe(), (12, 12 * UNIT_AR)),
+    # no remat: 2 passes x (4 Mamba2 layers + 2 applications x (attention,
+    # MLP)), 2 rows x 16 x d 64 in f32 each
+    (get_smoke_config("zamba2-2.7b"), (16, 16 * (2 * 16 * 64 * 4 * 2)))],
+    ids=["dense", "moe", "zamba2"])
+def test_the_earlier_accessors_are_unchanged_by_the_new_entries(cfg, blocks):
+    """The "block" and data-parallel gradient accessors select by kind:
+    the new all-reduces over model (the vocabulary's, the statistics',
+    and a partial leaf's, whose name ends in " gradient" as the
+    data-parallel entries' do) count in neither."""
+    st = _stats(cfg, TRAIN, MESH_2x2)
+    assert (st.model_all_reduces, st.model_all_reduce_bytes) == blocks
+    assert st.kind_calls("gradient") > 0 and st.kind_calls("vocab") > 0
+    assert any(n.startswith("all-reduce over model ")
+               and n.endswith(" gradient")
+               for n, k in st.kinds.items() if k == "gradient")
+    # one entry a leaf over data, its piece in its type, twice
+    specs, _ = S.enforce_divisible(cfg, MESH_2x2)
+    leaves = dict(S.spec_leaves(T.param_specs(cfg)))
+    pieces = {path: A.local_numel(leaves[path].shape, spec, MESH_2x2)
+              * (leaves[path].dtype or T.param_dtype(cfg)).itemsize
+              for path, spec in S.spec_leaves(specs)}
+    assert st.gradient_all_reduce_bytes == 2 * sum(pieces.values())
+    assert sorted(n for n, k in st.kinds.items() if k == "data gradient") \
+        == sorted(f"all-reduce over data (nvlink): {p} gradient"
+                  for p in pieces)
+    assert set(st.kinds.values()) <= set(S.MODEL_KINDS) | set(A.DATA_KINDS)
+    assert set(st.kinds) == set(st.ops) == set(st.op_counts)

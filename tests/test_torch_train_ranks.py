@@ -251,6 +251,30 @@ def test_the_gradient_bytes_equal_the_dryrun_entries(runs):
         assert doc["loss_bytes"] == 8 * run["n_steps"]
 
 
+@pytest.mark.parametrize("name, world", [("tiny", 2), ("tiny", 4),
+                                         ("deepseek", 2)])
+def test_the_loss_sums_equal_the_dryrun_loss_entries(runs, name, world):
+    """The loss's sums a rank hands its all-reduces a step, x 2 (the ring)
+    and in number, equal the dry-run's "loss" entries on the (W, 1) mesh:
+    the weighted cross-entropy's and the weights' f32 sums once a step,
+    and, with deepseek's MoE, each MoE layer's load-balance statistics
+    (2 x experts f32) in each forward, its experts whole on every rank."""
+    run = runs(name, world)
+    cfg = config_from_dict(dataclasses.asdict(run["cfg"]))
+    mesh = Mesh((world, 1), ("data", "model"),
+                virtual_devices(world, dryrun.META))
+    report = dryrun.reckon(cfg, ShapeConfig("t", SEQ, BATCH, "train"),
+                           mesh)
+    moe = sum(is_moe for _, is_moe in T.layer_sigs(cfg)) * (
+        2 if cfg.remat else 1)
+    want_bytes = 2 * 4 + (moe * 2 * cfg.moe.n_experts * 4 if moe else 0)
+    assert report["loss_all_reduce_bytes"] == 2 * want_bytes
+    assert report["loss_all_reduces"] == 1 + moe
+    for doc in run["docs"]:
+        assert doc["loss_bytes"] == run["n_steps"] * want_bytes
+        assert doc["loss_all_reduces"] == run["n_steps"] * (1 + moe)
+
+
 #: a stream whose two hosts mask 40 and 36 frames (seed 0 masks 40 each,
 #: where the mean of the ranks' means is the global mean)
 HUBERT_SEED = 1

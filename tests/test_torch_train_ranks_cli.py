@@ -151,8 +151,11 @@ def test_the_dryrun_gradient_entries_are_twice_the_parameters(preset,
     report = dryrun.reckon(cfg, ShapeConfig("t", 128, 8, "train"),
                            _mesh(world))
     assert report["gradient_all_reduce_bytes"] == 2 * _param_bytes(cfg)
+    # no model axis to reduce over: beside the gradients, the loss's two
+    # f32 sums over data alone (2 x 8 B, the ring)
+    assert report["loss_all_reduce_bytes"] == 2 * 8
     assert report["collective_bytes_by_kind"]["all-reduce"] == \
-        report["gradient_all_reduce_bytes"]      # no model axis to reduce
+        report["gradient_all_reduce_bytes"] + report["loss_all_reduce_bytes"]
 
 
 @pytest.mark.parametrize("world", [2, 4])

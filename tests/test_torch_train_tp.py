@@ -25,10 +25,14 @@ leaf (``test_torch_train_ranks._hold``'s rule); every rank's whole leaves
 the same bits; each rank's blocks of the AdamW moments; the bytes a rank
 hands its block all-reduces × 2 and their number equal to ``reckon``'s
 ``over model`` entries, three passes a step under remat and two without,
-and the vocabulary cut's collectives to a count made from the shapes;
-the clip's norm the same on every rank and equal to one process's; the
-whole leaves read inside a cut unit summed over the model group; the
-rules' cuts and fallbacks; every refusal of ``--model-ranks``.
+and the vocabulary cut's collectives to a count made from the shapes and
+to the dry-run's "vocab" entries; the clip's norm the same on every rank
+and equal to one process's; the whole leaves read inside a cut unit
+summed over the model group; every
+kind a rank counts (``ModelShards.model_bytes``, the loss's sums, the
+data-parallel gradient) equal to the dry-run's entries of that kind by
+the kind's relation (``dryrun.handed``); the rules' cuts and fallbacks;
+every refusal of ``--model-ranks``.
 """
 import dataclasses
 
@@ -196,12 +200,37 @@ def test_whole_leaves_are_the_same_bits_on_every_rank(runs, name):
 
 
 def _reckon(run) -> dict:
-    cfg = config_from_dict(dataclasses.asdict(run["cfg"]))
-    shape = (run["hosts"], run["m"])
-    return dryrun.reckon(cfg, ShapeConfig("t", SEQ, BATCH, "train"),
-                         Mesh(shape, ("data", "model"),
-                              virtual_devices(shape[0] * shape[1],
-                                              dryrun.META)))
+    """``dryrun.reckon`` of the case's step on its (data, model) mesh, once
+    a run."""
+    if "report" not in run:
+        cfg = config_from_dict(dataclasses.asdict(run["cfg"]))
+        shape = (run["hosts"], run["m"])
+        run["report"] = dryrun.reckon(
+            cfg, ShapeConfig("t", SEQ, BATCH, "train"),
+            Mesh(shape, ("data", "model"),
+                 virtual_devices(shape[0] * shape[1], dryrun.META)))
+    return run["report"]
+
+
+def _hold_every_kind(run) -> None:
+    """Each kind a rank counts a step against the dry-run's entries of
+    that kind (``dryrun.handed``: an all-reduce's entry 2 x the buffer
+    handed, an all-gather's M x, an all-to-all's 1 x): bytes for every
+    kind, the model group's and the data group's, and the number for all
+    but the gradients' (a rank sums its leaves in one buffer a type, the
+    dry-run has an entry a leaf)."""
+    report = _reckon(run)
+    for doc in run["docs"]:
+        counted = dict(doc["model_bytes"], loss=doc["loss_bytes"])
+        calls = dict(doc["model_calls"], loss=doc["loss_all_reduces"])
+        assert set(counted) == set(S.MODEL_KINDS) | {"loss"}
+        for kind, nbytes in counted.items():
+            want_bytes, want_calls = dryrun.handed(report, kind, run["m"])
+            assert nbytes == N_STEPS * want_bytes, kind
+            if kind != "gradient":
+                assert calls[kind] == N_STEPS * want_calls, kind
+        assert 2 * doc["gradient_bytes"] == N_STEPS * report[
+            "gradient_all_reduce_bytes"]
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -253,6 +282,42 @@ def test_the_vocabulary_cuts_collectives_by_hand(runs, name):
                                                if cut else 0)
         assert doc["model_calls"]["vocab"] == (N_STEPS * want_calls
                                                if cut else 0)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_the_vocabulary_cuts_collectives_equal_the_dryrun_entries(runs,
+                                                                  name):
+    """The vocabulary cut's collectives a rank hands a step, x 2 (the
+    ring) and in number, equal the dry-run's "vocab" entries; none on
+    either side where the vocabulary is whole."""
+    run = runs(name)
+    report = _reckon(run)
+    cut = run["cfg"].vocab_size % run["m"] == 0
+    assert (report["vocab_all_reduces"] > 0) == cut
+    for doc in run["docs"]:
+        assert 2 * doc["model_bytes"]["vocab"] == N_STEPS * report[
+            "vocab_all_reduce_bytes"]
+        assert doc["model_calls"]["vocab"] == N_STEPS * report[
+            "vocab_all_reduces"]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_the_partial_leaves_sums_equal_the_dryrun_entries(runs, name):
+    """The bytes a rank hands to sum its partial leaves' gradients over
+    the model group a step, x 2, equal the dry-run's "gradient" entries
+    over model, one a leaf (the rank sums them in one buffer a type, so
+    only the bytes are held)."""
+    run = runs(name)
+    report = _reckon(run)
+    for doc in run["docs"]:
+        assert 2 * doc["model_bytes"]["gradient"] == N_STEPS * report[
+            "partial_gradient_all_reduce_bytes"]
+        assert report["partial_gradient_all_reduces"] == len(doc["partial"])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_every_kind_a_rank_counts_equals_the_dryrun(runs, name):
+    _hold_every_kind(runs(name))
 
 
 def test_whole_leaves_read_in_a_cut_unit_are_summed_over_the_model_group(

@@ -24,8 +24,11 @@ within 1e-4 normwise a leaf (``test_torch_train_ranks._hold``); Mamba2's
 the norm's statistic would get wrong; every rank's whole leaves the same
 bits; a rank's block all-reduces and norm all-reduces, count and bytes,
 equal to ``reckon``'s ``over model`` entries; the dry-run's norm entries
-counted by hand; the whole leaves read inside a cut unit, by name; the
-refusal of a cut that splits a head; the launcher's run.
+counted by hand; the whole leaves read inside a cut unit, by name, their
+bytes as the dry-run's "gradient" entries; every kind a rank counts (the
+tied table's vocabulary cut among them) equal to the dry-run's entries
+of that kind; the refusal of a cut that splits a head; the launcher's
+run.
 """
 import dataclasses
 
@@ -42,7 +45,7 @@ from repro_torch.models import transformer as T
 from repro_torch.roofline import analysis as A
 
 from test_torch_train_ranks import BATCH, SEQ, _hold
-from test_torch_train_tp import N_STEPS, _Runs, _reckon
+from test_torch_train_tp import N_STEPS, _hold_every_kind, _Runs, _reckon
 
 ZAMBA2 = dataclasses.replace(j_smoke("zamba2-2.7b"), dtype="float32")
 ZAMBA2_KV = dataclasses.replace(ZAMBA2, n_kv_heads=2)
@@ -154,9 +157,8 @@ def test_block_and_norm_all_reduces_equal_the_dryrun_model_entries(runs,
         dataclasses.asdict(cfg))))
     repeat = segs[0][1]
     stats = _stats(cfg, (run["hosts"], run["m"]))
-    names = {n.split(": ")[1] for n in stats.ops
-             if n.startswith("all-reduce over model ")
-             and not n.endswith(" gradient")}
+    names = {n.split(": ")[1] for n, kind in stats.kinds.items()
+             if kind in ("block", "norm")}
     assert names == ({f"{w}/mamba/{leaf}" for w in _mamba_units(cfg)
                       for leaf in ("out_proj", "norm")}
                      | {"shared_attn/attn/wo", "shared_attn/mlp/w_out"})
@@ -226,6 +228,24 @@ def test_whole_leaves_read_in_a_cut_unit_are_summed_over_the_model_group(
             assert doc["model_calls"]["gradient"] == N_STEPS
             n = sum(run["ref"]["init"][p].size for p in want)
             assert doc["model_bytes"]["gradient"] == N_STEPS * n * 4
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_the_partial_leaves_sums_equal_the_dryrun_entries(runs, name):
+    """The bytes a rank hands to sum Mamba2's (and the shared block's k/v)
+    partial gradients over the model group a step, x 2, equal the
+    dry-run's "gradient" entries over model, one a leaf."""
+    run = runs(name)
+    report = _reckon(run)
+    for doc in run["docs"]:
+        assert 2 * doc["model_bytes"]["gradient"] == N_STEPS * report[
+            "partial_gradient_all_reduce_bytes"]
+        assert report["partial_gradient_all_reduces"] == len(doc["partial"])
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_every_kind_a_rank_counts_equals_the_dryrun(runs, name):
+    _hold_every_kind(runs(name))
 
 
 @pytest.mark.parametrize("argv,match", [

@@ -29,10 +29,12 @@ rank's whole leaves the same bits; a rank's all-to-alls, in number and
 bytes, equal to ``reckon``'s ``moe dispatch`` / ``moe combine`` entries,
 and its block all-reduces to the ``over model`` entries (MLA's
 ``attn/wo`` and ``moe/shared/w_out`` among them); the groups' all-gathers
-and the load-balance statistics' sums (not in the dry-run) to a count
-from the shapes; the router and MLA's latent leaves summed over the model
-group; the drops on every rank equal to one process's, group by group;
-the refusals.
+and the load-balance statistics' sums to a count from the shapes and to
+the dry-run's "gather" (the port's own) and "stats" entries; the router
+and MLA's latent leaves summed over the model group, their bytes as the
+dry-run's "gradient" entries; every kind a rank counts equal to the
+dry-run's; the drops on every rank equal to one process's, group by
+group; the refusals.
 """
 import dataclasses
 
@@ -51,7 +53,8 @@ from repro_torch.roofline import analysis as A
 
 import torch_train_ranks as TR
 from test_torch_train_ranks import BATCH, SEQ, TARGET, _hold, _npz
-from test_torch_train_tp import N_STEPS, PORT_TOL, _Runs, _reckon
+from test_torch_train_tp import (N_STEPS, PORT_TOL, _hold_every_kind, _Runs,
+                                 _reckon)
 
 DEEPSEEK = dataclasses.replace(j_smoke("deepseek-v2-lite-16b"),
                                dtype="float32")
@@ -181,9 +184,8 @@ def test_block_all_reduces_equal_the_dryrun_model_entries(runs, name):
     report = _reckon(run)
     passes = 3 if cfg.remat else 2
     tokens = BATCH // run["hosts"] * SEQ
-    names = {n.split(": ")[1] for n in _stats(run).ops
-             if n.startswith("all-reduce over model ")
-             and not n.endswith(" gradient")}
+    names = {n.split(": ")[1] for n, kind in _stats(run).kinds.items()
+             if kind == "block"}
     want = set()
     for si, (unit, _) in enumerate(_segments(cfg)):
         for ui, (_, is_moe) in enumerate(unit):
@@ -206,11 +208,10 @@ def test_block_all_reduces_equal_the_dryrun_model_entries(runs, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_the_groups_gathers_and_statistics_by_hand(runs, name):
-    """Not in the dry-run: a MoE layer's groups' outputs all-gathered over
-    the model group in each forward (the recompute's too) and their
-    input's gradient in the backward, each the rank's (B/D/M, S, d)
-    block; the load-balance statistics (2 × E f32) summed over every rank
-    in each forward."""
+    """A MoE layer's groups' outputs all-gathered over the model group in
+    each forward (the recompute's too) and their input's gradient in the
+    backward, each the rank's (B/D/M, S, d) block; the load-balance
+    statistics (2 × E f32) summed over every rank in each forward."""
     run = runs(name)
     cfg = run["cfg"]
     passes = 3 if cfg.remat else 2
@@ -223,6 +224,48 @@ def test_the_groups_gathers_and_statistics_by_hand(runs, name):
         assert doc["model_calls"]["stats"] == N_STEPS * layers * (passes - 1)
         assert doc["model_bytes"]["stats"] == (
             doc["model_calls"]["stats"] * 2 * cfg.moe.n_experts * 4)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_the_groups_gathers_and_statistics_equal_the_dryrun_entries(runs,
+                                                                    name):
+    """The groups' all-gathers a rank hands a step, x M (the dry-run
+    counts an all-gather's result) and in number, equal the dry-run's
+    "gather" entries, ``<unit>/moe gather (port)``; the statistics' sums,
+    x 2 (the ring) and in number, its "stats" entries over data x
+    model."""
+    run = runs(name)
+    report = _reckon(run)
+    assert sorted(n.split(": ")[1] for n, kind in _stats(run).kinds.items()
+                  if kind == "gather") == sorted(
+        f"{where}/moe gather (port)" for where, _ in _moe_units(run["cfg"]))
+    assert report["moe_all_gathers"] > 0 and report["moe_stats_all_reduces"] > 0
+    for doc in run["docs"]:
+        assert run["m"] * doc["model_bytes"]["gather"] == N_STEPS * report[
+            "moe_all_gather_bytes"]
+        assert doc["model_calls"]["gather"] == N_STEPS * report[
+            "moe_all_gathers"]
+        assert 2 * doc["model_bytes"]["stats"] == N_STEPS * report[
+            "moe_stats_all_reduce_bytes"]
+        assert doc["model_calls"]["stats"] == N_STEPS * report[
+            "moe_stats_all_reduces"]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_every_kind_a_rank_counts_equals_the_dryrun(runs, name):
+    _hold_every_kind(runs(name))
+
+
+@pytest.mark.parametrize("name", ["deepseek", "maverick"])
+def test_router_and_latent_leaves_sums_equal_the_dryrun_entries(runs, name):
+    """The partial leaves' gradient sums a rank hands a step, x 2, equal
+    the dry-run's "gradient" entries over model, one a leaf."""
+    run = runs(name)
+    report = _reckon(run)
+    for doc in run["docs"]:
+        assert 2 * doc["model_bytes"]["gradient"] == N_STEPS * report[
+            "partial_gradient_all_reduce_bytes"]
+        assert report["partial_gradient_all_reduces"] == len(doc["partial"])
 
 
 @pytest.mark.parametrize("name", ["deepseek", "maverick"])

@@ -34,8 +34,10 @@ all-reduces, count and bytes, equal to ``reckon``'s ``over model``
 entries (RWKV6's ``rwkv/w_o`` and ``rwkv/w_v_cm``); the time mix's whole
 leaves summed over the model group by name, and the channel mix's whole
 leaves not, their gradients equal to the reference's; the head's cut
-without the table's, and its collectives by hand; the heads' and hidden
-units' blocks summing to the whole mixers; the launcher's runs.
+without the table's, and its collectives by hand and against the
+dry-run's "vocab" entries; every kind a rank counts equal to the
+dry-run's entries of that kind; the heads' and hidden units' blocks
+summing to the whole mixers; the launcher's runs.
 """
 import dataclasses
 
@@ -50,7 +52,8 @@ from repro_torch.models import ssm
 
 import torch_train_ranks as TR
 from test_torch_train_ranks import BATCH, SEQ, _hold, _npz
-from test_torch_train_tp import N_STEPS, PORT_TOL, _Runs, _reckon
+from test_torch_train_tp import (N_STEPS, PORT_TOL, _hold_every_kind, _Runs,
+                                 _reckon)
 
 RWKV6 = dataclasses.replace(j_smoke("rwkv6-7b"), dtype="float32")
 RWKV6_REMAT = dataclasses.replace(RWKV6, remat=True)
@@ -174,6 +177,24 @@ def test_time_mix_leaves_are_summed_and_channel_mix_leaves_are_whole(
                 got = arrays[f"g{i}/{unit}{leaf}"]
                 assert np.linalg.norm(got - want) <= 1e-4 * np.linalg.norm(
                     want), (i, leaf)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_every_kind_a_rank_counts_equals_the_dryrun(runs, name):
+    _hold_every_kind(runs(name))
+
+
+def test_the_audio_heads_collectives_equal_the_dryrun_entries(runs):
+    """HuBERT's head input's gradient and its chunks' max and sums, x 2
+    and in number, as the dry-run's "vocab" entries: no lookup entry."""
+    run = runs("hubert")
+    report = _reckon(run)
+    assert report["vocab_all_reduces"] == 1 + 2 * 2
+    for doc in run["docs"]:
+        assert 2 * doc["model_bytes"]["vocab"] == N_STEPS * report[
+            "vocab_all_reduce_bytes"]
+        assert doc["model_calls"]["vocab"] == N_STEPS * report[
+            "vocab_all_reduces"]
 
 
 def test_the_audio_head_alone_is_cut_and_its_collectives_by_hand(runs):

@@ -114,13 +114,13 @@ def steps(group, *, cfg: dict, leaves: str, seq: int, batch: int,
     if r is not None:
         doc.update(gradient_bytes=r.gradient_bytes,
                    gradient_all_reduces=r.gradient_all_reduces,
-                   loss_bytes=r.loss_bytes)
+                   loss_bytes=r.loss_bytes,
+                   loss_all_reduces=r.loss_all_reduces)
     if fsdp:
         doc.update(gather_bytes=r.gather_bytes, gathers=r.gathers,
                    scatter_bytes=r.scatter_bytes, scatters=r.scatters)
     if model_ranks > 1:
         doc.update(model_bytes=r.model_bytes, model_calls=r.model_calls,
-                   loss_all_reduces=r.loss_all_reduces,
                    partial=sorted(r.partial),
                    fallbacks=[list(f) for f in r.fallbacks])
     if blocks:
