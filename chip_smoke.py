@@ -227,11 +227,25 @@ so the script exits non-zero and prints no result line:
            within 5e-2 normwise, the worst row printed; (c) the same
            tokens through the int8 cache against the bf16 cache, 5e-2
            normwise, and both caches' bytes; (d) deepseek-coder-33b,
-           command-r-plus-104b, chameleon-34b (2 layers), h2o-danube-3-4b
-           (4) and rwkv6-7b (2) serve 8 requests at batch 4 and decode ==
-           prefill over 64 tokens (rwkv6's through wkv6), then danube's
-           smoke config decodes through its ring of 16 rows against its
-           f32 prefill; (e) hubert-xlarge's encoder forward (2 layers)
+           command-r-plus-104b, chameleon-34b, h2o-danube-3-4b and
+           rwkv6-7b (2 layers each) serve 8 requests at batch 4 and
+           decode == prefill over 64 tokens (rwkv6's through wkv6);
+           (s1) danube's weights of (d), drawn from the launcher's seed,
+           served over 2 gloo ranks sharing the card through
+           launch/serve.py --ranks 2 --model-ranks 2 (the (1, 2) mesh,
+           16/4 heads and half the vocabulary a rank, each rank 256 of a
+           512-row cache): a prefill of (1, 4096) seeded tokens launching
+           the wgmma attention kernel once a layer on each rank's heads,
+           within 2e-2 normwise of (d)'s one-process prefill; the decode
+           of their first 300 positions within 5e-2 of it; (d)'s serve
+           loop, every rank the same tokens inside the vocabulary, no
+           NaN logit; every collective kind a rank hands in a decode
+           step and in the prefill equal to the dry-run's entries for
+           those cells on (1, 2); ms a decode step, gloo's share of it
+           and each rank's peak beside the reckoned ones printed
+           (``python3 chip_smoke.py --serve-tp-probe`` runs only (s1));
+           then danube's smoke config decodes through its ring of 16
+           rows against its f32 prefill; (e) hubert-xlarge's encoder forward (2 layers)
            over (2, 512, 1280) frame embeddings on the dense non-causal
            route, bf16 against f32, and the serve loop refusing it; each
            prefill launches its kernel once per layer;
@@ -373,7 +387,8 @@ so the script exits non-zero and prints no result line:
 16. the card's stamp again (its lines from phase 1), the ``kernels`` JSON
            line (each kernel's ``ranks_launches``: its launches in the
            ranks of [pod] (a2), (a3) and [pod lm], (p1) and (p2) included,
-           summed), then the
+           summed; the attention kernel's ``serve_ranks_launches``: in the
+           ranks of [serve] (s1)), then the
            ``ok`` JSON line.
 """
 from __future__ import annotations
@@ -559,10 +574,11 @@ SUBSTRATE_NCCL = dict(n_stars=400, n_hosts=192, m=24, iterations=4)
 #: 2 searches, cut for the smoke's time (the reference's runner takes 8;
 #: [portfolio] coalesces 6 at these sizes)
 SUBSTRATE_CACHED = dict(SUBSTRATE_PORTFOLIO, n_searches=2)
-#: the serve phase: layers kept at published widths per arch
+#: the serve phase: layers kept at published widths per arch (danube's
+#: shared with (s1), whose one-process run is (d)'s)
 SERVE_DEPTH = {"qwen2-72b": 4, "deepseek-coder-33b": 2,
                "command-r-plus-104b": 2, "chameleon-34b": 2,
-               "h2o-danube-3-4b": 4, "rwkv6-7b": 2, "hubert-xlarge": 2,
+               "h2o-danube-3-4b": 2, "rwkv6-7b": 2, "hubert-xlarge": 2,
                "deepseek-v2-lite-16b": 27, "llama4-maverick-400b-a17b": 2}
 #: leg (a)'s serve loop, and (d)'s (the reference CLI's defaults)
 SERVE_MAIN = dict(requests=16, batch=8, prompt=64, gen=64, max_seq=512)
@@ -575,6 +591,16 @@ SERVE_MATCH_LEN, SERVE_OTHER_LEN = 300, 64
 #: way (tests/test_torch_serve_models.py::INT8_TOL)
 SERVE_BF16_NORM = 5e-2
 SERVE_INT8_NORM = 5e-2
+#: (s1): danube at SERVE_DEPTH served over ``ranks`` gloo ranks on the
+#: (1, 2) mesh through launch/serve.py, its weights drawn from the
+#: launcher's ``seed`` (so (d) serves the same weights in one process);
+#: a prefill of ``prefill`` seeded tokens (``token_seed``), the decode of
+#: their first ``decode`` positions over a cache of ``max_seq`` rows (256
+#: a rank: rank 1's first row is read from t = 256), then (d)'s serve
+#: loop; the ranks' prefill held to the one-process prefill, normwise
+SERVE_TP = dict(ranks=2, seed=0, prefill=4096, decode=300, max_seq=512,
+                token_seed=6)
+SERVE_TP_NORM = 2e-2
 #: the MoE / MLA phase: deepseek-v2-lite-16b whole (SERVE_DEPTH: all 27
 #: layers fit the card in bf16) and llama4-maverick cut to one dense and
 #: one MoE layer (one MoE layer's 128 experts are 32.2 GB in bf16); the
@@ -2671,10 +2697,136 @@ def _refuses(fn, exc) -> bool:
     return False
 
 
+def _serve_tp(dev: torch.device, cfg, params) -> int:
+    """(s1): ``launch/serve.py --ranks 2 --model-ranks 2`` on ``cfg``
+    (danube at published widths, (d)'s depth) over 2 gloo ranks sharing
+    the card, each drawing (d)'s weights ``params`` from the launcher's
+    seed and keeping its model block (16 of the 32 query heads, 4 of the
+    8 kv heads, half the vocabulary) and its block of the caches' rows:
+    (a) a prefill of SERVE_TP's seeded tokens with the attention kernel,
+    once a layer a rank, within SERVE_TP_NORM normwise of this process's
+    prefill of them on ``params``; (b) the decode of their first
+    positions within SERVE_BF16_NORM of that prefill; (c) (d)'s serve
+    loop, every rank the same tokens inside the vocabulary, no NaN logit;
+    (d) every collective kind a rank hands in the decode's first step and
+    in the prefill equal to the dry-run's entries of that kind for those
+    cells on (1, 2) (``dryrun.handed``); (e) printed: ms a decode step,
+    gloo's share of it, and each rank's peak beside the reckoned ones.
+    Returns the ranks' attention kernel launches."""
+    t0 = time.perf_counter()
+    m, n_dec = SERVE_TP["ranks"], SERVE_TP["decode"]
+    toks = _match_tokens(cfg, SERVE_TP["prefill"], SERVE_TP["token_seed"],
+                         dev)
+    one, counts = _prefill_logits(cfg, params, toks)
+    want = _kernel_launches(cfg, counts)
+    spec = SERVE_OTHER
+    argv = ["--ranks", str(m), "--model-ranks", str(m), "--dist-backend",
+            "gloo", "--seed", str(SERVE_TP["seed"]), "--requests",
+            str(spec["requests"]), "--batch", str(spec["batch"]),
+            "--prompt-len", str(spec["prompt"]), "--gen-len",
+            str(spec["gen"]), "--max-seq", str(spec["max_seq"])]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s1_") as tmp:
+        np.save(os.path.join(tmp, "tokens.npy"), toks.cpu().numpy())
+        t1 = time.perf_counter()
+        res, _ = serve.over_ranks(argv, cfg=dataclasses.asdict(cfg), probe={
+            "tokens": os.path.join(tmp, "tokens.npy"), "decode_len": n_dec,
+            "max_seq": SERVE_TP["max_seq"], "use_kernels": True,
+            "out": os.path.join(tmp, "{}.pt")})
+        t2 = time.perf_counter()
+        check(res.returncode == 0, f"(s1) the serve run over ranks failed: "
+              f"{res.failed}")
+        pre = torch.load(os.path.join(tmp, "prefill.pt"))[0].to(dev)
+        dec = torch.load(os.path.join(tmp, "decode.pt"))[0].to(dev)
+    docs = res.docs
+    pre_norm, pre_row = _norm_err(pre, one)
+    dec_norm, dec_row = _norm_err(dec, one[:n_dec])
+    del pre, dec, one
+    _free()
+    for phase in ("prefill", "decode"):
+        check(all(d[phase]["finite"] and d[phase]["digest"]
+                  == docs[0][phase]["digest"] for d in docs),
+              f"(s1) the ranks' {phase} logits differ or are not finite")
+    kinds = [_kernel_launches(cfg, {k: d["prefill"]["launches"][k]
+                                    for k in LAUNCH_COUNTERS})
+             for d in docs]
+    check(all(not any(d["decode"]["launches"][k] for k in LAUNCH_COUNTERS)
+              for d in docs), "(s1) a decode step launched a kernel")
+    flash = sum(d["prefill"]["launches"]["flash_attention_launches"]
+                for d in docs)
+    outs = [d["outputs"] for d in docs]
+    toks_ok = all(o == outs[0] for o in outs) and all(
+        len(t) == spec["gen"] and all(0 <= x < cfg.vocab_size for x in t)
+        for t in outs[0].values()) and len(outs[0]) == spec["requests"]
+    nan = sum(d["nan_logits"] for d in docs)
+    # (d) each kind a rank hands against the dry-run's cells on (1, 2)
+    mesh = dryrun.rank_cell_mesh(m, m)
+    reports = {
+        "decode": dryrun.reckon(cfg, ShapeConfig(
+            "s1d", SERVE_TP["max_seq"], 1, "decode"), mesh),
+        "prefill": dryrun.reckon(cfg, ShapeConfig(
+            "s1p", SERVE_TP["prefill"], 1, "prefill"), mesh)}
+    held, equal = [], True
+    for phase, report in reports.items():
+        parts = []
+        counted = [d["decode"]["first_step"] if phase == "decode"
+                   else d["prefill"] for d in docs]
+        for kind in sharding.MODEL_KINDS:
+            want_b, want_n = dryrun.handed(report, kind, m)
+            got = [(c["bytes"][kind], c["calls"][kind]) for c in counted]
+            same = all(g == (want_b, want_n) for g in got)
+            equal = equal and same
+            if want_b or got[0][0]:
+                parts.append(f"{kind} {got[0][0]} B in {got[0][1]} "
+                             f"(dry-run {want_b} B in {want_n}; {same})")
+        held.append(f"{phase}: " + ", ".join(parts))
+    d0 = docs[0]["decode"]
+    step_ms = 1e3 * d0["wall_s"] / n_dec
+    gloo = sum(d0["seconds"].values()) / d0["wall_s"]
+    peaks = [round(d["peak_bytes"] / 2**30, 3) for d in docs]
+    reckoned = {p: round(r["memory_analysis"]["peak_size_bytes"] / 2**30, 3)
+                for p, r in reports.items()}
+    print(f"[serve] (s1) {cfg.name} {len(cfg.blocks())} blocks {cfg.dtype} "
+          f"over "
+          f"{m} gloo ranks sharing {dev} (launch/serve.py --ranks {m} "
+          f"--model-ranks {m}, the (1, {m}) mesh; heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} -> {cfg.n_heads // m}/{cfg.n_kv_heads // m} a "
+          f"rank, the vocabulary cut, each rank {SERVE_TP['max_seq'] // m} "
+          f"of the cache's {SERVE_TP['max_seq']} rows): (a) prefill of "
+          f"{tuple(toks.shape)} seeded tokens, a rank's launches {kinds}, "
+          f"the gathered logits against this process's prefill (its "
+          f"{want}) ‖err‖/‖ref‖ {pre_norm:.4g} (gate {SERVE_TP_NORM}), "
+          f"worst row {pre_row:.4g}, every rank the same bits; (b) decode "
+          f"over {n_dec} positions against that prefill ‖err‖/‖ref‖ "
+          f"{dec_norm:.4g} (gate {SERVE_BF16_NORM}), worst row "
+          f"{dec_row:.4g}; (c) {spec['requests']} requests at batch "
+          f"{spec['batch']}: every rank the same tokens inside the "
+          f"vocabulary {toks_ok}, NaN logits {nan}, {docs[0]['steps']} "
+          f"steps in {docs[0]['serve_wall_s']:.2f}s; (d) a rank's "
+          f"collectives against the dry-run's cells on (1, {m}): "
+          f"{'; '.join(held)}: equal {equal}; (e) {step_ms:.3f} ms a "
+          f"decode step (synchronized, {n_dec} steps, the prefill "
+          f"{1e3 * docs[0]['prefill']['wall_s']:.1f} ms), gloo "
+          f"{100 * gloo:.1f} % of it (its collectives' seconds with the "
+          f"card synchronized on either side), peak {peaks} GiB a rank "
+          f"against the reckoned per-device peaks on (1, {m}) {reckoned} "
+          f"GiB; ranks {t2 - t1:.1f}s with their starts, leg "
+          f"{time.perf_counter() - t0:.1f}s")
+    check(pre_norm <= SERVE_TP_NORM, f"(s1) the prefill over ranks lies "
+          f"{pre_norm:.3g} from one process's")
+    check(dec_norm <= SERVE_BF16_NORM, f"(s1) decode over ranks != prefill: "
+          f"{dec_norm:.3g}")
+    check(toks_ok and nan == 0, "(s1) the ranks' tokens differ, leave the "
+          "vocabulary or a logit is NaN")
+    check(equal, "(s1) a collective kind's bytes or calls differ from the "
+          "dry-run's entries of that kind")
+    return flash
+
+
 def phase_serve(dev: torch.device) -> tuple:
     """``launch/serve.py`` and the serve / prefill steps at published
-    widths; returns the attention and wkv6 kernels' launches in it, and
-    (a)'s counted step for ``phase_dryrun``."""
+    widths; returns the attention and wkv6 kernels' launches in it (and
+    the attention kernel's in (s1)'s ranks), and (a)'s counted step for
+    ``phase_dryrun``."""
     _zero_counts()
     launches = {"flash_attention": 0, "wkv6": 0}
 
@@ -2769,11 +2921,14 @@ def phase_serve(dev: torch.device) -> tuple:
           f"{time.perf_counter() - t0:.1f}s")
     del params
     _free()
-    # (d) the other archs: serve, then decode == prefill in bf16
+    # (d) the other archs: serve, then decode == prefill in bf16; danube's
+    # weights from (s1)'s launcher seed, then (s1) over ranks on them
     for arch in ("deepseek-coder-33b", "command-r-plus-104b",
                  "chameleon-34b", "h2o-danube-3-4b", "rwkv6-7b"):
         t0 = time.perf_counter()
-        cfg, params = _serve_model(arch, "bfloat16", gen, dev)
+        cfg, params = _serve_model(
+            arch, "bfloat16", torch.Generator(device=dev).manual_seed(
+                SERVE_TP["seed"]) if arch == "h2o-danube-3-4b" else gen, dev)
         leg = _serve_loop(dev, cfg, params, SERVE_OTHER, seed=3)
         _, what, kl = _decode_vs_prefill(dev, cfg, params, SERVE_OTHER_LEN,
                                          seed=4)
@@ -2784,6 +2939,8 @@ def phase_serve(dev: torch.device) -> tuple:
               f"{leg['steps']} steps, {leg['ms']:.3f} ms per step; decode "
               f"== prefill over {SERVE_OTHER_LEN} tokens: {what}; prefill "
               f"{kl}; wall {time.perf_counter() - t0:.1f}s")
+        if arch == "h2o-danube-3-4b":
+            launches["flash_attention_ranks"] = _serve_tp(dev, cfg, params)
         del params
         _free()
     # (d) the danube smoke config's ring of 16 rows wraps twice
@@ -4469,6 +4626,17 @@ def main() -> None:
         child.stop()
         print(f"[done] {time.perf_counter() - t0:.1f}s")
         return
+    if sys.argv[1:] == ["--serve-tp-probe"]:
+        phase_card(dev)
+        phase_build()
+        child.warm()
+        cfg, params = _serve_model(
+            "h2o-danube-3-4b", "bfloat16",
+            torch.Generator(device=dev).manual_seed(SERVE_TP["seed"]), dev)
+        _serve_tp(dev, cfg, params)
+        child.stop()
+        print(f"[done] {time.perf_counter() - t0:.1f}s")
+        return
     if sys.argv[1:] == ["--tp-ssm-probe"]:
         phase_card(dev)
         child.warm()
@@ -4535,6 +4703,7 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_attention.py:81",
          "launches": flash_launches, "ranks_launches": flash_ranks,
          "serve_launches": serve_launches["flash_attention"],
+         "serve_ranks_launches": serve_launches["flash_attention_ranks"],
          "serve_moe_launches": serve_moe_launches,
          "serve_hybrid_launches": serve_hybrid_launches,
          "subspace_launches": flash_subspace,

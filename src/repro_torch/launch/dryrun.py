@@ -253,6 +253,41 @@ COUNTED_BY = {
                             "['gather'])",
     "moe_all_gathers": "the number of those all-gathers a step "
                        "(ModelShards.model_calls['gather'])",
+    "decode_heads_all_gather_bytes": "its \"heads\" entries over model, "
+                                     "the port's own: a decode step's "
+                                     "all-gather of the query heads (and "
+                                     "of the new k/v row's where the kv "
+                                     "heads are cut) at each dense "
+                                     "attention application, the result "
+                                     "(the device's rows x heads x head "
+                                     "size in the parameters' type); a "
+                                     "step over the model axis's M ranks "
+                                     "hands 1/M of it (sharding."
+                                     "ModelShards.model_bytes['heads'])",
+    "decode_heads_all_gathers": "the number of those all-gathers a step "
+                                "(ModelShards.model_calls['heads'])",
+    "decode_merge_all_reduce_bytes": "its \"merge\" entries, the port's "
+                                     "own: a decode step's all-reduces "
+                                     "of its cache blocks' score maxima "
+                                     "and of their outputs and sums over "
+                                     "the axes the cache's rows are cut "
+                                     "over, 2 x (rows x padded heads x "
+                                     "(head size + 2) x 4 B) at each "
+                                     "dense attention application; a step "
+                                     "over ranks hands half of it "
+                                     "(sharding.ModelShards.model_bytes"
+                                     "['merge'])",
+    "decode_merge_all_reduces": "the number of those all-reduces a step "
+                                "(ModelShards.model_calls['merge'])",
+    "logits_all_gather_bytes": "its \"logits\" entry over model in a "
+                               "prefill or decode step whose head's "
+                               "vocabulary is cut: the whole logits, the "
+                               "device's tokens x vocabulary in the "
+                               "parameters' type; a step over the model "
+                               "axis's M ranks hands 1/M of it (sharding."
+                               "ModelShards.model_bytes['logits'])",
+    "logits_all_gathers": "the number of those all-gathers a step "
+                          "(ModelShards.model_calls['logits'])",
     "compile_s": "wall of the meta trace",
     "lower_s": "wall of building the stand-ins and specs",
 }
@@ -271,6 +306,9 @@ KIND_KEYS = {
     "gather": ("moe_all_gather_bytes", "moe_all_gathers"),
     "stats": ("moe_stats_all_reduce_bytes", "moe_stats_all_reduces"),
     "loss": ("loss_all_reduce_bytes", "loss_all_reduces"),
+    "heads": ("decode_heads_all_gather_bytes", "decode_heads_all_gathers"),
+    "merge": ("decode_merge_all_reduce_bytes", "decode_merge_all_reduces"),
+    "logits": ("logits_all_gather_bytes", "logits_all_gathers"),
 }
 
 
@@ -278,12 +316,13 @@ def handed(report: dict, kind: str, model_ranks: int) -> Tuple[int, int]:
     """(the bytes a rank of a step over ranks hands the collectives of
     ``kind`` a step, their number) as ``report`` reckons them: an
     all-reduce's entry counts 2 x the buffer handed (the ring), an
-    all-gather's over the ``model_ranks`` of a model group its result,
-    ``model_ranks`` x the block handed, an all-to-all's what is
-    handed."""
+    all-gather's over the ``model_ranks`` of a model group ("gather",
+    "heads", "logits") its result, ``model_ranks`` x the block handed,
+    an all-to-all's what is handed."""
     nbytes, calls = (report[key] for key in KIND_KEYS[kind])
-    return nbytes // {"exchange": 1, "gather": model_ranks}.get(kind, 2), \
-        calls
+    gathered = {"exchange": 1, "gather": model_ranks, "heads": model_ranks,
+                "logits": model_ranks}
+    return nbytes // gathered.get(kind, 2), calls
 
 
 # ---------------------------------------------------------------------------
@@ -844,29 +883,46 @@ def production_mesh(multi_pod: bool):
 
 def reckon_cell(arch: str, shape_name: str, multi_pod: bool,
                 mla_absorb: bool = False, extra_tags=None, cfg_override=None,
-                donate: bool = False, fsdp: bool = False) -> dict:
+                donate: bool = False, fsdp: bool = False,
+                mesh=None) -> dict:
     """The report of one (arch, shape, mesh) cell (the reference's
     ``lower_cell``, which also returns XLA's lowered and compiled
-    objects; the port has none)."""
+    objects; the port has none); ``mesh`` in place of the production
+    mesh (``rank_cell_mesh``)."""
     cfg = cfg_override or get_config(arch)
     shape = SHAPES[shape_name]
-    report = reckon(cfg, shape, production_mesh(multi_pod),
-                    mla_absorb=mla_absorb, donate=donate, fsdp=fsdp)
+    mesh = mesh or production_mesh(multi_pod)
+    report = reckon(cfg, shape, mesh, mla_absorb=mla_absorb, donate=donate,
+                    fsdp=fsdp)
     base = get_config(arch)
-    return {"arch": arch, "shape": shape_name,
-            "mesh": "2x16x16" if multi_pod else "16x16",
+    return {"arch": arch, "shape": shape_name, "mesh": _mesh_tag(mesh),
             "tags": extra_tags or {}, **report,
             "n_params": base.n_params(),
             "n_active_params": base.n_active_params()}
 
 
+def rank_cell_mesh(ranks: int, model_ranks: int) -> Mesh:
+    """The (ranks / model_ranks, model_ranks) mesh over meta devices: a
+    device a rank, as a run over ``ranks`` ranks with its model axis over
+    groups of ``model_ranks`` lays a step out (``launch/train.py`` and
+    ``launch/serve.py`` with ``--ranks``), so that a cell reckoned on it
+    counts the collectives a rank hands."""
+    if model_ranks < 1 or ranks % model_ranks:
+        raise ValueError(f"--model-ranks {model_ranks} does not divide "
+                         f"--ranks {ranks}")
+    return Mesh((ranks // model_ranks, model_ranks), ("data", "model"),
+                virtual_devices(ranks, META))
+
+
 def run_cell(arch, shape_name, multi_pod, out_dir, skip_existing=False,
              mla_absorb=False, suffix="", cfg_override=None, donate=False,
-             fsdp=False) -> bool:
+             fsdp=False, mesh=None) -> bool:
     """Reckon one cell into ``out_dir/<arch>__<shape>__<mesh><suffix>
     .json``: a skip-rule cell as ``{"skipped": true, "reason": ...}``, a
-    failure's traceback into ``<name>.json.err`` (returns False)."""
-    mesh_tag = "2x16x16" if multi_pod else "16x16"
+    failure's traceback into ``<name>.json.err`` (returns False).
+    ``mesh`` in place of the production mesh (``rank_cell_mesh``)."""
+    mesh_tag = (_mesh_tag(mesh) if mesh is not None
+                else "2x16x16" if multi_pod else "16x16")
     name = f"{arch}__{shape_name}__{mesh_tag}{suffix}"
     path = os.path.join(out_dir, name + ".json")
     if skip_existing and os.path.exists(path):
@@ -884,7 +940,7 @@ def run_cell(arch, shape_name, multi_pod, out_dir, skip_existing=False,
     try:
         report = reckon_cell(arch, shape_name, multi_pod,
                              mla_absorb=mla_absorb, cfg_override=cfg_override,
-                             donate=donate, fsdp=fsdp)
+                             donate=donate, fsdp=fsdp, mesh=mesh)
         with open(path, "w") as f:
             json.dump(report, f, indent=2)
         print(f"[ok] {name}: compile={report['compile_s']}s "
@@ -2530,7 +2586,9 @@ def main(argv=None) -> int:
                     help="with --substrate pod_mesh or lm_subspace: also run "
                          "the pod leg over N ranks of a torch.distributed "
                          "group, one child process a rank "
-                         "(launch/ranks.py)")
+                         "(launch/ranks.py); for the model cells: reckon "
+                         "them on the (N/M, M) mesh of a run over N ranks "
+                         "in place of the production meshes")
     ap.add_argument("--model-ranks", type=int, default=1,
                     help="with --ranks N: cut the mesh's model axis over "
                          "groups of M of the N ranks as well (the (N/M, M) "
@@ -2571,6 +2629,15 @@ def main(argv=None) -> int:
                 child.stop()
     meshes = {"pod": [False], "multipod": [True],
               "both": [False, True]}[args.mesh]
+    rank_mesh = None
+    if args.ranks:
+        try:
+            rank_mesh = rank_cell_mesh(args.ranks, args.model_ranks)
+        except ValueError as e:
+            ap.error(str(e))
+        meshes = [False]
+    elif args.model_ranks != 1:
+        ap.error("--model-ranks runs with --ranks")
     archs = ARCH_NAMES if (args.all or args.arch is None) else [args.arch]
     shapes = (list(SHAPES) if (args.all or args.shape is None)
               else [args.shape])
@@ -2587,7 +2654,7 @@ def main(argv=None) -> int:
                               skip_existing=args.skip_existing,
                               mla_absorb=args.mla_absorb, suffix=args.suffix,
                               cfg_override=cfg_override, donate=args.donate,
-                              fsdp=args.fsdp)
+                              fsdp=args.fsdp, mesh=rank_mesh)
                 failures += 0 if ok else 1
     print(f"done; failures={failures}")
     return 1 if failures else 0

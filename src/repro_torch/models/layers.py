@@ -255,9 +255,89 @@ def _cache_index(cfg: ModelConfig, t, window: int):
     return _clamp_index(t % window if cfg.sliding_window > 0 else t, window)
 
 
+def _attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor):
+    """A block of the cache's rows' share of ``_attend`` for a decode step:
+    q (B, 1, H, D) every query head, k/v (B, n, KV, D) the block's rows,
+    ``valid`` (n,) the rows to read.  Returns the block's output left
+    unnormalised (B, 1, H, D), its scores' max (B, 1, H) and its sum of
+    exponentials (B, 1, H), all f32: the scores made as ``_attend`` makes
+    them, their exponentials from the block's own max, 0 on every masked
+    row (a block with no row to read gives zeros), cast to v's type
+    before the product with v."""
+    b, s, h, dd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, s, kv, h // kv, dd)
+    scores = torch.einsum("bsngd,btnd->bngst", qg, k).to(torch.float32)
+    scores = (scores * (dd ** -0.5)).masked_fill(~valid, -1e30)
+    top = torch.amax(scores, dim=-1, keepdim=True)
+    e = torch.exp(scores - top) * valid
+    out = torch.einsum("bngst,btnd->bsngd", e.to(v.dtype), v)
+
+    def heads(x):                                    # (B, KV, G, S) -> (B, S, H)
+        return x.permute(0, 3, 1, 2).reshape(b, s, h)
+    return (out.to(torch.float32).reshape(b, s, h, v.shape[-1]),
+            heads(top[..., 0]), heads(e.sum(-1)))
+
+
+def _decode_over_ranks(q, k, v, cache: Params, cfg: ModelConfig, t,
+                       shards, head0: int) -> torch.Tensor:
+    """One decode step's attention where the rank holds block
+    ``shards.seq_block`` of the ``seq_blocks`` blocks of the cache's rows
+    (``sharding.ModelShards.init_cache``) and, where ``q`` is a block of
+    the query heads from global head ``head0``, that block (and of the kv
+    heads where they are cut).  The step's query heads, and the new k/v
+    row's where they are cut, are gathered over the model group in one
+    all-gather; the rank whose block holds row ``_cache_index`` writes the
+    row (every rank computes it, whole where the kv heads are whole; a
+    0-d tensor ``t`` is read on the host to find that rank);
+    each rank attends every head over its rows (``_attend_rows``, the
+    rows' mask ``arange(window) <= t`` at the block's global offsets);
+    the blocks' partials are rescaled by the largest max over the ranks
+    that hold the rows and summed there, in f32, and the sum normalised
+    and cast once.  Returns the output (B, 1, heads, D) of the rank's
+    query heads."""
+    heads, hkv = q.shape[2], k.shape[2]
+    if heads != cfg.padded_heads:                    # a block of the heads
+        parts = [q, k, v] if hkv != cfg.n_kv_heads else [q]
+        whole = shards.gather_heads(torch.cat(parts, dim=2))
+        m = shards.model_ranks
+        whole = whole.view(*q.shape[:2], m, -1, q.shape[-1])
+        q = whole[:, :, :, :heads].reshape(*q.shape[:2], -1, q.shape[-1])
+        if len(parts) == 3:
+            k = whole[:, :, :, heads:heads + hkv].reshape(
+                *k.shape[:2], -1, k.shape[-1])
+            v = whole[:, :, :, heads + hkv:].reshape(*k.shape)
+    n = cache["k"].shape[1]
+    row0 = shards.seq_block * n
+    local = _cache_index(cfg, t, n * shards.seq_blocks) - row0
+    if 0 <= local < n:
+        if cfg.quantized_cache:
+            quant_write(cache["k"], cache["k_scale"], k, local)
+            quant_write(cache["v"], cache["v_scale"], v, local)
+        else:
+            _write_at(cache["k"], k, local)
+            _write_at(cache["v"], v, local)
+    if cfg.quantized_cache:
+        ck = dequant(cache["k"], cache["k_scale"], q.dtype)
+        cv = dequant(cache["v"], cache["v_scale"], q.dtype)
+    else:
+        ck, cv = cache["k"], cache["v"]
+    valid = row0 + torch.arange(n, device=q.device) <= t
+    out, top, total = _attend_rows(q, ck, cv, valid)
+    peak = top.clone()
+    shards.seq_max_(peak)
+    scale = torch.exp(top - peak)        # 0 for a block with no row to read
+    merged = torch.cat([out * scale[..., None], (total * scale)[..., None]],
+                       dim=-1)
+    shards.seq_sum_(merged)
+    out = merged[..., :-1] / merged[..., -1:]
+    return out[:, :, head0:head0 + heads].to(q.dtype)
+
+
 def attention_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
                     positions: torch.Tensor, cache: Optional[Params] = None,
-                    t=None, head0: int = 0
+                    t=None, head0: int = 0, shards=None
                     ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Dense GQA attention.  Without ``cache``, over the whole sequence:
     the attention kernel when ``use_kernels`` and ``causal`` (positions are
@@ -267,8 +347,11 @@ def attention_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
     tensor); the step's k/v are written into the cache in place (at
     ``t % window`` in a sliding window's ring) and the cache is returned.
     ``p`` may hold a block of the query heads from global head ``head0``
-    (the model axis over ranks, training only): its output is then that
-    block's partial product with ``wo``."""
+    (the model axis over ranks): its output is then that block's partial
+    product with ``wo``.  Over the model axis's ranks (``shards``, a
+    ``sharding.ModelShards``) the cache is the rank's block of its rows,
+    and a decode step merges the blocks' attention over the ranks
+    (``_decode_over_ranks``)."""
     q = _project(x, p["wq"])
     k = _project(x, p["wk"])
     v = _project(x, p["wv"])
@@ -287,6 +370,8 @@ def attention_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
                                        window=cfg.sliding_window)
         else:
             out = _attend(q, k, v, _prefill_mask(cfg, positions))
+    elif shards is not None:
+        out = _decode_over_ranks(q, k, v, cache, cfg, t, shards, head0)
     else:
         window = cache["k"].shape[1]
         idx = _cache_index(cfg, t, window)

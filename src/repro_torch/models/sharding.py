@@ -1091,9 +1091,10 @@ def vocab_cuts(cfg: ModelConfig, specs) -> Tuple[bool, bool]:
 
 #: the kinds a step over the model axis's ranks counts its collectives by
 #: (``ModelShards.model_bytes``), each the name of the dry-run's entries
-#: of that kind (``roofline.analysis.CollectiveStats.kinds``)
+#: of that kind (``roofline.analysis.CollectiveStats.kinds``); "heads",
+#: "merge" and "logits" are the serving steps'
 MODEL_KINDS = ("block", "norm", "vocab", "gradient", "exchange", "gather",
-               "stats")
+               "stats", "heads", "merge", "logits")
 
 
 class ModelShards(_Blocks):
@@ -1172,12 +1173,29 @@ class ModelShards(_Blocks):
     over the data group (``RankSum.sum_grads``).  The channel mix's
     ``mu_k_cm``, ``mu_r_cm`` and ``w_r_cm`` get whole gradients.
 
+    Serving (``transformer.make_serve_step`` / ``make_prefill_step``):
+    the rank holds its block of each decode cache as ``cache_specs``
+    lays it out (``init_cache``: the batch's rows over the data axes
+    where they divide them, k/v's rows over ``model``, or over every
+    axis where the batch's rows do not divide), and a decode step's
+    attention over that block gathers the step's query heads (and the
+    new k/v row's, where the kv heads are cut) over the model group
+    (``gather_heads``) and merges the blocks' softmax partials over the
+    ranks that hold the cache's rows (``seq_max_``, ``seq_sum_``;
+    ``layers.attention_block``).  Where the head's vocabulary is cut, the
+    logits are all-gathered over the model group (``gather_logits``), so
+    every rank returns the same whole logits; where the batch's rows are
+    cut over the data ranks (``rows_cut``), a serving loop takes its rows
+    (``own_rows``) and gathers the logits' rows (``all_rows``).
+
     Counts, by kind (``MODEL_KINDS``; "block": the units' f and g;
     "norm": Mamba2's norm statistics; "vocab": the vocabulary cut's
     lookup, head input and chunk sums; "gradient": the partial leaves'
     sums; "exchange": the MoE's all-to-alls; "gather": the MoE groups'
     all-gathers, forward and backward; "stats": the load-balance
-    statistics' sums), each held against the dry-run's entries of the
+    statistics' sums; "heads": a decode step's gathers of the query and
+    new k/v heads; "merge": its softmax merges; "logits": the serving
+    head's output gathers), each held against the dry-run's entries of the
     same kind (``roofline.analysis.CollectiveStats.kinds``; an
     all-reduce's entry is 2 x the buffer handed, an all-gather's M x,
     an all-to-all's 1 x): ``model_bytes`` (the buffer handed to the
@@ -1204,6 +1222,10 @@ class ModelShards(_Blocks):
         self.model_calls = dict.fromkeys(MODEL_KINDS, 0)
         self.model_seconds = dict.fromkeys(MODEL_KINDS, 0.0)
         self.gnorms: List[torch.Tensor] = []
+        #: the decode caches' layout (``init_cache``): the rank's block of
+        #: the cache's rows, of how many, and the ranks that hold them
+        self.seq_block, self.seq_blocks = self.model_block, m
+        self.seq_group = self.model_group
 
     def _count(self, kind: str, x: torch.Tensor, seconds: float) -> None:
         self.model_bytes[kind] += x.numel() * x.element_size()
@@ -1211,12 +1233,108 @@ class ModelShards(_Blocks):
         self.model_seconds[kind] += seconds
 
     def all_reduce(self, x: torch.Tensor, kind: str,
-                   op=dist.ReduceOp.SUM) -> None:
-        """``x`` reduced over the model group in place, counted under
-        ``kind``."""
-        _, s = timed(lambda: dist.all_reduce(x, op=op,
-                                             group=self.model_group), x)
+                   op=dist.ReduceOp.SUM, group=None) -> None:
+        """``x`` reduced over ``group`` (None: the model group) in place,
+        counted under ``kind``."""
+        group = self.model_group if group is None else group
+        _, s = timed(lambda: dist.all_reduce(x, op=op, group=group), x)
         self._count(kind, x, s)
+
+    def init_cache(self, cfg: ModelConfig, batch: int, max_seq: int,
+                   device) -> Any:
+        """The rank's block of ``transformer.init_cache(cfg, batch,
+        max_seq)``, zeros, as ``cache_specs`` lays the cache out over the
+        mesh (the block ``Sharded.block_of`` gives this rank's position).
+        Sets the layout a decode step reads: the rank's block
+        ``seq_block`` of the ``seq_blocks`` blocks of the k/v rows, held
+        by ``seq_group``.  The mesh holds one position a rank."""
+        mesh = self.mesh
+        if mesh.shape["data"] != self.world:
+            raise ValueError(f"{mesh}: a rank's cache is one position's "
+                             f"block; its data axis must be one position a "
+                             f"data rank")
+        specs = cache_specs(cfg, ShapeConfig("serve", max_seq, batch,
+                                             "decode"), mesh)
+        pos = {a: i for i, a in enumerate(mesh.axis_names)}
+
+        def block(path, leaf, spec):
+            shape = list(leaf.shape)
+            for dim, e in enumerate(spec):
+                n = 1 if e is None else _axis_size(mesh, e)
+                if shape[dim] % n:
+                    raise ValueError(
+                        f"{cfg.name}: cache {_path_str(path)} of "
+                        f"{tuple(leaf.shape)} does not cut into {n} blocks "
+                        f"along dimension {dim} ({spec} over {mesh}): pick "
+                        f"a batch and max_seq that divide")
+                shape[dim] //= n
+            return torch.zeros(shape, dtype=leaf.dtype, device=device)
+
+        cache = map_specs(block, T.init_cache(cfg, batch, max_seq,
+                                              as_shape=True), specs)
+        kv = [spec for path, spec in spec_leaves(specs)
+              if path.endswith("/k")]
+        if kv:
+            seq = kv[0][-3]
+            axes = seq if isinstance(seq, tuple) else (seq,)
+            index = 0
+            for a in axes:
+                index = index * mesh.shape[a] + self.coords[pos[a]]
+            self.seq_block, self.seq_blocks = index, _axis_size(mesh, seq)
+            self.seq_group = (self.model_group if axes == ("model",)
+                              else dist.group.WORLD)
+        return cache
+
+    def gather_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """The model group's blocks of heads along ``x``'s dimension 2 put
+        together, in block order (each rank's a block of the heads),
+        counted under "heads" (the block handed over)."""
+        out, s = timed(lambda: gather_blocks(x, 2, self.model_ranks,
+                                             self.model_group), x)
+        self._count("heads", x, s)
+        return out
+
+    def seq_max_(self, x: torch.Tensor) -> None:
+        """``x`` the largest over the ranks that hold the cache's rows, in
+        place, counted under "merge"."""
+        self.all_reduce(x, "merge", dist.ReduceOp.MAX, self.seq_group)
+
+    def seq_sum_(self, x: torch.Tensor) -> None:
+        """``x`` summed over the ranks that hold the cache's rows, in
+        place, counted under "merge"."""
+        self.all_reduce(x, "merge", group=self.seq_group)
+
+    def gather_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits of the rank's block of the vocabulary put together
+        with the model group's along the last dimension, counted under
+        "logits" (the block handed over)."""
+        out, s = timed(lambda: gather_blocks(x, x.dim() - 1,
+                                             self.model_ranks,
+                                             self.model_group), x)
+        self._count("logits", x, s)
+        return out
+
+    def rows_cut(self, batch: int) -> bool:
+        """Whether a batch of ``batch`` rows is cut over the data ranks
+        (``input_specs``' and ``cache_specs``' rule: more than one row, a
+        number the data axis divides)."""
+        return self.world > 1 and batch > 1 and batch % self.world == 0
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a batch ``x`` (rows leading) where its rows
+        are cut over the data ranks (``rows_cut``), else ``x``."""
+        if not self.rows_cut(x.shape[0]):
+            return x
+        n = x.shape[0] // self.world
+        return x.narrow(0, self.mesh.rank // self.model_ranks * n, n)
+
+    def all_rows(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """The data group's rows of ``x`` put together where a batch of
+        ``batch`` rows is cut over the data ranks (``rows_cut``), else
+        ``x``."""
+        if not self.rows_cut(batch):
+            return x
+        return gather_blocks(x, 0, self.world, self.group)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """``x``'s blocks along its leading dimension exchanged over the

@@ -329,6 +329,14 @@ class ShardCtx:
         return 0 if self.ranks is None else self.ranks.model_block
 
     @property
+    def serving(self):
+        """The ``sharding.ModelShards`` whose rank holds a block of each
+        decode cache's rows, where the model axis is cut over ranks
+        (``layers.attention_block`` merges a decode step's attention over
+        them), else None."""
+        return self.ranks if self.model_ranks > 1 else None
+
+    @property
     def table_cut(self) -> bool:
         """Whether the rank holds a block of the embedding table's
         vocabulary."""
@@ -386,11 +394,13 @@ def _apply_block(x: torch.Tensor, bp: Params, sig: Sig, cfg: ModelConfig,
             # projections, g after wo
             att, new_cache = L.attention_block(
                 ctx.model_in(h, True), bp["attn"], cfg, positions, cache, t,
-                head0=ctx.model_block * bp["attn"]["wq"].shape[1])
+                head0=ctx.model_block * bp["attn"]["wq"].shape[1],
+                shards=ctx.serving)
             att = ctx.model_out(att, True, pin)
         else:
             att, new_cache = L.attention_block(h, bp["attn"], cfg,
-                                               positions, cache, t)
+                                               positions, cache, t,
+                                               shards=ctx.serving)
         if pin:
             att = ctx.cons(att, None, None)
         if cfg.parallel_block:
@@ -550,7 +560,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if cache is not None and training:
         raise RuntimeError("a decode step writes its cache in place: run it "
                            "under torch.no_grad() (make_serve_step does)")
-    _check_not_model_cut(ctx, "a decode step" if cache is not None else None)
+    if cache is not None:
+        check_serve_model_cut(cfg, ctx.model_ranks, "a decode step")
     remat = cfg.remat and training
     x = embed_inputs(params, cfg, batch, ctx)
     x = ctx.cons(x, None, None)
@@ -606,17 +617,36 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # Loss
 # ---------------------------------------------------------------------------
 
-#: where serving over the model axis's ranks waits
-MODEL_SERVE_ITEM = "ROADMAP A.8 (viii)"
+#: where serving over the model axis's ranks waits, by what the
+#: configuration holds beyond dense GQA attention: the recurrent states
+#: (RWKV6's wkv, Mamba2's ssm / conv_xs, the weight-shared block among
+#: Mamba2 blocks), and MLA's latent cache with the MoE exchange
+MODEL_SERVE_ITEM = {"recurrent": "ROADMAP A.8 (xi)",
+                    "mla_moe": "ROADMAP A.8 (xii)"}
 
 
-def _check_not_model_cut(ctx: ShardCtx, what: Optional[str]) -> None:
-    """Refuse ``what`` (a serving step) in a ctx whose parameters are cut
-    over the model axis's ranks: their caches are not cut yet."""
-    if what is not None and ctx.model_ranks > 1:
-        raise NotImplementedError(
-            f"{what} over the model axis's ranks (its caches cut per "
-            f"cache_specs) waits for {MODEL_SERVE_ITEM}")
+def check_serve_model_cut(cfg: ModelConfig, model_ranks: int,
+                          what: str) -> None:
+    """Refuse ``what`` (a serving step) over ``model_ranks`` > 1 ranks of
+    the model axis (the parameters cut over them) where ``cfg`` has more
+    than dense GQA
+    attention blocks: RWKV6, Mamba2 or the weight-shared block (their
+    states are not cut yet), MLA or MoE (the latent cache and the expert
+    exchange in decode), each naming its ROADMAP item."""
+    if model_ranks == 1:
+        return
+    kinds = set(cfg.blocks())
+    if kinds & {"rwkv6", "mamba2", "shared_attn"}:
+        held, item = (f"recurrent states ({', '.join(sorted(kinds - {'attn'}))})",
+                      MODEL_SERVE_ITEM["recurrent"])
+    elif cfg.mla is not None or cfg.moe is not None:
+        held, item = ("MLA's latent cache and the MoE exchange",
+                      MODEL_SERVE_ITEM["mla_moe"])
+    else:
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: {what} over the model axis's ranks runs the dense "
+        f"attention decoders only; the {held} wait for {item}")
 
 
 #: the loss's sequence chunk: live logits (B, LOSS_CHUNK, V), not (B, S, V)
@@ -753,32 +783,48 @@ def value_and_grad(loss_fn: Callable, params: Params,
 # Serving steps
 # ---------------------------------------------------------------------------
 
+def _logits(hidden: torch.Tensor, params: Params, cfg: ModelConfig,
+            ctx: ShardCtx) -> torch.Tensor:
+    """The head's logits of ``hidden``: where the rank holds a block of
+    the vocabulary (``ctx.head_cut``), its block's, all-gathered over the
+    model group, so that every rank holds the same whole logits."""
+    logits = torch.matmul(hidden, head_weight(params, cfg, ctx))
+    return ctx.ranks.gather_logits(logits) if ctx.head_cut else logits
+
+
 def make_serve_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
                     absorb: bool = False, unroll: bool = False) -> Callable:
     """One decode step: (params, cache, tokens (B, 1), t) -> (logits
     (B, 1, V) in the parameters' type, cache).  The cache is written in
-    place; nothing in the step reads a device value on the host."""
-    _check_not_model_cut(ctx, "a decode step")
+    place; nothing in the step reads a device value on the host.  Over
+    the model axis's ranks (``sharding.tp_ctx``) ``params`` are the
+    rank's blocks and ``cache`` its block of the caches
+    (``sharding.ModelShards.init_cache``); every rank returns the whole
+    logits of its rows."""
+    check_serve_model_cut(cfg, ctx.model_ranks, "a decode step")
 
     def serve_step(params: Params, cache, tokens: torch.Tensor, t):
         with torch.no_grad():
             hidden, cache, _ = forward(params, cfg, {"tokens": tokens}, ctx,
                                        cache=cache, t=t, absorb=absorb,
                                        unroll=unroll)
-            return torch.matmul(hidden, head_weight(params, cfg)), cache
+            return _logits(hidden, params, cfg, ctx), cache
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig, ctx: ShardCtx = NULL_CTX,
                       unroll: bool = False) -> Callable:
     """Forward pass producing logits (inference prefill / encoder
-    forward): (params, batch) -> (B, S, V) in the parameters' type."""
-    _check_not_model_cut(ctx, "a prefill step")
+    forward): (params, batch) -> (B, S, V) in the parameters' type.  Over
+    the model axis's ranks every rank attends its block of the heads (the
+    attention kernel on it where ``use_kernels``) and returns the whole
+    logits."""
+    check_serve_model_cut(cfg, ctx.model_ranks, "a prefill step")
 
     def prefill_step(params: Params, batch: Dict[str, torch.Tensor]):
         with torch.no_grad():
             hidden, _, _ = forward(params, cfg, batch, ctx, unroll=unroll)
-            return torch.matmul(hidden, head_weight(params, cfg))
+            return _logits(hidden, params, cfg, ctx)
     return prefill_step
 
 

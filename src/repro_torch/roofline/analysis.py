@@ -370,16 +370,38 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
       exchange has every device hold its own rows and has no such
       gather.
 
-    Not counted: the LM head's output collectives in ``prefill`` /
-    ``decode`` cells where the vocabulary is cut (no step of the port
-    over model ranks runs them: serving over model ranks is ROADMAP A.8
-    (viii)), and what XLA's partitioner would add beyond the rules
+    * the serving head's output ("logits", ``prefill`` and ``decode``):
+      where the head's vocabulary is cut over ``model``, the logits
+      (the device's tokens × vocabulary in the parameters' type, the
+      result) are all-gathered over ``model`` once a step, so that every
+      device holds the whole logits (``transformer.make_serve_step``,
+      ``make_prefill_step``);
+    * a decode step's attention over its cache block (``decode``, the
+      port's: entries ``<unit>/attn heads (port)`` and ``<unit>/attn
+      merge max`` / ``merge sums (port)``), at each dense GQA attention
+      application (MLA's latent cache is ROADMAP A.8 (xii)): where the
+      query heads are cut over ``model``, one all-gather over ``model``
+      of the step's query heads, and of the new k/v row's where the kv
+      heads are cut too ("heads": the device's rows × (padded heads, + 2
+      × kv heads) × head size in the parameters' type, the result); and
+      over the axes ``cache_specs`` cuts the cache's rows over (``model``,
+      or every axis where the batch's rows do not divide the data axes)
+      the all-reduce of the blocks' score maxima (rows × padded heads ×
+      4 B) and of their rescaled outputs and sums of exponentials (rows
+      × padded heads × (head size + 1) × 4 B) ("merge",
+      ``layers.attention_block``).  GSPMD would lay the same step out by
+      its own choice; these are the collectives the port's step hands.
+
+    Not counted: the recurrent states' serving collectives and MLA's
+    (no step of the port over model ranks runs them: ROADMAP A.8 (xi) and
+    (xii)), and what XLA's partitioner would add beyond the rules
     (resharding copies).
     """
     dp, tp = mesh_axes(mesh)
     dp_size = _size(mesh, dp)
     b = shape.global_batch
-    rows = b // dp_size if (b > 1 and b % dp_size == 0) else b
+    rows_cut = b > 1 and b % dp_size == 0
+    rows = b // dp_size if rows_cut else b
     seq = 1 if shape.kind == "decode" else shape.seq_len
     tokens = rows * seq
     train = shape.kind == "train"
@@ -429,7 +451,26 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
             tally.add("all-to-all", experts, nbytes, f"{what} {step}",
                       passes, kind="exchange")
 
+    def decode_attention(wq_spec, wk_spec, what: str):
+        """A decode step's gathers of the heads and merges of the cache
+        blocks' partials, the port's, where ``wq_spec`` / ``wk_spec``
+        (without a layer axis) cut the heads."""
+        hq, hkv, hd = cfg.padded_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        if tp in _axes(wq_spec[1]):
+            heads = hq + (2 * hkv if tp in _axes(wk_spec[1]) else 0)
+            tally.add("all-gather", (tp,), rows * heads * hd * pbytes,
+                      f"{what} heads (port)", kind="heads")
+        over = (tp,) if rows_cut else tuple(dp) + (tp,)
+        tally.add("all-reduce", over, rows * hq * 4,
+                  f"{what} merge max (port)", kind="merge")
+        tally.add("all-reduce", over, rows * hq * (hd + 1) * 4,
+                  f"{what} merge sums (port)", kind="merge")
+
     table_cut, head_cut = vocab_cuts(cfg, specs)
+    if head_cut and not train:
+        head = "embed/tok" if cfg.tie_embeddings else "head/w"
+        tally.add("all-gather", (tp,), tokens * cfg.vocab_size * pbytes,
+                  f"{head} logits", kind="logits")
     if table_cut:
         tally.add("all-reduce", (tp,), tokens * d * itemsize("embed/tok"),
                   "embed/tok lookup", kind="vocab")
@@ -467,6 +508,11 @@ def collective_bytes_from_specs(cfg: ModelConfig, shape: ShapeConfig, mesh,
             for _ in range(repeat):
                 if kind in ("attn", "shared_attn"):
                     pin = cfg.pin_proj_outputs
+                    if shape.kind == "decode" and (
+                            cfg.mla is None or kind == "shared_attn"):
+                        decode_attention(spec("attn", "wq"),
+                                         spec("attn", "wk"),
+                                         f"{where}/attn")
                     tp_reduce(spec("attn", "wo"), f"{where}/attn/wo", pin)
                     if is_moe and kind == "attn":
                         moe(spec("moe", "w_out"), f"{where}/moe")

@@ -353,10 +353,10 @@ def test_shared_weights_serve_every_application_with_its_own_cache(
     seen = []
     block = L.attention_block
 
-    def spy(x, p, cfg, positions, cache=None, t=None):
+    def spy(x, p, cfg, positions, cache=None, t=None, **kw):
         seen.append((id(p), None if cache is None
                      else cache["k"].data_ptr()))
-        return block(x, p, cfg, positions, cache, t)
+        return block(x, p, cfg, positions, cache, t, **kw)
     monkeypatch.setattr(L, "attention_block", spy)
     toks = torch.from_numpy(np.random.default_rng(7).integers(
         0, pcfg.vocab_size, (2, 12))).long()

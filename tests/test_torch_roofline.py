@@ -14,7 +14,10 @@
   leaves read inside a cut unit (k/v where the kv heads do not divide
   ``model``, RWKV6's and Mamba2's smoke configurations), the MoE's
   statistics and the port's gathers, the loss's sums over the data axes,
-  and the accessors of the earlier kinds unchanged by the new entries.
+  and the accessors of the earlier kinds unchanged by the new entries;
+  the serving steps' entries (the logits' gather, a decode step's heads
+  gather and merges) on danube's decode_32k and prefill_32k cells over
+  (1, 2) and its long_500k cell over 2 × 2.
 """
 import ast
 import dataclasses
@@ -193,9 +196,12 @@ def test_dense_variants_by_hand():
     st = _stats(_dense(), PREFILL, MESH_2x2)
     assert st.bytes_by_kind["all-reduce"] == 4 * UNIT_AR + 2 * 2048
     assert st.count_by_kind["all-reduce"] == 4 + 1
-    st = _stats(_dense(), DECODE, MESH_2x2)      # 2 rows x 1 token
+    # decode, 2 rows x 1 token: besides, each layer's attention merges its
+    # cache blocks over model, the maxima (2 rows x 4 heads f32) and the
+    # outputs with their sums (2 x 4 x (8 + 1) f32), ring twice
+    st = _stats(_dense(), DECODE, MESH_2x2)
     assert st.bytes_by_kind["all-reduce"] == 4 * (2 * 1 * 32 * 4 * 2) \
-        + 2 * (2 * 1 * 32 * 2)
+        + 2 * (2 * 1 * 32 * 2) + 2 * 2 * (2 * 4 * 4 + 2 * 4 * 9 * 4)
     # a (1, 1) mesh has no collective
     st = _stats(_dense(), TRAIN, _FakeMesh({"data": 1, "model": 1}))
     assert st.total_bytes == 0 and st.top_ops == []
@@ -218,8 +224,13 @@ def test_dense_fsdp_by_hand():
     assert st.bytes_by_kind["all-reduce"] == (12 * UNIT_AR + 2 * rest
                                               + DENSE_VOCAB_AR + LOSS_AR)
     assert st.count_by_kind["all-reduce"] == 12 + 10 + 6 + 1
+    # inference gathers each once, and the logits of the vocabulary cut
+    # over model (2 rows x 16 tokens x 32768, bf16) once
     st = _stats(cfg, PREFILL, MESH_2x2, fsdp=True)
-    assert st.bytes_by_kind["all-gather"] == 2 * big * 2
+    logits = 2 * 16 * 32768 * 2
+    assert st.bytes_by_kind["all-gather"] == 2 * big * 2 + logits
+    assert st.fsdp_all_gather_bytes == 2 * big * 2
+    assert st.kind_bytes("logits") == logits
     assert st.bytes_by_kind["reduce-scatter"] == 0
     # with a pod axis the fsdp gradients are also all-reduced over pod,
     # the rest over pod x data; 8 devices stay on NVLink
@@ -305,7 +316,7 @@ def test_the_vocabulary_cut_by_hand():
     (2 rows x 16 x d 32, bf16), the head input's gradient (f32), the
     chunk's max (2 x 16 f32) and two sums, each in the forward and the
     chunk's recompute; in prefill and decode the lookup alone (the head's
-    output collectives wait for serving over model ranks).  Tied, the
+    output gather is a "logits" entry).  Tied, the
     head is the table.  A 1100-token sequence makes 512 + 512 + 76-token
     chunks.  A vocabulary 2 does not divide is whole: no entry."""
     st = _stats(_dense(), TRAIN, MESH_2x2)
@@ -410,6 +421,53 @@ def test_the_loss_sums_over_the_data_axes_by_hand():
     assert _stats(_dense(), PREFILL, MESH_2x2).kind_calls("loss") == 0
     st = _stats(_dense(), TRAIN, _FakeMesh({"data": 1, "model": 2}))
     assert st.kind_calls("loss") == 0
+
+
+def test_danube_serving_cells_on_1x2_by_hand():
+    """h2o-danube-3-4b's decode_32k and prefill_32k cells on (1, 2), as a
+    run over 2 ranks with ``--model-ranks 2`` lays them out (32/8 heads of
+    120, d 3840, vocabulary 32000 cut, bf16, 24 layers): the logits
+    gathered over model (the device's tokens x 32000 x 2 B); in decode
+    each layer's gather of the query and new k/v heads (128 rows x (32 +
+    16) x 120 x 2 B, the result) and its two merges, the maxima (128 x 32
+    f32) and the outputs with their sums (128 x 32 x 121 f32), ring
+    twice; one Megatron all-reduce each for attn/wo and mlp/w_out a
+    layer (tokens x 3840 f32, ring twice) and the lookup (tokens x 3840
+    bf16, ring twice).  Nothing else."""
+    cfg = get_config("h2o-danube-3-4b")
+    mesh = _FakeMesh({"data": 1, "model": 2})
+    assert (cfg.padded_heads, cfg.n_kv_heads, cfg.resolved_head_dim) == (
+        32, 8, 120)
+    layers = cfg.n_layers
+    for shape_name, tokens in (("decode_32k", 128), ("prefill_32k",
+                                                     32 * 32768)):
+        st = _stats(cfg, SHAPES[shape_name], mesh)
+        assert _entries(st, "logits") == {
+            "head/w logits": (tokens * 32000 * 2, 1)}
+        assert st.kind_bytes("block") == 2 * layers * tokens * 3840 * 4 * 2
+        assert st.kind_calls("block") == 2 * layers
+        assert _entries(st, "vocab") == {
+            "embed/tok lookup": (tokens * 3840 * 2 * 2, 1)}
+        decode = shape_name == "decode_32k"
+        assert st.kind_bytes("heads") == (
+            layers * 128 * 48 * 120 * 2 if decode else 0)
+        assert st.kind_calls("heads") == (layers if decode else 0)
+        assert st.kind_bytes("merge") == (
+            layers * 2 * (128 * 32 * 4 + 128 * 32 * 121 * 4) if decode
+            else 0)
+        assert st.kind_calls("merge") == (2 * layers if decode else 0)
+        assert set(st.kinds.values()) == (
+            {"logits", "block", "vocab", "heads", "merge"} if decode
+            else {"logits", "block", "vocab"})
+        assert all(n.startswith(("all-reduce over model (nvlink)",
+                                 "all-gather over model (nvlink)"))
+                   for n in st.kinds)
+    # batch 1 (long_500k) cuts the cache's rows over every axis: on
+    # (2, 2) the merges run over data x model, the gathers over model
+    st = _stats(cfg, SHAPES["long_500k"], MESH_2x2)
+    merges = {n.split(": ")[0] for n, k in st.kinds.items() if k == "merge"}
+    assert merges == {"all-reduce over dataxmodel (nvlink)"}
+    assert st.kind_bytes("merge") == layers * 2 * (32 * 4 + 32 * 121 * 4)
 
 
 @pytest.mark.parametrize("cfg, blocks", [

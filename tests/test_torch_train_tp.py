@@ -44,6 +44,7 @@ import torch
 from repro.launch.train import PRESETS as J_PRESETS
 from repro.models import transformer as JT
 from repro.optim.adamw import AdamW as JAdamW
+from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ShapeConfig, config_from_dict
 from repro_torch.launch import dryrun, ranks, train
 from repro_torch.launch.mesh import Mesh, virtual_devices
@@ -419,11 +420,21 @@ def test_unsupported_options_are_refused(extra, match):
 
 
 def test_serving_steps_are_refused_over_the_model_axis():
-    cfg = config_from_dict(dataclasses.asdict(TINY))
-    ctx = T.ShardCtx(ranks=_shards(cfg, 2, 2))
+    """Serving over the model axis runs the dense attention decoders
+    (``tests/test_torch_serve_tp.py``); the recurrent states wait for
+    A.8 (xi), MLA and MoE for A.8 (xii)."""
+    dense = config_from_dict(dataclasses.asdict(TINY))
     for make in (T.make_serve_step, T.make_prefill_step):
-        with pytest.raises(NotImplementedError, match=r"A\.8 \(viii\)"):
-            make(cfg, ctx)
+        make(dense, T.ShardCtx(ranks=_shards(dense, 2, 2)))
+    for arch, item in (("rwkv6-7b", r"A\.8 \(xi\)"),
+                       ("zamba2-2.7b", r"A\.8 \(xi\)"),
+                       ("deepseek-v2-lite-16b", r"A\.8 \(xii\)"),
+                       ("llama4-maverick-400b-a17b", r"A\.8 \(xii\)")):
+        cfg = get_smoke_config(arch)
+        ctx = T.ShardCtx(ranks=_shards(cfg, 2, 2))
+        for make in (T.make_serve_step, T.make_prefill_step):
+            with pytest.raises(NotImplementedError, match=item):
+                make(cfg, ctx)
 
 
 @pytest.mark.parametrize("m", [2, 4])
